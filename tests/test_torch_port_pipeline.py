@@ -1,0 +1,211 @@
+"""The port's serving slice against the JAX package: the numpy helpers it
+copies (bit-equal), the k-space LR simulation, the whole video pipeline on
+the same weights, and the CLI running where jax, flax and yaml cannot be
+imported."""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vsr_tpu.infer as jinfer
+from vsr_tpu.io import nifti as jnifti
+from vsr_tpu.models import DRFNet as JaxDRFNet
+from vsr_tpu.preprocess import intensity as jintensity
+from vsr_tpu.preprocess import kspace as jkspace
+from vsr_tpu.preprocess import resize as jresize
+from vsr_tpu.utils.normalize import DATASET_STATS as JAX_STATS
+from vsr_tpu_torch import infer
+from vsr_tpu_torch.interop import load_jax_params
+from vsr_tpu_torch.io import nifti
+from vsr_tpu_torch.models import DRFNet
+from vsr_tpu_torch.preprocess import intensity, kspace, resize
+from vsr_tpu_torch.utils.normalize import DATASET_STATS
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _agree(got, want, what):
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert (diff == 0).mean() >= 0.999, f"{what}: {(diff == 0).mean()} exact"
+    assert diff.max() <= 1.0, f"{what}: max diff {diff.max()}"
+
+
+# ------------------------------------------------------- copied helpers (d)
+
+
+def test_nifti_copy_is_bit_equal(tmp_path, rng):
+    vol = rng.integers(-500, 1500, (9, 7, 3, 2)).astype(np.int16)
+    for ext in ("nii", "nii.gz"):
+        a, b = tmp_path / f"a.{ext}", tmp_path / f"b.{ext}"
+        jnifti.save_nifti(vol, a)
+        nifti.save_nifti(vol, b)
+        assert a.read_bytes() == b.read_bytes()
+        got, want = nifti.load_nifti(a), jnifti.load_nifti(a)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.float32])
+def test_intensity_copies_are_bit_equal(rng, dtype):
+    vol = (rng.random((20, 18, 2, 3)) * 900).astype(dtype)
+    np.testing.assert_array_equal(intensity.clip_outliers_minmax(vol),
+                                  jintensity.clip_outliers_minmax(vol))
+    for shape in [(20, 18), (25, 37), (192, 192), (13, 11)]:
+        assert (intensity.center_crop_multiple(shape)
+                == jintensity.center_crop_multiple(shape))
+
+
+@pytest.mark.parametrize("n_in,n_out", [(48, 24), (96, 48), (192, 96),
+                                        (37, 12)])
+def test_matrix_copies_are_bit_equal(n_in, n_out):
+    np.testing.assert_array_equal(resize.bicubic_resize_matrix(n_in, n_out),
+                                  jresize.bicubic_resize_matrix(n_in, n_out))
+    for factor in (2, 3, 4):
+        np.testing.assert_array_equal(
+            kspace.kspace_lowpass_matrix(n_in, factor),
+            jkspace.kspace_lowpass_matrix(n_in, factor))
+    assert DATASET_STATS == JAX_STATS
+
+
+# ------------------------------------------------------------- k-space (c)
+
+
+def test_resize_matches_jax(rng):
+    img = (rng.random((3, 48, 40)) * 255).astype(np.float32)
+    want = np.asarray(jresize.resize_bicubic_jax(jnp.asarray(img), 24, 20))
+    got = resize.resize_bicubic_torch(torch.from_numpy(img), 24, 20).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+
+
+def test_kspace_downscale_matches_jax_and_numpy(rng):
+    imgs = np.round(rng.random((3, 48, 48)) * 255).astype(np.float32)
+    got = kspace.kspace_downscale_torch(torch.from_numpy(imgs), 2).numpy()
+    assert got.shape == (3, 24, 24) and got.dtype == np.float32
+    want_jax = np.asarray(jax.jit(
+        lambda x: jkspace.kspace_downscale_jax(x, 2))(imgs))
+    _agree(got, want_jax, "vs kspace_downscale_jax")
+    for i in range(3):
+        want_np = jkspace.kspace_downscale(imgs[i][..., None], 2)[..., 0]
+        _agree(got[i], want_np, "vs numpy kspace_downscale")
+
+
+# ---------------------------------------------------------- whole slice (e)
+
+
+@pytest.mark.parametrize("fused_squeeze", [False, True])
+def test_video_pipeline_matches_jax(rng, fused_squeeze):
+    d, t, side = 2, 4, 48
+    kw = dict(in_channels=1, out_channels=1, num_features=8, num_groups=2,
+              upscale_factor=2, fused_tail=True, fused_squeeze=fused_squeeze)
+    jnet = JaxDRFNet(**kw)
+    variables = jnet.init(jax.random.PRNGKey(0),
+                          jnp.zeros((1, 2, side // 2, side // 2, 1)))
+    frames = np.round(rng.random((d * t, side, side)) * 255).astype(np.float32)
+    lr_j, sr_j = jinfer.make_pipeline(jnet, variables, 2, "acdc",
+                                      video_t=t)(frames)
+
+    net = DRFNet(**kw)
+    load_jax_params(net, jax.tree_util.tree_map(np.asarray, variables))
+    lr_t, sr_t = infer.make_pipeline(net, 2, "acdc", video_t=t)(
+        torch.from_numpy(frames))
+    assert lr_t.shape == (d * t, side // 2, side // 2)
+    assert sr_t.shape == (d * t, side, side)
+    _agree(lr_t.numpy(), np.asarray(lr_j), "lr")
+    _agree(sr_t.numpy(), np.asarray(sr_j), "sr")
+    assert np.asarray(sr_j).std() > 1.0  # not a constant image
+
+
+def test_pipeline_refuses_frame_mode():
+    with pytest.raises(NotImplementedError, match="video_t"):
+        infer.make_pipeline(DRFNet(1, 1, 4, 2, 2), 2, "acdc", video_t=0)
+
+
+@pytest.mark.parametrize("flag", [["--checkpoint", "m.ckpt"], ["--int8"],
+                                  ["--w8a8"], ["--mesh", "data=2"],
+                                  ["--windows", "5"], ["--chunk", "4"],
+                                  ["--preset", "tuned"]])
+def test_cli_refuses_unported_flags(tmp_path, flag):
+    with pytest.raises(SystemExit, match="not yet ported"):
+        infer.run(infer.parse_args([str(tmp_path), str(tmp_path / "o"),
+                                    "--video", "--device", "cpu", *flag]))
+
+
+def test_cli_requires_video(tmp_path):
+    with pytest.raises(SystemExit, match="--video"):
+        infer.run(infer.parse_args([str(tmp_path), str(tmp_path / "o"),
+                                    "--device", "cpu"]))
+
+
+# ------------------------------------------------------- stands alone (f)
+
+_BLOCKED_RUN = """
+import json, sys
+sys.modules['jax'] = sys.modules['flax'] = sys.modules['yaml'] = None
+import torch
+torch.set_num_threads(2)
+from vsr_tpu_torch import infer
+stats = infer.main(sys.argv[1:])
+stats['leaked'] = sorted(m for m in sys.modules
+                         if m.split('.')[0] in ('jax', 'flax', 'yaml', 'optax',
+                                                'vsr_tpu')
+                         and sys.modules[m] is not None)
+print(json.dumps(stats))
+"""
+
+
+def test_cli_serves_without_jax_flax_yaml(tmp_path, rng):
+    src = tmp_path / "raw" / "patientA"
+    vol = rng.integers(0, 1200, (48, 48, 2, 3)).astype(np.int16)
+    nifti.save_nifti(vol, src / "patientA_4d.nii.gz")
+    out = tmp_path / "sr"
+    kwargs = dict(in_channels=1, out_channels=1, num_features=8,
+                  num_groups=2, upscale_factor=2, fused_squeeze=True)
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN, str(tmp_path / "raw"), str(out),
+         "--video", "--fused-tail", "--psnr", "--device", "cpu",
+         "--net", "DRFNet", "--net-kwargs", json.dumps(kwargs)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert stats["leaked"] == []
+    assert stats["volumes"] == 1 and stats["frames"] == 6
+    assert np.isfinite(stats["psnr_mean"])
+    sr = nifti.load_nifti(out / "patientA" / "patientA_4d_sr.nii.gz")
+    assert sr.shape == (48, 48, 2, 3)
+    assert sr.min() >= 0 and sr.max() <= 255
+    assert (out / "metrics.csv").exists()
+
+
+_FORBIDDEN_MODULES = ("jax", "flax", "optax", "yaml", "vsr_tpu")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO))
+    for p in [*(REPO / "vsr_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]))
+def test_port_sources_import_nothing_of_jax(path):
+    tree = ast.parse((REPO / path).read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            imported.add(node.module)
+    bad = sorted(m for m in imported if m.split(".")[0] in _FORBIDDEN_MODULES)
+    assert not bad, f"{path} imports {bad}"
+    assert "torch.compile" not in (REPO / path).read_text()

@@ -1,0 +1,123 @@
+"""Shared model building blocks (NCHW), the port of ``vsr_tpu/models/common.py``.
+
+Initialization follows torch's conv defaults as the JAX package restates
+them: weight U(+-sqrt(1/fan_in)), bias U(+-1/sqrt(fan_in)), with fan_in =
+k*k*C_in, drawn from an explicit ``torch.Generator`` (``None``: the global
+one). Parameters are created on the CPU; the net moves them to its device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vsr_tpu_torch.ops.fused_squeeze import concat_conv1x1
+from vsr_tpu_torch.ops.fused_tail import fuse_conv_through_shuffle
+
+
+def torch_default_init_(weight: torch.Tensor, bias: torch.Tensor | None,
+                        fan_in: int,
+                        generator: torch.Generator | None) -> None:
+    with torch.no_grad():
+        weight.uniform_(-math.sqrt(1.0 / fan_in), math.sqrt(1.0 / fan_in),
+                        generator=generator)
+        if bias is not None:
+            bound = 1.0 / math.sqrt(fan_in)
+            bias.uniform_(-bound, bound, generator=generator)
+
+
+class Conv(nn.Conv2d):
+    """2D conv with torch-geometry padding (``kernel_size=3, padding=1``
+    keeps the size)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, padding: int = 1,
+                 bias: bool = True, *,
+                 generator: torch.Generator | None = None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, bias=bias)
+        torch_default_init_(self.weight, self.bias,
+                            kernel_size * kernel_size * in_channels, generator)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """torch.nn.ConvTranspose2d geometry: out = (in-1)*stride - 2*padding +
+    kernel (x2 projection: k6 s2 p2). Weight (C_in, C_out, k, k)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 4, stride: int = 2, padding: int = 1,
+                 bias: bool = True, *,
+                 generator: torch.Generator | None = None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, bias=bias)
+        torch_default_init_(self.weight, self.bias,
+                            kernel_size * kernel_size * in_channels, generator)
+
+
+class FoldableConv(Conv):
+    """SAME conv that can alternatively run FOLDED through the
+    ``pixel_shuffle(factor)`` that would otherwise precede it.
+
+    ``forward(x)``: a plain SAME conv on the post-shuffle array.
+    ``forward(pre, folded=True)``: consumes the PRE-shuffle array
+    (``C_in * factor^2`` channels) and returns the PRE-shuffle result
+    (``C_out * factor^2`` channels) through the folded weight
+    (ops/fused_tail.py). One parameter set serves both modes."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, factor: int = 2, *,
+                 generator: torch.Generator | None = None):
+        if kernel_size % 2 == 0:
+            raise ValueError(
+                f"FoldableConv requires an odd kernel, got {kernel_size}")
+        super().__init__(in_channels, out_channels, kernel_size,
+                         padding=kernel_size // 2, generator=generator)
+        self.factor = factor
+
+    def forward(self, x: torch.Tensor, folded: bool = False) -> torch.Tensor:
+        if not folded:
+            return super().forward(x)
+        K, B = fuse_conv_through_shuffle(self.weight, self.bias, self.factor)
+        return F.conv2d(x, K, B, padding=K.shape[-1] // 2)
+
+
+class ShuffleConv(nn.Module):
+    """``pixel_shuffle(factor)`` then a SAME conv — the sub-pixel tail —
+    or, with ``fused``, the conv folded through the shuffle so the
+    full-resolution intermediate never materializes. Same parameters."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, factor: int = 2, fused: bool = False,
+                 *, generator: torch.Generator | None = None):
+        super().__init__()
+        self.factor = factor
+        self.fused = fused
+        self.conv = FoldableConv(in_channels, out_channels, kernel_size,
+                                 factor, generator=generator)
+
+    def forward(self, pre: torch.Tensor) -> torch.Tensor:
+        """pre: (N, C*factor^2, H, W) -> (N, out_channels, H*f, W*f)."""
+        if self.fused:
+            return F.pixel_shuffle(self.conv(pre, folded=True), self.factor)
+        return self.conv(F.pixel_shuffle(pre, self.factor))
+
+
+class FusedSqueezeConv(nn.Module):
+    """1x1 conv over the channel concat of a LIST of inputs, computed by the
+    fused concat + 1x1 kernel (``ops/fused_squeeze.py``): the concat never
+    materializes. Weight ``(F, sum C)`` and bias ``(F,)``, initialized as
+    the 1x1 conv it stands in for."""
+
+    def __init__(self, in_channels: int, out_channels: int, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.in_channels = in_channels
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+        torch_default_init_(self.weight, self.bias, in_channels, generator)
+
+    def forward(self, xs: list[torch.Tensor]) -> torch.Tensor:
+        return concat_conv1x1(xs, self.weight, self.bias)

@@ -1,0 +1,109 @@
+"""Shared blocks of the feedback-network family (port of
+``vsr_tpu/models/feedback.py``).
+
+The feedback block is a dense up/down projection ladder: each group consumes
+the concat of all previous LR (resp. HR) features through a 1x1 squeeze,
+projects up with a strided deconv and back down with a strided conv, and the
+outputs of all groups concat into a 1x1 fuse. With ``fused_squeeze`` every
+squeeze of more than one input runs the fused concat + 1x1 kernel.
+
+Submodules are kept in lists in the JAX modules' creation order, so
+``convs[i]`` is flax's ``Conv_i`` (likewise ``ConvTranspose_i``, ``PReLU_i``);
+``interop.py`` relies on it.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from vsr_tpu_torch.models.common import Conv, ConvTranspose, FusedSqueezeConv
+
+PROJECTION_PARAMS = {2: (6, 2, 2), 3: (7, 3, 2), 4: (8, 4, 2), 8: (12, 8, 2)}
+
+
+def check_upscale_factor(factor: int) -> None:
+    if factor not in PROJECTION_PARAMS:
+        raise ValueError(f"The upscale factor should be 2, 3, 4 or 8. Got {factor}.")
+
+
+class PReLU(nn.PReLU):
+    """One alpha, init 0.2 (torch ``nn.PReLU(1, 0.2)``); the alpha takes the
+    net's dtype, so the activation computes in the input dtype."""
+
+    def __init__(self, init: float = 0.2):
+        super().__init__(num_parameters=1, init=init)
+
+
+class InBlock(nn.Module):
+    """3x3 expand (4F) -> PReLU -> 1x1 squeeze (F) -> PReLU."""
+
+    def __init__(self, in_channels: int, num_features: int, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        f = num_features
+        self.convs = nn.ModuleList([
+            Conv(in_channels, 4 * f, 3, padding=1, generator=generator),
+            Conv(4 * f, f, 1, padding=0, generator=generator),
+        ])
+        self.prelus = nn.ModuleList([PReLU(), PReLU()])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv, act in zip(self.convs, self.prelus):
+            x = act(conv(x))
+        return x
+
+
+class FBlock(nn.Module):
+    """The feedback block: ``forward(features, hidden) -> new hidden``."""
+
+    def __init__(self, num_features: int, num_groups: int,
+                 upscale_factor: int, fused_squeeze: bool = False, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        check_upscale_factor(upscale_factor)
+        f = num_features
+        k, s, p = PROJECTION_PARAMS[upscale_factor]
+        self.num_groups = num_groups
+
+        def squeeze(parts: int) -> nn.Module:
+            if fused_squeeze and parts > 1:
+                return FusedSqueezeConv(parts * f, f, generator=generator)
+            return Conv(parts * f, f, 1, padding=0, generator=generator)
+
+        convs = [squeeze(2)]  # [features, hidden]
+        deconvs = []
+        for i in range(num_groups):
+            if i:
+                convs.append(squeeze(i + 1))  # LR ladder
+            deconvs.append(ConvTranspose(f, f, k, s, p, generator=generator))
+            if i:
+                convs.append(squeeze(i + 1))  # HR ladder
+            convs.append(Conv(f, f, k, s, p, generator=generator))
+        convs.append(squeeze(num_groups))  # output fuse
+        self.convs = nn.ModuleList(convs)
+        self.deconvs = nn.ModuleList(deconvs)
+        self.prelus = nn.ModuleList(PReLU() for _ in range(4 * num_groups))
+
+    @staticmethod
+    def _squeeze(conv: nn.Module, parts: list[torch.Tensor]) -> torch.Tensor:
+        if isinstance(conv, FusedSqueezeConv):
+            return conv(parts)
+        return conv(parts[0] if len(parts) == 1 else torch.cat(parts, dim=1))
+
+    def forward(self, x: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
+        # Consume the lists in creation order (= flax's call order).
+        convs, deconvs, prelus = (iter(self.convs), iter(self.deconvs),
+                                  iter(self.prelus))
+
+        def act(t: torch.Tensor) -> torch.Tensor:
+            return next(prelus)(t)
+
+        lr_list = [act(self._squeeze(next(convs), [x, hidden]))]
+        hr_list: list[torch.Tensor] = []
+        for i in range(self.num_groups):
+            z = lr_list[0] if i == 0 else act(self._squeeze(next(convs), lr_list))
+            hr_list.append(act(next(deconvs)(z)))
+            z = hr_list[0] if i == 0 else act(self._squeeze(next(convs), hr_list))
+            lr_list.append(act(next(convs)(z)))
+        return act(self._squeeze(next(convs), lr_list[1:]))
