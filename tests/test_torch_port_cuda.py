@@ -1,4 +1,5 @@
-"""The hand-written CUDA fused squeeze on the card, against its plain twin.
+"""The hand-written CUDA kernels on the card, each against its plain twin:
+the fused squeeze (K1), the DUF dynamic filter (K2), the pairwise rank (K3).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false (decided in the fixture, never at import). On a machine with an H100:
@@ -9,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from vsr_tpu_torch.ops import duf_filter as df
 from vsr_tpu_torch.ops import fused_squeeze as fs
+from vsr_tpu_torch.ops import rank as rk
 
 pytestmark = pytest.mark.cuda
 
@@ -74,3 +77,74 @@ def test_kernel_refuses_grad_and_strided_inputs(rng, dev):
             fs.concat_conv1x1(
                 [xs[0], xs[1].contiguous(memory_format=torch.channels_last)],
                 w, b)
+
+
+# ------------------------------------------------------------------ K3 rank
+
+
+@pytest.mark.parametrize("rows,gs", [((5, 4), 256), ((37,), 200), ((3,), 1),
+                                     ((2, 3), 1024), ((2,), 4096)])
+def test_rank_kernel_is_bit_equal_to_twin(rng, dev, rows, gs):
+    af = rng.random((*rows, gs)).astype(np.float32)
+    af[..., ::3] = af[..., :1]  # many exact ties
+    af.reshape(-1, gs)[0, : gs // 2] = 0.0
+    af.reshape(-1, gs)[0, 0] = -0.0  # ties with +0.0
+    a = torch.from_numpy(af).to(dev)
+    before = rk.pairwise_rank.launches
+    got = rk.pairwise_rank(a)
+    want = rk.pairwise_rank_reference(a)
+    torch.cuda.synchronize()
+    assert rk.pairwise_rank.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == a.shape
+    assert torch.equal(got, want)
+    # A rank is a permutation of 0..gs-1 in every row.
+    assert torch.equal(got.sort(dim=-1).values,
+                       torch.arange(gs, device=dev, dtype=torch.int32
+                                    ).expand_as(got))
+
+
+def test_rank_kernel_refuses_what_it_cannot_take(dev):
+    with pytest.raises(ValueError, match="at most"):
+        rk.pairwise_rank(torch.zeros(2, rk.MAX_GS + 1, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        rk.pairwise_rank(torch.zeros(8, 4, device=dev).t())
+    with pytest.raises(TypeError, match="float32"):
+        rk.pairwise_rank(torch.zeros(2, 4, device=dev, dtype=torch.bfloat16))
+
+
+# ------------------------------------------------------------ K2 DUF filter
+
+
+@pytest.mark.parametrize("n,size,upscale,h,w", [(2, 3, 2, 16, 16),
+                                                (2, 5, 2, 8, 24),
+                                                (3, 3, 3, 9, 12),
+                                                (1, 7, 4, 33, 41),
+                                                (2, 1, 2, 5, 70)])
+def test_duf_kernel_matches_twin(rng, dev, n, size, upscale, h, w):
+    x = torch.from_numpy(rng.random((n, h, w)).astype(np.float32)).to(dev)
+    logits = torch.from_numpy((3 * rng.standard_normal(
+        (n, size * size * upscale * upscale, h, w))).astype(np.float32)).to(dev)
+    before = df.duf_dynamic_filter.launches
+    with torch.inference_mode():
+        got = df.duf_dynamic_filter(x, logits, size, upscale)
+        want = df.duf_dynamic_filter_reference(x, logits, size, upscale)
+    torch.cuda.synchronize()
+    assert df.duf_dynamic_filter.launches == before + 1
+    assert got.shape == (n, h * upscale, w * upscale)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_duf_kernel_casts_bf16_and_refuses_grad(rng, dev):
+    x = torch.from_numpy(rng.random((2, 8, 8)).astype(np.float32)).to(dev)
+    logits = torch.from_numpy(rng.standard_normal(
+        (2, 36, 8, 8)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        got = df.duf_dynamic_filter(x.bfloat16(), logits.bfloat16(), 3, 2)
+        want = df.duf_dynamic_filter_reference(
+            x.bfloat16().float(), logits.bfloat16().float(), 3, 2)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    logits.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        df.duf_dynamic_filter(x, logits, 3, 2)

@@ -138,7 +138,12 @@ def test_load_jax_params_is_strict(rng):
     with pytest.raises(ValueError, match="flax shape"):
         load_jax_params(DRFNet(**dict(kw, num_features=6)), variables)
     with pytest.raises(ValueError, match="'params' collection"):
-        load_jax_params(net, dict(variables, batch_stats={}))
+        load_jax_params(net, dict(variables, cache={}))
+    with pytest.raises(ValueError, match="'params' collection"):
+        load_jax_params(net, {"batch_stats": {}})
+    with pytest.raises(ValueError, match="unused flax leaves.*batch_stats"):
+        load_jax_params(net, dict(variables, batch_stats={
+            "BatchNorm_0": {"mean": np.zeros(4, np.float32)}}))
 
 
 @pytest.mark.parametrize("kw,match", [

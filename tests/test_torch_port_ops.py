@@ -134,14 +134,27 @@ def test_cpu_path_never_builds_the_kernel(rng, monkeypatch):
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):
     from vsr_tpu_torch import _build
 
-    assert [p.name for p in _build.sources()] == ["fused_squeeze.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "duf_filter.cu", "fused_squeeze.cu", "pairwise_rank.cu"]
+    # Every C entry point the wrappers call is declared, and defined in csrc.
+    text = "".join(p.read_text() for p in _build.sources())
+    assert sorted(_build.SIGNATURES) == [
+        "vsr_concat_conv1x1", "vsr_duf_filter", "vsr_pairwise_rank"]
+    for name in _build.SIGNATURES:
+        assert f'extern "C" int {name}(' in text
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
     (tmp_path / "a.cu").write_text("// one\n")
     first = _build.library_path()
     assert first == _build.library_path()
     assert first.parent == _build.BUILD_DIR
     (tmp_path / "a.cu").write_text("// two\n")
-    assert _build.library_path() != first
+    second = _build.library_path()
+    assert second != first
+    (tmp_path / "b.cu").write_text("// a second source\n")  # every file counts
+    third = _build.library_path()
+    assert third not in (first, second)
+    (tmp_path / "b.cu").write_text("// a second source, edited\n")
+    assert _build.library_path() != third
 
 
 def test_missing_nvcc_raises(monkeypatch):

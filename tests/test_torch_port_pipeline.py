@@ -1,7 +1,7 @@
-"""The port's serving slice against the JAX package: the numpy helpers it
-copies (bit-equal), the k-space LR simulation, the whole video pipeline on
-the same weights, and the CLI running where jax, flax and yaml cannot be
-imported."""
+"""The port's serving slices against the JAX package: the numpy helpers it
+copies (bit-equal), the k-space LR simulation, the whole pipeline in video,
+frame and window modes on the same weights, and the CLI running where jax,
+flax and yaml cannot be imported."""
 
 import ast
 import json
@@ -16,8 +16,11 @@ import pytest
 import torch
 
 import vsr_tpu.infer as jinfer
+from vsr_tpu.data.datasets import misr_target_index as jax_misr_target_index
 from vsr_tpu.io import nifti as jnifti
 from vsr_tpu.models import DRFNet as JaxDRFNet
+from vsr_tpu.models import DUFNet as JaxDUFNet
+from vsr_tpu.models import MoEEDSRNet as JaxMoEEDSRNet
 from vsr_tpu.preprocess import intensity as jintensity
 from vsr_tpu.preprocess import kspace as jkspace
 from vsr_tpu.preprocess import resize as jresize
@@ -25,7 +28,8 @@ from vsr_tpu.utils.normalize import DATASET_STATS as JAX_STATS
 from vsr_tpu_torch import infer
 from vsr_tpu_torch.interop import load_jax_params
 from vsr_tpu_torch.io import nifti
-from vsr_tpu_torch.models import DRFNet
+from vsr_tpu_torch.models import DRFNet, DUFNet, MoEEDSRNet
+from vsr_tpu_torch.models.duf import misr_target_index
 from vsr_tpu_torch.preprocess import intensity, kspace, resize
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
 
@@ -83,6 +87,11 @@ def test_matrix_copies_are_bit_equal(n_in, n_out):
     assert DATASET_STATS == JAX_STATS
 
 
+@pytest.mark.parametrize("nf", range(1, 10))
+def test_misr_target_index_copy_is_equal(nf):
+    assert misr_target_index(nf) == jax_misr_target_index(nf)
+
+
 # ------------------------------------------------------------- k-space (c)
 
 
@@ -131,25 +140,175 @@ def test_video_pipeline_matches_jax(rng, fused_squeeze):
     assert np.asarray(sr_j).std() > 1.0  # not a constant image
 
 
+MOE_KW = dict(in_channels=1, out_channels=1, num_resblocks=2, num_features=8,
+              upscale_factor=2, num_experts=2, group_size=128, moe_every=1,
+              fused_tail=True)
+
+
+def _frame_nets(router_impl, dispatch_impl):
+    kw = dict(MOE_KW, router_impl=router_impl, dispatch_impl=dispatch_impl)
+    jnet = JaxMoEEDSRNet(**kw)
+    variables = jnet.init(jax.random.PRNGKey(1), jnp.zeros((1, 12, 12, 1)))
+    net = MoEEDSRNet(**kw)
+    load_jax_params(net, jax.tree_util.tree_map(np.asarray, variables))
+    return jnet, variables, net
+
+
+@pytest.mark.parametrize("router_impl,dispatch_impl,chunk", [
+    ("rank_pallas", "dense", 0), ("rank_pallas", "sparse", 4),
+    ("rank", "sparse", 0), ("rank", "dense", 5)])
+def test_frame_pipeline_matches_jax(rng, router_impl, dispatch_impl, chunk):
+    d, t, side = 2, 5, 24  # N = 10 frames; chunk 4 does not divide it
+    jnet, variables, net = _frame_nets(router_impl, dispatch_impl)
+    frames = np.round(rng.random((d * t, side, side)) * 255).astype(np.float32)
+    lr_j, sr_j = jinfer.make_pipeline(jnet, variables, 2, "acdc",
+                                      chunk=chunk)(frames)
+    lr_t, sr_t = infer.make_pipeline(net, 2, "acdc", chunk=chunk)(
+        torch.from_numpy(frames))
+    assert sr_t.shape == (d * t, side, side)
+    _agree(lr_t.numpy(), np.asarray(lr_j), "lr")
+    _agree(sr_t.numpy(), np.asarray(sr_j), "sr")
+    assert np.asarray(sr_j).std() > 1.0
+    whole = infer.make_pipeline(net, 2, "acdc")(torch.from_numpy(frames))[1]
+    assert torch.equal(sr_t, whole)  # chunked == unchunked, exactly
+
+
+def _window_nets(nf, use_pallas_filter, rng):
+    kw = dict(in_channels=1, out_channels=1, num_frames=nf, size_filter=3,
+              upscale_factor=2, use_pallas_filter=use_pallas_filter)
+    jnet = JaxDUFNet(**kw)
+    variables = jax.tree_util.tree_map(np.asarray, jnet.init(
+        jax.random.PRNGKey(2), jnp.zeros((1, nf, 8, 8, 1)), train=False))
+    stats = jax.tree_util.tree_map_with_path(
+        lambda path, leaf: (rng.uniform(0.5, 1.5, leaf.shape) if
+                            path[-1].key == "var" else
+                            0.2 * rng.standard_normal(leaf.shape)
+                            ).astype(np.float32), variables["batch_stats"])
+    variables = {"params": variables["params"], "batch_stats": stats}
+    net = DUFNet(**kw)
+    load_jax_params(net, variables)
+    return jnet, variables, net
+
+
+@pytest.fixture
+def duf_interpret_mode(monkeypatch):
+    """``duf_dynamic_filter_pallas`` in the Pallas interpreter (CPU)."""
+    import vsr_tpu.ops.pallas_duf as pallas_duf
+    from jax.experimental import pallas as pl
+
+    original = pl.pallas_call
+
+    def interp(*args, **kwargs):
+        kwargs.setdefault("interpret", True)
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(pallas_duf.pl, "pallas_call", interp)
+    pallas_duf.duf_dynamic_filter_pallas._clear_cache()
+    yield
+    pallas_duf.duf_dynamic_filter_pallas._clear_cache()
+
+
+@pytest.mark.parametrize("nf,order,chunk,use_pallas_filter", [
+    (7, "middle", 0, True), (7, "last", 4, False),
+    (8, "middle", 5, False), (8, "last", 0, True)])
+def test_window_pipeline_matches_jax(rng, duf_interpret_mode, nf, order,
+                                     chunk, use_pallas_filter):
+    d, t, side = 2, 9, 16  # N = 18 windows; chunks 4 and 5 do not divide it
+    jnet, variables, net = _window_nets(nf, use_pallas_filter, rng)
+    frames = np.round(rng.random((d * t, side, side)) * 255).astype(np.float32)
+    lr_j, sr_j = jinfer.make_pipeline(
+        jnet, variables, 2, "acdc", window=(nf, t, order), train_flag=True,
+        chunk=chunk)(frames)
+    lr_t, sr_t = infer.make_pipeline(
+        net, 2, "acdc", window=(nf, t, order), chunk=chunk)(
+        torch.from_numpy(frames))
+    assert sr_t.shape == (d * t, side, side)
+    _agree(lr_t.numpy(), np.asarray(lr_j), "lr")
+    _agree(sr_t.numpy(), np.asarray(sr_j), "sr")
+    assert np.asarray(sr_j).std() > 1.0
+    whole = infer.make_pipeline(net, 2, "acdc", window=(nf, t, order))(
+        torch.from_numpy(frames))[1]
+    assert torch.equal(sr_t, whole)  # chunked == unchunked, exactly
+
+
+@pytest.mark.parametrize("nf,order", [(5, "middle"), (5, "last"),
+                                      (4, "middle"), (4, "last")])
+def test_window_gather_matches_jax(rng, nf, order):
+    frames = np.round(rng.random((2 * 6, 24, 24)) * 255).astype(np.float32)
+    _, z_j = jinfer.make_prep(2, "acdc", window=(nf, 6, order))(
+        jnp.asarray(frames))
+    _, z_t = infer.make_prep(2, "acdc", window=(nf, 6, order))(
+        torch.from_numpy(frames))
+    assert z_t.shape == (12, nf, 1, 12, 12)
+    np.testing.assert_allclose(z_t[:, :, 0].numpy(), np.asarray(z_j)[..., 0],
+                               rtol=1e-4, atol=2e-3)
+    # Output frame t sits at its window's target slot.
+    slot = misr_target_index(nf) if order == "middle" else nf - 1
+    _, z_f = infer.make_prep(2, "acdc")(torch.from_numpy(frames))
+    assert torch.equal(z_t[:, slot], z_f)
+
+
+class _StepStackNet(torch.nn.Module):
+    """A net whose output carries a leading feedback-step axis."""
+
+    def forward(self, x):
+        return torch.stack([x, x])
+
+
 def test_pipeline_refuses_frame_mode():
-    with pytest.raises(NotImplementedError, match="video_t"):
-        infer.make_pipeline(DRFNet(1, 1, 4, 2, 2), 2, "acdc", video_t=0)
+    # ... of a net whose output is not one frame per item (tuple outputs and
+    # stacked feedback steps are not handled yet).
+    frames = torch.zeros(2, 24, 24)
+    with pytest.raises(NotImplementedError, match="feedback-step"):
+        infer.make_pipeline(_StepStackNet(), 2, "acdc")(frames)
+    with pytest.raises(NotImplementedError, match="feedback-step"):
+        infer.make_pipeline(_StepStackNet(), 2, "acdc", chunk=1)(frames)
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint", "m.ckpt"], ["--int8"],
-                                  ["--w8a8"], ["--mesh", "data=2"],
-                                  ["--windows", "5"], ["--chunk", "4"],
-                                  ["--preset", "tuned"]])
-def test_cli_refuses_unported_flags(tmp_path, flag):
-    with pytest.raises(SystemExit, match="not yet ported"):
+@pytest.mark.parametrize("kw,match", [
+    (dict(video_t=3, chunk=2), "already sequence-batched"),
+    (dict(chunk=-1), "chunk must be >= 0"),
+    (dict(video_t=3, window=(3, 3, "middle")), "mutually exclusive"),
+    (dict(window=(3, 3, "first")), "'middle' or 'last'"),
+])
+def test_pipeline_refuses_bad_mode_combinations(kw, match):
+    with pytest.raises(ValueError, match=match):
+        infer.make_pipeline(DRFNet(1, 1, 4, 2, 2), 2, "acdc", **kw)
+
+
+@pytest.mark.parametrize("flag,match", [
+    (["--checkpoint", "m.ckpt"], "not yet ported"),
+    (["--int8"], "not yet ported"),
+    (["--w8a8"], "not yet ported"),
+    (["--mesh", "data=2"], "not yet ported"),
+    (["--windows", "5"], "mutually exclusive"),
+    (["--chunk", "4"], "already sequence-batched"),
+    (["--preset", "tuned"], "not yet ported")])
+def test_cli_refuses_unported_flags(tmp_path, flag, match):
+    with pytest.raises(SystemExit, match=match):
         infer.run(infer.parse_args([str(tmp_path), str(tmp_path / "o"),
                                     "--video", "--device", "cpu", *flag]))
 
 
 def test_cli_requires_video(tmp_path):
+    # ... for a sequence net: each net is served in its own mode.
     with pytest.raises(SystemExit, match="--video"):
         infer.run(infer.parse_args([str(tmp_path), str(tmp_path / "o"),
                                     "--device", "cpu"]))
+
+
+@pytest.mark.parametrize("args,match", [
+    (["--net", "DUFNet"], "--windows N"),
+    (["--net", "DUFNet", "--video"], "--windows N"),
+    (["--net", "MoEEDSRNet", "--video"], "neither --video nor --windows"),
+    (["--net", "EDSRNet", "--windows", "7"], "neither --video nor --windows"),
+    (["--net", "EDSRNet", "--chunk", "-2"], "must be >= 0"),
+    (["--net", "DUFNet", "--windows", "-7"], "must be >= 0"),
+])
+def test_cli_refuses_a_net_in_the_wrong_mode(tmp_path, args, match):
+    with pytest.raises(SystemExit, match=match):
+        infer.run(infer.parse_args([str(tmp_path), str(tmp_path / "o"),
+                                    "--device", "cpu", *args]))
 
 
 # ------------------------------------------------------- stands alone (f)
@@ -169,17 +328,31 @@ print(json.dumps(stats))
 """
 
 
-def test_cli_serves_without_jax_flax_yaml(tmp_path, rng):
+_CLI_MODES = {
+    "video": (["--video", "--fused-tail", "--net", "DRFNet"],
+              dict(in_channels=1, out_channels=1, num_features=8,
+                   num_groups=2, upscale_factor=2, fused_squeeze=True)),
+    "frame": (["--chunk", "4", "--fused-tail", "--net", "MoEEDSRNet"],
+              dict(in_channels=1, out_channels=1, num_resblocks=2,
+                   num_features=8, upscale_factor=2, num_experts=2,
+                   group_size=64, moe_every=1, router_impl="rank_pallas",
+                   dispatch_impl="dense")),
+    "window": (["--windows", "7", "--chunk", "4", "--net", "DUFNet"],
+               dict(in_channels=1, out_channels=1, num_frames=7,
+                    size_filter=3, upscale_factor=2, use_pallas_filter=True)),
+}
+
+
+def _serve_blocked(tmp_path, rng, mode):
     src = tmp_path / "raw" / "patientA"
     vol = rng.integers(0, 1200, (48, 48, 2, 3)).astype(np.int16)
     nifti.save_nifti(vol, src / "patientA_4d.nii.gz")
     out = tmp_path / "sr"
-    kwargs = dict(in_channels=1, out_channels=1, num_features=8,
-                  num_groups=2, upscale_factor=2, fused_squeeze=True)
+    flags, kwargs = _CLI_MODES[mode]
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN, str(tmp_path / "raw"), str(out),
-         "--video", "--fused-tail", "--psnr", "--device", "cpu",
-         "--net", "DRFNet", "--net-kwargs", json.dumps(kwargs)],
+         "--psnr", "--device", "cpu", *flags,
+         "--net-kwargs", json.dumps(kwargs)],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     stats = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -190,6 +363,15 @@ def test_cli_serves_without_jax_flax_yaml(tmp_path, rng):
     assert sr.shape == (48, 48, 2, 3)
     assert sr.min() >= 0 and sr.max() <= 255
     assert (out / "metrics.csv").exists()
+
+
+def test_cli_serves_without_jax_flax_yaml(tmp_path, rng):
+    _serve_blocked(tmp_path, rng, "video")
+
+
+@pytest.mark.parametrize("mode", ["frame", "window"])
+def test_cli_serves_frame_and_window_modes_without_jax(tmp_path, rng, mode):
+    _serve_blocked(tmp_path, rng, mode)
 
 
 _FORBIDDEN_MODULES = ("jax", "flax", "optax", "yaml", "vsr_tpu")

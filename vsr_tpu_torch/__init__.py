@@ -4,10 +4,18 @@ The JAX package ``vsr_tpu`` is the reference; this package mirrors its module
 and function names. It imports torch and numpy only: nothing from ``jax``,
 ``flax``, ``yaml`` or ``vsr_tpu``, so it runs where those are absent.
 
-Slice 1 (this package today) is whole-sequence DRFNet x2 serving
-(``python -m vsr_tpu_torch.infer ... --video``): k-space LR simulation,
-normalize, DRFNet with the hand-written CUDA fused concat + 1x1 squeeze
-(``ops/fused_squeeze.py``, ``csrc/fused_squeeze.cu``), denormalize.
+Ported so far, all through ``python -m vsr_tpu_torch.infer`` (k-space LR
+simulation, normalize, net, denormalize):
+
+- whole-sequence DRFNet x2 serving (``--video``), with the hand-written CUDA
+  fused concat + 1x1 squeeze (``ops/fused_squeeze.py``,
+  ``csrc/fused_squeeze.cu``);
+- frame-mode serving of EDSRNet and MoEEDSRNet, whose expert-choice router
+  ranks with the hand-written CUDA pairwise rank (``ops/rank.py``,
+  ``csrc/pairwise_rank.cu``);
+- window-mode serving of DUFNet (``--windows N [--chunk M]``), whose dynamic
+  filters are applied by the hand-written CUDA fused softmax + filter +
+  pixel shuffle (``ops/duf_filter.py``, ``csrc/duf_filter.cu``).
 
 Importing the package never compiles a kernel: ``_build.load`` runs
 ``nvcc`` at the first launch on a CUDA tensor.

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels: plain ``nvcc`` + ``ctypes``.
 
 Every ``csrc/*.cu`` is compiled into one shared library with a plain C
-interface (no PyTorch headers: a build takes seconds, not minutes). The
-library lands in ``_build/`` beside this file under a name keyed by the
+interface (no PyTorch headers: a build takes seconds, not minutes): one
+``nvcc -c`` per source, all started together, then one link. The library
+lands in ``_build/`` beside this file under a name keyed by the
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is reused. Nothing here runs at import: ``load()`` builds at
 the first kernel launch. Pointer and stream arguments are ``c_void_p``.
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # C entry points of csrc/ and their ctypes signatures (restype c_int: a
 # cudaError_t, 0 on success).
@@ -32,6 +33,10 @@ SIGNATURES = {
     # xs, channels, count, w, b, out, n, hw, f_out, dtype, stream
     "vsr_concat_conv1x1": [ctypes.POINTER(_P), ctypes.POINTER(_I), _I,
                            _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, logits, out, n, h, w, size, r, stream
+    "vsr_duf_filter": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # af, out, rows, gs, stream
+    "vsr_pairwise_rank": [_P, _P, ctypes.c_longlong, _I, _P],
 }
 
 
@@ -61,23 +66,33 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into :func:`library_path` (atomically: a
-    concurrent process never loads a half-written file)."""
+    """Compile ``csrc/*.cu`` into :func:`library_path`: every source to its
+    own object file in parallel, then one link (atomically: a concurrent
+    process never loads a half-written file)."""
     out = library_path()
+    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())],
-            capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objects)]
+        logs = [proc.communicate()[0] for proc in procs]  # waits for each
+        lib = os.path.join(tmp, "lib.so")
+        failed = [(src.name, proc.returncode, log)
+                  for src, proc, log in zip(sources(), procs, logs)
+                  if proc.returncode]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if link.returncode:
+                failed = [("link", link.returncode, link.stdout)]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        os.replace(lib, out)
     return out
 
 

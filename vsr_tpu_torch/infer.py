@@ -1,15 +1,26 @@
 """Batch inference CLI: raw volumes -> k-space LR -> SR (port of
-``vsr_tpu/infer.py``, whole-sequence video mode).
+``vsr_tpu/infer.py``: frame, whole-sequence video and MISR window modes).
 
 Walks a directory of raw 4D NIfTI volumes; for each, simulates the k-space
-LR input, normalizes it, runs the sequence net over every slice's whole time
-series, denormalizes, and writes the SR sequence as NIfTI.
+LR input, normalizes it, runs the net, denormalizes, and writes the SR
+sequence as NIfTI. The net sees single frames (SISR nets, the default), each
+slice's whole time series (``--video``, VSR nets) or one circular window of
+``--windows`` frames per output frame (MISR nets).
 
 Usage:
   python -m vsr_tpu_torch.infer <input_dir> <output_dir> --video \
       --net DRFNet --net-kwargs '{"in_channels":1,"out_channels":1,
       "num_features":64,"num_groups":6,"upscale_factor":2,
       "fused_squeeze":true}' --fused-tail [--bf16] [--psnr] [--device cuda]
+  python -m vsr_tpu_torch.infer <input_dir> <output_dir> \
+      --net MoEEDSRNet --net-kwargs '{"in_channels":1,"out_channels":1,
+      "num_resblocks":16,"num_features":64,"upscale_factor":2,
+      "num_experts":4,"group_size":256,"moe_every":2,
+      "router_impl":"rank_pallas","dispatch_impl":"dense"}' [--chunk 100]
+  python -m vsr_tpu_torch.infer <input_dir> <output_dir> --windows 7 \
+      --chunk 100 --net DUFNet --net-kwargs '{"in_channels":1,
+      "out_channels":1,"num_frames":7,"size_filter":5,"upscale_factor":2,
+      "use_pallas_filter":true}'
 
 Weights come from a seeded init (generator seed 0); loading a flax
 checkpoint is not ported yet.
@@ -28,54 +39,117 @@ import numpy as np
 import torch
 
 from vsr_tpu_torch.io.nifti import load_nifti, save_nifti
+from vsr_tpu_torch.models.duf import misr_target_index
 from vsr_tpu_torch.preprocess.intensity import (center_crop_multiple,
                                                 clip_outliers_minmax)
 from vsr_tpu_torch.preprocess.kspace import kspace_downscale_torch
-from vsr_tpu_torch.registry import build
+from vsr_tpu_torch.registry import build, get_class
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
 
 # JAX CLI flags this port does not serve yet: dest -> flag.
 _NOT_PORTED = {"checkpoint": "--checkpoint", "int8": "--int8",
-               "w8a8": "--w8a8", "mesh": "--mesh", "windows": "--windows",
-               "chunk": "--chunk", "preset": "--preset"}
+               "w8a8": "--w8a8", "mesh": "--mesh", "preset": "--preset"}
+# A net class's ``serving_mode`` -> the flag that selects the mode.
+_MODE_FLAGS = {"frame": "neither --video nor --windows", "video": "--video",
+               "window": "--windows N"}
 
 
-def make_prep(factor: int, dataset: str, video_t: int):
-    """HR float frames (N, H, W) -> (lr_frames, z): ``z`` is the net-input
-    batch of ``N // video_t`` sequences, (D, T, 1, h, w)."""
+def make_prep(factor: int, dataset: str, video_t: int = 0,
+              window: tuple[int, int, str] | None = None):
+    """HR float frames (N, H, W) -> (lr_frames, z). ``z`` is the net-input
+    batch: the frames ``(N, 1, h, w)``; with ``video_t`` the ``N // video_t``
+    sequences ``(D, T, 1, h, w)``; with ``window = (n_frames, seq_t, order)``
+    one circular window per frame, ``(N, n_frames, 1, h, w)``."""
     mean, std = DATASET_STATS[dataset]
 
     def prep(hr_frames: torch.Tensor):
         lr = kspace_downscale_torch(hr_frames, factor)
-        z = (lr - mean) / (std + 1e-10)
-        n, h, w = z.shape
-        return lr, z.reshape(n // video_t, video_t, 1, h, w)
+        z = ((lr - mean) / (std + 1e-10))[:, None]
+        n, _, h, w = z.shape
+        if video_t:
+            z = z.reshape(n // video_t, video_t, 1, h, w)
+        elif window:
+            nf, seq_t, order = window
+            seq = z.reshape(n // seq_t, seq_t, 1, h, w)
+            # Output frame t sits at the net's target slot of its window:
+            # misr_target_index(nf) for "middle", the last slot for "last".
+            shift = misr_target_index(nf) if order == "middle" else nf - 1
+            idx = (torch.arange(seq_t, device=z.device)[:, None]
+                   + torch.arange(nf, device=z.device)[None, :] - shift) % seq_t
+            z = seq[:, idx].reshape(n, nf, 1, h, w)
+        return lr, z
 
     return prep
 
 
 def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
-                  video_t: int):
+                  video_t: int = 0,
+                  window: tuple[int, int, str] | None = None,
+                  chunk: int = 0):
     """HR float frames (N, H, W) -> (lr_frames, sr_frames), float32 tensors
-    holding uint8 values, on the frames' device. The N frames are D
-    slice-sequences of ``video_t`` frames; every SR frame is kept in order.
+    holding uint8 values, on the frames' device.
+
+    Frame mode (the default): the net sees ``(N, 1, h, w)``, every frame an
+    item of the batch. ``video_t``: the N frames are D slice-sequences of
+    ``video_t`` frames, the net sees ``(D, T, 1, h, w)`` and every SR frame
+    is kept in order. ``window = (n_frames, seq_t, order)``: for MISR nets,
+    every output frame gets one circular window of ``n_frames`` frames of
+    its slice's ``seq_t``-frame sequence, gathered on the device;
+    ``order='middle'`` centres the window on the output frame, ``'last'``
+    ends it there.
+
+    ``chunk``: feed the net the frames / windows ``chunk`` at a time (frame
+    and window modes only; the video path is already sequence-batched).
+    Bounds the live activation memory; the last chunk is padded by
+    edge-repeat and sliced back (exact: the items are independent).
 
     Turns TF32 off for cuDNN convs and cuBLAS matmuls (process-wide): the
     k-space chain and the f32 net must run in full float32."""
-    if not video_t:
-        raise NotImplementedError("only whole-sequence (video_t) serving is "
-                                  "ported to vsr_tpu_torch")
+    if chunk < 0:
+        raise ValueError("chunk must be >= 0 (0 = disabled)")
+    if chunk and video_t:
+        raise ValueError(
+            "chunk applies to frame/window serving; the video_t (whole-"
+            "sequence) path is already sequence-batched")
+    if window and video_t:
+        raise ValueError("window (MISR) and video_t (VSR) are mutually "
+                         "exclusive")
+    if window and window[2] not in ("middle", "last"):
+        raise ValueError(f"window order must be 'middle' or 'last', got "
+                         f"{window[2]!r}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mean, std = DATASET_STATS[dataset]
-    prep = make_prep(factor, dataset, video_t)
+    prep = make_prep(factor, dataset, video_t, window)
     net.eval()
+
+    def apply(zb: torch.Tensor) -> torch.Tensor:
+        """net -> (items, C, H, W), one frame-shaped output per item."""
+        out = net(zb)
+        if video_t:  # (D, T, C, H, W): flatten the frames back out
+            return out.reshape(-1, *out.shape[2:])
+        if isinstance(out, tuple) or out.dim() != 4:
+            raise NotImplementedError(
+                "frame/window serving of a net whose output is a tuple or "
+                "carries a leading feedback-step axis is not yet ported to "
+                "vsr_tpu_torch")
+        return out
 
     @torch.inference_mode()
     def pipeline(hr_frames: torch.Tensor):
         lr, z = prep(hr_frames)
-        sr = net(z)  # (D, T, C, H, W)
-        sr = sr[:, :, 0].float().reshape(-1, *sr.shape[-2:])
+        if chunk:
+            outs = []
+            for start in range(0, len(z), chunk):
+                zb = z[start:start + chunk]
+                short = chunk - len(zb)
+                if short:
+                    zb = torch.cat([zb, zb[-1:].expand(short, *zb.shape[1:])])
+                outs.append(apply(zb)[:chunk - short])
+            sr = torch.cat(outs)
+        else:
+            sr = apply(z)
+        sr = sr[:, 0].float()
         return lr, torch.clamp(torch.round(sr * std + mean), 0.0, 255.0)
 
     return pipeline
@@ -86,9 +160,19 @@ def run(args) -> dict:
         if getattr(args, dest, None):
             raise SystemExit(f"{flag} is not yet ported to vsr_tpu_torch "
                              "(serve it with python -m vsr_tpu.infer)")
-    if not args.video:
-        raise SystemExit("vsr_tpu_torch serves whole sequences only: pass "
-                         "--video (frame and window modes are not ported)")
+    if args.windows and args.video:
+        raise SystemExit("--windows (MISR) and --video (VSR) are mutually "
+                         "exclusive")
+    if args.chunk < 0 or args.windows < 0:
+        raise SystemExit("--chunk and --windows must be >= 0 (0 = disabled)")
+    if args.chunk and args.video:
+        raise SystemExit("--chunk applies to frame/window serving; the "
+                         "--video path is already sequence-batched")
+    mode = "video" if args.video else "window" if args.windows else "frame"
+    net_mode = getattr(get_class("net", args.net), "serving_mode", mode)
+    if net_mode != mode:
+        raise SystemExit(f"{args.net} is served in {net_mode} mode: pass "
+                         f"{_MODE_FLAGS[net_mode]}")
     device = torch.device(args.device)
     net_kwargs = json.loads(args.net_kwargs) if args.net_kwargs else {}
     if args.bf16:
@@ -116,11 +200,16 @@ def run(args) -> dict:
         h, w, d, t = data.shape
         frames = np.moveaxis(data.reshape(h, w, d * t), -1, 0)  # (D*T, H, W)
 
-        if t not in pipelines:
-            pipelines[t] = make_pipeline(net, args.factor, args.dataset,
-                                         video_t=t)
+        key = t if mode != "frame" else None
+        if key not in pipelines:
+            pipelines[key] = make_pipeline(
+                net, args.factor, args.dataset,
+                video_t=t if mode == "video" else 0,
+                window=((args.windows, t, args.window_order)
+                        if mode == "window" else None),
+                chunk=args.chunk)
         t0 = time.perf_counter()
-        lr, sr = pipelines[t](
+        lr, sr = pipelines[key](
             torch.from_numpy(np.ascontiguousarray(frames)).to(device))
         sr_np = sr.cpu().numpy()  # waits for the device
         pipeline_seconds += time.perf_counter() - t0
@@ -170,7 +259,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--dataset", choices=["acdc", "dsb15"], default="acdc")
     parser.add_argument("--video", action="store_true",
                         help="sequence (VSR) net: SR every slice's whole "
-                             "time series as one sequence")
+                             "time series as one sequence (without --video "
+                             "and --windows the net sees single frames)")
     parser.add_argument("--bf16", action="store_true",
                         help="serve the net in bfloat16")
     parser.add_argument("--fused-tail", dest="fused_tail", action="store_true",
@@ -185,8 +275,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--w8a8", action="store_true", help="not yet ported")
     parser.add_argument("--mesh", default="", help="not yet ported")
     parser.add_argument("--windows", type=int, default=0,
-                        help="not yet ported")
-    parser.add_argument("--chunk", type=int, default=0, help="not yet ported")
+                        help="MISR net (DUF): serve every frame from one "
+                             "circular N-frame temporal window")
+    parser.add_argument("--window-order", dest="window_order",
+                        choices=["middle", "last"], default="middle",
+                        help="window alignment relative to the output frame")
+    parser.add_argument("--chunk", type=int, default=0,
+                        help="feed the net this many frames/windows at a "
+                             "time (frame and window modes; bounds live "
+                             "memory)")
     parser.add_argument("--preset", choices=["tuned", "fast"], default="",
                         help="not yet ported")
     return parser.parse_args(argv)

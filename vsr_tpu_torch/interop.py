@@ -1,20 +1,28 @@
-"""Load a JAX (flax) DRFNet's variables into the port's DRFNet, by flax path.
+"""Load a JAX (flax) net's variables into its counterpart in the port, by
+flax path.
 
 ``load_jax_params(net, variables)`` takes the flax variables tree as nested
-dicts of numpy arrays (``{"params": {...}}``) and fills every parameter of
-the port's net. It is strict: every flax leaf must be used, every torch
-parameter filled, every shape match. Layouts:
+dicts of numpy arrays (``{"params": {...}}``, plus ``"batch_stats"`` for the
+BatchNorm nets) and fills every parameter and buffer of the port's net. It
+is strict: every flax leaf must be used, every torch parameter and buffer
+filled (BatchNorm's ``num_batches_tracked`` counter apart: flax has none),
+every shape match. Layouts:
 
 - conv ``(kh, kw, C_in, C_out)`` -> ``(C_out, C_in, kh, kw)``;
+- 3D conv ``(kd, kh, kw, C_in, C_out)`` -> ``(C_out, C_in, kd, kh, kw)``;
 - fused squeeze ``.../Conv_k/Conv_0/kernel (1, 1, sum C, F)`` -> ``(F, sum C)``
   (the flax path is the plain conv's, so one checkpoint serves both);
 - deconv ``(kh, kw, C_in, C_out)`` -> ``(C_in, C_out, kh, kw)`` with both
   spatial axes flipped (flax's transposed conv correlates, torch's
   convolves);
-- PReLU ``alpha (1,)`` -> ``weight (1,)``.
+- PReLU ``alpha (1,)`` -> ``weight (1,)``;
+- BatchNorm ``params scale, bias`` -> ``weight, bias`` and ``batch_stats
+  mean, var`` -> ``running_mean, running_var``;
+- the MoE leaves ``router (d, e)``, ``expert_wi (e, d, hid)``, ``expert_bi``,
+  ``expert_wo``, ``expert_bo`` keep their shapes.
 
-FBlock's ``Conv_i`` indices follow flax's creation order, which the port's
-``convs`` lists keep (models/feedback.py).
+Numbered flax children (``Conv_i``, ``_ResBlock_i``, ``Conv3D_i``, ...)
+follow flax's creation order, which the port's module lists keep.
 """
 
 from __future__ import annotations
@@ -25,10 +33,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from vsr_tpu_torch.models.common import (Conv, ConvTranspose,
+from vsr_tpu_torch.models.common import (Conv, Conv3D, ConvTranspose,
                                          FusedSqueezeConv, ShuffleConv)
 from vsr_tpu_torch.models.drf import DRFNet, _OutBlock
+from vsr_tpu_torch.models.duf import DUFNet, _DenseBackbone, _DenseBlock
+from vsr_tpu_torch.models.edsr import EDSRNet, _ResBlock, _UpBlock
 from vsr_tpu_torch.models.feedback import FBlock, InBlock, PReLU
+from vsr_tpu_torch.models.moe import ExpertChoiceMoE, MoEEDSRNet
 
 Slot = tuple[tuple[str, ...], torch.Tensor, Callable[[np.ndarray], np.ndarray]]
 
@@ -49,28 +60,79 @@ def _deconv_kernel(k: np.ndarray) -> np.ndarray:
     return k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
 
 
+def _conv3d_kernel(k: np.ndarray) -> np.ndarray:
+    return k.transpose(4, 3, 0, 1, 2)
+
+
 def _conv_slots(path: tuple[str, ...], conv: nn.Module) -> Iterator[Slot]:
     if isinstance(conv, FusedSqueezeConv):
         kernel = _squeeze_kernel
     elif isinstance(conv, ConvTranspose):
         kernel = _deconv_kernel
+    elif isinstance(conv, Conv3D):
+        kernel = _conv3d_kernel
     else:
         kernel = _conv_kernel
-    yield path + ("kernel",), conv.weight, kernel
-    yield path + ("bias",), conv.bias, _same
+    yield ("params", *path, "kernel"), conv.weight, kernel
+    yield ("params", *path, "bias"), conv.bias, _same
 
 
 def _numbered_slots(prefix: tuple[str, ...], block: nn.Module) -> Iterator[Slot]:
-    """A block's ``convs`` / ``deconvs`` / ``prelus`` lists as flax's
-    ``Conv_i/Conv_0``, ``ConvTranspose_i/ConvTranspose_0``,
-    ``PReLU_i/alpha``."""
+    """A block's ``convs`` / ``deconvs`` / ``prelus`` / ``norms`` lists as
+    flax's ``Conv_i/Conv_0`` (``Conv3D_i/Conv_0`` for 3D convs),
+    ``ConvTranspose_i/ConvTranspose_0``, ``PReLU_i/alpha``,
+    ``BatchNorm_i``."""
     for i, conv in enumerate(getattr(block, "convs", ())):
-        yield from _conv_slots(prefix + (f"Conv_{i}", "Conv_0"), conv)
+        name = "Conv3D" if isinstance(conv, Conv3D) else "Conv"
+        yield from _conv_slots(prefix + (f"{name}_{i}", "Conv_0"), conv)
+    for i, norm in enumerate(getattr(block, "norms", ())):
+        yield from _norm_slots(prefix + (f"BatchNorm_{i}",), norm)
     for i, deconv in enumerate(getattr(block, "deconvs", ())):
         yield from _conv_slots(
             prefix + (f"ConvTranspose_{i}", "ConvTranspose_0"), deconv)
     for i, act in enumerate(getattr(block, "prelus", ())):
-        yield prefix + (f"PReLU_{i}", "alpha"), act.weight, _same
+        yield ("params", *prefix, f"PReLU_{i}", "alpha"), act.weight, _same
+
+
+def _norm_slots(path: tuple[str, ...], norm: nn.Module) -> Iterator[Slot]:
+    yield ("params", *path, "scale"), norm.weight, _same
+    yield ("params", *path, "bias"), norm.bias, _same
+    yield ("batch_stats", *path, "mean"), norm.running_mean, _same
+    yield ("batch_stats", *path, "var"), norm.running_var, _same
+
+
+def _moe_slots(prefix: tuple[str, ...], moe: ExpertChoiceMoE) -> Iterator[Slot]:
+    for leaf in ("router", "expert_wi", "expert_bi", "expert_wo", "expert_bo"):
+        yield ("params", *prefix, leaf), getattr(moe, leaf), _same
+
+
+def _edsr_slots(net: EDSRNet | MoEEDSRNet) -> Iterator[Slot]:
+    """EDSRNet and MoEEDSRNet share the trunk: ``Conv_0`` head,
+    ``_ResBlock_i``, ``Conv_1`` after the body, ``_UpBlock_0``,
+    ``ShuffleConv_0``; the MoE net adds ``ExpertChoiceMoE_j`` in order."""
+    yield from _conv_slots(("Conv_0", "Conv_0"), net.head)
+    for i, block in enumerate(net.blocks):
+        yield from _numbered_slots((f"_ResBlock_{i}",), block)
+    for j, moe in enumerate(getattr(net, "moes", {}).values()):
+        yield from _moe_slots((f"ExpertChoiceMoE_{j}",), moe)
+    yield from _conv_slots(("Conv_1", "Conv_0"), net.body_end)
+    yield from _numbered_slots(("_UpBlock_0",), net.up)
+    yield from _conv_slots(("ShuffleConv_0", "FoldableConv_0"), net.tail.conv)
+
+
+def _backbone_slots(prefix: tuple[str, ...],
+                    backbone: _DenseBackbone) -> Iterator[Slot]:
+    for i, block in enumerate(backbone.blocks):
+        yield from _numbered_slots(prefix + (f"_DenseBlock_{i}",), block)
+    yield from _norm_slots(prefix + ("BatchNorm_0",), backbone.norm)
+    yield from _conv_slots(prefix + ("Conv3D_0", "Conv_0"), backbone.conv)
+
+
+def _duf_slots(net: DUFNet) -> Iterator[Slot]:
+    yield from _conv_slots(("Conv_0", "Conv_0"), net.head)
+    yield from _backbone_slots(("_DenseBackbone_0",), net.backbone)
+    for i, conv in enumerate([*net.filter_convs, *net.residual_convs]):
+        yield from _conv_slots((f"Conv3D_{i}", "Conv_0"), conv)
 
 
 def _out_block_slots(prefix: tuple[str, ...], block: _OutBlock) -> Iterator[Slot]:
@@ -80,15 +142,24 @@ def _out_block_slots(prefix: tuple[str, ...], block: _OutBlock) -> Iterator[Slot
 
 
 def module_slots(module: nn.Module) -> Iterator[Slot]:
-    """(flax path under ``params``, torch parameter, layout transform) for
-    the port's DRFNet or one of its blocks, each against the variables of
-    its own flax counterpart."""
-    if isinstance(module, DRFNet):
+    """(flax path from the collection down, torch parameter or buffer,
+    layout transform) for one of the port's nets or blocks, each against the
+    variables of its own flax counterpart."""
+    if isinstance(module, (EDSRNet, MoEEDSRNet)):
+        yield from _edsr_slots(module)
+    elif isinstance(module, DUFNet):
+        yield from _duf_slots(module)
+    elif isinstance(module, _DenseBackbone):
+        yield from _backbone_slots((), module)
+    elif isinstance(module, ExpertChoiceMoE):
+        yield from _moe_slots((), module)
+    elif isinstance(module, DRFNet):
         yield from _numbered_slots(("InBlock_0",), module.in_block)
         yield from _numbered_slots(("step", "FBlock_0"), module.step.fblock)
         yield from _out_block_slots(("step", "_OutBlock_0"),
                                     module.step.out_block)
-    elif isinstance(module, (InBlock, FBlock)):
+    elif isinstance(module, (InBlock, FBlock, _ResBlock, _UpBlock,
+                             _DenseBlock)):
         yield from _numbered_slots((), module)
     elif isinstance(module, _OutBlock):
         yield from _out_block_slots((), module)
@@ -96,10 +167,10 @@ def module_slots(module: nn.Module) -> Iterator[Slot]:
         yield from _conv_slots(("FoldableConv_0",), module.conv)
     elif isinstance(module, ConvTranspose):
         yield from _conv_slots(("ConvTranspose_0",), module)
-    elif isinstance(module, (Conv, FusedSqueezeConv)):
+    elif isinstance(module, (Conv, Conv3D, FusedSqueezeConv)):
         yield from _conv_slots(("Conv_0",), module)
     elif isinstance(module, PReLU):
-        yield ("alpha",), module.weight, _same
+        yield ("params", "alpha"), module.weight, _same
     else:
         raise TypeError(f"no flax mapping for {type(module).__name__}")
 
@@ -115,11 +186,14 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> dict[tuple[str, ...], Any]:
 
 
 def load_jax_params(net: nn.Module, variables: Mapping[str, Any]) -> None:
-    """Fill ``net``'s parameters from a flax variables tree (strict)."""
-    if set(variables) != {"params"}:
-        raise ValueError(f"expected exactly the 'params' collection, got "
+    """Fill ``net``'s parameters and buffers from a flax variables tree
+    (strict)."""
+    extra = sorted(set(variables) - {"params", "batch_stats"})
+    if "params" not in variables or extra:
+        raise ValueError(f"expected the 'params' collection (and "
+                         f"'batch_stats' for BatchNorm nets), got "
                          f"{sorted(variables)}")
-    leaves = _flatten(variables["params"])
+    leaves = _flatten(variables)
     slots = list(module_slots(net))
     paths = [path for path, _, _ in slots]
     unused = sorted(set(leaves) - set(paths))
@@ -128,16 +202,18 @@ def load_jax_params(net: nn.Module, variables: Mapping[str, Any]) -> None:
         raise ValueError(f"flax tree and port disagree: unused flax leaves "
                          f"{['/'.join(p) for p in unused]}, missing "
                          f"{['/'.join(p) for p in missing]}")
-    filled = {id(param) for _, param, _ in slots}
-    unfilled = [name for name, p in net.named_parameters()
-                if id(p) not in filled]
+    filled = {id(tensor) for _, tensor, _ in slots}
+    targets = [*net.named_parameters(), *(
+        (name, b) for name, b in net.named_buffers()
+        if not name.endswith("num_batches_tracked"))]
+    unfilled = [name for name, t in targets if id(t) not in filled]
     if unfilled or len(filled) != len(slots):
-        raise ValueError(f"port parameters not mapped one-to-one: unfilled "
-                         f"{unfilled}")
+        raise ValueError(f"port parameters and buffers not mapped "
+                         f"one-to-one: unfilled {unfilled}")
     with torch.no_grad():
-        for path, param, transform in slots:
+        for path, tensor, transform in slots:
             value = transform(np.asarray(leaves[path], dtype=np.float32))
-            if tuple(value.shape) != tuple(param.shape):
+            if tuple(value.shape) != tuple(tensor.shape):
                 raise ValueError(f"{'/'.join(path)}: flax shape "
-                                 f"{value.shape} vs port {tuple(param.shape)}")
-            param.copy_(torch.tensor(np.ascontiguousarray(value)))
+                                 f"{value.shape} vs port {tuple(tensor.shape)}")
+            tensor.copy_(torch.tensor(np.ascontiguousarray(value)))

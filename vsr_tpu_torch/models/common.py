@@ -18,6 +18,14 @@ from vsr_tpu_torch.ops.fused_squeeze import concat_conv1x1
 from vsr_tpu_torch.ops.fused_tail import fuse_conv_through_shuffle
 
 
+def resolve_dtype(dtype: torch.dtype | str | None) -> torch.dtype:
+    """A net's ``dtype`` argument (``None``: float32; a ``torch.dtype`` or
+    its name, e.g. ``"bfloat16"``)."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return dtype or torch.float32
+
+
 def torch_default_init_(weight: torch.Tensor, bias: torch.Tensor | None,
                         fan_in: int,
                         generator: torch.Generator | None) -> None:
@@ -41,6 +49,29 @@ class Conv(nn.Conv2d):
                          padding, bias=bias)
         torch_default_init_(self.weight, self.bias,
                             kernel_size * kernel_size * in_channels, generator)
+
+
+class Conv3D(nn.Conv3d):
+    """3D conv, NCDHW (the JAX one is NDHWC), per-dim pixel padding,
+    torch-default init. The JAX module's ``fold_shuffle2d`` and ``out_dtype``
+    belong to the volumetric nets and are refused."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: tuple[int, int, int] = (3, 3, 3),
+                 strides: tuple[int, int, int] = (1, 1, 1),
+                 padding: tuple[int, int, int] = (1, 1, 1),
+                 bias: bool = True, *, fold_shuffle2d: int = 0,
+                 out_dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        for name, value in (("fold_shuffle2d", fold_shuffle2d),
+                            ("out_dtype", out_dtype)):
+            if value:
+                raise NotImplementedError(
+                    f"Conv3D {name} is not yet ported to vsr_tpu_torch")
+        super().__init__(in_channels, out_channels, tuple(kernel_size),
+                         tuple(strides), tuple(padding), bias=bias)
+        torch_default_init_(self.weight, self.bias,
+                            math.prod(kernel_size) * in_channels, generator)
 
 
 class ConvTranspose(nn.ConvTranspose2d):

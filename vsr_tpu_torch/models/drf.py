@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vsr_tpu_torch.models.common import Conv, ShuffleConv
+from vsr_tpu_torch.models.common import Conv, ShuffleConv, resolve_dtype
 from vsr_tpu_torch.models.feedback import FBlock, InBlock, check_upscale_factor
 from vsr_tpu_torch.registry import register
 
@@ -81,6 +81,8 @@ class DRFNet(nn.Module):
     ``split_transpose`` raise as well rather than being ignored.
     """
 
+    serving_mode = "video"
+
     def __init__(self, in_channels: int, out_channels: int, num_features: int,
                  num_groups: int, upscale_factor: int, remat: bool = False,
                  fused_tail: bool = False, dtype: torch.dtype | str | None = None,
@@ -107,9 +109,7 @@ class DRFNet(nn.Module):
                 raise NotImplementedError(
                     f"DRFNet {name} is a TPU lax.scan knob; the port's frame "
                     "loop is a Python loop and has no such setting")
-        if isinstance(dtype, str):
-            dtype = getattr(torch, dtype)
-        self.dtype = dtype or torch.float32
+        self.dtype = resolve_dtype(dtype)
         self.in_block = InBlock(in_channels, num_features, generator=generator)
         self.step = _DRFStep(num_features, num_groups, out_channels,
                              upscale_factor, fused_tail, fused_squeeze,
