@@ -20,10 +20,13 @@ Phases; any failure exits non-zero and prints no result:
 2. build: compiles ``vsr_tpu_torch/csrc/*.cu`` with nvcc, prints the time;
 3. kernel vs twin: every kernel against its plain PyTorch twin on the card
    at the shapes its path gives it (K1: every squeeze shape of a DRFNet
-   frame step, f32 and bf16; K3: 43 200 rows of 256 affinities, bit-equal,
-   plus many ties and a ragged row length; K2: one chunk of 100 windows at
+   frame step, f32 and bf16, without and with its PReLU epilogue, plus a
+   ragged case off every tile and off 16-byte alignment; K3: 43 200 rows of
+   256 affinities, bit-equal, plus many ties, a ragged row length and a row
+   count off the rows per block; K2: one chunk of 100 windows at
    96 x 96 with 5 x 5 filters, plus an odd geometry), with max error, median
-   CUDA-event times of kernel, twin and (where one exists) the one PyTorch
+   CUDA-event times (device time: the host queues ahead of the card) of
+   kernel, twin and (where one exists) the one PyTorch
    call that computes the same function, and the bound: the least time the
    card could take, from the bytes moved and the operations done;
 4. paths: each path is served by the port's infer CLI on small NIfTI volumes
@@ -38,7 +41,8 @@ Phases; any failure exits non-zero and prints no result:
 6. prints the kernels' JSON line, then the final JSON line.
 
 ``--profile`` adds one ``torch.profiler`` trace of a full volume per path
-(device time by kernel, idle share) to the details.
+(f32, and bf16 for DRFNet: device time by kernel, idle share) to the
+details.
 
 Usage: python3 chip_smoke.py [--out details.json] [--profile]
 """
@@ -102,12 +106,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+SPIN_CYCLES = 40_000_000  # ~20 ms of the card's clock
+
+
 def median_ms(fn, reps: int = 20) -> float:
+    """Median device time of one call of ``fn``. The calls are queued behind
+    a spin of the card, so the host, which needs tens of microseconds to
+    enqueue a call, runs ahead of it: a short kernel's time is then the
+    card's and not the host's."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SPIN_CYCLES)
     for start, end in events:
         start.record()
         fn()
@@ -132,12 +144,54 @@ def bound(n_bytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 # ============================================================ kernel vs twin
 
 
+def library_squeeze_prelu(xs, w4, b, alpha):
+    """The library's form of a squeeze and its activation: ``torch.cat``, the
+    1x1 conv, ``prelu`` (timed beside the kernel, used nowhere in the port)."""
+    return torch.nn.functional.prelu(
+        torch.nn.functional.conv2d(torch.cat(xs, dim=1), w4, b), alpha)
+
+
+def squeeze_ragged_case(dev, gen) -> dict:
+    """K1 off every tile and off 16-byte rows (9 x 13 pixels, channels 3, 17
+    and 40, 70 output channels), with the epilogue: the kernel's
+    element-wise load and store path against the twin."""
+    from vsr_tpu_torch.ops.fused_squeeze import (concat_conv1x1,
+                                                 concat_conv1x1_reference)
+
+    channels, f_out = (3, 17, 40), 70
+    xs = [torch.randn(2, c, 9, 13, generator=gen).to(dev) for c in channels]
+    w = (torch.rand(f_out, sum(channels), generator=gen) - 0.5).to(dev)
+    b = (torch.rand(f_out, generator=gen) - 0.5).to(dev)
+    alpha = torch.full((1,), 0.2, device=dev)
+    res = {}
+    with torch.inference_mode():
+        for name, dtype, tol in (("f32", torch.float32, F32_TOL),
+                                 ("bf16", torch.bfloat16, BF16_TOL)):
+            ops = [t.to(dtype) for t in (*xs, w, b, alpha)]
+            got = concat_conv1x1(ops[:3], *ops[3:]).float()
+            ref = concat_conv1x1_reference(
+                [t.float() for t in ops[:3]], *(t.float() for t in ops[3:]))
+            torch.cuda.synchronize()
+            res[f"{name}_max_abs_err"] = (got - ref).abs().max().item()
+            ok = got.shape == ref.shape and within(got, ref, **tol)
+            log(f"  K1 ragged (9x13, channels {channels}, F={f_out}, PReLU) "
+                f"{name}: err {res[f'{name}_max_abs_err']:.3g} "
+                f"({'ok' if ok else 'FAIL'})")
+            if not ok:
+                raise SystemExit(f"K1 disagrees with its twin on the ragged "
+                                 f"{name} case")
+    return res
+
+
 def phase_kernel_squeeze(dev) -> dict:
     from vsr_tpu_torch.ops.fused_squeeze import (concat_conv1x1,
                                                  concat_conv1x1_reference)
 
     n = FULL_SLICES
     gen = torch.Generator().manual_seed(1)
+    prelu = torch.nn.functional.prelu
+    alpha32 = torch.full((1,), 0.2, device=dev)
+    alpha16 = alpha32.bfloat16()
     rows = []
     for (k, side) in sorted(STEP_SQUEEZES):
         xs32 = [torch.randn(n, F_, side, side, generator=gen).to(dev)
@@ -155,6 +209,12 @@ def phase_kernel_squeeze(dev) -> dict:
             got16 = concat_conv1x1(xs16, w16, b16).float()
             ref16 = concat_conv1x1_reference(
                 [x.float() for x in xs16], w16.float(), b16.float())
+            # The PReLU epilogue: against twin-then-PReLU, and bit for bit
+            # the separate PReLU on the kernel's own output.
+            act32 = concat_conv1x1(xs32, w32, b32, alpha32)
+            raw16 = concat_conv1x1(xs16, w16, b16)
+            act16 = concat_conv1x1(xs16, w16, b16, alpha16)
+            w4_32, w4_16 = w32[:, :, None, None], w16[:, :, None, None]
             torch.cuda.synchronize()
             row = {
                 "k": k, "side": side, "count_per_step": STEP_SQUEEZES[k, side],
@@ -162,6 +222,23 @@ def phase_kernel_squeeze(dev) -> dict:
                 "f32_ok": within(got32, ref32, **F32_TOL),
                 "bf16_max_abs_err": (got16 - ref16).abs().max().item(),
                 "bf16_ok": within(got16, ref16, **BF16_TOL),
+                "f32_act_max_abs_err":
+                    (act32 - prelu(ref32, alpha32)).abs().max().item(),
+                "f32_act_ok": within(act32, prelu(ref32, alpha32), **F32_TOL)
+                and torch.equal(act32, prelu(got32, alpha32)),
+                "bf16_act_max_abs_err":
+                    (act16.float() - prelu(ref16, alpha32)).abs().max().item(),
+                "bf16_act_ok":
+                    within(act16.float(), prelu(ref16, alpha32), **BF16_TOL)
+                    and torch.equal(act16, prelu(raw16, alpha16)),
+                "f32_act_ms": median_ms(
+                    lambda: concat_conv1x1(xs32, w32, b32, alpha32)),
+                "f32_act_library_ms": median_ms(
+                    lambda: library_squeeze_prelu(xs32, w4_32, b32, alpha32)),
+                "bf16_act_ms": median_ms(
+                    lambda: concat_conv1x1(xs16, w16, b16, alpha16)),
+                "bf16_act_library_ms": median_ms(
+                    lambda: library_squeeze_prelu(xs16, w4_16, b16, alpha16)),
                 "f32_ms": median_ms(lambda: concat_conv1x1(xs32, w32, b32)),
                 "f32_plain_ms": median_ms(
                     lambda: concat_conv1x1_reference(xs32, w32, b32)),
@@ -178,16 +255,28 @@ def phase_kernel_squeeze(dev) -> dict:
             f" | bf16 err {row['bf16_max_abs_err']:.3g} "
             f"({'ok' if row['bf16_ok'] else 'FAIL'}) kernel "
             f"{row['bf16_ms']:.4f} ms twin {row['bf16_plain_ms']:.4f} ms")
-    bad = [(r["k"], r["side"]) for r in rows if not (r["f32_ok"] and r["bf16_ok"])]
+        log(f"     with PReLU: f32 err {row['f32_act_max_abs_err']:.3g} "
+            f"({'ok' if row['f32_act_ok'] else 'FAIL'}) kernel "
+            f"{row['f32_act_ms']:.4f} ms library conv + prelu "
+            f"{row['f32_act_library_ms']:.4f} ms | bf16 err "
+            f"{row['bf16_act_max_abs_err']:.3g} "
+            f"({'ok' if row['bf16_act_ok'] else 'FAIL'}) kernel "
+            f"{row['bf16_act_ms']:.4f} ms library "
+            f"{row['bf16_act_library_ms']:.4f} ms")
+    bad = [(r["k"], r["side"]) for r in rows
+           if not (r["f32_ok"] and r["bf16_ok"] and r["f32_act_ok"]
+                   and r["bf16_act_ok"])]
     if bad:
         raise SystemExit(f"K1 disagrees with its twin at {bad}")
+    ragged = squeeze_ragged_case(dev, gen)
 
     def per_step(key):
         return sum(r[key] * r["count_per_step"] for r in rows)
 
     summary = {key: per_step(key) for key in
                ("f32_ms", "f32_plain_ms", "bf16_ms", "bf16_plain_ms",
-                "f32_bytes", "bf16_bytes", "flops")}
+                "f32_act_ms", "f32_act_library_ms", "bf16_act_ms",
+                "bf16_act_library_ms", "f32_bytes", "bf16_bytes", "flops")}
     summary["f32_bound_ms"], summary["f32_bound_by"] = bound(
         summary["f32_bytes"], summary["flops"], PEAK_F32)
     summary["bf16_bound_ms"], summary["bf16_bound_by"] = bound(
@@ -199,9 +288,18 @@ def phase_kernel_squeeze(dev) -> dict:
         f"kernel {summary['bf16_ms']:.4f} ms vs twin "
         f"{summary['bf16_plain_ms']:.4f} ms, bound "
         f"{summary['bf16_bound_ms']:.4f} ms by {summary['bf16_bound_by']}")
-    return {"rows": rows, "per_step": summary,
-            "f32_max_abs_err": max(r["f32_max_abs_err"] for r in rows),
-            "bf16_max_abs_err": max(r["bf16_max_abs_err"] for r in rows)}
+    log(f"  K1 with its PReLU epilogue, same {SQUEEZES_PER_STEP} squeezes: f32 "
+        f"kernel {summary['f32_act_ms']:.4f} ms vs torch.cat + library conv + "
+        f"prelu {summary['f32_act_library_ms']:.4f} ms; bf16 kernel "
+        f"{summary['bf16_act_ms']:.4f} ms vs {summary['bf16_act_library_ms']:.4f}"
+        f" ms (bounds as above: the epilogue moves no further byte)")
+    return {"rows": rows, "per_step": summary, "ragged": ragged,
+            "f32_max_abs_err": max(
+                max(r["f32_max_abs_err"], r["f32_act_max_abs_err"])
+                for r in rows),
+            "bf16_max_abs_err": max(
+                max(r["bf16_max_abs_err"], r["bf16_act_max_abs_err"])
+                for r in rows)}
 
 
 def argsort_rank(af: torch.Tensor) -> torch.Tensor:
@@ -229,6 +327,8 @@ def phase_kernel_rank(dev) -> dict:
         "ties": (af * 64).round().div(64).contiguous(),
         # A row length the TPU kernel refuses (not a multiple of 128).
         "ragged_gs200": torch.rand(1000, 4, 200, generator=gen).to(dev),
+        # A row count that is no multiple of the 4 rows a block takes.
+        "ragged_rows1001": torch.rand(1001, gs, generator=gen).to(dev),
     }
     res = {}
     for name, a in cases.items():
@@ -613,9 +713,10 @@ def phase_cpu_reference(dev) -> dict:
 
 
 def phase_profile(dev) -> dict:
-    """One ``torch.profiler`` trace per path (f32, kernel on, one full
-    volume through ``make_pipeline``): self device time by kernel, and the
-    idle share against the median wall time of 3 unprofiled runs."""
+    """One ``torch.profiler`` trace per path (f32, and bf16 for DRFNet;
+    kernel on, one full volume through ``make_pipeline``): self device time
+    by kernel, and the idle share against the median wall time of 3
+    unprofiled runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -624,12 +725,14 @@ def phase_profile(dev) -> dict:
     frames = torch.from_numpy(as_frames(make_volume(30, FULL_SLICES)))
     res = {}
     for path in PATHS:
-        variants = {"on": path.on}
+        variants = {"on": (path.on, False)}
         if path.key == "moe":
-            variants["on_dense"] = dict(path.on, dispatch_impl="dense")
-        for name, kwargs in variants.items():
-            pipe = make_pipeline(build_net(path, kwargs, dev), FACTOR, "acdc",
-                                 **path.pipe_kw(T_FRAMES))
+            variants["on_dense"] = (dict(path.on, dispatch_impl="dense"), False)
+        if path.key == "drf":
+            variants["on_bf16"] = (path.on, True)
+        for name, (kwargs, bf16) in variants.items():
+            pipe = make_pipeline(build_net(path, kwargs, dev, bf16), FACTOR,
+                                 "acdc", **path.pipe_kw(T_FRAMES))
 
             def once():
                 out = pipe(frames.to(dev))[1].cpu()
@@ -750,6 +853,12 @@ def main() -> int:
         "bf16_plain_ms": per_step["bf16_plain_ms"],
         "bf16_bound_ms": per_step["bf16_bound_ms"],
         "bf16_bound_by": per_step["bf16_bound_by"],
+        # The same squeezes with the PReLU that follows each in the kernel's
+        # epilogue, against torch.cat + the library's conv + prelu.
+        "prelu_ms": per_step["f32_act_ms"],
+        "prelu_library_ms": per_step["f32_act_library_ms"],
+        "bf16_prelu_ms": per_step["bf16_act_ms"],
+        "bf16_prelu_library_ms": per_step["bf16_act_library_ms"],
     }, {
         # One --chunk 100 call: x (100, 96, 96), 5x5 filters, x2.
         "name": "duf_dynamic_filter", "route": "cuda",

@@ -37,8 +37,9 @@ def _operands(rng, dev, channels, f, n=2, h=9, w=13):
     return xs, wt, b
 
 
-# Ragged shapes on purpose: channel counts off the 16-channel K step, F off
-# the 64-channel tile, pixel counts off the 256-pixel tile.
+# Ragged shapes on purpose: channel counts off the 32-channel K step, F off
+# the 64-channel tile, pixel counts off the 128-pixel tile and off the
+# 16-byte vector (9 x 13 pixels: the kernel's element-wise loads).
 @pytest.mark.parametrize("channels,f", [((64, 64), 64), ((3, 17, 40), 70),
                                         ((64,) * 8, 64), ((5,), 1)])
 def test_kernel_matches_twin_f32(rng, dev, channels, f):
@@ -67,6 +68,78 @@ def test_kernel_matches_twin_bf16(rng, dev, channels, f):
     torch.testing.assert_close(got.float(), want, rtol=8e-3, atol=1e-4)
 
 
+# name -> channels, F, N, H, W. 16-byte copies need H*W*itemsize % 16 == 0.
+K1_CASES = {
+    "aligned_k2": ((64, 64), 64, 2, 8, 16),
+    "unaligned_hw_ragged_channels_f70": ((3, 17, 40), 70, 2, 9, 13),
+    "k1_n1": ((5,), 1, 1, 9, 13),
+    "k8_channels_off_the_k_tile": ((24,) * 8, 64, 1, 16, 16),
+    "aligned_hw_ragged_channels": ((3, 17, 40), 70, 1, 8, 24),
+    # 1600 input channels: the weights travel through the ring (bf16 too).
+    "k8_streamed_weights": ((200,) * 8, 64, 1, 8, 24),
+    # 360 pixel tiles: more than the grid, so blocks walk several tiles.
+    "many_tiles": ((64, 64), 64, 5, 96, 96),
+}
+
+
+def _k1_close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=8e-3, atol=1e-4)
+
+
+def _k1_run(xs, w, b, alpha, dtype):
+    """Kernel and twin on the same operands; in bf16 the twin computes in
+    f32 on the bf16-rounded operands."""
+    xs = [x.to(dtype) for x in xs]
+    with torch.inference_mode():
+        got = fs.concat_conv1x1(xs, w, b, alpha)
+        want = fs.concat_conv1x1_reference(
+            [x.float() for x in xs], w.to(dtype).float(), b.to(dtype).float(),
+            None if alpha is None else alpha.to(dtype).float())
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    return got, want
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_kernel_cases(rng, dev, case, dtype, epilogue):
+    channels, f, n, h, w = K1_CASES[case]
+    xs, wt, b = _operands(rng, dev, channels, f, n, h, w)
+    alpha = torch.tensor([0.2], device=dev) if epilogue else None
+    got, want = _k1_run(xs, wt, b, alpha, dtype)
+    _k1_close(got, want, dtype)
+    if epilogue:
+        # Bit for bit the separate PReLU on the kernel's own output.
+        with torch.inference_mode():
+            plain = fs.concat_conv1x1([x.to(dtype) for x in xs], wt, b)
+            want_act = torch.nn.functional.prelu(plain, alpha.to(dtype))
+        assert torch.equal(got, want_act)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_takes_inputs_off_16_byte_alignment(rng, dev, dtype):
+    """A contiguous slice at an odd storage offset: aligned H*W, but a
+    ``data_ptr()`` that no 16-byte copy may touch."""
+    channels, f, n, h, w = (16, 16), 8, 2, 8, 16
+    xs, wt, b = _operands(rng, dev, channels, f, n, h, w)
+    shifted = []
+    for x in xs:
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        flat[1:] = x.to(dtype).reshape(-1)
+        shifted.append(flat[1:].view(x.shape))
+    assert all(x.is_contiguous() and x.data_ptr() % 16 for x in shifted)
+    with torch.inference_mode():
+        got = fs.concat_conv1x1(shifted, wt, b)
+        want = fs.concat_conv1x1([x.clone() for x in shifted], wt, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)  # the two load paths sum in one order
+    _k1_close(got, _k1_run(xs, wt, b, None, dtype)[1], dtype)
+
+
 def test_kernel_refuses_grad_and_strided_inputs(rng, dev):
     xs, w, b = _operands(rng, dev, (4, 4), 8)
     w.requires_grad_(True)
@@ -82,13 +155,18 @@ def test_kernel_refuses_grad_and_strided_inputs(rng, dev):
 # ------------------------------------------------------------------ K3 rank
 
 
-@pytest.mark.parametrize("rows,gs", [((5, 4), 256), ((37,), 200), ((3,), 1),
-                                     ((2, 3), 1024), ((2,), 4096)])
+# Row counts 1, 7 and 9: one past a multiple of the rows a block takes
+# (8, 4 or 1, by gs).
+@pytest.mark.parametrize("rows,gs", [
+    ((5, 4), 256), ((37,), 200), ((3,), 1), ((2, 3), 1024), ((2,), 4096),
+    *[((r,), gs) for gs in (1, 31, 200, 256, 1024, 4096) for r in (1, 7, 9)]])
 def test_rank_kernel_is_bit_equal_to_twin(rng, dev, rows, gs):
     af = rng.random((*rows, gs)).astype(np.float32)
     af[..., ::3] = af[..., :1]  # many exact ties
     af.reshape(-1, gs)[0, : gs // 2] = 0.0
     af.reshape(-1, gs)[0, 0] = -0.0  # ties with +0.0
+    if gs > 4:
+        af.reshape(-1, gs)[-1, [1, gs - 2]] = np.nan  # compares false
     a = torch.from_numpy(af).to(dev)
     before = rk.pairwise_rank.launches
     got = rk.pairwise_rank(a)
@@ -97,10 +175,11 @@ def test_rank_kernel_is_bit_equal_to_twin(rng, dev, rows, gs):
     assert rk.pairwise_rank.launches == before + 1
     assert got.dtype == torch.int32 and got.shape == a.shape
     assert torch.equal(got, want)
-    # A rank is a permutation of 0..gs-1 in every row.
-    assert torch.equal(got.sort(dim=-1).values,
+    # A rank is a permutation of 0..gs-1 in every row without a NaN.
+    clean = ~torch.isnan(a).any(dim=-1)
+    assert torch.equal(got[clean].sort(dim=-1).values,
                        torch.arange(gs, device=dev, dtype=torch.int32
-                                    ).expand_as(got))
+                                    ).expand_as(got[clean]))
 
 
 def test_rank_kernel_refuses_what_it_cannot_take(dev):

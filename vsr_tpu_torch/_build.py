@@ -30,9 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # cudaError_t, 0 on success).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    # xs, channels, count, w, b, out, n, hw, f_out, dtype, stream
+    # xs, channels, count, w, b, alpha, out, n, hw, f_out, dtype, stream
     "vsr_concat_conv1x1": [ctypes.POINTER(_P), ctypes.POINTER(_I), _I,
-                           _P, _P, _P, _I, _I, _I, _I, _P],
+                           _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, logits, out, n, h, w, size, r, stream
     "vsr_duf_filter": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # af, out, rows, gs, stream

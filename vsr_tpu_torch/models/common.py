@@ -140,7 +140,8 @@ class FusedSqueezeConv(nn.Module):
     """1x1 conv over the channel concat of a LIST of inputs, computed by the
     fused concat + 1x1 kernel (``ops/fused_squeeze.py``): the concat never
     materializes. Weight ``(F, sum C)`` and bias ``(F,)``, initialized as
-    the 1x1 conv it stands in for."""
+    the 1x1 conv it stands in for. ``forward(xs, prelu_weight)`` also
+    applies the PReLU that follows the squeeze, in the kernel's epilogue."""
 
     def __init__(self, in_channels: int, out_channels: int, *,
                  generator: torch.Generator | None = None):
@@ -150,5 +151,6 @@ class FusedSqueezeConv(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_channels))
         torch_default_init_(self.weight, self.bias, in_channels, generator)
 
-    def forward(self, xs: list[torch.Tensor]) -> torch.Tensor:
-        return concat_conv1x1(xs, self.weight, self.bias)
+    def forward(self, xs: list[torch.Tensor],
+                prelu_weight: torch.Tensor | None = None) -> torch.Tensor:
+        return concat_conv1x1(xs, self.weight, self.bias, prelu_weight)

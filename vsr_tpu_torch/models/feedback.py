@@ -5,7 +5,9 @@ The feedback block is a dense up/down projection ladder: each group consumes
 the concat of all previous LR (resp. HR) features through a 1x1 squeeze,
 projects up with a strided deconv and back down with a strided conv, and the
 outputs of all groups concat into a 1x1 fuse. With ``fused_squeeze`` every
-squeeze of more than one input runs the fused concat + 1x1 kernel.
+squeeze of more than one input runs the fused concat + 1x1 kernel, which
+also applies the PReLU that follows the squeeze (the PReLU module stays in
+its list; the kernel reads its weight).
 
 Submodules are kept in lists in the JAX modules' creation order, so
 ``convs[i]`` is flax's ``Conv_i`` (likewise ``ConvTranspose_i``, ``PReLU_i``);
@@ -86,10 +88,13 @@ class FBlock(nn.Module):
         self.prelus = nn.ModuleList(PReLU() for _ in range(4 * num_groups))
 
     @staticmethod
-    def _squeeze(conv: nn.Module, parts: list[torch.Tensor]) -> torch.Tensor:
+    def _squeeze(conv: nn.Module, parts: list[torch.Tensor],
+                 prelu: nn.PReLU) -> torch.Tensor:
+        """The squeeze of ``parts`` and the PReLU that follows it."""
         if isinstance(conv, FusedSqueezeConv):
-            return conv(parts)
-        return conv(parts[0] if len(parts) == 1 else torch.cat(parts, dim=1))
+            return conv(parts, prelu.weight)
+        return prelu(
+            conv(parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)))
 
     def forward(self, x: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
         # Consume the lists in creation order (= flax's call order).
@@ -99,11 +104,14 @@ class FBlock(nn.Module):
         def act(t: torch.Tensor) -> torch.Tensor:
             return next(prelus)(t)
 
-        lr_list = [act(self._squeeze(next(convs), [x, hidden]))]
+        def squeeze(parts: list[torch.Tensor]) -> torch.Tensor:
+            return self._squeeze(next(convs), parts, next(prelus))
+
+        lr_list = [squeeze([x, hidden])]
         hr_list: list[torch.Tensor] = []
         for i in range(self.num_groups):
-            z = lr_list[0] if i == 0 else act(self._squeeze(next(convs), lr_list))
+            z = lr_list[0] if i == 0 else squeeze(lr_list)
             hr_list.append(act(next(deconvs)(z)))
-            z = hr_list[0] if i == 0 else act(self._squeeze(next(convs), hr_list))
+            z = hr_list[0] if i == 0 else squeeze(hr_list)
             lr_list.append(act(next(convs)(z)))
-        return act(self._squeeze(next(convs), lr_list[1:]))
+        return squeeze(lr_list[1:])

@@ -9,6 +9,16 @@ CPU tensor it runs the plain twin ``concat_conv1x1_reference``. There is no
 fallback from the kernel to the twin: a CUDA call that the kernel cannot
 take raises.
 
+The kernel streams the inputs once through a shared-memory ring filled by
+asynchronous copies and multiplies on the tensor cores: bf16 directly,
+float32 as three TF32 products of split operands, which keeps float32
+accuracy (``tests/test_torch_port_squeeze_prelu.py`` models that arithmetic
+in numpy against float64). With
+``prelu_weight`` the PReLU that follows every squeeze of the feedback block
+runs in the kernel's epilogue, on the rounded output, so the result is
+what a separate ``nn.PReLU`` gives, bit for bit, without its pass over
+device memory.
+
 Serving only: the backward (per-input slices of W, as the JAX ``_bwd``)
 comes with the training slice, so a CUDA call that would need gradients
 is refused.
@@ -27,42 +37,60 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def concat_conv1x1_reference(xs: Sequence[torch.Tensor], weight: torch.Tensor,
-                             bias: torch.Tensor) -> torch.Tensor:
-    """Plain twin: ``torch.cat`` then a 1x1 conv, in the type of ``xs``
-    (weight and bias are cast to it first, as the JAX kernel does)."""
+                             bias: torch.Tensor,
+                             prelu_weight: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """Plain twin: ``torch.cat`` then a 1x1 conv, then (with
+    ``prelu_weight``) ``F.prelu``, in the type of ``xs`` (weight, bias and
+    the PReLU weight are cast to it first, as the JAX kernel does)."""
     dtype = xs[0].dtype
     w = weight.to(dtype)
-    return F.conv2d(torch.cat(list(xs), dim=1), w.reshape(*w.shape, 1, 1),
-                    bias.to(dtype))
+    out = F.conv2d(torch.cat(list(xs), dim=1), w.reshape(*w.shape, 1, 1),
+                   bias.to(dtype))
+    if prelu_weight is None:
+        return out
+    _check_prelu_weight(prelu_weight, xs[0].device)
+    return F.prelu(out, prelu_weight.to(dtype).reshape(1))
 
 
 def concat_conv1x1(xs: Sequence[torch.Tensor], weight: torch.Tensor,
-                   bias: torch.Tensor) -> torch.Tensor:
-    """``conv1x1(cat(xs, 1), weight) + bias`` without the concat.
+                   bias: torch.Tensor,
+                   prelu_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """``conv1x1(cat(xs, 1), weight) + bias`` without the concat, and with
+    ``prelu_weight`` the PReLU of that.
 
     xs: NCHW tensors ``(N, C_i, H, W)``, 1 to 8 of them, contiguous, one
-    dtype (float32 or bfloat16). weight ``(F, sum C_i)``, bias ``(F,)``;
-    both are cast to the dtype of ``xs`` (bf16-rounded in bf16 mode).
-    Returns ``(N, F, H, W)`` in that dtype, accumulated in float32.
-    ``concat_conv1x1.launches`` counts the kernel's launches."""
+    dtype (float32 or bfloat16). weight ``(F, sum C_i)``, bias ``(F,)``,
+    prelu_weight one element (float32 or bfloat16) or None; all are cast to
+    the dtype of ``xs`` (bf16-rounded in bf16 mode). Returns ``(N, F, H,
+    W)`` in that dtype, accumulated in float32 and rounded once; the PReLU
+    applies to the rounded value and rounds again, as a separate
+    ``nn.PReLU`` would. Any H x W, C_i and F are taken; rows and pointers
+    that are not multiples of 16 bytes go through the kernel's element-wise
+    loads. ``concat_conv1x1.launches`` counts the kernel's launches."""
     xs = list(xs)
     if not xs:
         raise ValueError("concat_conv1x1 needs at least one input")
     device = xs[0].device
     if device.type == "cpu":
-        return concat_conv1x1_reference(xs, weight, bias)
+        return concat_conv1x1_reference(xs, weight, bias, prelu_weight)
     if device.type != "cuda":
         raise ValueError(f"concat_conv1x1 runs on cpu or cuda, not {device}")
     dtype = xs[0].dtype
     n, _, h, w = _check(xs, weight, bias)
+    if prelu_weight is not None:
+        _check_prelu_weight(prelu_weight, device)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*xs, weight, bias)):
+            t is not None and t.requires_grad
+            for t in (*xs, weight, bias, prelu_weight)):
         raise RuntimeError(
             "concat_conv1x1's CUDA kernel has no backward yet: call it under "
             "torch.no_grad() / torch.inference_mode() (serving only)")
     f_out = weight.shape[0]
     wt = weight.to(dtype).contiguous()
     bt = bias.to(dtype).contiguous()
+    # The PReLU weight travels as a device pointer: no host read of it.
+    at = None if prelu_weight is None else prelu_weight.to(dtype).contiguous()
 
     from vsr_tpu_torch import _build
 
@@ -73,8 +101,10 @@ def concat_conv1x1(xs: Sequence[torch.Tensor], weight: torch.Tensor,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.vsr_concat_conv1x1(ptrs, chans, len(xs), wt.data_ptr(),
-                                    bt.data_ptr(), out.data_ptr(), n, h * w,
-                                    f_out, _DTYPE_CODES[dtype], stream)
+                                    bt.data_ptr(),
+                                    None if at is None else at.data_ptr(),
+                                    out.data_ptr(), n, h * w, f_out,
+                                    _DTYPE_CODES[dtype], stream)
     if rc != 0:
         raise RuntimeError(f"concat_conv1x1 kernel launch failed: "
                            f"cudaError_t {rc}")
@@ -83,6 +113,17 @@ def concat_conv1x1(xs: Sequence[torch.Tensor], weight: torch.Tensor,
 
 
 concat_conv1x1.launches = 0
+
+
+def _check_prelu_weight(prelu_weight: torch.Tensor, device) -> None:
+    if prelu_weight.dtype not in _DTYPE_CODES:
+        raise TypeError(f"prelu_weight must be float32 or bfloat16, not "
+                        f"{prelu_weight.dtype}")
+    if prelu_weight.numel() != 1:
+        raise ValueError(f"prelu_weight must hold one value (one alpha for "
+                         f"all channels), got {tuple(prelu_weight.shape)}")
+    if prelu_weight.device != device:
+        raise ValueError("prelu_weight must be on the inputs' device")
 
 
 def _check(xs, weight, bias) -> tuple[int, int, int, int]:
