@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port's serving paths on one CUDA card.
+"""GPU smoke run of the PyTorch port's serving and training paths on one
+CUDA card.
 
 Drives ``vsr_tpu_torch`` (never JAX, never ``vsr_tpu``) through its three
-serving paths, each at the full width of the repo's config for its net, with
-random seeded weights:
+serving paths and its training path, each at the full width of the repo's
+config for its net, with random seeded weights:
 
 - video mode: DRFNet x2 (F=64, G=6, ``configs/test/acdc_vsr_drf_x2.yaml``),
   whose squeezes run the fused concat + 1x1 kernel (K1);
@@ -12,7 +13,13 @@ random seeded weights:
   pairwise-rank kernel (K3);
 - window mode: DUFNet x2 (7 frames, 5x5 filters, ``_DenseLayer16``,
   ``configs/test/acdc_misr_duf_x2.yaml``) with ``--windows 7 --chunk 100``,
-  whose dynamic filters run the fused filter kernel (K2).
+  whose dynamic filters run the fused filter kernel (K2);
+- training: ``vsr_tpu_torch.main.run_train`` on
+  ``configs/train/acdc_vsr_drf_x2.yaml`` (DRFNet F=64 G=6, batch 16, 5-frame
+  windows of 32 x 32 patches, L1, Adam, PSNR + SSIM), whose squeezes run K1
+  forward and backward, and on ``configs/train/acdc_sisr_edsr_x2.yaml``
+  (EDSRNet 16 x 64, no kernel), on a synthetic processed tree that the
+  script writes itself.
 
 Phases; any failure exits non-zero and prints no result:
 
@@ -38,11 +45,37 @@ Phases; any failure exits non-zero and prints no result:
    (MoE: identically; DRF, DUF: >= 99.9 % exact grey values, <= 1 grey);
 5. card vs CPU: a small volume of each path served on the card (kernels)
    and on the CPU (plain twins) must agree at that same bar;
-6. prints the kernels' JSON line, then the final JSON line.
+6. K1 backward vs twin: ``concat_conv1x1``'s gradients (dx_i, dW, db and
+   the PReLU weight's) against autograd through the twin, float32, for
+   alpha 0.2, 0 and -0.3, at the training shapes (N = 16, 32 x 32 and
+   64 x 64, 2-6 parts), one serving shape and the ragged shape; the bars are
+   the forward's for dx and 1e-5 of the sum of the terms' magnitudes for the
+   sums over pixels (outputs within 1e-4 of the PReLU's kink get no upstream
+   gradient: the side of the kink is the forward's rounding); times one
+   frame step's 12 squeezes forward + backward, and the dx launches alone,
+   against ``torch.cat`` + library conv + ``prelu`` under autograd; the
+   dW / db kernel of that backward against its own twin (f32 and bf16, two
+   launches bit-equal) and against cuDNN's weight and bias gradient;
+7. training: writes a seeded, low-passed (learnable) processed tree; trains
+   DRFNet through ``run_train`` with K1 on, on again and off from one seed,
+   and EDSRNet once. Gates: K1's forward launches are 12 per frame step of
+   every train and validation forward, its dx launches and its dW / db
+   launches 12 per frame step of every train step, all 0 with the kernel
+   off; the first loss on
+   vs off within 1e-4 relative; the loss falls; ``model_best.ckpt`` exists;
+   no parameter is NaN. Then the trained checkpoint is served by the infer
+   CLI (``--checkpoint``) and must equal the trainer's own validation output
+   to <= 1 grey; one batch's loss and gradients on the card (K1) agree with
+   the CPU (twin); a SIGTERM after 3 steps writes ``model_preempt.ckpt`` and
+   the resumed run finishes the epoch. Prints step times, rates and peak
+   memory with the kernel on and off;
+8. (``--profile``) ``torch.profiler`` traces;
+9. prints the kernels' JSON line, then the final JSON line.
 
-``--profile`` adds one ``torch.profiler`` trace of a full volume per path
-(f32, and bf16 for DRFNet: device time by kernel, idle share) to the
-details.
+``--profile`` adds one ``torch.profiler`` trace of a full volume per serving
+path (f32, and bf16 for DRFNet) and of 6 train steps per training path
+(device time by kernel, idle share, K1's own kernels against the PyTorch
+rest of its backward) to the details.
 
 Usage: python3 chip_smoke.py [--out details.json] [--profile]
 """
@@ -109,17 +142,19 @@ def log(msg: str) -> None:
 SPIN_CYCLES = 40_000_000  # ~20 ms of the card's clock
 
 
-def median_ms(fn, reps: int = 20) -> float:
+def median_ms(fn, reps: int = 20, spins: int = 1) -> float:
     """Median device time of one call of ``fn``. The calls are queued behind
     a spin of the card, so the host, which needs tens of microseconds to
     enqueue a call, runs ahead of it: a short kernel's time is then the
-    card's and not the host's."""
+    card's and not the host's. ``spins``: that many spins, for a call that
+    costs the host a millisecond (a forward and backward through autograd)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(SPIN_CYCLES)
+    for _ in range(spins):
+        torch.cuda._sleep(SPIN_CYCLES)
     for start, end in events:
         start.record()
         fn()
@@ -430,10 +465,12 @@ def check_sr(name: str, sr: np.ndarray, shape: tuple) -> None:
 def kernel_counters() -> dict:
     """Kernel name -> the wrapper that carries its launch count."""
     from vsr_tpu_torch.ops.duf_filter import duf_dynamic_filter
-    from vsr_tpu_torch.ops.fused_squeeze import concat_conv1x1
+    from vsr_tpu_torch.ops.fused_squeeze import (concat_conv1x1,
+                                                 concat_conv1x1_dw)
     from vsr_tpu_torch.ops.rank import pairwise_rank
 
     return {"concat_conv1x1": concat_conv1x1,
+            "concat_conv1x1_dw": concat_conv1x1_dw,
             "duf_dynamic_filter": duf_dynamic_filter,
             "pairwise_rank": pairwise_rank}
 
@@ -441,13 +478,20 @@ def kernel_counters() -> dict:
 def reset_launches() -> None:
     for fn in kernel_counters().values():
         fn.launches = 0
+    kernel_counters()["concat_conv1x1"].backward_launches = 0
 
 
-def check_launches(name: str, kernel: str, want: int) -> int:
-    """The run just made launched ``kernel`` exactly ``want`` times and no
-    other kernel of the port at all."""
+def check_launches(name: str, kernel: str, want: int,
+                   want_backward: int = 0) -> int:
+    """The run just made launched ``kernel`` exactly ``want`` times (and, in
+    K1's backward, its dx launch and its dW / db kernel ``want_backward``
+    times each) and no other kernel of the port at all."""
     counts = {k: fn.launches for k, fn in kernel_counters().items()}
+    counts["concat_conv1x1 backward"] = kernel_counters()[
+        "concat_conv1x1"].backward_launches
     expected = {k: (want if k == kernel else 0) for k in counts}
+    expected["concat_conv1x1 backward"] = want_backward
+    expected["concat_conv1x1_dw"] = want_backward
     if counts != expected:
         raise SystemExit(f"{name}: kernel launches {counts}, expected "
                          f"{expected}")
@@ -712,12 +756,26 @@ def phase_cpu_reference(dev) -> dict:
     return res
 
 
+def device_rows(prof) -> list[tuple[str, float, int]]:
+    """(name, self device ms, calls) of a trace's device kernels and copies,
+    largest first. Host-side operators are left out (they carry their
+    kernels' device time a second time), and so are the device-side spans of
+    user annotations such as ``Optimizer.step``."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda r: -r[1])
+
+
 def phase_profile(dev) -> dict:
     """One ``torch.profiler`` trace per path (f32, and bf16 for DRFNet;
     kernel on, one full volume through ``make_pipeline``): self device time
     by kernel, and the idle share against the median wall time of 3
     unprofiled runs."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from vsr_tpu_torch.infer import make_pipeline
@@ -750,13 +808,7 @@ def phase_profile(dev) -> dict:
                                      ProfilerActivity.CUDA]) as prof:
                 once()
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            # Device kernels and copies only: the host-side operators carry
-            # their kernels' device time a second time.
-            rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                           for e in prof.key_averages()
-                           if e.device_type == DeviceType.CUDA
-                           and e.self_device_time_total > 0),
-                          key=lambda r: -r[1])
+            rows = device_rows(prof)
             busy, wall = sum(r[1] for r in rows), statistics.median(walls)
             res[f"{path.key}_{name}"] = {
                 "wall_ms": wall, "busy_ms": busy,
@@ -771,13 +823,712 @@ def phase_profile(dev) -> dict:
     return res
 
 
+# ============================================================ training slice
+
+TRAIN_N, TRAIN_T, TRAIN_LR = 16, 5, 32   # configs/train/acdc_vsr_drf_x2.yaml
+TRAIN_HR = TRAIN_LR * FACTOR
+# Squeezes of one DRFNet frame step at the training patch size.
+TRAIN_SQUEEZES = {(k, TRAIN_LR if side == LR else TRAIN_HR): count
+                  for (k, side), count in STEP_SQUEEZES.items()}
+TRAIN_EPOCHS = 5
+TREE_SEQUENCES = {"train": (2, 2), "valid": (1, 2)}  # patients, slices each
+ALPHAS = (0.2, 0.0, -0.3)
+# Gradient bars. dx sums F products like the forward: the forward's bar.
+# dW, db and the PReLU weight's gradient sum up to N * H * W = 65 536
+# float32 terms in another order than the twin's autograd, so each is held
+# to 1e-5 of the sum of the terms' magnitudes (a wrong term is off by O(1)).
+SUM_TOL = 1e-5
+# The PReLU's derivative jumps by (1 - alpha) at 0. Where the pre-activation
+# is within the forward's bar of 0, the kernel's and the twin's last bits may
+# fall on different sides of the kink; which side is a question of the
+# forward's rounding, not of the backward, so the upstream gradient is zeroed
+# there (for both) before the gradients are compared.
+KINK = 1e-4
+
+
+def squeeze_grads(fn, xs, w, b, alpha, g):
+    """Forward through ``fn``, backward with ``g``: (dxs, dW, db, dalpha)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (*xs, w, b, alpha)]
+    out = fn(leaves[:len(xs)], *leaves[len(xs):])
+    grads = torch.autograd.grad(out, leaves, g)
+    return out.detach(), grads[:len(xs)], *grads[len(xs):]
+
+
+def backward_case(name, xs, w, b, g, dev) -> dict:
+    """One shape, alpha 0.2 / 0 / -0.3: the Function's gradients against
+    autograd through the twin, in float32."""
+    from vsr_tpu_torch.ops.fused_squeeze import (concat_conv1x1,
+                                                 concat_conv1x1_dw,
+                                                 concat_conv1x1_reference)
+
+    n_px = xs[0].shape[0] * xs[0].shape[2] * xs[0].shape[3]
+    with torch.no_grad():
+        pre = concat_conv1x1_reference(xs, w, b)
+    near_kink = pre.abs() < KINK
+    g = g.masked_fill(near_kink, 0.0)
+    abs_g = g.abs().flatten(2)
+    res = {"dx": 0.0, "dw": 0.0, "db": 0.0, "dalpha": 0.0, "ok": True,
+           "near_kink": int(near_kink.sum())}
+    for a in ALPHAS:
+        alpha = torch.full((1,), a, device=dev)
+        before = (concat_conv1x1.launches, concat_conv1x1.backward_launches,
+                  concat_conv1x1_dw.launches)
+        out, dxs, dw, db, da = squeeze_grads(concat_conv1x1, xs, w, b, alpha, g)
+        counted = (concat_conv1x1.launches - before[0],
+                   concat_conv1x1.backward_launches - before[1],
+                   concat_conv1x1_dw.launches - before[2])
+        ref, rxs, rw, rb, ra = squeeze_grads(concat_conv1x1_reference, xs, w,
+                                             b, alpha, g)
+        torch.cuda.synchronize()
+        # The PReLU scales g where the pre-activation is negative.
+        g_pre = torch.where(pre > 0, abs_g.view_as(g), abs(a) * abs_g.view_as(g))
+        dw_scale = torch.cat([torch.bmm(g_pre.flatten(2),
+                                        x.abs().flatten(2).transpose(1, 2))
+                              for x in xs], dim=2).sum(0)
+        checks = {
+            "out": within(out, ref, **F32_TOL),
+            "dx": all(within(d, r, **F32_TOL) for d, r in zip(dxs, rxs)),
+            "dw": bool(((dw - rw).abs() <= SUM_TOL * dw_scale + 1e-6).all()),
+            "db": bool(((db - rb).abs()
+                        <= SUM_TOL * g_pre.sum(dim=(0, 2, 3)) + 1e-6).all()),
+            "dalpha": bool((da - ra).abs()
+                           <= SUM_TOL * (abs_g.view_as(g) * pre.abs()).sum() + 1e-6),
+            "launches": counted == (1, 1, 1),
+        }
+        res["dx"] = max(res["dx"], max((d - r).abs().max().item()
+                                       for d, r in zip(dxs, rxs)))
+        res["dw"] = max(res["dw"], (dw - rw).abs().max().item())
+        res["db"] = max(res["db"], (db - rb).abs().max().item())
+        res["dalpha"] = max(res["dalpha"], (da - ra).abs().item())
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            res["ok"] = False
+            log(f"  K1 backward {name} alpha={a}: FAIL {bad}")
+    log(f"  K1 backward {name} ({n_px} pixels, alpha in {ALPHAS}; "
+        f"{res['near_kink']} of {pre.numel()} outputs within {KINK:g} of the "
+        f"PReLU's kink left out): max err dx {res['dx']:.3g}, dW "
+        f"{res['dw']:.3g}, db {res['db']:.3g}, dalpha {res['dalpha']:.3g} "
+        f"({'ok' if res['ok'] else 'FAIL'})")
+    return res
+
+
+def dw_case(name, xs, g) -> dict:
+    """K1's dW / db kernel against its plain twin on the same operands, in
+    float32 and in bfloat16 (the twin then in float32 on the rounded
+    operands; the kernel sums in float32 either way), each within
+    ``SUM_TOL`` of the sum of its terms' magnitudes; two launches must give
+    the same bits (no atomics)."""
+    from vsr_tpu_torch.ops.fused_squeeze import (concat_conv1x1_dw,
+                                                 concat_conv1x1_dw_reference)
+
+    res = {"ok": True}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        ops, gg = [x.to(dtype) for x in xs], g.to(dtype)
+        with torch.no_grad():
+            before = concat_conv1x1_dw.launches
+            dw, db = concat_conv1x1_dw(ops, gg)
+            again = concat_conv1x1_dw(ops, gg)
+            launched = concat_conv1x1_dw.launches - before
+            floats = [x.float() for x in ops]
+            rw, rb = concat_conv1x1_dw_reference(floats, gg.float())
+            # The twin on the magnitudes: the sums of |g| |x| and of |g|.
+            sw, sb = concat_conv1x1_dw_reference([x.abs() for x in floats],
+                                                 gg.float().abs())
+        torch.cuda.synchronize()
+        res[f"{label}_dw"] = (dw - rw).abs().max().item()
+        res[f"{label}_db"] = (db - rb).abs().max().item()
+        ok = (dw.dtype == db.dtype == torch.float32 and dw.shape == rw.shape
+              and db.shape == rb.shape and launched == 2
+              and bool(((dw - rw).abs() <= SUM_TOL * sw + 1e-6).all())
+              and bool(((db - rb).abs() <= SUM_TOL * sb + 1e-6).all())
+              and torch.equal(dw, again[0]) and torch.equal(db, again[1]))
+        res["ok"] = res["ok"] and ok
+    log(f"  K1 dW/db kernel {name}: max err f32 dW {res['f32_dw']:.3g} db "
+        f"{res['f32_db']:.3g} | bf16 dW {res['bf16_dw']:.3g} db "
+        f"{res['bf16_db']:.3g}, two launches bit-equal "
+        f"({'ok' if res['ok'] else 'FAIL'})")
+    return res
+
+
+def phase_kernel_squeeze_backward(dev) -> dict:
+    """K1's gradient on the card against the twin's autograd, and one frame
+    step's 12 squeezes forward + backward against ``torch.cat`` + library
+    conv + ``prelu`` under autograd."""
+    from vsr_tpu_torch.ops.fused_squeeze import (concat_conv1x1,
+                                                 concat_conv1x1_dw,
+                                                 concat_conv1x1_dw_reference)
+
+    gen = torch.Generator().manual_seed(4)
+
+    def operands(n, channels, f_out, h, w):
+        xs = [torch.randn(n, c, h, w, generator=gen).to(dev) for c in channels]
+        scale = sum(channels) ** -0.5
+        wt = ((torch.rand(f_out, sum(channels), generator=gen) * 2 - 1)
+              * scale).to(dev)
+        b = ((torch.rand(f_out, generator=gen) * 2 - 1) * scale).to(dev)
+        g = torch.randn(n, f_out, h, w, generator=gen).to(dev)
+        return xs, wt, b, g
+
+    cases, dw_cases, rows = {}, {}, []
+    alpha = torch.full((1,), 0.2, device=dev)
+    for (k, side), count in sorted(TRAIN_SQUEEZES.items()):
+        xs, w, b, g = operands(TRAIN_N, (F_,) * k, F_, side, side)
+        name = f"train k={k} {side}x{side} N={TRAIN_N}"
+        cases[name] = backward_case(name, xs, w, b, g, dev)
+        dw_cases[name] = dw_case(name, xs, g)
+        # The library's form of dW and db: cuDNN's weight and bias gradient
+        # of the 1x1 conv on the concatenated input.
+        w4 = w[:, :, None, None].clone().requires_grad_(True)
+        b1 = b.clone().requires_grad_(True)
+        conv_out = torch.nn.functional.conv2d(torch.cat(xs, dim=1), w4, b1)
+        with torch.no_grad():
+            dw_times = {
+                "dw_ms": median_ms(lambda: concat_conv1x1_dw(xs, g)),
+                "dw_plain_ms": median_ms(
+                    lambda: concat_conv1x1_dw_reference(xs, g))}
+        dw_times["dw_library_ms"] = median_ms(lambda: torch.autograd.grad(
+            conv_out, (w4, b1), g, retain_graph=True))
+        del conv_out
+        leaves = [t.requires_grad_(True) for t in (*xs, w, b, alpha)]
+
+        # dx alone, as the backward launches it: the kernel on g with the
+        # weight W^T and no bias.
+        w_t, zero = w.detach().t().contiguous(), torch.zeros(k * F_, device=dev)
+
+        def dx_kernel():
+            with torch.no_grad():
+                return concat_conv1x1([g], w_t, zero)
+
+        def fwd_kernel():
+            return concat_conv1x1(xs, w, b, alpha)
+
+        def fwd_library():
+            return library_squeeze_prelu(xs, w[:, :, None, None], b, alpha)
+
+        def both(fwd):
+            return lambda: torch.autograd.grad(fwd(), leaves, g)
+
+        def backward_only(fwd):
+            out = fwd()
+            return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+        px = TRAIN_N * side * side
+        row = {"k": k, "side": side, "count_per_step": count,
+               "fwd_bwd_ms": median_ms(both(fwd_kernel), spins=5),
+               "fwd_bwd_library_ms": median_ms(both(fwd_library), spins=5),
+               "backward_ms": median_ms(backward_only(fwd_kernel), spins=5),
+               "backward_library_ms": median_ms(backward_only(fwd_library),
+                                                spins=5),
+               "dx_ms": median_ms(dx_kernel), **dw_times,
+               # dW / db alone: g and the x_i read once, dW and db written;
+               # 2 N hw sum(C) F for dW and N hw F for db.
+               "dw_bytes": 4 * (px * (F_ + k * F_) + k * F_ * F_ + F_),
+               "dw_flops": 2.0 * px * k * F_ * F_ + px * F_,
+               # g and the x_i read once, dx written once, W read, dW and db
+               # written; dx = g W^T and dW = x^T g at 2 N hw sum(C) F each.
+               "bytes": 4 * (px * (F_ + 2 * k * F_) + 2 * k * F_ * F_ + F_),
+               "flops": 4.0 * px * k * F_ * F_}
+        for t in leaves:
+            t.requires_grad_(False)
+        rows.append(row)
+        log(f"     forward + backward kernel {row['fwd_bwd_ms']:.4f} ms, "
+            f"library {row['fwd_bwd_library_ms']:.4f} ms | backward alone "
+            f"kernel {row['backward_ms']:.4f} ms (its dx launch "
+            f"{row['dx_ms']:.4f} ms, its dW/db kernel {row['dw_ms']:.4f} ms: "
+            f"twin {row['dw_plain_ms']:.4f} ms, cuDNN wgrad + bias "
+            f"{row['dw_library_ms']:.4f} ms), library "
+            f"{row['backward_library_ms']:.4f} ms")
+    xs, w, b, g = operands(FULL_SLICES, (F_,) * 6, F_, LR, LR)
+    cases["serving k=6 96x96 N=10"] = backward_case(
+        f"serving k=6 {LR}x{LR} N={FULL_SLICES}", xs, w, b, g, dev)
+    dw_cases["serving k=6 96x96 N=10"] = dw_case(
+        f"serving k=6 {LR}x{LR} N={FULL_SLICES}", xs, g)
+    xs, w, b, g = operands(2, (3, 17, 40), 70, 9, 13)
+    cases["ragged"] = backward_case("ragged 9x13, channels (3, 17, 40), F=70",
+                                    xs, w, b, g, dev)
+    dw_cases["ragged"] = dw_case("ragged 9x13, channels (3, 17, 40), F=70",
+                                 xs, g)
+    bad = [name for name, c in cases.items() if not c["ok"]]
+    if bad:
+        raise SystemExit(f"K1's backward disagrees with its twin's at {bad}")
+    bad = [name for name, c in dw_cases.items() if not c["ok"]]
+    if bad:
+        raise SystemExit(f"K1's dW / db kernel disagrees with its twin at {bad}")
+    summary = {key: sum(r[key] * r["count_per_step"] for r in rows)
+               for key in ("fwd_bwd_ms", "fwd_bwd_library_ms", "backward_ms",
+                           "backward_library_ms", "dx_ms", "bytes", "flops",
+                           "dw_ms", "dw_plain_ms", "dw_library_ms",
+                           "dw_bytes", "dw_flops")}
+    summary["bound_ms"], summary["bound_by"] = bound(
+        summary["bytes"], summary["flops"], PEAK_F32)
+    summary["dw_bound_ms"], summary["dw_bound_by"] = bound(
+        summary["dw_bytes"], summary["dw_flops"], PEAK_F32)
+    log(f"  K1 backward, one training frame step's {SQUEEZES_PER_STEP} "
+        f"squeezes (N={TRAIN_N}, {TRAIN_LR}x{TRAIN_LR} patches): backward "
+        f"{summary['backward_ms']:.4f} ms (of it the dx launches "
+        f"{summary['dx_ms']:.4f} ms and the dW/db kernel "
+        f"{summary['dw_ms']:.4f} ms: twin {summary['dw_plain_ms']:.4f} ms, "
+        f"cuDNN wgrad + bias {summary['dw_library_ms']:.4f} ms, bound "
+        f"{summary['dw_bound_ms']:.4f} ms by {summary['dw_bound_by']}) vs "
+        f"autograd through torch.cat + "
+        f"library conv + prelu {summary['backward_library_ms']:.4f} ms, bound "
+        f"{summary['bound_ms']:.4f} ms by {summary['bound_by']}; forward + "
+        f"backward {summary['fwd_bwd_ms']:.4f} ms vs "
+        f"{summary['fwd_bwd_library_ms']:.4f} ms")
+    return {"cases": cases, "dw_cases": dw_cases, "rows": rows,
+            "per_step": summary,
+            "max_abs_err": max(max(c["dx"], c["dw"], c["db"])
+                               for c in cases.values()),
+            "dw_max_abs_err": max(max(c["f32_dw"], c["f32_db"])
+                                  for c in dw_cases.values())}
+
+
+def smooth_sequence(rng: np.random.Generator) -> np.ndarray:
+    """(H, W, 1, T) uint8: noise low-passed in space and time, scaled to
+    [0, 255]. Smooth enough to be learnable, unlike white noise."""
+    noise = rng.standard_normal((HR, HR, T_FRAMES))
+    fy = np.fft.fftfreq(HR)[:, None, None]
+    fx = np.fft.fftfreq(HR)[None, :, None]
+    ft = np.fft.fftfreq(T_FRAMES)[None, None, :]
+    lowpass = np.exp(-(fy ** 2 + fx ** 2) / (2 * 0.04 ** 2) - ft ** 2 / (2 * 0.1 ** 2))
+    smooth = np.fft.ifftn(np.fft.fftn(noise) * lowpass).real
+    smooth = (smooth - smooth.min()) / (smooth.max() - smooth.min())
+    return np.round(smooth * 255).astype(np.uint8)[:, :, None, :]
+
+
+def make_training_tree(root: Path, dev) -> dict:
+    """The processed tree the datasets glob (``videos/`` and ``imgs/``,
+    ``{train,valid}/{HR,LR/X2}/patientNNN/...``), LR made by the port's own
+    k-space chain on the card; files are written by a thread pool (gzip
+    releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vsr_tpu_torch.io.nifti import save_nifti
+    from vsr_tpu_torch.preprocess.kspace import kspace_downscale_torch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    jobs, n_bytes, sequences = [], 0, {}
+    for split, (patients, slices) in TREE_SEQUENCES.items():
+        for p in range(1, patients + 1):
+            for s in range(1, slices + 1):
+                hr = smooth_sequence(rng)
+                frames = torch.from_numpy(np.ascontiguousarray(
+                    np.moveaxis(hr[:, :, 0], -1, 0))).float().to(dev)
+                lr = kspace_downscale_torch(frames, FACTOR).cpu().numpy()
+                lr = np.moveaxis(lr, 0, -1).astype(np.uint8)[:, :, None, :]
+                pat = f"patient{p:03d}"
+                sequences[split, p, s] = hr
+                for kind, sub, vol in (("HR", "HR", hr), ("LR", f"LR/X{FACTOR}", lr)):
+                    jobs.append((vol, root / "videos" / split / sub / pat
+                                 / f"{pat}_2d+1d_sequence{s:02d}.nii.gz"))
+                    jobs += [(vol[..., t], root / "imgs" / split / sub / pat
+                              / f"{pat}_2d_slice{s:02d}_frame{t + 1:02d}.nii.gz")
+                             for t in range(T_FRAMES)]
+                    n_bytes += 2 * vol.nbytes
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: save_nifti(*job), jobs))
+    seconds = time.perf_counter() - t0
+    log(f"  wrote the synthetic processed tree: {len(sequences)} sequences of "
+        f"{HR}x{HR}x1x{T_FRAMES} (+ LR x{FACTOR}), {len(jobs)} files, "
+        f"{n_bytes / 1e6:.1f} MB before gzip, in {seconds:.1f} s")
+    return {"seconds": seconds, "files": len(jobs), "sequences": sequences}
+
+
+class StepProbe:
+    """Wraps the trainers' step methods for one run: a CUDA-event pair and
+    the loss (left on the device) per train step, wall time and weight of
+    every epoch pass, the validation outputs of the last pass, and
+    optionally a SIGTERM to the process after ``sigterm_after`` steps."""
+
+    def __init__(self, sigterm_after: int = 0):
+        self.events, self.losses, self.passes = [], [], []
+        self.valid_outputs, self.sigterm_after = [], sigterm_after
+
+    def __enter__(self):
+        from vsr_tpu_torch.runner.trainers import BaseTrainer
+
+        self._cls = BaseTrainer
+        self._saved = (BaseTrainer._train_step, BaseTrainer._eval_step,
+                       BaseTrainer._run_epoch)
+        train_step, eval_step, run_epoch = self._saved
+        probe = self
+
+        def timed_train_step(trainer, inputs, targets):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            scalars, outputs = train_step(trainer, inputs, targets)
+            end.record()
+            probe.events.append((start, end))
+            probe.losses.append(scalars[0])
+            if len(probe.events) == probe.sigterm_after:
+                import os
+                import signal
+
+                os.kill(os.getpid(), signal.SIGTERM)
+            return scalars, outputs
+
+        def kept_eval_step(trainer, inputs, targets):
+            scalars, outputs = eval_step(trainer, inputs, targets)
+            probe.valid_outputs.append(outputs)
+            return scalars, outputs
+
+        def timed_run_epoch(trainer, mode, epoch):
+            if mode == "validation":
+                probe.valid_outputs.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            log_, batch, outputs = run_epoch(trainer, mode, epoch)
+            torch.cuda.synchronize()
+            probe.passes.append((mode, time.perf_counter() - t0))
+            return log_, batch, outputs
+
+        (BaseTrainer._train_step, BaseTrainer._eval_step,
+         BaseTrainer._run_epoch) = (timed_train_step, kept_eval_step,
+                                    timed_run_epoch)
+        return self
+
+    def __exit__(self, *exc):
+        (self._cls._train_step, self._cls._eval_step,
+         self._cls._run_epoch) = self._saved
+
+    def step_ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+    def seconds(self, mode: str) -> float:
+        return sum(s for m, s in self.passes if m == mode)
+
+
+def training_config(name: str, tree: Path, saved: Path, net_kwargs: dict,
+                    tmp: Path, **main_kwargs):
+    """``configs/train/<name>.yaml`` pointed at the temporary tree, written
+    to a file and read back as a user's config would be."""
+    from vsr_tpu_torch.config import load_config, save_config
+
+    root = Path(__file__).resolve().parent
+    cfg = load_config(root / "configs" / "train" / f"{name}.yaml")
+    cfg.main.saved_dir = str(saved)
+    cfg.main.update(main_kwargs)
+    sub = "videos" if "vsr" in name else "imgs"
+    cfg.dataset.kwargs.data_dir = str(tree / sub)
+    cfg.net.kwargs.update(net_kwargs)
+    cfg.trainer.kwargs.num_epochs = TRAIN_EPOCHS
+    cfg.monitor.kwargs.saved_freq = TRAIN_EPOCHS
+    path = tmp / f"{saved.name}.yaml"
+    save_config(cfg, path)
+    return load_config(path)
+
+
+def train_run(what: str, cfg, card: str, per_sample: int,
+              squeezes_on: bool | None, sigterm_after: int = 0) -> dict:
+    """One ``run_train`` of a config on the card, probed; checks the launch
+    counts (``squeezes_on`` None: a net without K1), the loss, the files."""
+    from vsr_tpu_torch.main import run_train
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    with StepProbe(sigterm_after) as probe:
+        trainer = run_train(cfg)
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    step_ms = probe.step_ms()
+    losses = torch.stack(probe.losses).tolist()
+    steps = len(step_ms)
+    valid_frames = sum(o.shape[0] * (o.shape[1] if o.dim() == 5 else 1)
+                       for o in probe.valid_outputs)
+    valid_passes = sum(m == "validation" for m, _ in probe.passes)
+    samples = trainer.train_dataloader.batch_size * per_sample  # a full batch
+    want_fwd = want_bwd = 0
+    if squeezes_on:
+        frames = TRAIN_T * steps + valid_frames * valid_passes
+        want_fwd = SQUEEZES_PER_STEP * frames
+        want_bwd = SQUEEZES_PER_STEP * TRAIN_T * steps
+    check_launches(what, "concat_conv1x1", want_fwd, want_bwd)
+    params = {k: v.detach().clone() for k, v in trainer.net.state_dict().items()}
+    if not all(torch.isfinite(v).all() for v in params.values()):
+        raise SystemExit(f"{what}: a parameter is not finite")
+    epochs = [json.loads(line) for line in
+              (Path(cfg.main.saved_dir) / "log" / "metrics.jsonl")
+              .read_text().splitlines()]
+    res = {"steps": steps, "first_loss": losses[0], "last_loss": losses[-1],
+           "train_loss_by_epoch": [e["train"]["Loss"] for e in epochs],
+           "valid_loss_by_epoch": [e["valid"]["Loss"] for e in epochs],
+           "valid_psnr_by_epoch": [e["valid"]["PSNR"] for e in epochs],
+           "median_step_ms": statistics.median(step_ms[3:] or step_ms),
+           "train_seconds": probe.seconds("training"),
+           "valid_seconds": probe.seconds("validation"),
+           "valid_frames_per_pass": valid_frames,
+           "peak_memory_gb": peak_gb, "launches": want_fwd,
+           "backward_launches": want_bwd, "epochs_logged": len(epochs)}
+    res["train_frames_per_sec"] = samples * 1e3 / res["median_step_ms"]
+    if valid_passes:
+        res["valid_frames_per_sec"] = (valid_frames * valid_passes
+                                       / res["valid_seconds"])
+    log(f"  {what}: {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(epoch means {[round(v, 4) for v in res['train_loss_by_epoch']]}, "
+        f"validation {[round(v, 4) for v in res['valid_loss_by_epoch']]}), "
+        f"median step {res['median_step_ms']:.2f} ms "
+        f"({res['train_frames_per_sec']:.0f} patch-frames/s in a step; "
+        f"{res['train_seconds']:.2f} s of training passes with the loader), "
+        f"validation {res.get('valid_frames_per_sec', 0):.1f} frames/s, peak "
+        f"memory {peak_gb:.2f} GB, K1 launches {want_fwd} forward "
+        f"{want_bwd} backward [{card}]")
+    return {"stats": res, "trainer": trainer, "params": params,
+            "valid_outputs": list(probe.valid_outputs)}
+
+
+def check_loss_fell(what: str, stats: dict) -> None:
+    """The loss after the last step is lower than after the first, and so
+    are the epoch means of the training loss and the validation loss (the
+    same whole sequences every epoch: no sampling noise)."""
+    pairs = {"step": (stats["first_loss"], stats["last_loss"]),
+             "training epoch": (stats["train_loss_by_epoch"][0],
+                                stats["train_loss_by_epoch"][-1]),
+             "validation": (stats["valid_loss_by_epoch"][0],
+                            stats["valid_loss_by_epoch"][-1])}
+    bad = {k: v for k, v in pairs.items() if not v[1] < v[0]}
+    if bad:
+        raise SystemExit(f"{what}: the loss did not fall (first, last): {bad}")
+
+
+def phase_training(tmp: Path, card: str, dev) -> dict:
+    from vsr_tpu_torch import infer
+    from vsr_tpu_torch.io.nifti import load_nifti, save_nifti
+    from vsr_tpu_torch.utils.normalize import DATASET_STATS
+
+    log("phase 7a: the synthetic processed tree")
+    tree = make_training_tree(tmp / "tree", dev)
+    res = {"tree": {k: tree[k] for k in ("seconds", "files")}}
+
+    log("phase 7b: VSR training, DRFNet F=64 G=6 x2 (AcdcVSRTrainer, K1 "
+        "forward and backward)")
+    runs = {}
+    for name, fused in (("fused", True), ("fused_again", True),
+                        ("unfused", False)):
+        cfg = training_config("acdc_vsr_drf_x2", tmp / "tree",
+                              tmp / f"vsr_{name}", {"fused_squeeze": fused}, tmp)
+        runs[name] = train_run(f"vsr {name}", cfg, card, TRAIN_T, fused)
+    for name, run in runs.items():
+        s = run["stats"]
+        check_loss_fell(f"vsr {name}", s)
+        ckpts = tmp / f"vsr_{name}" / "checkpoints"
+        for file in ("model_best.ckpt", f"model_{TRAIN_EPOCHS}.ckpt"):
+            if not (ckpts / file).is_file():
+                raise SystemExit(f"vsr {name}: no {file}")
+        if s["epochs_logged"] != TRAIN_EPOCHS:
+            raise SystemExit(f"vsr {name}: {s['epochs_logged']} epochs logged")
+    on, off = runs["fused"]["stats"], runs["unfused"]["stats"]
+    # One seed, one first batch, one init: the first loss differs only by the
+    # kernel's summation order against cuDNN's.
+    first_rel = abs(on["first_loss"] - off["first_loss"]) / off["first_loss"]
+    if first_rel > 1e-4:
+        raise SystemExit(f"vsr: first loss with the kernel on and off differ "
+                         f"by {first_rel:.3g} relative")
+    bit_equal = all(torch.equal(v, runs["fused_again"]["params"][k])
+                    for k, v in runs["fused"]["params"].items())
+    log(f"  vsr kernel on vs off: first loss {on['first_loss']:.6f} vs "
+        f"{off['first_loss']:.6f} (relative {first_rel:.2g}); peak memory "
+        f"{on['peak_memory_gb']:.2f} vs {off['peak_memory_gb']:.2f} GB; two "
+        f"runs from one seed end in bit-equal parameters: {bit_equal} (not "
+        f"gated)")
+    res["vsr"] = {name: run["stats"] for name, run in runs.items()}
+    res["vsr"]["first_loss_relative_diff"] = first_rel
+    res["vsr"]["two_runs_bit_equal"] = bit_equal
+
+    log("phase 7c: SISR training, EDSRNet 16 x 64 x2 (AcdcSISRTrainer, no "
+        "kernel)")
+    cfg = training_config("acdc_sisr_edsr_x2", tmp / "tree", tmp / "sisr", {},
+                          tmp)
+    sisr = train_run("sisr", cfg, card, 1, None)["stats"]
+    check_loss_fell("sisr", sisr)
+    if not (tmp / "sisr" / "checkpoints" / "model_best.ckpt").is_file():
+        raise SystemExit("sisr: no model_best.ckpt")
+    res["sisr"] = sisr
+
+    log("phase 7d: train, then serve (infer --video --checkpoint)")
+    hr = tree["sequences"]["valid", 1, 1].astype(np.float32)  # (H, W, 1, T)
+    save_nifti(hr, tmp / "serve_in" / "patient001" / "patient001_4d.nii")
+    net_kwargs = dict(DRF_KWARGS, fused_squeeze=True)
+    served = {}
+    for name, extra in (("trained", ["--checkpoint", str(
+            tmp / "vsr_fused" / "checkpoints" / f"model_{TRAIN_EPOCHS}.ckpt")]),
+                        ("untrained", [])):
+        stats = infer.main([str(tmp / "serve_in"), str(tmp / f"serve_{name}"),
+                            "--video", "--psnr", "--net", "DRFNet",
+                            "--net-kwargs", json.dumps(net_kwargs), *extra])
+        served[name] = (stats["psnr_mean"], load_nifti(
+            tmp / f"serve_{name}" / "patient001" / "patient001_4d_sr.nii.gz"))
+    mean, std = DATASET_STATS["acdc"]
+    own = runs["fused"]["valid_outputs"][0]  # (1, T, 1, H, W), sequence 1
+    own = torch.clamp(torch.round(own[0, :, 0] * std + mean), 0.0, 255.0)
+    own = np.moveaxis(own.cpu().numpy(), 0, -1)  # (H, W, T)
+    exact, worst = agreement(served["trained"][1][:, :, 0], own)
+    log(f"  served PSNR against HR on one validation sequence: trained "
+        f"{served['trained'][0]:.3f} dB, untrained {served['untrained'][0]:.3f}"
+        f" dB; served vs the trainer's own validation output: "
+        f"{exact * 100:.3f}% exact, max {worst:g} grey")
+    check_sr("serve trained", served["trained"][1], (HR, HR, 1, T_FRAMES))
+    if worst > 1:
+        raise SystemExit("the served output of the trained checkpoint is not "
+                         "the trainer's own validation output")
+    res["serve"] = {"trained_psnr": served["trained"][0],
+                    "untrained_psnr": served["untrained"][0],
+                    "exact_fraction": exact, "max_grey_diff": worst}
+
+    log("phase 7e: card vs CPU, one training batch")
+    res["card_vs_cpu"] = training_card_vs_cpu(runs["fused"]["trainer"], dev)
+
+    log("phase 7f: preemption on the card")
+    cfg = training_config("acdc_vsr_drf_x2", tmp / "tree", tmp / "vsr_preempt",
+                          {"fused_squeeze": True}, tmp, auto_resume=True)
+    cfg.trainer.kwargs.num_epochs = 1
+    first = train_run("vsr preempted after 3 steps", cfg, card, TRAIN_T, True,
+                      sigterm_after=3)["stats"]
+    preempt = tmp / "vsr_preempt" / "checkpoints" / "model_preempt.ckpt"
+    if first["steps"] != 3 or not preempt.is_file():
+        raise SystemExit("preemption: no model_preempt.ckpt after 3 steps")
+    resumed = train_run("vsr resumed", cfg, card, TRAIN_T, True)["stats"]
+    per_epoch = on["steps"] // TRAIN_EPOCHS
+    if first["steps"] + resumed["steps"] != per_epoch or resumed[
+            "epochs_logged"] != 1:
+        raise SystemExit(f"preemption: {first['steps']} + {resumed['steps']} "
+                         f"steps do not make the epoch's {per_epoch}")
+    log(f"  SIGTERM after 3 steps wrote model_preempt.ckpt; the resumed run "
+        f"trained the epoch's other {resumed['steps']} steps and logged it")
+    res["preemption"] = {"steps_before": first["steps"],
+                         "steps_after": resumed["steps"]}
+    return res
+
+
+def training_card_vs_cpu(trainer, dev) -> dict:
+    """Loss and every parameter's gradient of one batch (4 windows of it) on
+    the card (K1 on) against the CPU (twin), from the same weights."""
+    import copy
+
+    batch = next(trainer.train_dataloader.epoch(trainer.rng_tree, 1))
+    lr = torch.from_numpy(batch["lr_imgs"][:4]).permute(0, 1, 4, 2, 3)
+    hr = torch.from_numpy(batch["hr_imgs"][:4]).permute(0, 1, 4, 2, 3)
+    out = {}
+    for device in (dev, "cpu"):
+        reset_launches()
+        net = copy.deepcopy(trainer.net).to(device).train()
+        net.zero_grad(set_to_none=True)
+        loss = trainer._weighted_total(trainer._compute_losses(
+            net(lr.to(device)), hr.to(device)))
+        loss.backward()
+        launched = kernel_counters()["concat_conv1x1"].launches
+        if (launched > 0) != (device != "cpu"):
+            raise SystemExit(f"training on {device}: {launched} launches")
+        out[str(device)] = (loss.item(), {k: p.grad.cpu() for k, p in
+                                          net.named_parameters()})
+    (loss_card, g_card), (loss_cpu, g_cpu) = out[str(dev)], out["cpu"]
+    # Each gradient against the largest entry of its CPU counterpart: both
+    # are float32 sums over 4 x 5 frames of pixels in another order.
+    worst = max(((g_card[k] - g_cpu[k]).abs().max()
+                 / g_cpu[k].abs().max().clamp_min(1e-12)).item() for k in g_cpu)
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    log(f"  one batch of 4 windows: loss {loss_card:.6f} on the card vs "
+        f"{loss_cpu:.6f} on the CPU (relative {loss_rel:.2g}); worst "
+        f"parameter gradient differs by {worst:.2g} of its largest entry")
+    if loss_rel > 1e-4 or worst > 1e-3:
+        raise SystemExit("training: card and CPU losses or gradients disagree")
+    return {"loss_relative_diff": loss_rel, "worst_gradient_relative_diff": worst}
+
+
+def phase_profile_training(tmp: Path, dev) -> dict:
+    """``torch.profiler`` over 6 train steps of each training path (DRFNet
+    kernel on and off, EDSRNet) after 3 warm-up steps: device time by
+    kernel, the idle share against the wall time of 6 unprofiled steps, and
+    for K1 the device time of its own kernels (forward and dx launches
+    together, phase 6 times them apart; the dW / db kernel) and of the
+    PyTorch kernels its backward launches besides (the sum of the partial
+    tiles, W^T, casts), read from a profiler range around the backward: a
+    range's device time is that of the PyTorch kernels launched inside it,
+    and leaves out the port's own launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from vsr_tpu_torch.main import run_train
+    from vsr_tpu_torch.ops import fused_squeeze as fs
+
+    def ranged_backward(ctx, grad_out):
+        with record_function("K1 backward"):
+            return backward(ctx, grad_out)
+
+    res = {}
+    for key, name, kwargs in (
+            ("vsr_fused", "acdc_vsr_drf_x2", {"fused_squeeze": True}),
+            ("vsr_unfused", "acdc_vsr_drf_x2", {"fused_squeeze": False}),
+            ("sisr", "acdc_sisr_edsr_x2", {})):
+        cfg = training_config(name, tmp / "tree", tmp / f"profile_{key}",
+                              kwargs, tmp)
+        cfg.trainer.kwargs.num_epochs = 0  # build everything, train nothing
+        trainer = run_train(cfg)
+        batches = list(trainer.train_dataloader.epoch(trainer.rng_tree, 1))[:3]
+
+        def steps(n):
+            """Host batches in: the copy to the device is part of a step."""
+            for i in range(n):
+                trainer._train_step(*trainer._get_inputs_targets(
+                    batches[i % len(batches)]))
+            torch.cuda.synchronize()
+
+        steps(3)
+        t0 = time.perf_counter()
+        steps(6)
+        wall = (time.perf_counter() - t0) * 1e3
+        backward = fs._ConcatConv1x1.backward
+        fs._ConcatConv1x1.backward = staticmethod(ranged_backward)
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                steps(6)
+        finally:
+            fs._ConcatConv1x1.backward = staticmethod(backward)
+        rows = device_rows(prof)
+        busy = sum(r[1] for r in rows)
+        k1_rest = sum(e.device_time_total / 1e3 for e in prof.key_averages()
+                      if e.key == "K1 backward"
+                      and e.device_type == DeviceType.CPU)
+        # Device ms per step of the kernels whose name holds the word.
+        share = {name: sum(ms for k, ms, _ in rows if word in k) / 6
+                 for name, word in (("k1_kernel", "concat_conv1x1_kernel"),
+                                    ("k1_dw_kernel", "concat_dw_kernel"),
+                                    ("cudnn_dgrad", "dgrad"),
+                                    ("cudnn_wgrad", "wgrad"),
+                                    ("optimizer", "multi_tensor_apply"),
+                                    ("h2d", "Memcpy HtoD"))}
+        res[key] = {
+            "wall_ms_per_step": wall / 6, "busy_ms_per_step": busy / 6,
+            "idle_share": 1 - busy / wall,
+            **{f"{name}_ms_per_step": ms for name, ms in share.items()},
+            "k1_backward_rest_ms_per_step": k1_rest / 6,
+            "top": [{"kernel": k[:100], "ms_per_step": ms / 6, "calls": c // 6}
+                    for k, ms, c in rows[:20]]}
+        log(f"  profile training {key}: wall {wall / 6:.1f} ms/step, busy "
+            f"{busy / 6:.1f} ms/step, idle share {1 - busy / wall:.3f}; ms "
+            f"per step of device time: K1's kernel (forward + dx) "
+            f"{share['k1_kernel']:.2f}, its dW/db kernel "
+            f"{share['k1_dw_kernel']:.2f}, the PyTorch kernels of its "
+            f"backward (the partial sum, W^T, casts) {k1_rest / 6:.2f}, "
+            f"cuDNN dgrad {share['cudnn_dgrad']:.2f}, "
+            f"wgrad {share['cudnn_wgrad']:.2f}, optimizer "
+            f"{share['optimizer']:.2f}, H2D {share['h2d']:.3f}")
+        for k, ms, c in rows[:12]:
+            log(f"    {ms / 6:9.3f} ms/step {c // 6:5d} x {k[:90]}")
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="",
                         help="also write the full results as JSON here")
     parser.add_argument("--profile", action="store_true",
                         help="add a torch.profiler trace of one full volume "
-                             "per path")
+                             "per serving path and of 6 train steps per "
+                             "training path")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -818,13 +1569,21 @@ def main() -> int:
         paths = phase_paths(Path(tmp), card, dev)
     log("phase 5: card vs CPU")
     cpu_ref = phase_cpu_reference(dev)
-    results = {"card": smi, "build_seconds": build_s,
-               "kernel": {"concat_conv1x1": k1, "pairwise_rank": k3,
-                          "duf_dynamic_filter": k2},
-               "paths": paths, "card_vs_cpu": cpu_ref}
-    if args.profile:
-        log("phase 6: torch.profiler traces")
-        results["profile"] = phase_profile(dev)
+    log("phase 6: K1 backward vs twin")
+    k1_bwd = phase_kernel_squeeze_backward(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        training = phase_training(Path(tmp), card, dev)
+        results = {"card": smi, "build_seconds": build_s,
+                   "kernel": {"concat_conv1x1": k1,
+                              "concat_conv1x1_backward": k1_bwd,
+                              "pairwise_rank": k3, "duf_dynamic_filter": k2},
+                   "paths": paths, "card_vs_cpu": cpu_ref,
+                   "training": training}
+        if args.profile:
+            log("phase 8: torch.profiler traces")
+            results["profile"] = phase_profile(dev)
+            results["profile_training"] = phase_profile_training(
+                Path(tmp), dev)
     results["seconds"] = time.perf_counter() - started
     log(f"  chip_smoke took {results['seconds']:.1f} s [{card}]")
     if args.out:
@@ -843,6 +1602,33 @@ def main() -> int:
         "source": "vsr_tpu_torch/csrc/fused_squeeze.cu",
         "replaces": "vsr_tpu/ops/fused_squeeze.py:81",
         "launches": launches("drf"),
+        # The training path (DRFNet under AcdcVSRTrainer, kernel on): forward
+        # launches of its train and validation steps, and the launches that
+        # compute dx in its backward.
+        "train_launches": training["vsr"]["fused"]["launches"],
+        "backward_launches": training["vsr"]["fused"]["backward_launches"],
+        # dx, dW, db against autograd through the twin, float32, all shapes.
+        "backward_max_abs_err": k1_bwd["max_abs_err"],
+        # The backward of one training frame step's 12 squeezes (N = 16,
+        # 32 x 32 patches), against autograd through torch.cat + the
+        # library's conv + prelu.
+        "backward_ms": k1_bwd["per_step"]["backward_ms"],
+        "backward_dx_ms": k1_bwd["per_step"]["dx_ms"],
+        "backward_library_ms": k1_bwd["per_step"]["backward_library_ms"],
+        "backward_bound_ms": k1_bwd["per_step"]["bound_ms"],
+        "backward_bound_by": k1_bwd["per_step"]["bound_by"],
+        # The dW / db kernel of that backward (csrc/fused_squeeze_dw.cu; the
+        # JAX package computes dW and db in XLA, vsr_tpu/ops/
+        # fused_squeeze.py:104, so it replaces no TPU kernel): the same 12
+        # squeezes, against its twin and against cuDNN's wgrad + bias grad.
+        "dw_source": "vsr_tpu_torch/csrc/fused_squeeze_dw.cu",
+        "dw_launches": training["vsr"]["fused"]["backward_launches"],
+        "dw_max_abs_err": k1_bwd["dw_max_abs_err"],
+        "dw_ms": k1_bwd["per_step"]["dw_ms"],
+        "dw_plain_ms": k1_bwd["per_step"]["dw_plain_ms"],
+        "dw_bound_ms": k1_bwd["per_step"]["dw_bound_ms"],
+        "dw_bound_by": k1_bwd["per_step"]["dw_bound_by"],
+        "dw_library_ms": k1_bwd["per_step"]["dw_library_ms"],
         "max_abs_err": k1["f32_max_abs_err"],
         "ms": per_step["f32_ms"], "plain_ms": per_step["f32_plain_ms"],
         "bound_ms": per_step["f32_bound_ms"],

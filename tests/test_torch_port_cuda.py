@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels on the card, each against its plain twin:
-the fused squeeze (K1), the DUF dynamic filter (K2), the pairwise rank (K3).
+the fused squeeze (K1, with its backward: dx through the same kernel, dW / db
+through their own), the DUF dynamic filter (K2), the pairwise rank (K3).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false (decided in the fixture, never at import). On a machine with an H100:
@@ -79,6 +80,9 @@ K1_CASES = {
     "k8_streamed_weights": ((200,) * 8, 64, 1, 8, 24),
     # 360 pixel tiles: more than the grid, so blocks walk several tiles.
     "many_tiles": ((64, 64), 64, 5, 96, 96),
+    # 64 output tiles of the dW kernel: fewer splits than images, so its
+    # blocks sum over several images each.
+    "many_images_wide_f": ((64,) * 8, 512, 40, 4, 8),
 }
 
 
@@ -141,15 +145,214 @@ def test_kernel_takes_inputs_off_16_byte_alignment(rng, dev, dtype):
 
 
 def test_kernel_refuses_grad_and_strided_inputs(rng, dev):
+    # A call that needs gradients is no longer refused: it launches the
+    # kernel through the autograd Function (the backward cases are below).
     xs, w, b = _operands(rng, dev, (4, 4), 8)
     w.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fs.concat_conv1x1(xs, w, b)
+    before = fs.concat_conv1x1.launches
+    assert fs.concat_conv1x1(xs, w, b).requires_grad
+    assert fs.concat_conv1x1.launches == before + 1
     with torch.no_grad():
         with pytest.raises(ValueError, match="contiguous"):
             fs.concat_conv1x1(
                 [xs[0], xs[1].contiguous(memory_format=torch.channels_last)],
                 w, b)
+
+
+# ------------------------------------------------------------- K1 backward
+
+
+def _grads(fn, xs, w, b, alpha, g):
+    """Forward through ``fn``, backward with ``g``: the output and the
+    gradients of (xs..., w, b, alpha)."""
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (*xs, w, b, alpha)]
+    out = fn(leaves[:len(xs)], *leaves[len(xs):])
+    return out.detach(), torch.autograd.grad(out, leaves, g)
+
+
+def _off_the_kink(g, xs, w, b):
+    """``g`` zeroed where the twin's pre-activation is within the forward's
+    bar (1e-4) of 0: there the kernel's and the twin's last bits may fall on
+    different sides of the PReLU's kink, where the derivative jumps by
+    (1 - alpha). Which side is the forward's rounding, not the backward."""
+    with torch.no_grad():
+        pre = fs.concat_conv1x1_reference(xs, w, b)
+    return g.masked_fill(pre.abs() < 1e-4, 0)
+
+
+# The twin's autograd is the reference (torch.autograd.gradcheck wants
+# float64, which the kernel does not take). alpha 0 and negative: the sign of
+# the pre-activation cannot be read off a fused output.
+@pytest.mark.parametrize("alpha", [0.2, 0.0, -0.3])
+@pytest.mark.parametrize("case", ["aligned_k2",
+                                  "unaligned_hw_ragged_channels_f70",
+                                  "k8_channels_off_the_k_tile", "many_tiles"])
+def test_kernel_backward_matches_twin_autograd_f32(rng, dev, case, alpha):
+    channels, f, n, h, w = K1_CASES[case]
+    xs, wt, b = _operands(rng, dev, channels, f, n, h, w)
+    a = torch.tensor([alpha], device=dev)
+    g = torch.from_numpy(rng.standard_normal((n, f, h, w)).astype(np.float32)
+                         ).to(dev)
+    g = _off_the_kink(g, xs, wt, b)
+    before = (fs.concat_conv1x1.launches, fs.concat_conv1x1.backward_launches,
+              fs.concat_conv1x1_dw.launches)
+    out, got = _grads(fs.concat_conv1x1, xs, wt, b, a, g)
+    assert (fs.concat_conv1x1.launches, fs.concat_conv1x1.backward_launches,
+            fs.concat_conv1x1_dw.launches) == tuple(c + 1 for c in before)
+    ref, want = _grads(fs.concat_conv1x1_reference, xs, wt, b, a, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    k = len(xs)
+    for d, r in zip(got[:k], want[:k]):  # dx: sums of F products
+        assert d.dtype == torch.float32 and d.shape == r.shape
+        torch.testing.assert_close(d, r, rtol=1e-4, atol=1e-4)
+    # dW, db, dalpha: float32 sums over N*H*W terms in another order than the
+    # twin's; 1e-5 of the largest entry times sqrt(terms) covers the order,
+    # a wrong term would be off by O(1).
+    terms = n * h * w
+    for d, r in zip(got[k:], want[k:]):
+        assert d.shape == r.shape
+        bar = 1e-5 * max(r.abs().max().item(), 1.0) * terms ** 0.5
+        torch.testing.assert_close(d, r, rtol=1e-4, atol=bar)
+
+
+@pytest.mark.parametrize("alpha", [0.2, -0.3])
+def test_kernel_backward_bf16(rng, dev, alpha):
+    """bf16 activations and float32 parameters: dx comes back in bf16, dW and
+    db in float32, against the float32 twin on the bf16-rounded operands."""
+    channels, f, n, h, w = (64, 64, 64), 64, 2, 16, 16
+    xs, wt, b = _operands(rng, dev, channels, f, n, h, w)
+    xs16 = [x.bfloat16() for x in xs]
+    a = torch.tensor([alpha], device=dev)
+    g = torch.from_numpy(rng.standard_normal((n, f, h, w)).astype(np.float32)
+                         ).to(dev).bfloat16()
+    twin_ops = ([x.float() for x in xs16], wt.bfloat16().float(),
+                b.bfloat16().float())
+    g = _off_the_kink(g, *twin_ops)
+    out, got = _grads(fs.concat_conv1x1, xs16, wt, b, a, g)
+    ref, want = _grads(fs.concat_conv1x1_reference, *twin_ops,
+                       a.bfloat16().float(), g.float())
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref, rtol=8e-3, atol=1e-4)
+    # The kernel's PReLU input is the bf16-rounded pre-activation, the twin's
+    # is float32: gradients are held to bf16's 2^-8 of their scale.
+    for d, r in zip(got[:3], want[:3]):
+        assert d.dtype == torch.bfloat16
+        torch.testing.assert_close(d.float(), r, rtol=2e-2,
+                                   atol=2e-2 * r.abs().max().item())
+    for d, r in zip(got[3:5], want[3:5]):
+        assert d.dtype == torch.float32
+        torch.testing.assert_close(d, r, rtol=2e-2,
+                                   atol=2e-2 * r.abs().max().item())
+
+
+# --------------------------------------------------------- K1 dW / db kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_dw_kernel_matches_twin(rng, dev, case, dtype):
+    """The split-K dW / db kernel against its plain twin: ragged channel
+    counts, F off the 64-row tile, pixel counts off the 32-pixel step,
+    streamed sums over several images per block (many_tiles)."""
+    channels, f, n, h, w = K1_CASES[case]
+    xs, _, _ = _operands(rng, dev, channels, f, n, h, w)
+    xs = [x.to(dtype) for x in xs]
+    g = torch.from_numpy(rng.standard_normal((n, f, h, w)).astype(np.float32)
+                         ).to(dev).to(dtype)
+    before = fs.concat_conv1x1_dw.launches
+    dw, db = fs.concat_conv1x1_dw(xs, g)
+    again = fs.concat_conv1x1_dw(xs, g)
+    assert fs.concat_conv1x1_dw.launches == before + 2
+    floats = [x.float() for x in xs]
+    want_dw, want_db = fs.concat_conv1x1_dw_reference(floats, g.float())
+    # The sums of the terms' magnitudes: float32 sums in another order are
+    # held to 1e-5 of them (the kernel sums in float32 in bf16 mode too).
+    scale_dw, scale_db = fs.concat_conv1x1_dw_reference(
+        [x.abs() for x in floats], g.float().abs())
+    torch.cuda.synchronize()
+    assert dw.dtype == db.dtype == torch.float32
+    assert dw.shape == (f, sum(channels)) and db.shape == (f,)
+    assert bool(((dw - want_dw).abs() <= 1e-5 * scale_dw + 1e-6).all())
+    assert bool(((db - want_db).abs() <= 1e-5 * scale_db + 1e-6).all())
+    # No atomics: the same bits every launch.
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+def test_dw_kernel_refuses_what_it_cannot_take(rng, dev):
+    xs, _, _ = _operands(rng, dev, (4, 4), 8)
+    g = torch.zeros(2, 8, 9, 13, device=dev)
+    with pytest.raises(ValueError, match="g must be"):
+        fs.concat_conv1x1_dw(xs, g.bfloat16())
+    with pytest.raises(ValueError, match="g must be"):
+        fs.concat_conv1x1_dw(xs, g[:, :, :8])
+    with pytest.raises(ValueError, match="g must be"):
+        fs.concat_conv1x1_dw(xs, g.contiguous(memory_format=torch.channels_last))
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.concat_conv1x1_dw(
+            [xs[0], xs[1].contiguous(memory_format=torch.channels_last)], g)
+
+
+# -------------------------------------------------------------- the trainers
+
+
+def _write_tree(root, rng, frames=5, size=32):
+    """A processed tree of one training and one validation sequence, LR by
+    2 x 2 averaging, written with the port's own NIfTI writer."""
+    from vsr_tpu_torch.io.nifti import save_nifti
+
+    for split in ("train", "valid"):
+        hr = rng.integers(0, 256, (size, size, 1, frames)).astype(np.uint8)
+        lr = hr.reshape(size // 2, 2, size // 2, 2, 1, frames).mean(
+            axis=(1, 3)).astype(np.uint8)
+        for sub, vol in (("HR", hr), ("LR/X2", lr)):
+            save_nifti(vol, root / "videos" / split / sub / "patient001"
+                       / "patient001_2d+1d_sequence01.nii.gz")
+            for t in range(frames):
+                save_nifti(vol[..., t], root / "imgs" / split / sub
+                           / "patient001"
+                           / f"patient001_2d_slice01_frame{t + 1:02d}.nii.gz")
+    return root
+
+
+@pytest.mark.parametrize("task", ["sisr", "vsr"])
+def test_trainer_takes_two_steps_on_the_card(rng, dev, tmp_path, task):
+    from vsr_tpu_torch.config import load_config
+    from vsr_tpu_torch.main import run_train
+    from vsr_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tree = _write_tree(tmp_path / "tree", rng)
+    name = {"sisr": "acdc_sisr_edsr_x2", "vsr": "acdc_vsr_drf_x2"}[task]
+    cfg = load_config(f"configs/train/{name}.yaml")
+    cfg.main.saved_dir = str(tmp_path / "run")
+    cfg.dataset.kwargs.data_dir = str(
+        tree / ("imgs" if task == "sisr" else "videos"))
+    cfg.dataset.kwargs.augments = [
+        {"name": "RandomCropPatch", "kwargs": {"size": [8, 8], "ratio": 2}}]
+    # 5 samples in batches of 3: two steps an epoch, the second one partial.
+    cfg.dataloader.kwargs.update(train_batch_size=3, num_workers=2)
+    if task == "sisr":
+        cfg.net.kwargs.update(num_resblocks=2, num_features=8)
+    else:
+        cfg.dataset.kwargs.num_frames = 3
+        cfg.net.kwargs.update(num_features=8, num_groups=2, fused_squeeze=True)
+    cfg.monitor.kwargs.saved_freq = 1
+    cfg.trainer.kwargs.num_epochs = 1
+    fs.concat_conv1x1.launches = fs.concat_conv1x1.backward_launches = 0
+    fs.concat_conv1x1_dw.launches = 0
+    trainer = run_train(cfg)  # the default device: cuda
+    assert trainer.device.type == "cuda"
+    state, aux = load_checkpoint(tmp_path / "run" / "checkpoints" / "model_1.ckpt")
+    assert aux["epoch"] == 1
+    assert all(torch.isfinite(v).all() for v in state["net"].values())
+    assert (tmp_path / "run" / "checkpoints" / "model_best.ckpt").is_file()
+    # G = 2: four squeezes of more than one part per frame step. Two train
+    # steps of T = 3 frames, one validation sequence of 5 frames.
+    want = (4 * (2 * 3 + 5), 4 * 2 * 3, 4 * 2 * 3) if task == "vsr" else (0, 0, 0)
+    assert (fs.concat_conv1x1.launches, fs.concat_conv1x1.backward_launches,
+            fs.concat_conv1x1_dw.launches) == want
 
 
 # ------------------------------------------------------------------ K3 rank

@@ -277,7 +277,7 @@ def test_pipeline_refuses_bad_mode_combinations(kw, match):
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--checkpoint", "m.ckpt"], "not yet ported"),
+    (["--checkpoint", "m.ckpt"], "--checkpoint: no such file"),
     (["--int8"], "not yet ported"),
     (["--w8a8"], "not yet ported"),
     (["--mesh", "data=2"], "not yet ported"),
@@ -374,7 +374,8 @@ def test_cli_serves_frame_and_window_modes_without_jax(tmp_path, rng, mode):
     _serve_blocked(tmp_path, rng, mode)
 
 
-_FORBIDDEN_MODULES = ("jax", "flax", "optax", "yaml", "vsr_tpu")
+_FORBIDDEN_MODULES = ("jax", "flax", "optax", "yaml", "PIL", "msgpack",
+                      "tqdm", "vsr_tpu")
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -127,14 +127,12 @@ def test_wrong_prelu_weight_raises(case, error, match):
 
 
 def test_requires_grad_refusal_covers_the_prelu_weight(monkeypatch):
-    """The CUDA branch refuses a call that would need gradients, whichever
-    operand asks for them; the check runs before anything is built."""
-    from vsr_tpu_torch import _build
-
-    def fail():
-        raise AssertionError("a refused call must not build the kernel")
-
-    monkeypatch.setattr(_build, "load", fail)
+    """The CUDA branch no longer refuses a call that needs gradients: it
+    launches the kernel WITHOUT its epilogue and applies the PReLU as an
+    autograd op, whichever operand asks for the gradient, so the PReLU
+    weight's gradient is never dropped; without gradients the epilogue
+    stays fused."""
+    launched = []
 
     class OnCuda(torch.Tensor):
         """A CPU tensor that says it lies on a CUDA device."""
@@ -146,14 +144,41 @@ def test_requires_grad_refusal_covers_the_prelu_weight(monkeypatch):
     def cuda_like(t):
         return t.as_subclass(OnCuda)
 
-    xs = [cuda_like(torch.zeros(1, 2, 3, 3)) for _ in range(2)]
-    w, b = cuda_like(torch.zeros(4, 4)), cuda_like(torch.zeros(4))
+    def plain(t):
+        return None if t is None else t.detach().as_subclass(torch.Tensor)
+
+    def fake_launch(xs, weight, bias, prelu_weight, counter="launches"):
+        launched.append((counter, prelu_weight is not None))
+        return cuda_like(fs.concat_conv1x1_reference(
+            [plain(x) for x in xs], plain(weight), plain(bias),
+            plain(prelu_weight)))
+
+    def fake_dw(xs, g):
+        return tuple(cuda_like(t) for t in fs.concat_conv1x1_dw_reference(
+            [plain(x) for x in xs], plain(g)))
+
+    monkeypatch.setattr(fs, "_launch", fake_launch)
+    monkeypatch.setattr(fs, "concat_conv1x1_dw", fake_dw)
+    gen = torch.Generator().manual_seed(0)
+    xs = [cuda_like(torch.randn(1, 2, 3, 3, generator=gen)) for _ in range(2)]
+    b = cuda_like(torch.randn(4, generator=gen))
     for grad_on in ("weight", "alpha"):
-        alpha = cuda_like(torch.zeros(1))
-        (w if grad_on == "weight" else alpha).requires_grad_(True)
-        with pytest.raises(RuntimeError, match="no backward"):
-            fs.concat_conv1x1(xs, w, b, alpha)
-        w.requires_grad_(False)
+        w = cuda_like(torch.randn(4, 4, generator=gen))
+        alpha = cuda_like(torch.full((1,), -0.3))
+        leaf = w if grad_on == "weight" else alpha
+        leaf.requires_grad_(True)
+        launched.clear()
+        fs.concat_conv1x1(xs, w, b, alpha).sum().backward()
+        assert launched == [("launches", False)]  # no fused epilogue
+        wr, ar = plain(w).requires_grad_(True), plain(alpha).requires_grad_(True)
+        fs.concat_conv1x1_reference([plain(x) for x in xs], wr, plain(b),
+                                    ar).sum().backward()
+        want = wr.grad if grad_on == "weight" else ar.grad
+        torch.testing.assert_close(plain(leaf.grad), want, rtol=1e-5, atol=1e-5)
+    launched.clear()
+    with torch.no_grad():
+        fs.concat_conv1x1(xs, w, b, alpha)
+    assert launched == [("launches", True)]  # serving keeps the epilogue
 
 
 # ------------------------------------ the nets that hand over their PReLU

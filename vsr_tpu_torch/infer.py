@@ -22,8 +22,9 @@ Usage:
       "out_channels":1,"num_frames":7,"size_filter":5,"upscale_factor":2,
       "use_pallas_filter":true}'
 
-Weights come from a seeded init (generator seed 0); loading a flax
-checkpoint is not ported yet.
+Weights come from ``--checkpoint`` (a checkpoint of the port's own trainer,
+``vsr_tpu_torch/utils/checkpoint.py``) or, without it, from a seeded init
+(generator seed 0). A flax msgpack checkpoint of ``vsr_tpu`` is refused.
 """
 
 from __future__ import annotations
@@ -38,17 +39,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from vsr_tpu_torch.data.datasets import misr_target_index
 from vsr_tpu_torch.io.nifti import load_nifti, save_nifti
-from vsr_tpu_torch.models.duf import misr_target_index
 from vsr_tpu_torch.preprocess.intensity import (center_crop_multiple,
                                                 clip_outliers_minmax)
 from vsr_tpu_torch.preprocess.kspace import kspace_downscale_torch
 from vsr_tpu_torch.registry import build, get_class
+from vsr_tpu_torch.utils.checkpoint import load_checkpoint
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
 
 # JAX CLI flags this port does not serve yet: dest -> flag.
-_NOT_PORTED = {"checkpoint": "--checkpoint", "int8": "--int8",
-               "w8a8": "--w8a8", "mesh": "--mesh", "preset": "--preset"}
+_NOT_PORTED = {"int8": "--int8", "w8a8": "--w8a8", "mesh": "--mesh",
+               "preset": "--preset"}
 # A net class's ``serving_mode`` -> the flag that selects the mode.
 _MODE_FLAGS = {"frame": "neither --video nor --windows", "video": "--video",
                "window": "--windows N"}
@@ -168,6 +170,8 @@ def run(args) -> dict:
     if args.chunk and args.video:
         raise SystemExit("--chunk applies to frame/window serving; the "
                          "--video path is already sequence-batched")
+    if args.checkpoint and not Path(args.checkpoint).is_file():
+        raise SystemExit(f"--checkpoint: no such file: {args.checkpoint}")
     mode = "video" if args.video else "window" if args.windows else "frame"
     net_mode = getattr(get_class("net", args.net), "serving_mode", mode)
     if net_mode != mode:
@@ -181,6 +185,13 @@ def run(args) -> dict:
         net_kwargs["fused_tail"] = True
     net = build("net", {"name": args.net, "kwargs": net_kwargs},
                 device=device, generator=torch.Generator().manual_seed(0))
+    if args.checkpoint:
+        try:
+            state, _ = load_checkpoint(args.checkpoint, map_location=device)
+        except ValueError as err:  # a flax msgpack file, or another one
+            raise SystemExit(f"--checkpoint: {err}") from err
+        net.load_state_dict(state["net"], strict=True)
+        logging.info(f'Loaded the weights of "{args.checkpoint}".')
 
     paths = sorted(Path(args.input_dir).glob("**/*.nii*"))
     if not paths:
@@ -270,7 +281,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                              "writes <output_dir>/metrics.csv")
     parser.add_argument("--device", default="cuda",
                         help="torch device to serve on (cuda, cuda:1, cpu)")
-    parser.add_argument("--checkpoint", default="", help="not yet ported")
+    parser.add_argument("--checkpoint", default="",
+                        help="a checkpoint written by the port's trainer "
+                             "(model_N.ckpt, model_best.ckpt); a flax "
+                             "msgpack checkpoint is refused")
     parser.add_argument("--int8", action="store_true", help="not yet ported")
     parser.add_argument("--w8a8", action="store_true", help="not yet ported")
     parser.add_argument("--mesh", default="", help="not yet ported")

@@ -23,6 +23,11 @@ every shape match. Layouts:
 
 Numbered flax children (``Conv_i``, ``_ResBlock_i``, ``Conv3D_i``, ...)
 follow flax's creation order, which the port's module lists keep.
+
+``from_jax_tree(net, tree)`` reads the same slot table the other way: it
+lays a flax-shaped tree of numpy arrays (gradients, or updated parameters)
+onto the port's parameter names, in the port's layouts, so tests can hold
+``param.grad`` and trained parameters against ``jax.grad`` and optax.
 """
 
 from __future__ import annotations
@@ -217,3 +222,20 @@ def load_jax_params(net: nn.Module, variables: Mapping[str, Any]) -> None:
                 raise ValueError(f"{'/'.join(path)}: flax shape "
                                  f"{value.shape} vs port {tuple(tensor.shape)}")
             tensor.copy_(torch.tensor(np.ascontiguousarray(value)))
+
+
+def from_jax_tree(net: nn.Module, tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """A flax-shaped tree (``{"params": {...}}``, or the params collection
+    itself) of numpy arrays -> ``{port parameter name: array in the port's
+    layout}``, for every parameter and buffer of ``net`` the tree holds."""
+    if "params" not in tree:
+        tree = {"params": tree}
+    leaves = _flatten(tree)
+    names = {id(t): name for name, t in
+             [*net.named_parameters(), *net.named_buffers()]}
+    out = {}
+    for path, tensor, transform in module_slots(net):
+        if path in leaves:
+            value = transform(np.asarray(leaves[path], dtype=np.float32))
+            out[names[id(tensor)]] = np.ascontiguousarray(value)
+    return out

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vsr_tpu_torch.data.datasets import misr_target_index
 from vsr_tpu_torch.models.common import Conv, Conv3D, resolve_dtype
 from vsr_tpu_torch.ops.duf_filter import duf_dynamic_filter
 from vsr_tpu_torch.ops.dynamic_filter import apply_dynamic_filters
@@ -28,12 +29,6 @@ _BACKBONES = {
     "_DenseLayer28": (9, 3, 16, 256),
     "_DenseLayer52": (21, 3, 16, 448),
 }
-
-
-def misr_target_index(num_frames: int) -> int:
-    """The frame of a MISR window that the net super-resolves: the middle
-    one (the earlier of the two middles for an even window)."""
-    return num_frames // 2 if num_frames % 2 == 1 else num_frames // 2 - 1
 
 
 def _batch_norm(channels: int) -> nn.BatchNorm3d:

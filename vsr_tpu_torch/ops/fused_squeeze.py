@@ -19,9 +19,26 @@ runs in the kernel's epilogue, on the rounded output, so the result is
 what a separate ``nn.PReLU`` gives, bit for bit, without its pass over
 device memory.
 
-Serving only: the backward (per-input slices of W, as the JAX ``_bwd``)
-comes with the training slice, so a CUDA call that would need gradients
-is refused.
+Training: ``concat_conv1x1`` is differentiable. Where a gradient is needed
+the kernel is launched without its epilogue through a
+``torch.autograd.Function`` and the PReLU follows as an ordinary autograd
+op, so gradients are right for any alpha (zero and negative ones too: the
+sign of the pre-activation cannot be recovered from a fused output). The
+backward computes what the JAX ``_bwd`` computes: ``dx_i = g W_i^T`` in the
+inputs' dtype, ``dW_i = x_i^T g`` and ``db = sum g`` accumulated in float32
+and cast to the parameter's dtype. ``dx`` runs through the same hand-written
+kernel: with the one input ``g (N, F, H, W)`` and the weight ``W^T`` (which
+is ``(sum C_i, F)``, the kernel's ``(F_out, K)`` convention) and a zero bias,
+one launch writes ``(N, sum C_i, H, W)`` and the ``dx_i`` are its channel
+slices; in float32 that is the three-TF32-product route again, with the
+accuracy of a plain float32 product. ``dW`` and ``db`` come from
+``concat_conv1x1_dw``: on a CUDA tensor the hand-written split-K kernel of
+``csrc/fused_squeeze_dw.cu`` (one launch and one sum for both; the JAX
+package computes them in plain XLA, outside its Pallas kernel, so no TPU
+kernel stands behind this one), on a CPU tensor its plain twin (one matmul
+over the images and pixels of each ``x_i``, and a sum). Saved for the
+backward are the ``x_i`` and ``W``, never a concatenated copy. Under
+``torch.no_grad()`` serving keeps the fused epilogue bit for bit.
 """
 
 from __future__ import annotations
@@ -32,7 +49,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-_MAX_INPUTS = 8  # kMaxInputs of csrc/fused_squeeze.cu
+_MAX_INPUTS = 8  # kMaxInputs of csrc/fused_squeeze.cu, fused_squeeze_dw.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -67,7 +84,12 @@ def concat_conv1x1(xs: Sequence[torch.Tensor], weight: torch.Tensor,
     applies to the rounded value and rounds again, as a separate
     ``nn.PReLU`` would. Any H x W, C_i and F are taken; rows and pointers
     that are not multiples of 16 bytes go through the kernel's element-wise
-    loads. ``concat_conv1x1.launches`` counts the kernel's launches."""
+    loads.
+
+    Differentiable with respect to every tensor argument (see the module
+    docstring). ``concat_conv1x1.launches`` counts the forward launches of
+    the kernel, ``concat_conv1x1.backward_launches`` the launches that
+    compute ``dx`` in a backward."""
     xs = list(xs)
     if not xs:
         raise ValueError("concat_conv1x1 needs at least one input")
@@ -76,21 +98,36 @@ def concat_conv1x1(xs: Sequence[torch.Tensor], weight: torch.Tensor,
         return concat_conv1x1_reference(xs, weight, bias, prelu_weight)
     if device.type != "cuda":
         raise ValueError(f"concat_conv1x1 runs on cpu or cuda, not {device}")
-    dtype = xs[0].dtype
-    n, _, h, w = _check(xs, weight, bias)
+    _check(xs, weight, bias)
     if prelu_weight is not None:
         _check_prelu_weight(prelu_weight, device)
-    if torch.is_grad_enabled() and any(
+    if not (torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
-            for t in (*xs, weight, bias, prelu_weight)):
-        raise RuntimeError(
-            "concat_conv1x1's CUDA kernel has no backward yet: call it under "
-            "torch.no_grad() / torch.inference_mode() (serving only)")
+            for t in (*xs, weight, bias, prelu_weight))):
+        return _launch(xs, weight, bias, prelu_weight)
+    out = _ConcatConv1x1.apply(weight, bias, *xs)
+    if prelu_weight is None:
+        return out
+    return F.prelu(out, prelu_weight.to(out.dtype).reshape(1))
+
+
+concat_conv1x1.launches = 0
+concat_conv1x1.backward_launches = 0
+
+
+def _launch(xs: list[torch.Tensor], weight: torch.Tensor, bias: torch.Tensor,
+            prelu_weight: torch.Tensor | None,
+            counter: str = "launches") -> torch.Tensor:
+    """One launch of the kernel on checked CUDA operands; adds one to
+    ``concat_conv1x1.<counter>``."""
+    device, dtype = xs[0].device, xs[0].dtype
+    n, _, h, w = xs[0].shape
     f_out = weight.shape[0]
-    wt = weight.to(dtype).contiguous()
-    bt = bias.to(dtype).contiguous()
+    wt = weight.detach().to(dtype).contiguous()
+    bt = bias.detach().to(dtype).contiguous()
     # The PReLU weight travels as a device pointer: no host read of it.
-    at = None if prelu_weight is None else prelu_weight.to(dtype).contiguous()
+    at = (None if prelu_weight is None
+          else prelu_weight.detach().to(dtype).contiguous())
 
     from vsr_tpu_torch import _build
 
@@ -108,11 +145,122 @@ def concat_conv1x1(xs: Sequence[torch.Tensor], weight: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"concat_conv1x1 kernel launch failed: "
                            f"cudaError_t {rc}")
-    concat_conv1x1.launches += 1
+    setattr(concat_conv1x1, counter, getattr(concat_conv1x1, counter) + 1)
     return out
 
 
-concat_conv1x1.launches = 0
+class _ConcatConv1x1(torch.autograd.Function):
+    """The kernel without its epilogue, with the backward of the JAX
+    ``_bwd``. CUDA only: CPU tensors take the twin and plain autograd."""
+
+    @staticmethod
+    def forward(ctx, weight, bias, *xs):
+        ctx.save_for_backward(weight, *xs)
+        ctx.bias_dtype = bias.dtype
+        return _launch([x.detach() for x in xs], weight, bias, None)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        weight, *xs = ctx.saved_tensors
+        dtype = xs[0].dtype
+        g = grad_out.to(dtype).contiguous()
+        channels = [x.shape[1] for x in xs]
+        need_w, need_b, *need_x = ctx.needs_input_grad
+        d_weight = d_bias = None
+        d_xs: list[torch.Tensor | None] = [None] * len(xs)
+        if any(need_x):
+            # dx = g W^T for all inputs in one launch: the kernel's weight is
+            # (F_out, K) = (sum C_i, F) = W^T; no bias, no epilogue.
+            wt = weight.detach().to(dtype).t().contiguous()
+            zero = torch.zeros(wt.shape[0], dtype=dtype, device=g.device)
+            dx = _launch([g], wt, zero, None, counter="backward_launches")
+            d_xs = [part if need else None
+                    for part, need in zip(dx.split(channels, dim=1), need_x)]
+        if need_w or need_b:
+            dw, db = concat_conv1x1_dw(xs, g)
+            d_weight = dw.to(weight.dtype) if need_w else None
+            d_bias = db.to(ctx.bias_dtype) if need_b else None
+        return d_weight, d_bias, *d_xs
+
+
+def concat_conv1x1_dw_reference(xs: Sequence[torch.Tensor], g: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of ``concat_conv1x1_dw``: one product per input with the
+    images folded into the summed dimension, ``(F, N*HW) @ (N*HW, C_i)``, on
+    channel-major float32 copies of ``g`` and of one ``x_i`` at a time, and a
+    sum of ``g`` over images and pixels."""
+    def channel_major(t: torch.Tensor) -> torch.Tensor:
+        return t.flatten(2).transpose(0, 1).reshape(t.shape[1], -1).float()
+
+    gp = channel_major(g)
+    dw = torch.cat([gp @ channel_major(x).t() for x in xs], dim=1)
+    return dw, gp.sum(dim=1)
+
+
+def concat_conv1x1_dw(xs: Sequence[torch.Tensor], g: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The weight and bias gradient of ``concat_conv1x1`` for the output
+    gradient ``g (N, F, H, W)``: ``dW (F, sum C_i)`` with ``dW[:, off_i + c]
+    = sum_n sum_p g[n, :, p] x_i[n, c, p]`` and ``db (F,) = sum_n sum_p g``,
+    both float32 (accumulated in float32 whatever the inputs' type), without
+    a concatenated or transposed copy.
+
+    xs as for ``concat_conv1x1``; ``g`` contiguous, of their dtype and
+    device. On CUDA tensors it launches the split-K kernel of
+    ``csrc/fused_squeeze_dw.cu`` and adds its partial tiles (no atomics: the
+    same bits every run); on CPU tensors it runs the plain twin.
+    ``concat_conv1x1_dw.launches`` counts the kernel's launches."""
+    xs = list(xs)
+    if not xs:
+        raise ValueError("concat_conv1x1_dw needs at least one input")
+    device, dtype = xs[0].device, xs[0].dtype
+    if device.type == "cpu":
+        return concat_conv1x1_dw_reference(xs, g)
+    if device.type != "cuda":
+        raise ValueError(f"concat_conv1x1_dw runs on cpu or cuda, not {device}")
+    n, k_total, h, w = _check_inputs(xs)
+    if (g.dim() != 4 or (g.shape[0], g.shape[2], g.shape[3]) != (n, h, w)
+            or g.dtype != dtype or g.device != device
+            or not g.is_contiguous()):
+        raise ValueError(f"g must be a contiguous (N, F, H, W) = ({n}, F, {h}, "
+                         f"{w}) {dtype} tensor on {device}, got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    f_out, hw = g.shape[1], h * w
+    channels = [x.shape[1] for x in xs]
+    # Units of work: an image x a chunk of at least 128 pixels; splits: the
+    # blocks along the summed dimension, for about eight blocks per SM.
+    tiles = sum(_ceil_div(c, 64) for c in channels) * _ceil_div(f_out, 64)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, 8 * sms // tiles)
+    per_image = max(1, min(want // n, _ceil_div(hw, 128)))
+    chunk = _ceil_div(_ceil_div(hw, per_image), 32) * 32
+    splits = min(n * _ceil_div(hw, chunk), want, 65535)
+
+    from vsr_tpu_torch import _build
+
+    lib = _build.load()
+    partial = torch.empty((splits, f_out, k_total + 1), dtype=torch.float32,
+                          device=device)
+    ptrs = (ctypes.c_void_p * _MAX_INPUTS)(*[x.data_ptr() for x in xs])
+    chans = (ctypes.c_int * _MAX_INPUTS)(*channels)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.vsr_concat_dw(ptrs, chans, len(xs), g.data_ptr(),
+                               partial.data_ptr(), n, hw, f_out, chunk, splits,
+                               _DTYPE_CODES[dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"concat_conv1x1_dw kernel launch failed: "
+                           f"cudaError_t {rc}")
+    concat_conv1x1_dw.launches += 1
+    total = partial.sum(0)
+    return total[:, :k_total], total[:, k_total]
+
+
+concat_conv1x1_dw.launches = 0
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _check_prelu_weight(prelu_weight: torch.Tensor, device) -> None:
@@ -126,8 +274,8 @@ def _check_prelu_weight(prelu_weight: torch.Tensor, device) -> None:
         raise ValueError("prelu_weight must be on the inputs' device")
 
 
-def _check(xs, weight, bias) -> tuple[int, int, int, int]:
-    """Validate what the CUDA kernel takes; returns (N, sum C, H, W)."""
+def _check_inputs(xs) -> tuple[int, int, int, int]:
+    """Validate the inputs the CUDA kernels take; returns (N, sum C, H, W)."""
     x0 = xs[0]
     if len(xs) > _MAX_INPUTS:
         raise ValueError(f"concat_conv1x1 takes at most {_MAX_INPUTS} "
@@ -147,7 +295,17 @@ def _check(xs, weight, bias) -> tuple[int, int, int, int]:
                              f"{[tuple(t.shape) for t in xs]}")
         if not x.is_contiguous():
             raise ValueError("concat_conv1x1 inputs must be contiguous NCHW")
-    k_total = sum(x.shape[1] for x in xs)
+    if n * h * w == 0:
+        raise ValueError("concat_conv1x1 got an empty input")
+    if n > 65535:
+        raise ValueError(f"concat_conv1x1 takes at most 65535 images, got {n}")
+    return n, sum(x.shape[1] for x in xs), h, w
+
+
+def _check(xs, weight, bias) -> tuple[int, int, int, int]:
+    """Validate what the forward kernel takes; returns (N, sum C, H, W)."""
+    n, k_total, h, w = _check_inputs(xs)
+    x0 = xs[0]
     if weight.dim() != 2 or weight.shape[1] != k_total:
         raise ValueError(f"weight must be (F, {k_total}), got "
                          f"{tuple(weight.shape)}")
@@ -156,8 +314,4 @@ def _check(xs, weight, bias) -> tuple[int, int, int, int]:
                          f"{tuple(bias.shape)}")
     if weight.device != x0.device or bias.device != x0.device:
         raise ValueError("weight and bias must be on the inputs' device")
-    if n * h * w == 0:
-        raise ValueError("concat_conv1x1 got an empty input")
-    if n > 65535:
-        raise ValueError(f"concat_conv1x1 takes at most 65535 images, got {n}")
     return n, k_total, h, w

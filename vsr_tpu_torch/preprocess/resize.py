@@ -48,6 +48,21 @@ def bicubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return matrix
 
 
+def resize_bicubic(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """cv2.INTER_CUBIC-compatible resize of a (H, W) or (H, W, C) numpy
+    array (the ``Resize`` transform's kernel), in float64."""
+    img = np.asarray(img)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    in_h, in_w, _ = img.shape
+    r_h = bicubic_resize_matrix(in_h, out_h)
+    r_w = bicubic_resize_matrix(in_w, out_w)
+    out = np.einsum("hi,iwc,wj->hjc", r_h, img.astype(np.float64), r_w.T)
+    out = out.astype(np.result_type(img.dtype, np.float32))
+    return out[..., 0] if squeeze else out
+
+
 def resize_bicubic_torch(img: torch.Tensor, out_h: int,
                          out_w: int) -> torch.Tensor:
     """(..., H, W) -> (..., out_h, out_w) as two f32 matmuls.

@@ -1,0 +1,480 @@
+"""Trainers: the epoch/step control loop (port of
+``vsr_tpu/runner/trainers.py``: the trainer core, SISR and VSR).
+
+The same ``train()`` epoch loop as the JAX package (train epoch -> valid
+epoch -> scheduler -> logger -> monitor-driven checkpoint -> early stop) and
+the same subclass hooks (``_get_inputs_targets`` / ``_compute_losses`` /
+``_compute_metrics``), with the per-dataset twins registered under the same
+names.
+
+The step: forward, weighted loss sum, backward, optimizer step, then the
+metrics on denormalized ``clip(round(x * std + mean), 0, 255)`` outputs
+under ``no_grad``. Scalar logs accumulate on the device, weighted by the
+real batch size, and are read once per epoch: no host round trip per step.
+Randomness comes from the explicit ``RngTree``; nothing reads global RNG
+state. Batches arrive channels-last numpy; the trainer moves each to the
+device (pinned memory, non-blocking) and permutes it to the nets' NCHW /
+``(N, T, C, h, w)`` layout.
+
+The nets train in float32 with TF32 off (constructing a trainer turns it
+off for cuDNN and cuBLAS, process-wide, as the serving pipeline does); a net
+whose parameters are not float32 is refused. The JAX trainer pads validation
+sequences to T buckets only to bound its recompiles; there is no compile
+step here, so sequences run at their own length and ``t_bucket`` is not a
+parameter. Knobs of the JAX trainer that are not ported raise when passed.
+"""
+
+from __future__ import annotations
+
+import logging
+import signal
+from pathlib import Path
+from typing import Any, Iterator, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from vsr_tpu_torch.optim import (OptimizerFactory, Scheduler,
+                                 get_learning_rate, set_learning_rate)
+from vsr_tpu_torch.registry import register
+from vsr_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from vsr_tpu_torch.utils.normalize import DATASET_STATS
+from vsr_tpu_torch.utils.rng import RngTree
+
+
+class BaseTrainer:
+    """Args mirror the JAX trainer. ``optimizer`` is the config's
+    ``OptimizerFactory`` (bound to the net's parameters here) or a ready
+    ``torch.optim.Optimizer``. ``device``: where the net trains (``cuda``
+    unless the caller asks for ``cpu``)."""
+
+    dataset_stats = "acdc"
+
+    def __init__(
+        self,
+        train_dataloader,
+        valid_dataloader,
+        net: nn.Module,
+        loss_fns: Sequence,
+        loss_weights: Sequence[float],
+        metric_fns: Sequence,
+        optimizer: OptimizerFactory | torch.optim.Optimizer,
+        lr_scheduler: Scheduler | None,
+        logger,
+        monitor,
+        num_epochs: int,
+        random_seed: int | str = "vsr",
+        device: str | torch.device = "cuda",
+        prefetch_to_device: bool = True,
+        mesh_axes: dict | None = None,
+        pipe_microbatches: int | None = None,
+        zero_optim: bool = False,
+        fsdp: bool = False,
+        qat: dict | bool | None = None,
+        profile_dir: str | None = None,
+        grad_accumulation: int = 1,
+        grad_clip: float = 0.0,
+        ema_decay: float | None = None,
+        async_ckpt: bool = False,
+        sharded_ckpt: bool = False,
+    ):
+        for name, value in (("mesh_axes", mesh_axes),
+                            ("pipe_microbatches", pipe_microbatches),
+                            ("zero_optim", zero_optim), ("fsdp", fsdp),
+                            ("qat", qat), ("profile_dir", profile_dir),
+                            ("grad_accumulation > 1", grad_accumulation > 1),
+                            ("grad_clip", grad_clip), ("ema_decay", ema_decay),
+                            ("async_ckpt", async_ckpt),
+                            ("sharded_ckpt", sharded_ckpt)):
+            if value:
+                raise NotImplementedError(
+                    f"trainer {name} is not yet ported to vsr_tpu_torch")
+        self.device = torch.device(device)
+        bad = sorted({str(p.dtype) for p in net.parameters()
+                      if p.dtype != torch.float32})
+        if bad:
+            raise NotImplementedError(
+                f"the trainer takes a float32 net; this one holds {bad} "
+                "parameters (mixed-precision training is not yet ported to "
+                "vsr_tpu_torch)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.prefetch_to_device = bool(prefetch_to_device)
+        self.train_dataloader = train_dataloader
+        self.valid_dataloader = valid_dataloader
+        self.net = net.to(self.device)
+        self.loss_fns = list(loss_fns)
+        self.loss_weights = [float(w) for w in loss_weights]
+        self.metric_fns = list(metric_fns)
+        if isinstance(optimizer, OptimizerFactory):
+            optimizer = optimizer.bind(self.net.parameters())
+        self.optimizer = optimizer
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            lr_scheduler.bind(get_learning_rate(optimizer))
+        self.logger = logger
+        self.monitor = monitor
+        self.num_epochs = num_epochs
+        self.rng_tree = RngTree(random_seed)
+        self.epoch = 1
+        self._scalar_names = ["Loss", *(fn.__class__.__name__
+                                        for fn in (*self.loss_fns,
+                                                   *self.metric_fns))]
+        self._preempted = False
+        # Step-granular preemption: progress of the interrupted epoch
+        # ({"steps_done", "acc", "count", "total"}) stashed at the graceful
+        # break, saved into model_preempt.ckpt, and replayed on resume so the
+        # final parameters equal an uninterrupted run's.
+        self._epoch_progress = None
+        self._mid_epoch_resume = None
+
+    # ---------------------------------------------------------------- hooks
+
+    def _get_inputs_targets(self, batch: dict):
+        raise NotImplementedError
+
+    def _compute_losses(self, outputs, targets) -> list:
+        raise NotImplementedError
+
+    def _compute_metrics(self, outputs, targets) -> list:
+        raise NotImplementedError
+
+    def _outputs_to_numpy(self, outputs: torch.Tensor) -> np.ndarray:
+        """The net's channels-first outputs as the channels-last numpy the
+        loggers take."""
+        raise NotImplementedError
+
+    def _batch_weight(self, batch: dict) -> float:
+        return float(batch["index"].shape[0])
+
+    def _denorm(self, x: torch.Tensor) -> torch.Tensor:
+        mean, std = DATASET_STATS[self.dataset_stats]
+        return torch.clamp(torch.round(x * std + mean), 0.0, 255.0)
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        tensor = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cuda":
+            return tensor.pin_memory().to(self.device, non_blocking=True)
+        return tensor
+
+    # ----------------------------------------------------------------- steps
+
+    def _scalars(self, total, losses, metrics) -> torch.Tensor:
+        """The step's scalars in the order of ``_scalar_names``, one float32
+        vector on the device."""
+        return torch.stack([v.detach().float() for v in
+                            (total, *losses, *metrics)])
+
+    def _weighted_total(self, losses: list) -> torch.Tensor:
+        return sum(w * l for w, l in zip(self.loss_weights, losses))
+
+    def _train_step(self, inputs, targets):
+        """One step. Returns (the scalars vector, the outputs, detached)."""
+        self.net.train()
+        outputs = self.net(inputs)
+        losses = self._compute_losses(outputs, targets)
+        total = self._weighted_total(losses)
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        self.optimizer.step()
+        outputs = outputs.detach()
+        with torch.no_grad():
+            metrics = self._compute_metrics(outputs, targets)
+        return self._scalars(total, losses, metrics), outputs
+
+    @torch.no_grad()
+    def _eval_step(self, inputs, targets):
+        self.net.eval()
+        outputs = self.net(inputs)
+        losses = self._compute_losses(outputs, targets)
+        metrics = self._compute_metrics(outputs, targets)
+        return self._scalars(self._weighted_total(losses), losses,
+                             metrics), outputs
+
+    # ------------------------------------------------------------- epochs
+
+    def _device_batches(self, iterator: Iterator[dict]) -> Iterator[tuple]:
+        """(batch, inputs, targets) with the next batch's host-to-device
+        copies already queued while the current one trains."""
+        previous = None
+        for batch in iterator:
+            item = (batch, *self._get_inputs_targets(batch))
+            if not self.prefetch_to_device:
+                yield item
+                continue
+            if previous is not None:
+                yield previous
+            previous = item
+        if previous is not None:
+            yield previous
+
+    def _run_epoch(self, mode: str, epoch: int):
+        training = mode == "training"
+        loader = self.train_dataloader if training else self.valid_dataloader
+        skip, acc, count = 0, None, 0.0
+        if training:
+            self._epoch_progress = None
+            if self._mid_epoch_resume is not None:
+                # Step-granular preemption resume: replay exactly the
+                # interrupted epoch's remaining batches, with the saved
+                # scalar accumulators restored so the epoch log equals the
+                # uninterrupted run's.
+                mid = self._mid_epoch_resume
+                self._mid_epoch_resume = None
+                total = mid.get("batches_total")
+                if total is not None and total != len(loader):
+                    raise ValueError(
+                        f"mid-epoch preemption checkpoint was written with "
+                        f"{total} train batches/epoch but this run has "
+                        f"{len(loader)}: batch size or dataset changed, so "
+                        "replaying 'the remaining batches' is undefined; "
+                        "resume from an epoch-boundary checkpoint instead")
+                skip = int(mid["steps_done"])
+                count = float(mid["count"])
+                if mid["acc"]:
+                    acc = torch.tensor(
+                        [mid["acc"][k] for k in self._scalar_names],
+                        dtype=torch.float32, device=self.device)
+                logging.info(
+                    f"Mid-epoch resume: skipping the {skip} already-"
+                    f"trained batches of epoch {epoch}.")
+        iterator = (loader.epoch(self.rng_tree, epoch, skip=skip)
+                    if training else loader.epoch(None, epoch))
+        batch = outputs = None
+        for step_i, (batch, inputs, targets) in enumerate(
+                self._device_batches(iterator)):
+            step = self._train_step if training else self._eval_step
+            scalars, outputs = step(inputs, targets)
+            w = self._batch_weight(batch)
+            acc = scalars * w if acc is None else acc + scalars * w
+            count += w
+            if training and self._preempted:
+                # Graceful stop at a batch boundary: record how far the
+                # epoch got (plus the device-resident accumulators) so the
+                # preempt checkpoint can resume step-granular.
+                self._epoch_progress = {
+                    "steps_done": skip + step_i + 1,
+                    "acc": acc, "count": count, "total": len(loader),
+                }
+                break
+        # The epoch's one read of the device-resident scalars.
+        values = [] if acc is None else acc.tolist()
+        log = {k: v / count for k, v in zip(self._scalar_names, values)}
+        return log, batch, outputs
+
+    def _install_preemption_handlers(self) -> dict:
+        """SIGTERM/SIGINT request a graceful stop: the current batch
+        finishes, a ``model_preempt.ckpt`` is written, and train() returns.
+        A SECOND signal restores the previous handlers and delivers
+        normally, so a stuck run stays interruptible."""
+        previous = {}
+
+        def handler(signum, frame):
+            if self._preempted:  # second signal: escalate
+                self._restore_handlers(previous)
+                logging.warning(f"Second signal {signum}: escalating.")
+                signal.raise_signal(signum)
+                return
+            logging.warning(
+                f"Received signal {signum}: checkpointing and stopping at "
+                f"the next batch boundary (send again to force).")
+            self._preempted = True
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous[sig] = signal.signal(sig, handler)
+            except ValueError:  # not the main thread
+                pass
+        return previous
+
+    def _restore_handlers(self, previous: dict) -> None:
+        for sig, old in previous.items():
+            signal.signal(sig, old)
+
+    def _save_preempt_checkpoint(self) -> None:
+        if self.monitor is None:
+            logging.warning("Preempted with no monitor: nothing saved.")
+            return
+        path = Path(self.monitor.checkpoints_dir) / "model_preempt.ckpt"
+        progress, self._epoch_progress = self._epoch_progress, None
+        if progress and progress["steps_done"] < progress["total"]:
+            # STEP-GRANULAR preemption: the checkpoint records how many of
+            # the interrupted epoch's batches were applied plus the scalar
+            # accumulators; resume replays exactly the remaining batches
+            # (the epoch's batch order is a pure function of the seed). aux
+            # epoch is the LAST COMPLETED epoch; the mid_epoch marker makes
+            # load() re-enter the interrupted one.
+            mid = {
+                "steps_done": int(progress["steps_done"]),
+                "count": float(progress["count"]),
+                "acc": dict(zip(self._scalar_names, progress["acc"].tolist())),
+                # Replay is defined only under the SAME batch partitioning
+                # (resume validates this before skipping).
+                "batches_total": int(progress["total"]),
+            }
+            self.save(path, epoch=self.epoch - 1, extra_aux={"mid_epoch": mid})
+            logging.info(
+                f"Preemption checkpoint saved to {path} (resume replays "
+                f"epoch {self.epoch} from batch {mid['steps_done']}).")
+            return
+        # Preempted exactly at the epoch's last batch: the epoch is DONE
+        # (validation/monitor skipped); resume starts the next.
+        self.save(path, epoch=self.epoch)
+        logging.info(f"Preemption checkpoint saved to {path} "
+                     f"(resume continues at epoch {self.epoch + 1}).")
+
+    def train(self) -> None:
+        self._preempted = False
+        previous_handlers = self._install_preemption_handlers()
+        try:
+            self._train_loop()
+        finally:
+            self._restore_handlers(previous_handlers)
+
+    def _train_loop(self) -> None:
+        while self.epoch <= self.num_epochs:
+            logging.info(f"Epoch {self.epoch}.")
+            train_log, train_batch, train_outputs = self._run_epoch(
+                "training", self.epoch)
+            if self._preempted:
+                self._save_preempt_checkpoint()
+                break
+            logging.info(f"Train log: { {k: round(v, 5) for k, v in train_log.items()} }.")
+            valid_log, valid_batch, valid_outputs = self._run_epoch(
+                "validation", self.epoch)
+            logging.info(f"Valid log: { {k: round(v, 5) for k, v in valid_log.items()} }.")
+
+            if self.lr_scheduler is not None:
+                metric = valid_log.get("Loss") if self.lr_scheduler.needs_metric else None
+                set_learning_rate(self.optimizer, self.lr_scheduler.step(metric))
+
+            if self.logger is not None:
+                self.logger.write(
+                    self.epoch, train_log, train_batch,
+                    self._outputs_to_numpy(train_outputs),
+                    valid_log, valid_batch,
+                    self._outputs_to_numpy(valid_outputs))
+
+            saved_path = self.monitor.is_saved(self.epoch)
+            if saved_path:
+                logging.info(f"Save the checkpoint to {saved_path}.")
+                self.save(saved_path)
+
+            saved_path = self.monitor.is_best(valid_log)
+            if saved_path:
+                logging.info(
+                    f"Save the best checkpoint to {saved_path} "
+                    f"({self.monitor.mode} {self.monitor.target}: {self.monitor.best})."
+                )
+                self.save(saved_path)
+
+            if self.monitor.is_early_stopped():
+                logging.info("Early stopped.")
+                break
+            self.epoch += 1
+        if self.logger is not None:
+            self.logger.close()
+
+    # ----------------------------------------------------------- checkpoint
+
+    def save(self, path: str | Path, epoch: int | None = None,
+             extra_aux: dict | None = None) -> None:
+        aux = {
+            "epoch": self.epoch if epoch is None else epoch,
+            "monitor": self.monitor.state_dict(),
+            "lr_scheduler": self.lr_scheduler.state_dict() if self.lr_scheduler else None,
+            "random_seed": str(self.rng_tree.root_seed),
+            **(extra_aux or {}),
+        }
+        save_checkpoint(path, {"net": self.net.state_dict(),
+                               "optimizer": self.optimizer.state_dict()}, aux)
+
+    def load(self, path: str | Path) -> None:
+        state, aux = load_checkpoint(path, map_location=self.device)
+        self.net.load_state_dict(state["net"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.epoch = aux["epoch"] + 1
+        if aux.get("mid_epoch"):
+            # Step-granular preemption checkpoint: aux epoch is the last
+            # COMPLETED epoch, so self.epoch is the interrupted one;
+            # _run_epoch replays its remaining batches.
+            self._mid_epoch_resume = dict(aux["mid_epoch"])
+        self.monitor.load_state_dict(aux["monitor"])
+        if self.lr_scheduler is not None and aux.get("lr_scheduler"):
+            self.lr_scheduler.load_state_dict(aux["lr_scheduler"])
+
+
+class SISRTrainer(BaseTrainer):
+    """lr_img -> hr_img; metrics on denormalized [0, 255] tensors."""
+
+    def _get_inputs_targets(self, batch):
+        # (N, h, w, C) -> (N, C, h, w)
+        return (self._to_device(batch["lr_img"]).permute(0, 3, 1, 2),
+                self._to_device(batch["hr_img"]).permute(0, 3, 1, 2))
+
+    def _outputs_to_numpy(self, outputs):
+        return outputs.permute(0, 2, 3, 1).cpu().numpy()
+
+    def _compute_losses(self, outputs, targets):
+        return [fn(outputs, targets) for fn in self.loss_fns]
+
+    def _compute_metrics(self, outputs, targets):
+        o, t = self._denorm(outputs), self._denorm(targets)
+        return [fn(o, t) for fn in self.metric_fns]
+
+
+class VSRTrainer(BaseTrainer):
+    """lr_imgs -> hr_imgs sequences; losses and metrics are means over the
+    frames of per-frame values and log weights are batch * T. Validation
+    feeds whole sequences of any length."""
+
+    def _get_inputs_targets(self, batch):
+        # (N, T, h, w, C) -> (N, T, C, h, w)
+        return (self._to_device(batch["lr_imgs"]).permute(0, 1, 4, 2, 3),
+                self._to_device(batch["hr_imgs"]).permute(0, 1, 4, 2, 3))
+
+    def _outputs_to_numpy(self, outputs):
+        return outputs.permute(0, 1, 3, 4, 2).cpu().numpy()
+
+    def _batch_weight(self, batch):
+        lr = batch["lr_imgs"]
+        return float(lr.shape[0] * lr.shape[1])
+
+    @staticmethod
+    def _frame_mean(fn, outputs, targets):
+        """Mean over the frames of the per-frame scalar ``fn``."""
+        return torch.stack([fn(outputs[:, t], targets[:, t])
+                            for t in range(outputs.shape[1])]).mean()
+
+    def _compute_losses(self, outputs, targets):
+        return [self._frame_mean(fn, outputs, targets) for fn in self.loss_fns]
+
+    def _compute_metrics(self, outputs, targets):
+        o, t = self._denorm(outputs), self._denorm(targets)
+        return [self._frame_mean(fn, o, t) for fn in self.metric_fns]
+
+
+def _make_dataset_twin(base: type, name: str, stats: str) -> type:
+    cls = type(name, (base,), {"dataset_stats": stats})
+    register("trainer", name)(cls)
+    return cls
+
+
+AcdcSISRTrainer = _make_dataset_twin(SISRTrainer, "AcdcSISRTrainer", "acdc")
+Dsb15SISRTrainer = _make_dataset_twin(SISRTrainer, "Dsb15SISRTrainer", "dsb15")
+AcdcVSRTrainer = _make_dataset_twin(VSRTrainer, "AcdcVSRTrainer", "acdc")
+Dsb15VSRTrainer = _make_dataset_twin(VSRTrainer, "Dsb15VSRTrainer", "dsb15")
+
+
+def _not_ported(name: str) -> None:
+    def __init__(self, *args: Any, **kwargs: Any):
+        raise NotImplementedError(
+            f"the {name} trainer is not yet ported to vsr_tpu_torch")
+
+    register("trainer", name)(type(name, (), {"__init__": __init__}))
+
+
+for _family in ("SISRSRFB", "MISR", "FRVSR", "3DSR", "4DSR"):
+    for _dataset in ("Acdc", "Dsb15"):
+        _not_ported(f"{_dataset}{_family}Trainer")
