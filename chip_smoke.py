@@ -17,9 +17,15 @@ config for its net, with random seeded weights:
 - training: ``vsr_tpu_torch.main.run_train`` on
   ``configs/train/acdc_vsr_drf_x2.yaml`` (DRFNet F=64 G=6, batch 16, 5-frame
   windows of 32 x 32 patches, L1, Adam, PSNR + SSIM), whose squeezes run K1
-  forward and backward, and on ``configs/train/acdc_sisr_edsr_x2.yaml``
-  (EDSRNet 16 x 64, no kernel), on a synthetic processed tree that the
-  script writes itself.
+  forward and backward, on ``configs/train/acdc_sisr_edsr_x2.yaml``
+  (EDSRNet 16 x 64, no kernel) and on ``configs/train/acdc_sisr_srfb_x2.yaml``
+  (SRFBNet F=64 G=6, 4 feedback steps, batch 16 of 32 x 32 patches: K1
+  forward and backward, 48 launches of each per step), on a synthetic
+  processed tree that the script writes itself;
+- testing: ``python -m vsr_tpu_torch.main <config> --test`` (its ``main``) on
+  ``configs/test/acdc_sisr_srfb_x2.yaml``, ``acdc_vsr_drf_x2.yaml`` and
+  ``acdc_sisr_edsr_x2.yaml`` with the checkpoints those runs wrote:
+  ``results.csv``, PNGs and GIFs, PSNR / SSIM and their Cardiac* twins.
 
 Phases; any failure exits non-zero and prints no result:
 
@@ -55,7 +61,10 @@ Phases; any failure exits non-zero and prints no result:
    frame step's 12 squeezes forward + backward, and the dx launches alone,
    against ``torch.cat`` + library conv + ``prelu`` under autograd; the
    dW / db kernel of that backward against its own twin (f32 and bf16, two
-   launches bit-equal) and against cuDNN's weight and bias gradient;
+   launches bit-equal; also rows of pixels off 16 bytes, off the kernel's
+   step and tiles, and pointers off 16 bytes) and against cuDNN's weight
+   and bias gradient, with its bound by bytes beside its bound at the
+   float32 rate;
 7. training: writes a seeded, low-passed (learnable) processed tree; trains
    DRFNet through ``run_train`` with K1 on, on again and off from one seed,
    and EDSRNet once. Gates: K1's forward launches are 12 per frame step of
@@ -67,8 +76,15 @@ Phases; any failure exits non-zero and prints no result:
    CLI (``--checkpoint``) and must equal the trainer's own validation output
    to <= 1 grey; one batch's loss and gradients on the card (K1) agree with
    the CPU (twin); a SIGTERM after 3 steps writes ``model_preempt.ckpt`` and
-   the resumed run finishes the epoch. Prints step times, rates and peak
-   memory with the kernel on and off;
+   the resumed run finishes the epoch. SRFBNet is trained with K1 on and off
+   (first loss within 1e-4 relative; 48 forward, 48 dx and 48 dW / db
+   launches per train step with it on, 0 with it off). Then ``main --test``
+   runs on the best checkpoints of SRFBNet, DRFNet and EDSRNet (the test
+   split is the validation split again): a row per frame, a PNG per frame,
+   a GIF per sequence, K1's launches counted, and the mean PSNR of
+   ``results.csv`` within 0.01 dB of the validation PSNR the trainer logged
+   for that checkpoint. Prints step times, rates and peak memory with the
+   kernel on and off, and the test runs' frames/s;
 8. (``--profile``) ``torch.profiler`` traces;
 9. prints the kernels' JSON line, then the final JSON line.
 
@@ -832,6 +848,20 @@ TRAIN_SQUEEZES = {(k, TRAIN_LR if side == LR else TRAIN_HR): count
                   for (k, side), count in STEP_SQUEEZES.items()}
 TRAIN_EPOCHS = 5
 TREE_SEQUENCES = {"train": (2, 2), "valid": (1, 2)}  # patients, slices each
+# The test split holds the validation sequences again, so that what
+# ``main --test`` scores is what the trainer's validation pass scored.
+TEST_FRAMES = TREE_SEQUENCES["valid"][0] * TREE_SEQUENCES["valid"][1] * T_FRAMES
+# configs/train/acdc_sisr_srfb_x2.yaml: SRFBNet F=64 G=6, 4 feedback steps,
+# each with the 12 squeezes of a DRFNet frame step.
+SRFB_STEPS = 4
+SRFB_KWARGS = dict(in_channels=1, out_channels=1, num_steps=SRFB_STEPS,
+                   num_features=F_, num_groups=G_, upscale_factor=FACTOR)
+# A heart box inside the 192 x 192 frames for the Cardiac* metrics.
+HEART_BOX = (48, 144, 40, 152)
+# main --test against the trainer's validation pass of the same checkpoint,
+# in dB: the same weights, data and batch-1 forward; what may differ is
+# cuDNN's choice of algorithm between two processes' worth of calls.
+TEST_PSNR_TOL = 0.01
 ALPHAS = (0.2, 0.0, -0.3)
 # Gradient bars. dx sums F products like the forward: the forward's bar.
 # dW, db and the PReLU weight's gradient sum up to N * H * W = 65 536
@@ -1048,6 +1078,26 @@ def phase_kernel_squeeze_backward(dev) -> dict:
                                     xs, w, b, g, dev)
     dw_cases["ragged"] = dw_case("ragged 9x13, channels (3, 17, 40), F=70",
                                  xs, g)
+    # The dW / db kernel off 16-byte rows, off its pixel step and off its
+    # 64-wide tiles, and with every pointer one element off 16 bytes.
+    for name, args in (
+            ("rows of 8 bytes (1x2), channels (5, 130), F=9",
+             (5, (5, 130), 9, 1, 2)),
+            ("odd rows 33x31, channels (64, 63, 100), F=130",
+             (2, (64, 63, 100), 130, 33, 31)),
+            ("aligned rows off the step 20x20, channels (64, 32)",
+             (4, (64, 32), F_, 20, 20))):
+        xs, _, _, g = operands(*args)
+        dw_cases[name] = dw_case(name, xs, g)
+
+    def off_by_one(t):
+        flat = torch.empty(t.numel() + 1, device=dev)
+        flat[1:] = t.flatten()
+        return flat[1:].view(t.shape)
+
+    xs, _, _, g = operands(TRAIN_N, (F_, F_), F_, TRAIN_LR, TRAIN_LR)
+    name = f"pointers off 16 bytes, k=2 {TRAIN_LR}x{TRAIN_LR} N={TRAIN_N}"
+    dw_cases[name] = dw_case(name, [off_by_one(x) for x in xs], off_by_one(g))
     bad = [name for name, c in cases.items() if not c["ok"]]
     if bad:
         raise SystemExit(f"K1's backward disagrees with its twin's at {bad}")
@@ -1063,13 +1113,18 @@ def phase_kernel_squeeze_backward(dev) -> dict:
         summary["bytes"], summary["flops"], PEAK_F32)
     summary["dw_bound_ms"], summary["dw_bound_by"] = bound(
         summary["dw_bytes"], summary["dw_flops"], PEAK_F32)
+    # The kernel multiplies on the tensor cores (three TF32 products), so
+    # the bytes bound it; the float32 rate outside them is the larger, and
+    # the one reported.
+    summary["dw_bytes_bound_ms"] = summary["dw_bytes"] / PEAK_BYTES * 1e3
     log(f"  K1 backward, one training frame step's {SQUEEZES_PER_STEP} "
         f"squeezes (N={TRAIN_N}, {TRAIN_LR}x{TRAIN_LR} patches): backward "
         f"{summary['backward_ms']:.4f} ms (of it the dx launches "
         f"{summary['dx_ms']:.4f} ms and the dW/db kernel "
         f"{summary['dw_ms']:.4f} ms: twin {summary['dw_plain_ms']:.4f} ms, "
         f"cuDNN wgrad + bias {summary['dw_library_ms']:.4f} ms, bound "
-        f"{summary['dw_bound_ms']:.4f} ms by {summary['dw_bound_by']}) vs "
+        f"{summary['dw_bound_ms']:.4f} ms by {summary['dw_bound_by']} at the "
+        f"float32 rate, {summary['dw_bytes_bound_ms']:.4f} ms by bytes) vs "
         f"autograd through torch.cat + "
         f"library conv + prelu {summary['backward_library_ms']:.4f} ms, bound "
         f"{summary['bound_ms']:.4f} ms by {summary['bound_by']}; forward + "
@@ -1098,9 +1153,12 @@ def smooth_sequence(rng: np.random.Generator) -> np.ndarray:
 
 def make_training_tree(root: Path, dev) -> dict:
     """The processed tree the datasets glob (``videos/`` and ``imgs/``,
-    ``{train,valid}/{HR,LR/X2}/patientNNN/...``), LR made by the port's own
-    k-space chain on the card; files are written by a thread pool (gzip
-    releases the GIL)."""
+    ``{train,valid,test}/{HR,LR/X2}/patientNNN/...``; the test split is the
+    validation split again), LR made by the port's own k-space chain on the
+    card, and the ``coordinates.pkl`` of the Cardiac* metrics; files are
+    written by a thread pool (gzip releases the GIL)."""
+    import pickle
+
     from concurrent.futures import ThreadPoolExecutor
 
     from vsr_tpu_torch.io.nifti import save_nifti
@@ -1109,10 +1167,12 @@ def make_training_tree(root: Path, dev) -> dict:
     t0 = time.perf_counter()
     rng = np.random.default_rng(11)
     jobs, n_bytes, sequences = [], 0, {}
-    for split, (patients, slices) in TREE_SEQUENCES.items():
+    splits = [*TREE_SEQUENCES.items(), ("test", TREE_SEQUENCES["valid"])]
+    for split, (patients, slices) in splits:
         for p in range(1, patients + 1):
             for s in range(1, slices + 1):
-                hr = smooth_sequence(rng)
+                hr = (sequences["valid", p, s] if split == "test"
+                      else smooth_sequence(rng))
                 frames = torch.from_numpy(np.ascontiguousarray(
                     np.moveaxis(hr[:, :, 0], -1, 0))).float().to(dev)
                 lr = kspace_downscale_torch(frames, FACTOR).cpu().numpy()
@@ -1128,6 +1188,8 @@ def make_training_tree(root: Path, dev) -> dict:
                     n_bytes += 2 * vol.nbytes
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(lambda job: save_nifti(*job), jobs))
+    with open(root / "coordinates.pkl", "wb") as f:
+        pickle.dump({f"patient{p:03d}": HEART_BOX for p in range(1, 10)}, f)
     seconds = time.perf_counter() - t0
     log(f"  wrote the synthetic processed tree: {len(sequences)} sequences of "
         f"{HR}x{HR}x1x{T_FRAMES} (+ LR x{FACTOR}), {len(jobs)} files, "
@@ -1221,10 +1283,14 @@ def training_config(name: str, tree: Path, saved: Path, net_kwargs: dict,
 
 
 def train_run(what: str, cfg, card: str, per_sample: int,
-              squeezes_on: bool | None, sigterm_after: int = 0) -> dict:
+              squeezes_on: bool | None, sigterm_after: int = 0,
+              frame_steps: tuple[int, int] = (TRAIN_T, 1)) -> dict:
     """One ``run_train`` of a config on the card, probed; checks the launch
-    counts (``squeezes_on`` None: a net without K1), the loss, the files."""
+    counts (``squeezes_on`` None: a net without K1), the loss, the files.
+    ``frame_steps``: how many times the net runs the feedback block (12
+    squeezes) per training sample and per validation frame."""
     from vsr_tpu_torch.main import run_train
+    from vsr_tpu_torch.runner.trainers import SISRSRFBTrainer
 
     reset_launches()
     torch.cuda.synchronize()
@@ -1236,15 +1302,19 @@ def train_run(what: str, cfg, card: str, per_sample: int,
     step_ms = probe.step_ms()
     losses = torch.stack(probe.losses).tolist()
     steps = len(step_ms)
-    valid_frames = sum(o.shape[0] * (o.shape[1] if o.dim() == 5 else 1)
-                       for o in probe.valid_outputs)
+    if isinstance(trainer, SISRSRFBTrainer):  # outputs (S, N, C, H, W)
+        valid_frames = sum(o.shape[1] for o in probe.valid_outputs)
+    else:
+        valid_frames = sum(o.shape[0] * (o.shape[1] if o.dim() == 5 else 1)
+                           for o in probe.valid_outputs)
     valid_passes = sum(m == "validation" for m, _ in probe.passes)
     samples = trainer.train_dataloader.batch_size * per_sample  # a full batch
     want_fwd = want_bwd = 0
     if squeezes_on:
-        frames = TRAIN_T * steps + valid_frames * valid_passes
-        want_fwd = SQUEEZES_PER_STEP * frames
-        want_bwd = SQUEEZES_PER_STEP * TRAIN_T * steps
+        # Every sample of a batch goes through one launch together.
+        want_bwd = SQUEEZES_PER_STEP * frame_steps[0] * steps
+        want_fwd = want_bwd + (SQUEEZES_PER_STEP * frame_steps[1]
+                               * valid_frames * valid_passes)
     check_launches(what, "concat_conv1x1", want_fwd, want_bwd)
     params = {k: v.detach().clone() for k, v in trainer.net.state_dict().items()}
     if not all(torch.isfinite(v).all() for v in params.values()):
@@ -1291,6 +1361,86 @@ def check_loss_fell(what: str, stats: dict) -> None:
     bad = {k: v for k, v in pairs.items() if not v[1] < v[0]}
     if bad:
         raise SystemExit(f"{what}: the loss did not fall (first, last): {bad}")
+
+
+def testing_config(name: str, tree: Path, run: Path, net_kwargs: dict,
+                   tmp: Path):
+    """``configs/test/<name>.yaml`` pointed at the temporary tree and at the
+    best checkpoint of the training run ``run``, written to a file as a
+    user's config would be; returns the file's path."""
+    from vsr_tpu_torch.config import load_config, save_config
+
+    root = Path(__file__).resolve().parent
+    cfg = load_config(root / "configs" / "test" / f"{name}.yaml")
+    out = run / "predictions"
+    cfg.main.saved_dir = str(out)
+    cfg.main.loaded_path = str(run / "checkpoints" / "model_best.ckpt")
+    cfg.dataset.kwargs.data_dir = str(
+        tree / ("videos" if "vsr" in name else "imgs"))
+    cfg.net.kwargs.update(net_kwargs)
+    for spec in cfg.metrics:
+        if "coordinates_path" in (spec.get("kwargs") or {}):
+            spec.kwargs.coordinates_path = str(tree / "coordinates.pkl")
+    cfg.predictor.kwargs.saved_dir = str(out)
+    path = tmp / f"{run.name}_test.yaml"
+    save_config(cfg, path)
+    return path
+
+
+def test_run(what: str, name: str, tree: Path, run: Path, net_kwargs: dict,
+             tmp: Path, train_stats: dict, want_launches: int,
+             card: str) -> dict:
+    """``python -m vsr_tpu_torch.main <test config> --test`` (its ``main``)
+    on the best checkpoint of a training run: the launch counts, a row of
+    ``results.csv``, a PNG per frame and a GIF per sequence, and the mean
+    PSNR of the rows against the validation PSNR that the trainer logged for
+    the epoch the monitor kept as best."""
+    import csv
+
+    from vsr_tpu_torch import main as port_main
+
+    path = testing_config(name, tree, run, net_kwargs, tmp)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    port_main.main([str(path), "--test"])  # the default device: the card
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_launches(what, "concat_conv1x1", want_launches)
+    out = run / "predictions"
+    with open(out / "results.csv", newline="") as f:
+        rows = list(csv.reader(f))
+    header, rows = rows[0], rows[1:]
+    values = np.array([[float(v) for v in r[1:]] for r in rows])
+    pngs = sorted(out.glob("imgs/*/*.png"))
+    gifs = sorted(out.glob("videos/*/*.gif"))
+    sequences = TEST_FRAMES // T_FRAMES
+    if (len(rows) != TEST_FRAMES or len(pngs) != TEST_FRAMES
+            or len(gifs) != sequences or not np.isfinite(values).all()
+            or rows[0][0] != "patient001_2d_slice01_frame01"):
+        raise SystemExit(f"{what}: {len(rows)} rows, {len(pngs)} PNGs, "
+                         f"{len(gifs)} GIFs for {TEST_FRAMES} frames of "
+                         f"{sequences} sequences (first row {rows[0][:2]})")
+    if any(p.stat().st_size < 100 for p in (*pngs, *gifs)):
+        raise SystemExit(f"{what}: an empty PNG or GIF")
+    best = int(np.argmin(train_stats["valid_loss_by_epoch"]))
+    psnr = float(values[:, header.index("PSNR") - 1].mean())
+    want = train_stats["valid_psnr_by_epoch"][best]
+    res = {"seconds": seconds, "frames": len(rows),
+           "frames_per_sec": len(rows) / seconds, "psnr": psnr,
+           "trainer_valid_psnr": want, "best_epoch": best + 1,
+           "launches": want_launches, "columns": header[1:],
+           "means": dict(zip(header[1:], values.mean(axis=0).tolist()))}
+    log(f"  {what}: {len(rows)} rows, {len(pngs)} PNGs, {len(gifs)} GIFs in "
+        f"{seconds:.2f} s ({res['frames_per_sec']:.1f} frames/s, files "
+        f"included); mean PSNR {psnr:.4f} dB vs the trainer's validation "
+        f"PSNR of epoch {best + 1} {want:.4f} dB; means "
+        f"{ {k: round(v, 4) for k, v in res['means'].items()} }; K1 launches "
+        f"{want_launches} [{card}]")
+    if abs(psnr - want) > TEST_PSNR_TOL:
+        raise SystemExit(f"{what}: main --test scores {psnr:.4f} dB, the "
+                         f"trainer's validation pass {want:.4f} dB")
+    return res
 
 
 def phase_training(tmp: Path, card: str, dev) -> dict:
@@ -1347,6 +1497,35 @@ def phase_training(tmp: Path, card: str, dev) -> dict:
         raise SystemExit("sisr: no model_best.ckpt")
     res["sisr"] = sisr
 
+    log("phase 7c2: SISR training with feedback, SRFBNet F=64 G=6, 4 steps, "
+        "x2 (AcdcSISRSRFBTrainer, K1 forward and backward)")
+    srfb = {}
+    for name, fused in (("fused", True), ("unfused", False)):
+        cfg = training_config("acdc_sisr_srfb_x2", tmp / "tree",
+                              tmp / f"srfb_{name}", {"fused_squeeze": fused},
+                              tmp)
+        srfb[name] = train_run(f"srfb {name}", cfg, card, 1, fused,
+                               frame_steps=(SRFB_STEPS, SRFB_STEPS))["stats"]
+        check_loss_fell(f"srfb {name}", srfb[name])
+        if not (tmp / f"srfb_{name}" / "checkpoints"
+                / "model_best.ckpt").is_file():
+            raise SystemExit(f"srfb {name}: no model_best.ckpt")
+    first_rel = (abs(srfb["fused"]["first_loss"] - srfb["unfused"]["first_loss"])
+                 / srfb["unfused"]["first_loss"])
+    per_step = srfb["fused"]["backward_launches"] // srfb["fused"]["steps"]
+    log(f"  srfb kernel on vs off: first loss {srfb['fused']['first_loss']:.6f}"
+        f" vs {srfb['unfused']['first_loss']:.6f} (relative {first_rel:.2g}); "
+        f"{per_step} forward, dx and dW/db launches per train step with it "
+        f"on, 0 with it off; median step "
+        f"{srfb['fused']['median_step_ms']:.2f} vs "
+        f"{srfb['unfused']['median_step_ms']:.2f} ms; peak memory "
+        f"{srfb['fused']['peak_memory_gb']:.2f} vs "
+        f"{srfb['unfused']['peak_memory_gb']:.2f} GB")
+    if first_rel > 1e-4 or per_step != SQUEEZES_PER_STEP * SRFB_STEPS:
+        raise SystemExit("srfb: the first loss with the kernel on and off "
+                         "differ, or the launches per step are not 48")
+    res["srfb"] = dict(srfb, first_loss_relative_diff=first_rel)
+
     log("phase 7d: train, then serve (infer --video --checkpoint)")
     hr = tree["sequences"]["valid", 1, 1].astype(np.float32)  # (H, W, 1, T)
     save_nifti(hr, tmp / "serve_in" / "patient001" / "patient001_4d.nii")
@@ -1399,6 +1578,19 @@ def phase_training(tmp: Path, card: str, dev) -> dict:
         f"trained the epoch's other {resumed['steps']} steps and logged it")
     res["preemption"] = {"steps_before": first["steps"],
                          "steps_after": resumed["steps"]}
+
+    log("phase 7g: train, then test (python -m vsr_tpu_torch.main <test "
+        "config> --test on model_best.ckpt: results.csv, PNGs, GIFs)")
+    squeezes = SQUEEZES_PER_STEP * TEST_FRAMES
+    res["test"] = {
+        "srfb": test_run("test srfb", "acdc_sisr_srfb_x2", tmp / "tree",
+                         tmp / "srfb_fused", {"fused_squeeze": True}, tmp,
+                         srfb["fused"], squeezes * SRFB_STEPS, card),
+        "vsr": test_run("test vsr", "acdc_vsr_drf_x2", tmp / "tree",
+                        tmp / "vsr_fused", {"fused_squeeze": True}, tmp,
+                        runs["fused"]["stats"], squeezes, card),
+        "sisr": test_run("test sisr", "acdc_sisr_edsr_x2", tmp / "tree",
+                         tmp / "sisr", {}, tmp, sisr, 0, card)}
     return res
 
 
@@ -1442,9 +1634,9 @@ def phase_profile_training(tmp: Path, dev) -> dict:
     kernel on and off, EDSRNet) after 3 warm-up steps: device time by
     kernel, the idle share against the wall time of 6 unprofiled steps, and
     for K1 the device time of its own kernels (forward and dx launches
-    together, phase 6 times them apart; the dW / db kernel) and of the
-    PyTorch kernels its backward launches besides (the sum of the partial
-    tiles, W^T, casts), read from a profiler range around the backward: a
+    together, phase 6 times them apart; the dW / db kernel with its second
+    pass) and of the PyTorch kernels its backward launches besides (W^T,
+    the zero bias, casts), read from a profiler range around the backward: a
     range's device time is that of the PyTorch kernels launched inside it,
     and leaves out the port's own launches."""
     from torch.autograd import DeviceType
@@ -1461,6 +1653,8 @@ def phase_profile_training(tmp: Path, dev) -> dict:
     for key, name, kwargs in (
             ("vsr_fused", "acdc_vsr_drf_x2", {"fused_squeeze": True}),
             ("vsr_unfused", "acdc_vsr_drf_x2", {"fused_squeeze": False}),
+            ("srfb_fused", "acdc_sisr_srfb_x2", {"fused_squeeze": True}),
+            ("srfb_unfused", "acdc_sisr_srfb_x2", {"fused_squeeze": False}),
             ("sisr", "acdc_sisr_edsr_x2", {})):
         cfg = training_config(name, tmp / "tree", tmp / f"profile_{key}",
                               kwargs, tmp)
@@ -1495,7 +1689,7 @@ def phase_profile_training(tmp: Path, dev) -> dict:
         # Device ms per step of the kernels whose name holds the word.
         share = {name: sum(ms for k, ms, _ in rows if word in k) / 6
                  for name, word in (("k1_kernel", "concat_conv1x1_kernel"),
-                                    ("k1_dw_kernel", "concat_dw_kernel"),
+                                    ("k1_dw_kernel", "concat_dw_"),  # + its second pass
                                     ("cudnn_dgrad", "dgrad"),
                                     ("cudnn_wgrad", "wgrad"),
                                     ("optimizer", "multi_tensor_apply"),
@@ -1512,7 +1706,7 @@ def phase_profile_training(tmp: Path, dev) -> dict:
             f"per step of device time: K1's kernel (forward + dx) "
             f"{share['k1_kernel']:.2f}, its dW/db kernel "
             f"{share['k1_dw_kernel']:.2f}, the PyTorch kernels of its "
-            f"backward (the partial sum, W^T, casts) {k1_rest / 6:.2f}, "
+            f"backward (W^T, the zero bias, casts) {k1_rest / 6:.2f}, "
             f"cuDNN dgrad {share['cudnn_dgrad']:.2f}, "
             f"wgrad {share['cudnn_wgrad']:.2f}, optimizer "
             f"{share['optimizer']:.2f}, H2D {share['h2d']:.3f}")
@@ -1617,18 +1811,14 @@ def main() -> int:
         "backward_library_ms": k1_bwd["per_step"]["backward_library_ms"],
         "backward_bound_ms": k1_bwd["per_step"]["bound_ms"],
         "backward_bound_by": k1_bwd["per_step"]["bound_by"],
-        # The dW / db kernel of that backward (csrc/fused_squeeze_dw.cu; the
-        # JAX package computes dW and db in XLA, vsr_tpu/ops/
-        # fused_squeeze.py:104, so it replaces no TPU kernel): the same 12
-        # squeezes, against its twin and against cuDNN's wgrad + bias grad.
-        "dw_source": "vsr_tpu_torch/csrc/fused_squeeze_dw.cu",
-        "dw_launches": training["vsr"]["fused"]["backward_launches"],
-        "dw_max_abs_err": k1_bwd["dw_max_abs_err"],
-        "dw_ms": k1_bwd["per_step"]["dw_ms"],
-        "dw_plain_ms": k1_bwd["per_step"]["dw_plain_ms"],
-        "dw_bound_ms": k1_bwd["per_step"]["dw_bound_ms"],
-        "dw_bound_by": k1_bwd["per_step"]["dw_bound_by"],
-        "dw_library_ms": k1_bwd["per_step"]["dw_library_ms"],
+        # SRFBNet under AcdcSISRSRFBTrainer, kernel on (48 per train step
+        # and per validation frame), and main --test on its checkpoint and
+        # on DRFNet's.
+        "srfb_train_launches": training["srfb"]["fused"]["launches"],
+        "srfb_backward_launches":
+            training["srfb"]["fused"]["backward_launches"],
+        "srfb_test_launches": training["test"]["srfb"]["launches"],
+        "vsr_test_launches": training["test"]["vsr"]["launches"],
         "max_abs_err": k1["f32_max_abs_err"],
         "ms": per_step["f32_ms"], "plain_ms": per_step["f32_plain_ms"],
         "bound_ms": per_step["f32_bound_ms"],
@@ -1645,6 +1835,23 @@ def main() -> int:
         "prelu_library_ms": per_step["f32_act_library_ms"],
         "bf16_prelu_ms": per_step["bf16_act_ms"],
         "bf16_prelu_library_ms": per_step["bf16_act_library_ms"],
+    }, {
+        # K1's weight and bias gradient (the JAX package computes them in
+        # XLA, inside _bwd, so the line it replaces is no Pallas kernel): one
+        # training frame step's 12 squeezes, N = 16, 32 x 32 and 64 x 64,
+        # float32. Launches: the DRFNet training run's, then SRFBNet's.
+        "name": "concat_conv1x1_dw", "route": "cuda",
+        "source": "vsr_tpu_torch/csrc/fused_squeeze_dw.cu",
+        "replaces": "vsr_tpu/ops/fused_squeeze.py:104",
+        "launches": training["vsr"]["fused"]["backward_launches"],
+        "srfb_launches": training["srfb"]["fused"]["backward_launches"],
+        "max_abs_err": k1_bwd["dw_max_abs_err"],
+        "ms": k1_bwd["per_step"]["dw_ms"],
+        "plain_ms": k1_bwd["per_step"]["dw_plain_ms"],
+        "bound_ms": k1_bwd["per_step"]["dw_bound_ms"],
+        "bound_by": k1_bwd["per_step"]["dw_bound_by"],
+        "bytes_bound_ms": k1_bwd["per_step"]["dw_bytes_bound_ms"],
+        "library_ms": k1_bwd["per_step"]["dw_library_ms"],
     }, {
         # One --chunk 100 call: x (100, 96, 96), 5x5 filters, x2.
         "name": "duf_dynamic_filter", "route": "cuda",

@@ -255,7 +255,7 @@ def test_kernel_backward_bf16(rng, dev, alpha):
 @pytest.mark.parametrize("case", sorted(K1_CASES))
 def test_dw_kernel_matches_twin(rng, dev, case, dtype):
     """The split-K dW / db kernel against its plain twin: ragged channel
-    counts, F off the 64-row tile, pixel counts off the 32-pixel step,
+    counts, F off the 64-row tile, pixel counts off the kernel's step,
     streamed sums over several images per block (many_tiles)."""
     channels, f, n, h, w = K1_CASES[case]
     xs, _, _ = _operands(rng, dev, channels, f, n, h, w)
@@ -278,6 +278,52 @@ def test_dw_kernel_matches_twin(rng, dev, case, dtype):
     assert bool(((dw - want_dw).abs() <= 1e-5 * scale_dw + 1e-6).all())
     assert bool(((db - want_db).abs() <= 1e-5 * scale_db + 1e-6).all())
     # No atomics: the same bits every launch.
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+# Shapes off the kernel's steps and off 16-byte rows: (channels, F, N, H, W).
+DW_RAGGED_CASES = {
+    "rows_of_8_bytes": ((5, 130), 9, 5, 1, 2),
+    "one_pixel": ((8,), 8, 7, 1, 1),
+    "odd_hw_one_part": ((64,), 64, 3, 7, 9),
+    # 1023 pixels: element-wise loads, a chunk edge off the step, F and the
+    # last input off the 64-wide tile, an odd first column of the last input.
+    "odd_hw_many_channels": ((64, 63, 100), 130, 2, 33, 31),
+    "aligned_hw_off_the_step": ((64, 32), 64, 4, 20, 20),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", sorted(DW_RAGGED_CASES))
+def test_dw_kernel_ragged_and_unaligned(rng, dev, case, offset, dtype):
+    """Ragged and unaligned pixel rows stay inside the kernel: ``offset``
+    puts every operand one element into its storage, so that no pointer is
+    a multiple of 16 bytes. Two launches give the same bits."""
+    channels, f, n, h, w = DW_RAGGED_CASES[case]
+
+    def make(c):
+        flat = torch.from_numpy(rng.standard_normal(
+            n * c * h * w + offset).astype(np.float32)).to(dev).to(dtype)
+        return flat[offset:].view(n, c, h, w)
+
+    xs, g = [make(c) for c in channels], make(f)
+    assert all(t.is_contiguous() for t in (*xs, g))
+    if offset:
+        assert all(t.data_ptr() % 16 for t in (*xs, g))
+    before = fs.concat_conv1x1_dw.launches
+    dw, db = fs.concat_conv1x1_dw(xs, g)
+    again = fs.concat_conv1x1_dw(xs, g)
+    assert fs.concat_conv1x1_dw.launches == before + 2
+    floats = [x.float() for x in xs]
+    want_dw, want_db = fs.concat_conv1x1_dw_reference(floats, g.float())
+    scale_dw, scale_db = fs.concat_conv1x1_dw_reference(
+        [x.abs() for x in floats], g.float().abs())
+    torch.cuda.synchronize()
+    assert dw.shape == (f, sum(channels)) and db.shape == (f,)
+    assert dw.is_contiguous() and dw.dtype == db.dtype == torch.float32
+    assert bool(((dw - want_dw).abs() <= 1e-5 * scale_dw + 1e-6).all())
+    assert bool(((db - want_db).abs() <= 1e-5 * scale_db + 1e-6).all())
     assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
 
 

@@ -374,8 +374,8 @@ def test_cli_serves_frame_and_window_modes_without_jax(tmp_path, rng, mode):
     _serve_blocked(tmp_path, rng, mode)
 
 
-_FORBIDDEN_MODULES = ("jax", "flax", "optax", "yaml", "PIL", "msgpack",
-                      "tqdm", "vsr_tpu")
+_FORBIDDEN_MODULES = ("jax", "flax", "optax", "yaml", "PIL", "imageio",
+                      "msgpack", "tqdm", "vsr_tpu")
 
 
 @pytest.mark.parametrize("path", sorted(

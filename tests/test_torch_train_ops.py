@@ -200,3 +200,22 @@ def test_counters_exist_and_cpu_calls_count_nothing(rng):
     _torch_grads(fs.concat_conv1x1, xs, w, b, g, 0.2)
     assert (fs.concat_conv1x1.launches,
             fs.concat_conv1x1.backward_launches) == before
+
+
+@pytest.mark.parametrize("n,hw,channels,f_out", [
+    (16, 1024, (64,) * 2, 64), (16, 4096, (64,) * 6, 64), (16, 1024, (64,) * 6, 64),
+    (2, 117, (3, 17, 40), 70), (5, 2, (5, 130), 9), (7, 1, (8,), 8),
+    (40, 32, (64,) * 8, 512), (1, 9216, (64, 64), 64)])
+def test_dw_split_cuts_the_summed_dimension_into_whole_steps(n, hw, channels,
+                                                             f_out):
+    """What ``concat_conv1x1_dw`` hands its kernel: chunks that are multiples
+    of the kernel's pixel step, at most one block per unit of work, at most
+    about one wave of blocks on a 132-SM card."""
+    chunk, splits = fs._dw_split(n, hw, channels, f_out, sms=132)
+    units = n * -(-hw // chunk)
+    tiles = sum(-(-c // 64) for c in channels) * -(-f_out // 64)
+    assert chunk % 64 == 0 and chunk >= 64
+    assert 1 <= splits <= units and splits <= 65535
+    assert splits * tiles <= max(3 * 132, tiles)
+    # Never a chunk so long that a second one per image would be empty.
+    assert (-(-hw // chunk) - 1) * chunk < hw

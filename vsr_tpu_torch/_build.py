@@ -33,10 +33,10 @@ SIGNATURES = {
     # xs, channels, count, w, b, alpha, out, n, hw, f_out, dtype, stream
     "vsr_concat_conv1x1": [ctypes.POINTER(_P), ctypes.POINTER(_I), _I,
                            _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # xs, channels, count, g, partial, n, hw, f_out, chunk, splits, dtype,
-    # stream
-    "vsr_concat_dw": [ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _P],
+    # xs, channels, count, g, partial, dw, db, n, hw, f_out, chunk, splits,
+    # split_stride, dtype, stream
+    "vsr_concat_dw": [ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _P, _P,
+                      _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _I, _P],
     # x, logits, out, n, h, w, size, r, stream
     "vsr_duf_filter": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # af, out, rows, gs, stream

@@ -50,12 +50,15 @@ def _to_uint8_grid(pairs: list[np.ndarray], pad: int = 2) -> np.ndarray:
 
 
 def write_png(path: str | Path, image: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG."""
+    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG, or an (H, W)
+    one as an 8-bit greyscale PNG."""
     image = np.ascontiguousarray(image)
-    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
-        raise ValueError(f"write_png takes (H, W, 3) uint8, got "
+    grey = image.ndim == 2
+    if image.dtype != np.uint8 or not (
+            grey or (image.ndim == 3 and image.shape[2] == 3)):
+        raise ValueError(f"write_png takes (H, W, 3) or (H, W) uint8, got "
                          f"{image.dtype} {image.shape}")
-    h, w, _ = image.shape
+    h, w = image.shape[:2]
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         body = tag + data
@@ -64,10 +67,11 @@ def write_png(path: str | Path, image: np.ndarray) -> None:
 
     # Every scanline starts with filter type 0 (none).
     raw = np.concatenate(
-        [np.zeros((h, 1), np.uint8), image.reshape(h, w * 3)], axis=1).tobytes()
+        [np.zeros((h, 1), np.uint8), image.reshape(h, -1)], axis=1).tobytes()
     Path(path).write_bytes(
         b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0 if grey else 2,
+                                     0, 0, 0))
         + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
@@ -120,6 +124,16 @@ class SISRLogger(BaseLogger):
         return _to_uint8_grid(pairs)
 
 
+class SISRSRFBLogger(BaseLogger):
+    """Feedback nets return per-step stacks (S, N, H, W, C): use the last."""
+
+    def _make_grid(self, batch, outputs):
+        targets = np.asarray(batch["hr_img"])
+        outs = np.asarray(outputs)[-1]
+        pairs = [img for t, o in zip(targets, outs) for img in (t, o)]
+        return _to_uint8_grid(pairs)
+
+
 class VSRLogger(BaseLogger):
     """Sequences (N, T, H, W, C): show the last frame."""
 
@@ -133,6 +147,8 @@ class VSRLogger(BaseLogger):
 for _name, _cls in [
     ("AcdcSISRLogger", SISRLogger),
     ("Dsb15SISRLogger", SISRLogger),
+    ("AcdcSISRSRFBLogger", SISRSRFBLogger),
+    ("Dsb15SISRSRFBLogger", SISRSRFBLogger),
     ("AcdcVSRLogger", VSRLogger),
     ("Dsb15VSRLogger", VSRLogger),
 ]:

@@ -45,6 +45,7 @@ from vsr_tpu_torch.models.duf import DUFNet, _DenseBackbone, _DenseBlock
 from vsr_tpu_torch.models.edsr import EDSRNet, _ResBlock, _UpBlock
 from vsr_tpu_torch.models.feedback import FBlock, InBlock, PReLU
 from vsr_tpu_torch.models.moe import ExpertChoiceMoE, MoEEDSRNet
+from vsr_tpu_torch.models.srfbn import SRFBNet, _RBlock
 
 Slot = tuple[tuple[str, ...], torch.Tensor, Callable[[np.ndarray], np.ndarray]]
 
@@ -163,7 +164,14 @@ def module_slots(module: nn.Module) -> Iterator[Slot]:
         yield from _numbered_slots(("step", "FBlock_0"), module.step.fblock)
         yield from _out_block_slots(("step", "_OutBlock_0"),
                                     module.step.out_block)
-    elif isinstance(module, (InBlock, FBlock, _ResBlock, _UpBlock,
+    elif isinstance(module, SRFBNet):
+        # flax names the scanned step after its class; its parameters are
+        # broadcast over the steps, so there is one set.
+        step = ("Scan_SRFBStep_0",)
+        yield from _numbered_slots(("InBlock_0",), module.in_block)
+        yield from _numbered_slots(step + ("FBlock_0",), module.step.fblock)
+        yield from _numbered_slots(step + ("_RBlock_0",), module.step.rblock)
+    elif isinstance(module, (InBlock, FBlock, _RBlock, _ResBlock, _UpBlock,
                              _DenseBlock)):
         yield from _numbered_slots((), module)
     elif isinstance(module, _OutBlock):

@@ -1,14 +1,18 @@
-"""Config-driven training CLI (port of ``vsr_tpu/main.py``).
+"""Config-driven training and testing CLI (port of ``vsr_tpu/main.py``).
 
-Usage: ``python -m vsr_tpu_torch.main <config.yaml> [--device cuda]``, with
-the JAX package's YAML section schema (``main / dataset / dataloader / net /
-losses / metrics / optimizer / [lr_scheduler] / logger / monitor /
-trainer``) resolved through the port's registries. Any ``*Loss`` name the
-port does not define itself resolves to ``torch.nn`` (``losses.py``).
+Usage: ``python -m vsr_tpu_torch.main <config.yaml> [--test] [--device
+cuda]``, with the JAX package's YAML section schema (``main / dataset /
+dataloader / net / losses / metrics / optimizer / [lr_scheduler] / logger /
+monitor / trainer``, and ``predictor`` for ``--test``) resolved through the
+port's registries. Any ``*Loss`` name the port does not define itself
+resolves to ``torch.nn`` (``losses.py``).
 
-The net trains on ``trainer.kwargs.device`` of the config (default
-``cuda``); ``--device`` overrides it. ``--test`` (the predictors) and
-``main.distributed`` are not ported yet and raise.
+The net trains on ``trainer.kwargs.device`` of the config and is tested on
+``predictor.kwargs.device`` (default ``cuda`` for both); ``--device``
+overrides it. ``--test`` loads ``main.loaded_path``, a checkpoint that the
+port's trainer wrote (a flax msgpack file is refused), and writes
+``results.csv``, PNGs and GIFs under ``predictor.kwargs.saved_dir``.
+``main.distributed`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -135,28 +139,76 @@ def run_train(config: Config, device: str | None = None):
     return trainer
 
 
+def run_test(config: Config, device: str | None = None) -> dict:
+    """Test as the config says; returns the predictor's log. ``device``
+    overrides ``predictor.kwargs.device`` (whose default is ``cuda``)."""
+    if not config.get("predictor"):
+        raise ValueError(
+            "--test needs a config with a predictor section (see "
+            "configs/test/*.yaml); this one has none")
+    predictor_kwargs = dict(config.predictor.get("kwargs") or {})
+    device = device or predictor_kwargs.pop("device", None) or "cuda"
+    predictor_kwargs["device"] = device
+
+    logging.info("Create the testing dataset and dataloader.")
+    test_dataset = build("dataset", config.dataset, type="test")
+    dl_kwargs = dict(config.dataloader.get("kwargs") or {})
+    dl_kwargs.pop("train_batch_size", None)
+    dl_kwargs.pop("valid_batch_size", None)
+    dl_kwargs.setdefault("batch_size", 1)
+    test_loader = build(
+        "loader", {"name": config.dataloader.name, "kwargs": dl_kwargs}, test_dataset
+    )
+
+    logging.info("Create the network architecture.")
+    net = build_net(config, device)
+
+    loss_fns, loss_weights = build_losses(config)
+    metric_fns = build_metrics(config)
+
+    logging.info("Create the predictor.")
+    predictor = build(
+        "predictor",
+        {"name": config.predictor.name, "kwargs": predictor_kwargs},
+        test_dataloader=test_loader,
+        net=net,
+        loss_fns=loss_fns,
+        loss_weights=loss_weights,
+        metric_fns=metric_fns,
+    )
+
+    if config.net.name != "Bicubic":
+        logging.info(f'Load the previous checkpoint from "{config.main.loaded_path}".')
+        predictor.load(Path(config.main.loaded_path))
+    logging.info("Start testing.")
+    log = predictor.predict()
+    logging.info("End testing.")
+    return log
+
+
 def main(argv: list[str] | None = None) -> None:
     logging.basicConfig(
         format="%(asctime)s | %(levelname)s | %(message)s",
         level=logging.INFO,
         datefmt="%Y-%m-%d %H:%M:%S",
     )
-    parser = argparse.ArgumentParser(description="The script for the training.")
+    parser = argparse.ArgumentParser(
+        description="The script for the training and the testing.")
     parser.add_argument("config_path", type=Path, help="The path of the config file.")
     parser.add_argument("--test", action="store_true",
-                        help="testing: the predictors are not yet ported")
+                        help="Perform testing instead of training.")
     parser.add_argument("--device", default=None,
-                        help="torch device to train on (cuda, cuda:1, cpu); "
-                             "overrides trainer.kwargs.device (default cuda)")
+                        help="torch device to run on (cuda, cuda:1, cpu); "
+                             "overrides trainer.kwargs.device / "
+                             "predictor.kwargs.device (default cuda)")
     args = parser.parse_args(argv)
-    if args.test:
-        raise NotImplementedError(
-            "--test: predictors are not yet ported to vsr_tpu_torch (test "
-            "with python -m vsr_tpu.main --test)")
 
     config = load_config(args.config_path)
     logging.info(f'Loaded the config from "{args.config_path}".')
-    run_train(config, device=args.device)
+    if args.test:
+        run_test(config, device=args.device)
+    else:
+        run_train(config, device=args.device)
 
 
 if __name__ == "__main__":

@@ -9,13 +9,15 @@
   sigma of 2.12, not 1.5). Kept exactly; changing it would shift SSIM parity.
 
 Metrics compute in float32 with TF32 off, whatever the global flag says.
-``SliceSSIM`` and the ``Cardiac*`` metrics are not ported yet and raise.
+``SliceSSIM`` averages the 2D SSIM over depth; the ``Cardiac*`` metrics crop
+to a per-patient box (the last two axes) and take the patient's name.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import pickle
 
 import numpy as np
 import torch
@@ -123,15 +125,67 @@ class SSIM(Metric):
         return torch.mean(ssim_map, dim=tuple(range(1, ssim_map.dim())))
 
 
-def _not_ported(name: str) -> type:
-    class _Refused(Metric):
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"the {name} metric is not yet ported to vsr_tpu_torch")
+@register("metric")
+class SliceSSIM(Metric):
+    """2D SSIM averaged over the depth axis of ``(N, C, D, H, W)`` volumes
+    (cardiac stacks are thinner than the 11-tap window of the 3D SSIM)."""
 
-    _Refused.__name__ = _Refused.__qualname__ = name
-    return register("metric", name)(_Refused)
+    def __init__(self, channels: int = 1, size_average: bool = True,
+                 value_range: float = 255):
+        self.size_average = size_average
+        self.ssim = SSIM(dim=2, channels=channels, size_average=size_average,
+                         value_range=value_range)
+
+    def __call__(self, output, target):
+        per_slice = torch.stack([self.ssim(output[:, :, d], target[:, :, d])
+                                 for d in range(output.shape[2])])
+        return torch.mean(per_slice) if self.size_average else torch.mean(
+            per_slice, dim=0)  # (N,) per sample, like PSNR
 
 
-for _name in ("SliceSSIM", "CardiacPSNR", "CardiacSSIM"):
-    _not_ported(_name)
+class _CardiacMixin:
+    """Crop output and target to the patient's heart box before scoring.
+
+    ``host_only`` and ``needs_name`` are the JAX package's flags: the
+    predictors pass such a metric the patient's name. The coordinates pickle
+    (``{patient: (h0, hn, w0, wn)}``) is read at the first call, so a config
+    builds before the preprocessing has written it."""
+
+    host_only = True
+    needs_name = True
+
+    def __init__(self, coordinates_path: str):
+        self.coordinates_path = coordinates_path
+        self._coordinates = None
+
+    @property
+    def coordinates(self) -> dict:
+        if self._coordinates is None:
+            with open(self.coordinates_path, "rb") as f:
+                self._coordinates = pickle.load(f)
+        return self._coordinates
+
+    def _crop(self, output, target, name: str):
+        h0, hn, w0, wn = self.coordinates[name]
+        # Channels-first: the spatial dims are the last two.
+        return output[..., h0:hn, w0:wn], target[..., h0:hn, w0:wn]
+
+
+@register("metric")
+class CardiacPSNR(_CardiacMixin, Metric):
+    def __init__(self, coordinates_path: str, **kwargs):
+        _CardiacMixin.__init__(self, coordinates_path)
+        self.psnr = PSNR(**kwargs)
+
+    def __call__(self, output, target, name: str):
+        return self.psnr(*self._crop(output, target, name))
+
+
+@register("metric")
+class CardiacSSIM(_CardiacMixin, Metric):
+    def __init__(self, coordinates_path: str, **kwargs):
+        _CardiacMixin.__init__(self, coordinates_path)
+        self.ssim = SSIM(**kwargs)
+
+    def __call__(self, output, target, name: str):
+        return self.ssim(*self._crop(output, target, name))

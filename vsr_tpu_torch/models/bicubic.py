@@ -1,0 +1,26 @@
+"""Bicubic upsampling baseline net (port of ``vsr_tpu/models/bicubic.py``):
+``nn.Upsample(scale_factor, mode='bicubic', align_corners=True)``, a
+parameter-free baseline that never loads a checkpoint."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from vsr_tpu_torch.ops.upsample import upsample_bicubic
+from vsr_tpu_torch.registry import register
+
+
+@register("net")
+class Bicubic(nn.Module):
+    serving_mode = "frame"
+
+    def __init__(self, upscale_factor: int, *,
+                 device: torch.device | str | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return upsample_bicubic(x, scale=self.upscale_factor,
+                                align_corners=True)

@@ -33,7 +33,7 @@ one launch writes ``(N, sum C_i, H, W)`` and the ``dx_i`` are its channel
 slices; in float32 that is the three-TF32-product route again, with the
 accuracy of a plain float32 product. ``dW`` and ``db`` come from
 ``concat_conv1x1_dw``: on a CUDA tensor the hand-written split-K kernel of
-``csrc/fused_squeeze_dw.cu`` (one launch and one sum for both; the JAX
+``csrc/fused_squeeze_dw.cu`` (tensor cores, one launch for both; the JAX
 package computes them in plain XLA, outside its Pallas kernel, so no TPU
 kernel stands behind this one), on a CPU tensor its plain twin (one matmul
 over the images and pixels of each ``x_i``, and a sum). Saved for the
@@ -206,9 +206,10 @@ def concat_conv1x1_dw(xs: Sequence[torch.Tensor], g: torch.Tensor
     a concatenated or transposed copy.
 
     xs as for ``concat_conv1x1``; ``g`` contiguous, of their dtype and
-    device. On CUDA tensors it launches the split-K kernel of
-    ``csrc/fused_squeeze_dw.cu`` and adds its partial tiles (no atomics: the
-    same bits every run); on CPU tensors it runs the plain twin.
+    device. On CUDA tensors it launches the split-K tensor-core kernel of
+    ``csrc/fused_squeeze_dw.cu`` and the small kernel that adds its partial
+    tiles in a fixed order (no atomics: the same bits every run), as one
+    launch; on CPU tensors it runs the plain twin.
     ``concat_conv1x1_dw.launches`` counts the kernel's launches."""
     xs = list(xs)
     if not xs:
@@ -227,36 +228,56 @@ def concat_conv1x1_dw(xs: Sequence[torch.Tensor], g: torch.Tensor
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
     f_out, hw = g.shape[1], h * w
     channels = [x.shape[1] for x in xs]
-    # Units of work: an image x a chunk of at least 128 pixels; splits: the
-    # blocks along the summed dimension, for about eight blocks per SM.
-    tiles = sum(_ceil_div(c, 64) for c in channels) * _ceil_div(f_out, 64)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, 8 * sms // tiles)
-    per_image = max(1, min(want // n, _ceil_div(hw, 128)))
-    chunk = _ceil_div(_ceil_div(hw, per_image), 32) * 32
-    splits = min(n * _ceil_div(hw, chunk), want, 65535)
+    chunk, splits = _dw_split(
+        n, hw, channels, f_out,
+        torch.cuda.get_device_properties(device).multi_processor_count)
+    # One split's partial: f_out rows of k_total (rounded up to even)
+    # channels, then the f_out row sums for db; an even count of floats.
+    stride = f_out * (k_total + k_total % 2 + 1)
+    stride += stride % 2
 
     from vsr_tpu_torch import _build
 
     lib = _build.load()
-    partial = torch.empty((splits, f_out, k_total + 1), dtype=torch.float32,
+    partial = torch.empty((splits, stride), dtype=torch.float32,
                           device=device)
+    dw = torch.empty((f_out, k_total), dtype=torch.float32, device=device)
+    db = torch.empty((f_out,), dtype=torch.float32, device=device)
     ptrs = (ctypes.c_void_p * _MAX_INPUTS)(*[x.data_ptr() for x in xs])
     chans = (ctypes.c_int * _MAX_INPUTS)(*channels)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.vsr_concat_dw(ptrs, chans, len(xs), g.data_ptr(),
-                               partial.data_ptr(), n, hw, f_out, chunk, splits,
-                               _DTYPE_CODES[dtype], stream)
+                               partial.data_ptr(), dw.data_ptr(),
+                               db.data_ptr(), n, hw, f_out, chunk, splits,
+                               stride, _DTYPE_CODES[dtype], stream)
     if rc != 0:
         raise RuntimeError(f"concat_conv1x1_dw kernel launch failed: "
                            f"cudaError_t {rc}")
     concat_conv1x1_dw.launches += 1
-    total = partial.sum(0)
-    return total[:, :k_total], total[:, k_total]
+    return dw, db
 
 
 concat_conv1x1_dw.launches = 0
+
+
+_DW_BLOCKS_PER_SM = 3  # kMinBlocks of csrc/fused_squeeze_dw.cu: one wave
+_DW_STEP = 64  # pixels: the kernel's step in bfloat16 (two steps in float32)
+
+
+def _dw_split(n: int, hw: int, channels: Sequence[int], f_out: int,
+              sms: int) -> tuple[int, int]:
+    """How ``concat_conv1x1_dw`` cuts the summed dimension: ``(chunk,
+    splits)``. A unit of work is an image x a chunk of pixels (a multiple of
+    the kernel's step, at least 128 where the image has them); ``splits``
+    blocks per output tile walk the units, so that all blocks together are
+    about one wave of the card."""
+    tiles = sum(_ceil_div(c, 64) for c in channels) * _ceil_div(f_out, 64)
+    want = max(1, _DW_BLOCKS_PER_SM * sms // tiles)
+    per_image = max(1, min(want // n, _ceil_div(hw, 128)))
+    chunk = _ceil_div(_ceil_div(hw, per_image), _DW_STEP) * _DW_STEP
+    splits = min(n * _ceil_div(hw, chunk), want, 65535)
+    return chunk, splits
 
 
 def _ceil_div(a: int, b: int) -> int:

@@ -29,6 +29,7 @@ _MODULES = {
     "logger": "vsr_tpu_torch.callbacks.logger",
     "monitor": "vsr_tpu_torch.callbacks.monitor",
     "trainer": "vsr_tpu_torch.runner.trainers",
+    "predictor": "vsr_tpu_torch.runner.predictors",
 }
 # category -> a resolver of names the category's modules did not register.
 _FALLBACKS: dict[str, Callable[[str], type | None]] = {}

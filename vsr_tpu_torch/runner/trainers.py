@@ -1,5 +1,6 @@
 """Trainers: the epoch/step control loop (port of
-``vsr_tpu/runner/trainers.py``: the trainer core, SISR and VSR).
+``vsr_tpu/runner/trainers.py``: the trainer core, SISR, SISR with a
+feedback net (SRFB) and VSR).
 
 The same ``train()`` epoch loop as the JAX package (train epoch -> valid
 epoch -> scheduler -> logger -> monitor-driven checkpoint -> early stop) and
@@ -424,6 +425,21 @@ class SISRTrainer(BaseTrainer):
         return [fn(o, t) for fn in self.metric_fns]
 
 
+class SISRSRFBTrainer(SISRTrainer):
+    """Feedback nets return (S, N, C, H, W) step stacks: every loss is the
+    mean over the steps, metrics on the last step."""
+
+    def _outputs_to_numpy(self, outputs):
+        return outputs.permute(0, 1, 3, 4, 2).cpu().numpy()
+
+    def _compute_losses(self, outputs, targets):
+        return [torch.stack([fn(o, targets) for o in outputs]).mean()
+                for fn in self.loss_fns]
+
+    def _compute_metrics(self, outputs, targets):
+        return super()._compute_metrics(outputs[-1], targets)
+
+
 class VSRTrainer(BaseTrainer):
     """lr_imgs -> hr_imgs sequences; losses and metrics are means over the
     frames of per-frame values and log weights are batch * T. Validation
@@ -463,6 +479,10 @@ def _make_dataset_twin(base: type, name: str, stats: str) -> type:
 
 AcdcSISRTrainer = _make_dataset_twin(SISRTrainer, "AcdcSISRTrainer", "acdc")
 Dsb15SISRTrainer = _make_dataset_twin(SISRTrainer, "Dsb15SISRTrainer", "dsb15")
+AcdcSISRSRFBTrainer = _make_dataset_twin(SISRSRFBTrainer,
+                                         "AcdcSISRSRFBTrainer", "acdc")
+Dsb15SISRSRFBTrainer = _make_dataset_twin(SISRSRFBTrainer,
+                                          "Dsb15SISRSRFBTrainer", "dsb15")
 AcdcVSRTrainer = _make_dataset_twin(VSRTrainer, "AcdcVSRTrainer", "acdc")
 Dsb15VSRTrainer = _make_dataset_twin(VSRTrainer, "Dsb15VSRTrainer", "dsb15")
 
@@ -475,6 +495,6 @@ def _not_ported(name: str) -> None:
     register("trainer", name)(type(name, (), {"__init__": __init__}))
 
 
-for _family in ("SISRSRFB", "MISR", "FRVSR", "3DSR", "4DSR"):
+for _family in ("MISR", "FRVSR", "3DSR", "4DSR"):
     for _dataset in ("Acdc", "Dsb15"):
         _not_ported(f"{_dataset}{_family}Trainer")
