@@ -25,7 +25,15 @@ config for its net, with random seeded weights:
 - testing: ``python -m vsr_tpu_torch.main <config> --test`` (its ``main``) on
   ``configs/test/acdc_sisr_srfb_x2.yaml``, ``acdc_vsr_drf_x2.yaml`` and
   ``acdc_sisr_edsr_x2.yaml`` with the checkpoints those runs wrote:
-  ``results.csv``, PNGs and GIFs, PSNR / SSIM and their Cardiac* twins.
+  ``results.csv``, PNGs and GIFs, PSNR / SSIM and their Cardiac* twins;
+- the MISR and FRVSR training paths, one epoch each at the configs' widths
+  and batches: ``configs/train/acdc_misr_duf_x2.yaml`` (DUFNet with
+  ``use_pallas_filter``: K2 in its validation pass, none in its train
+  steps), ``acdc_sisr_moe_x2.yaml`` (MoE-EDSR with ``rank_pallas``: K3 in
+  every train step), ``acdc_misr_toflow_x2.yaml``, ``acdc_misr_rbpn_x2.yaml``,
+  ``acdc_misr_edvr_x4.yaml`` and ``acdc_vsr_frvsr_x4.yaml``, then ``main
+  --test`` on DUF (``AcdcMISRPredictor``, K2) and FRVSR (the VSR predictor
+  on a tuple output).
 
 Phases; any failure exits non-zero and prints no result:
 
@@ -86,12 +94,24 @@ Phases; any failure exits non-zero and prints no result:
    for that checkpoint. Prints step times, rates and peak memory with the
    kernel on and off, and the test runs' frames/s;
 8. (``--profile``) ``torch.profiler`` traces;
-9. prints the kernels' JSON line, then the final JSON line.
+9. the MISR / FRVSR slice: DUF trained with K2 on (its launches equal the
+   validation windows, none in the train steps; the running statistics
+   moved; the validation windows through the plain softmax + filter equal
+   the validation pass's K2 output to 1e-4; the served checkpoint equals the
+   trainer's validation output to <= 1 grey; ``main --test`` within
+   0.01 dB), MoE-EDSR trained with K3 and
+   with the plain rank (8 launches a train step; first losses equal), then
+   TOFlow, RBPN, EDVR x4 and FRVSR x4; each net's first batch on the card
+   against the CPU (loss <= 1e-4 relative, gradients <= 1e-3 of their own
+   largest entry where K1 or K3 runs in the step, of the net's largest
+   entry where none does; MoE mask first), step times,
+   patches/s, peak memory; ``main --test`` on FRVSR;
+10. prints the kernels' JSON line, then the final JSON line.
 
 ``--profile`` adds one ``torch.profiler`` trace of a full volume per serving
-path (f32, and bf16 for DRFNet) and of 6 train steps per training path
-(device time by kernel, idle share, K1's own kernels against the PyTorch
-rest of its backward) to the details.
+path (f32, and bf16 for DRFNet) and of 6 train steps per training path,
+this slice's nets included (device time by kernel, idle share, K1's own
+kernels against the PyTorch rest of its backward) to the details.
 
 Usage: python3 chip_smoke.py [--out details.json] [--profile]
 """
@@ -846,7 +866,7 @@ TRAIN_HR = TRAIN_LR * FACTOR
 # Squeezes of one DRFNet frame step at the training patch size.
 TRAIN_SQUEEZES = {(k, TRAIN_LR if side == LR else TRAIN_HR): count
                   for (k, side), count in STEP_SQUEEZES.items()}
-TRAIN_EPOCHS = 5
+TRAIN_EPOCHS = 3
 TREE_SEQUENCES = {"train": (2, 2), "valid": (1, 2)}  # patients, slices each
 # The test split holds the validation sequences again, so that what
 # ``main --test`` scores is what the trainer's validation pass scored.
@@ -1175,24 +1195,29 @@ def make_training_tree(root: Path, dev) -> dict:
                       else smooth_sequence(rng))
                 frames = torch.from_numpy(np.ascontiguousarray(
                     np.moveaxis(hr[:, :, 0], -1, 0))).float().to(dev)
-                lr = kspace_downscale_torch(frames, FACTOR).cpu().numpy()
-                lr = np.moveaxis(lr, 0, -1).astype(np.uint8)[:, :, None, :]
+                lrs = {f: np.moveaxis(kspace_downscale_torch(frames, f).cpu()
+                                      .numpy(), 0, -1).astype(np.uint8)[:, :, None]
+                       for f in (FACTOR, 4)}
                 pat = f"patient{p:03d}"
                 sequences[split, p, s] = hr
-                for kind, sub, vol in (("HR", "HR", hr), ("LR", f"LR/X{FACTOR}", lr)):
+                for sub, vol in (("HR", hr), (f"LR/X{FACTOR}", lrs[FACTOR]),
+                                 ("LR/X4", lrs[4])):
                     jobs.append((vol, root / "videos" / split / sub / pat
                                  / f"{pat}_2d+1d_sequence{s:02d}.nii.gz"))
+                    n_bytes += vol.nbytes
+                    if sub == "LR/X4":  # the x4 nets are VSR / MISR nets
+                        continue
                     jobs += [(vol[..., t], root / "imgs" / split / sub / pat
                               / f"{pat}_2d_slice{s:02d}_frame{t + 1:02d}.nii.gz")
                              for t in range(T_FRAMES)]
-                    n_bytes += 2 * vol.nbytes
+                    n_bytes += vol.nbytes
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(lambda job: save_nifti(*job), jobs))
     with open(root / "coordinates.pkl", "wb") as f:
         pickle.dump({f"patient{p:03d}": HEART_BOX for p in range(1, 10)}, f)
     seconds = time.perf_counter() - t0
     log(f"  wrote the synthetic processed tree: {len(sequences)} sequences of "
-        f"{HR}x{HR}x1x{T_FRAMES} (+ LR x{FACTOR}), {len(jobs)} files, "
+        f"{HR}x{HR}x1x{T_FRAMES} (+ LR x{FACTOR} and x4), {len(jobs)} files, "
         f"{n_bytes / 1e6:.1f} MB before gzip, in {seconds:.1f} s")
     return {"seconds": seconds, "files": len(jobs), "sequences": sequences}
 
@@ -1262,6 +1287,12 @@ class StepProbe:
         return sum(s for m, s in self.passes if m == mode)
 
 
+def data_sub(config_name: str) -> str:
+    """The tree a config's dataset reads: sequences for the VSR and MISR
+    tasks, frames for SISR."""
+    return "imgs" if "_sisr_" in config_name else "videos"
+
+
 def training_config(name: str, tree: Path, saved: Path, net_kwargs: dict,
                     tmp: Path, **main_kwargs):
     """``configs/train/<name>.yaml`` pointed at the temporary tree, written
@@ -1272,8 +1303,7 @@ def training_config(name: str, tree: Path, saved: Path, net_kwargs: dict,
     cfg = load_config(root / "configs" / "train" / f"{name}.yaml")
     cfg.main.saved_dir = str(saved)
     cfg.main.update(main_kwargs)
-    sub = "videos" if "vsr" in name else "imgs"
-    cfg.dataset.kwargs.data_dir = str(tree / sub)
+    cfg.dataset.kwargs.data_dir = str(tree / data_sub(name))
     cfg.net.kwargs.update(net_kwargs)
     cfg.trainer.kwargs.num_epochs = TRAIN_EPOCHS
     cfg.monitor.kwargs.saved_freq = TRAIN_EPOCHS
@@ -1375,8 +1405,7 @@ def testing_config(name: str, tree: Path, run: Path, net_kwargs: dict,
     out = run / "predictions"
     cfg.main.saved_dir = str(out)
     cfg.main.loaded_path = str(run / "checkpoints" / "model_best.ckpt")
-    cfg.dataset.kwargs.data_dir = str(
-        tree / ("videos" if "vsr" in name else "imgs"))
+    cfg.dataset.kwargs.data_dir = str(tree / data_sub(name))
     cfg.net.kwargs.update(net_kwargs)
     for spec in cfg.metrics:
         if "coordinates_path" in (spec.get("kwargs") or {}):
@@ -1389,7 +1418,7 @@ def testing_config(name: str, tree: Path, run: Path, net_kwargs: dict,
 
 def test_run(what: str, name: str, tree: Path, run: Path, net_kwargs: dict,
              tmp: Path, train_stats: dict, want_launches: int,
-             card: str) -> dict:
+             card: str, kernel: str = "concat_conv1x1") -> dict:
     """``python -m vsr_tpu_torch.main <test config> --test`` (its ``main``)
     on the best checkpoint of a training run: the launch counts, a row of
     ``results.csv``, a PNG per frame and a GIF per sequence, and the mean
@@ -1406,7 +1435,7 @@ def test_run(what: str, name: str, tree: Path, run: Path, net_kwargs: dict,
     port_main.main([str(path), "--test"])  # the default device: the card
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    check_launches(what, "concat_conv1x1", want_launches)
+    check_launches(what, kernel, want_launches)
     out = run / "predictions"
     with open(out / "results.csv", newline="") as f:
         rows = list(csv.reader(f))
@@ -1435,8 +1464,8 @@ def test_run(what: str, name: str, tree: Path, run: Path, net_kwargs: dict,
         f"{seconds:.2f} s ({res['frames_per_sec']:.1f} frames/s, files "
         f"included); mean PSNR {psnr:.4f} dB vs the trainer's validation "
         f"PSNR of epoch {best + 1} {want:.4f} dB; means "
-        f"{ {k: round(v, 4) for k, v in res['means'].items()} }; K1 launches "
-        f"{want_launches} [{card}]")
+        f"{ {k: round(v, 4) for k, v in res['means'].items()} }; {kernel} "
+        f"launches {want_launches} [{card}]")
     if abs(psnr - want) > TEST_PSNR_TOL:
         raise SystemExit(f"{what}: main --test scores {psnr:.4f} dB, the "
                          f"trainer's validation pass {want:.4f} dB")
@@ -1450,7 +1479,8 @@ def phase_training(tmp: Path, card: str, dev) -> dict:
 
     log("phase 7a: the synthetic processed tree")
     tree = make_training_tree(tmp / "tree", dev)
-    res = {"tree": {k: tree[k] for k in ("seconds", "files")}}
+    res = {"tree": {k: tree[k] for k in ("seconds", "files")},
+           "sequences": tree}
 
     log("phase 7b: VSR training, DRFNet F=64 G=6 x2 (AcdcVSRTrainer, K1 "
         "forward and backward)")
@@ -1557,7 +1587,12 @@ def phase_training(tmp: Path, card: str, dev) -> dict:
                     "exact_fraction": exact, "max_grey_diff": worst}
 
     log("phase 7e: card vs CPU, one training batch")
-    res["card_vs_cpu"] = training_card_vs_cpu(runs["fused"]["trainer"], dev)
+    res["card_vs_cpu"] = card_vs_cpu("vsr", runs["fused"]["trainer"], dev,
+                                     kernel="concat_conv1x1")
+    failed = []
+    gate_card_vs_cpu("vsr", res["card_vs_cpu"], failed)
+    if failed:
+        raise SystemExit(failed[0])
 
     log("phase 7f: preemption on the card")
     cfg = training_config("acdc_vsr_drf_x2", tmp / "tree", tmp / "vsr_preempt",
@@ -1594,44 +1629,347 @@ def phase_training(tmp: Path, card: str, dev) -> dict:
     return res
 
 
-def training_card_vs_cpu(trainer, dev) -> dict:
-    """Loss and every parameter's gradient of one batch (4 windows of it) on
-    the card (K1 on) against the CPU (twin), from the same weights."""
+# ====================================================== MISR / FRVSR / MoE
+
+# configs/train/acdc_misr_duf_x2.yaml (batch 16, 7-frame windows of 32 x 32
+# LR patches, _DenseLayer16) with the filter kernel on; the MISR dataset
+# gives one window per frame, so a validation pass filters one window per
+# validation frame, each in its own K2 launch (batch 1).
+DUF_TRAIN_KWARGS = {"use_pallas_filter": True}
+# The nets of this slice at their configs' widths and batches, one epoch
+# each: (config, net arguments).
+ALIGN_RUNS = {"toflow": ("acdc_misr_toflow_x2", {}),
+              "rbpn": ("acdc_misr_rbpn_x2", {}),
+              "edvr": ("acdc_misr_edvr_x4", {}),
+              "frvsr": ("acdc_vsr_frvsr_x4", {})}
+# Card vs CPU: of the largest entry of each gradient where a kernel of the
+# port runs in the step, else of the net's largest gradient entry.
+GRAD_SHARE = 1e-3
+CARD_VS_CPU_SAMPLES = 4
+
+
+def outputs_frames(outputs) -> int:
+    """Frames in one output: (N, C, H, W), (N, T, C, H, W) or FRVSR's
+    (sr, warped_lr) pair."""
+    o = outputs[0] if isinstance(outputs, tuple) else outputs
+    return o.shape[0] * (o.shape[1] if o.dim() == 5 else 1)
+
+
+def slice_run(what: str, cfg, card: str, kernel: str, per_step: int,
+              per_valid_frame: int) -> dict:
+    """One ``run_train`` of a config on the card, probed: ``kernel``
+    launched ``per_step`` times a train step and ``per_valid_frame`` times a
+    validation frame, no other kernel of the port; step times, rates, peak
+    memory, the loss by epoch."""
+    from vsr_tpu_torch.main import run_train
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with StepProbe() as probe:
+        trainer = run_train(cfg)
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    step_ms = probe.step_ms()
+    losses = torch.stack(probe.losses).tolist()
+    steps = len(step_ms)
+    valid_frames = sum(outputs_frames(o) for o in probe.valid_outputs)
+    launches = per_step * steps + per_valid_frame * valid_frames
+    check_launches(what, kernel, launches)
+    if not all(torch.isfinite(v).all() for v in trainer.net.state_dict().values()):
+        raise SystemExit(f"{what}: a parameter or buffer is not finite")
+    epochs = [json.loads(line) for line in
+              (Path(cfg.main.saved_dir) / "log" / "metrics.jsonl")
+              .read_text().splitlines()]
+    batch = trainer.train_dataloader.batch_size
+    median = statistics.median(step_ms[3:] or step_ms)
+    res = {"steps": steps, "first_loss": losses[0], "last_loss": losses[-1],
+           "train_loss_by_epoch": [e["train"]["Loss"] for e in epochs],
+           "valid_loss_by_epoch": [e["valid"]["Loss"] for e in epochs],
+           "valid_psnr_by_epoch": [e["valid"]["PSNR"] for e in epochs],
+           "median_step_ms": median, "patches_per_sec": batch * 1e3 / median,
+           "train_seconds": probe.seconds("training"),
+           "valid_seconds": probe.seconds("validation"),
+           "valid_frames": valid_frames, "peak_memory_gb": peak_gb,
+           "kernel": kernel, "launches": launches,
+           "launches_per_train_step": per_step}
+    log(f"  {what}: {steps} steps of {batch}, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, validation loss {res['valid_loss_by_epoch']} PSNR "
+        f"{[round(v, 3) for v in res['valid_psnr_by_epoch']]}, median step "
+        f"{median:.2f} ms ({res['patches_per_sec']:.1f} patches/s in a step; "
+        f"{res['train_seconds']:.2f} s of training passes with the loader), "
+        f"{valid_frames} validation frames in {res['valid_seconds']:.2f} s, "
+        f"peak memory {peak_gb:.2f} GB, {kernel} launches {launches} "
+        f"({per_step} a train step) [{card}]")
+    return {"stats": res, "trainer": trainer,
+            "valid_outputs": list(probe.valid_outputs)}
+
+
+def _to(x, device):
+    if isinstance(x, tuple):
+        return tuple(_to(v, device) for v in x)
+    return x.to(device)
+
+
+def card_vs_cpu(what: str, trainer, dev, hooks=None,
+                kernel: str | None = None) -> dict:
+    """Loss and every parameter's gradient of the first training batch's
+    first samples on the card (the path's kernels) against the CPU (the
+    plain twins), from the trainer's weights, in train mode. ``hooks``:
+    ``(net, 0 for the card or 1 for the CPU) -> handles``, set on each copy
+    before its forward. ``kernel``: launched in the card's step, never in
+    the CPU's.
+
+    Where a kernel of the port runs in the step (K1, K3), each gradient is
+    held against GRAD_SHARE of its own largest entry. Where none runs, the
+    card runs PyTorch's own operators, whose float32 sums are not the CPU's
+    (the CPU's BatchNorm sums in float64; cuDNN picks its algorithms per
+    call), and a gradient that is small beside the net's moves by more than
+    GRAD_SHARE of itself from rounding alone (TOFlow's SpyNet: 0.04 of its
+    own largest entry); there each gradient is held against GRAD_SHARE of
+    the net's largest entry."""
     import copy
 
     batch = next(trainer.train_dataloader.epoch(trainer.rng_tree, 1))
-    lr = torch.from_numpy(batch["lr_imgs"][:4]).permute(0, 1, 4, 2, 3)
-    hr = torch.from_numpy(batch["hr_imgs"][:4]).permute(0, 1, 4, 2, 3)
-    out = {}
-    for device in (dev, "cpu"):
+    batch = {k: v[:CARD_VS_CPU_SAMPLES] for k, v in batch.items()}
+    inputs, targets = trainer._get_inputs_targets(batch)
+
+    def step(device, index):
         reset_launches()
         net = copy.deepcopy(trainer.net).to(device).train()
         net.zero_grad(set_to_none=True)
+        handles = hooks(net, index) if hooks else []
         loss = trainer._weighted_total(trainer._compute_losses(
-            net(lr.to(device)), hr.to(device)))
+            net(inputs.to(device)), _to(targets, device)))
         loss.backward()
-        launched = kernel_counters()["concat_conv1x1"].launches
-        if (launched > 0) != (device != "cpu"):
-            raise SystemExit(f"training on {device}: {launched} launches")
-        out[str(device)] = (loss.item(), {k: p.grad.cpu() for k, p in
-                                          net.named_parameters()})
-    (loss_card, g_card), (loss_cpu, g_cpu) = out[str(dev)], out["cpu"]
-    # Each gradient against the largest entry of its CPU counterpart: both
-    # are float32 sums over 4 x 5 frames of pixels in another order.
-    worst = max(((g_card[k] - g_cpu[k]).abs().max()
-                 / g_cpu[k].abs().max().clamp_min(1e-12)).item() for k in g_cpu)
+        for h in handles:
+            h.remove()
+        if kernel:
+            launched = kernel_counters()[kernel].launches
+            if (launched > 0) != (index == 0):
+                raise SystemExit(f"{what} on {device}: {kernel} launched "
+                                 f"{launched} times")
+        return loss.item(), {
+            k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+            for k, p in net.named_parameters()}
+
+    (loss_card, g_card), (loss_cpu, g_cpu) = step(dev, 0), step("cpu", 1)
+    net_max = max(g.abs().max().item() for g in g_cpu.values())
+    scale = {k: (g.abs().max().clamp_min(1e-12).item() if kernel else net_max)
+             for k, g in g_cpu.items()}
+    share = {k: (g_card[k] - g).abs().max().item() / scale[k]
+             for k, g in g_cpu.items()}
+    worst = max(share, key=share.get)
     loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    log(f"  one batch of 4 windows: loss {loss_card:.6f} on the card vs "
-        f"{loss_cpu:.6f} on the CPU (relative {loss_rel:.2g}); worst "
-        f"parameter gradient differs by {worst:.2g} of its largest entry")
-    if loss_rel > 1e-4 or worst > 1e-3:
-        raise SystemExit("training: card and CPU losses or gradients disagree")
-    return {"loss_relative_diff": loss_rel, "worst_gradient_relative_diff": worst}
+    whose = "its own" if kernel else "the net's"
+    log(f"  {what} card vs CPU, {CARD_VS_CPU_SAMPLES} samples of a training "
+        f"batch: loss {loss_card:.6f} vs {loss_cpu:.6f} (relative "
+        f"{loss_rel:.2g}); worst parameter gradient ({worst}) differs by "
+        f"{share[worst]:.2g} of {whose} largest entry (bar {GRAD_SHARE:g})")
+    return {"loss_relative_diff": loss_rel,
+            "worst_gradient_relative_diff": share[worst],
+            "worst_gradient": worst, "bar": "own" if kernel else "net",
+            "gradients_held": share[worst] <= GRAD_SHARE}
+
+
+def gate_card_vs_cpu(what: str, res: dict, failed: list,
+                     gradients: bool = True) -> None:
+    """Record a disagreement in ``failed``; phase 9 fails at its end with
+    every one of them."""
+    if res["loss_relative_diff"] > 1e-4 or (
+            gradients and not res["gradients_held"]):
+        failed.append(f"{what}: card and CPU losses or gradients disagree")
+
+
+def moe_card_vs_cpu(trainer, dev, failed: list) -> dict:
+    """``card_vs_cpu`` for MoE-EDSR with the routing caveat, mask first: the
+    input of every MoE layer is captured on both devices and routed by the
+    plain rank; a token whose selection differs must lie within 1e-6 of the
+    cap-th affinity. With no such token the gradients are held as for every
+    net; with one, only the loss (a flipped token moves gradients by O(1))."""
+    from vsr_tpu_torch.models.moe import route
+
+    captured = ([], [])  # the card's MoE inputs, the CPU's
+
+    def hooks(net, index):
+        return [layer.register_forward_pre_hook(
+            lambda m, args: captured[index].append(args[0].detach().cpu()))
+            for layer in net.moes.values()]
+
+    import copy
+
+    res = card_vs_cpu("moe", trainer, dev, hooks, kernel="pairwise_rank")
+    flips = 0
+    for layer, a, b in zip(trainer.net.moes.values(), *captured):
+        layer = copy.deepcopy(layer).cpu()
+        with torch.no_grad():
+            af_a, gs = layer.affinities(a)
+            af_b, _ = layer.affinities(b)
+        cap = layer.capacity(gs)
+        flipped = (route(af_a, "rank") < cap) != (route(af_b, "rank") < cap)
+        kth = af_b.sort(dim=-1).values[..., -cap][..., None]
+        if bool(((af_b - kth).abs() > 1e-6)[flipped].any()):
+            raise SystemExit("moe: a token away from the capacity boundary is "
+                             "routed differently on the card and the CPU")
+        flips += int(flipped.sum())
+    res["flipped_selections"] = flips
+    log(f"  moe routing, card vs CPU: {flips} (token, expert) selections "
+        f"differ, all within 1e-6 of the cap-th affinity; gradients "
+        f"{'held' if not flips else 'not held (a flip moves them)'}")
+    gate_card_vs_cpu("moe", res, failed, gradients=not flips)
+    return res
+
+
+def served_vs_validation(what: str, tree: dict, tmp: Path, ckpt: Path,
+                         net: str, net_kwargs: dict, flags: list,
+                         valid_outputs: list, want_launches: int,
+                         kernel: str) -> dict:
+    """The infer CLI serves validation sequence 1 from the HR volume (it
+    makes the LR itself, by the k-space chain the tree was made with) with
+    the trained checkpoint; its output must be the trainer's own validation
+    output of those frames to <= 1 grey."""
+    from vsr_tpu_torch import infer
+    from vsr_tpu_torch.io.nifti import load_nifti, save_nifti
+    from vsr_tpu_torch.utils.normalize import DATASET_STATS
+
+    src = tmp / f"{what}_serve_in"
+    hr = tree["sequences"]["valid", 1, 1].astype(np.float32)  # (H, W, 1, T)
+    save_nifti(hr, src / "patient001" / "patient001_4d.nii")
+    reset_launches()
+    stats = infer.main([str(src), str(tmp / f"{what}_served"), "--psnr",
+                        *flags, "--net", net, "--net-kwargs",
+                        json.dumps(net_kwargs), "--checkpoint", str(ckpt)])
+    check_launches(f"{what} served", kernel, want_launches)
+    served = load_nifti(tmp / f"{what}_served" / "patient001"
+                        / "patient001_4d_sr.nii.gz")[:, :, 0]  # (H, W, T)
+    mean, std = DATASET_STATS["acdc"]
+    # The first T_FRAMES validation windows are sequence 1's frames, batch 1.
+    own = torch.cat([o.reshape(-1, HR, HR) for o in valid_outputs[:T_FRAMES]])
+    own = torch.clamp(torch.round(own * std + mean), 0.0, 255.0)
+    exact, worst = agreement(served, np.moveaxis(own.cpu().numpy(), 0, -1))
+    log(f"  {what} served by the infer CLI with the trained checkpoint: PSNR "
+        f"{stats['psnr_mean']:.3f} dB; vs the trainer's own validation output "
+        f"{exact * 100:.3f}% exact, max {worst:g} grey; {kernel} launches "
+        f"{want_launches}")
+    if worst > 1:
+        raise SystemExit(f"{what}: the served output of the trained checkpoint "
+                         "is not the trainer's own validation output")
+    return {"psnr": stats["psnr_mean"], "exact_fraction": exact,
+            "max_grey_diff": worst}
+
+
+def duf_valid_vs_plain(trainer, valid_outputs: list) -> float:
+    """K2 against its plain twin on the validation path: every validation
+    window goes through the trained net again on the card under
+    ``no_grad``, with the plain softmax + filter route, and must equal the
+    validation pass's own output (K2) to DUF_TOL."""
+    net = trainer.net.eval()
+    net.use_pallas_filter = False
+    worst, windows = 0.0, 0
+    reset_launches()
+    try:
+        with torch.no_grad():
+            batches = trainer._device_batches(
+                trainer.valid_dataloader.epoch(None, 1))
+            for (_, inputs, _), k2 in zip(batches, valid_outputs, strict=True):
+                worst = max(worst, (net(inputs) - k2).abs().max().item())
+                windows += outputs_frames(k2)
+    finally:
+        net.use_pallas_filter = True
+    check_launches("duf validation through the plain filter",
+                   "duf_dynamic_filter", 0)
+    log(f"  duf validation, K2 vs the plain softmax + filter on the same "
+        f"{windows} windows: max abs diff {worst:.3g} (tolerance {DUF_TOL:g})")
+    if worst > DUF_TOL:
+        raise SystemExit("duf: K2's validation output is not the plain "
+                         "filter's")
+    return worst
+
+
+def phase_slice_training(tmp: Path, tree: dict, card: str, dev) -> dict:
+    """DUF (K2), MoE-EDSR (K3), TOFlow, RBPN, EDVR and FRVSR trained through
+    ``run_train`` at their configs' widths and batches, one epoch each; DUF
+    and FRVSR then tested through ``main --test``."""
+    from vsr_tpu_torch.models.duf import DUFNet
+
+    res, failed = {}, []  # card-vs-CPU disagreements, raised at the end
+    log("phase 9a: MISR training, DUFNet _DenseLayer16 x2, 7-frame windows "
+        "(AcdcMISRTrainer; K2 in validation only)")
+    cfg = training_config("acdc_misr_duf_x2", tmp / "tree", tmp / "duf",
+                          DUF_TRAIN_KWARGS, tmp)
+    cfg.trainer.kwargs.num_epochs = cfg.monitor.kwargs.saved_freq = 1
+    initial = DUFNet(**cfg.net.kwargs).backbone.norm.running_var.clone()
+    duf = slice_run("duf", cfg, card, "duf_dynamic_filter", 0, 1)
+    stats = duf["stats"]
+    moved = (duf["trainer"].net.backbone.norm.running_var.cpu()
+             - initial).abs().max().item()
+    log(f"  duf BatchNorm running variance moved by up to {moved:.4g} (flax's "
+        f"update, biased batch variance); K2 ran {stats['launches']} times "
+        f"for {stats['valid_frames']} validation windows, 0 times in "
+        f"{stats['steps']} train steps")
+    if moved < 1e-3:
+        raise SystemExit("duf: the running statistics did not move")
+    res["duf"] = dict(stats, running_var_moved=moved,
+                      valid_k2_vs_plain=duf_valid_vs_plain(
+                          duf["trainer"], duf["valid_outputs"]))
+    res["duf"]["card_vs_cpu"] = card_vs_cpu("duf", duf["trainer"], dev)
+    gate_card_vs_cpu("duf", res["duf"]["card_vs_cpu"], failed)
+    res["duf"]["serve"] = served_vs_validation(
+        "duf", tree, tmp, tmp / "duf" / "checkpoints" / "model_1.ckpt",
+        "DUFNet", dict(cfg.net.kwargs), ["--windows", "7", "--chunk",
+                                         str(DUF_CHUNK)],
+        duf["valid_outputs"], -(-T_FRAMES // DUF_CHUNK), "duf_dynamic_filter")
+    res["duf"]["test"] = test_run(
+        "test duf", "acdc_misr_duf_x2", tmp / "tree", tmp / "duf",
+        DUF_TRAIN_KWARGS, tmp, stats, TEST_FRAMES, card,
+        kernel="duf_dynamic_filter")
+
+    log("phase 9b: MoE-EDSR training, 16 x 64, 4 experts, x2 "
+        "(AcdcSISRTrainer; K3 in every forward, train steps included)")
+    moe = {}
+    for name, router in (("rank_pallas", "rank_pallas"), ("rank", "rank")):
+        cfg = training_config("acdc_sisr_moe_x2", tmp / "tree",
+                              tmp / f"moe_{name}", {"router_impl": router}, tmp)
+        cfg.trainer.kwargs.num_epochs = cfg.monitor.kwargs.saved_freq = 1
+        per = MOE_LAYERS if router == "rank_pallas" else 0
+        moe[name] = slice_run(f"moe {name}", cfg, card, "pairwise_rank", per,
+                              per)
+    on, off = moe["rank_pallas"]["stats"], moe["rank"]["stats"]
+    first_rel = abs(on["first_loss"] - off["first_loss"]) / off["first_loss"]
+    log(f"  moe K3 vs the plain rank: first loss {on['first_loss']:.6f} vs "
+        f"{off['first_loss']:.6f} (relative {first_rel:.2g}: the ranks are "
+        f"bit-equal, so the first step is too); median step "
+        f"{on['median_step_ms']:.2f} vs {off['median_step_ms']:.2f} ms")
+    if first_rel > 1e-4:
+        raise SystemExit("moe: the first loss with K3 and with the plain rank "
+                         "differ")
+    res["moe"] = {name: run["stats"] for name, run in moe.items()}
+    res["moe"]["first_loss_relative_diff"] = first_rel
+    res["moe"]["card_vs_cpu"] = moe_card_vs_cpu(moe["rank_pallas"]["trainer"],
+                                                dev, failed)
+
+    for key, (name, kwargs) in ALIGN_RUNS.items():
+        log(f"phase 9c: {key} training at {name}'s width and batch")
+        cfg = training_config(name, tmp / "tree", tmp / key, kwargs, tmp)
+        cfg.trainer.kwargs.num_epochs = cfg.monitor.kwargs.saved_freq = 1
+        run = slice_run(key, cfg, card, "concat_conv1x1", 0, 0)
+        res[key] = run["stats"]
+        res[key]["card_vs_cpu"] = card_vs_cpu(key, run["trainer"], dev)
+        gate_card_vs_cpu(key, res[key]["card_vs_cpu"], failed)
+        if not (tmp / key / "checkpoints" / "model_best.ckpt").is_file():
+            raise SystemExit(f"{key}: no model_best.ckpt")
+    res["frvsr"]["test"] = test_run(
+        "test frvsr", "acdc_vsr_frvsr_x4", tmp / "tree", tmp / "frvsr", {},
+        tmp, res["frvsr"], 0, card)
+    if failed:
+        raise SystemExit("; ".join(failed))
+    return res
 
 
 def phase_profile_training(tmp: Path, dev) -> dict:
     """``torch.profiler`` over 6 train steps of each training path (DRFNet
-    kernel on and off, EDSRNet) after 3 warm-up steps: device time by
+    and SRFBNet kernel on and off, EDSRNet; DUF, MoE-EDSR with K3, TOFlow,
+    RBPN, EDVR and FRVSR) after 3 warm-up steps: device time by
     kernel, the idle share against the wall time of 6 unprofiled steps, and
     for K1 the device time of its own kernels (forward and dx launches
     together, phase 6 times them apart; the dW / db kernel with its second
@@ -1655,7 +1993,11 @@ def phase_profile_training(tmp: Path, dev) -> dict:
             ("vsr_unfused", "acdc_vsr_drf_x2", {"fused_squeeze": False}),
             ("srfb_fused", "acdc_sisr_srfb_x2", {"fused_squeeze": True}),
             ("srfb_unfused", "acdc_sisr_srfb_x2", {"fused_squeeze": False}),
-            ("sisr", "acdc_sisr_edsr_x2", {})):
+            ("sisr", "acdc_sisr_edsr_x2", {}),
+            ("duf", "acdc_misr_duf_x2", DUF_TRAIN_KWARGS),
+            ("moe", "acdc_sisr_moe_x2", {"router_impl": "rank_pallas"}),
+            *((key, name, kwargs) for key, (name, kwargs)
+              in ALIGN_RUNS.items())):
         cfg = training_config(name, tmp / "tree", tmp / f"profile_{key}",
                               kwargs, tmp)
         cfg.trainer.kwargs.num_epochs = 0  # build everything, train nothing
@@ -1690,6 +2032,13 @@ def phase_profile_training(tmp: Path, dev) -> dict:
         share = {name: sum(ms for k, ms, _ in rows if word in k) / 6
                  for name, word in (("k1_kernel", "concat_conv1x1_kernel"),
                                     ("k1_dw_kernel", "concat_dw_"),  # + its second pass
+                                    ("k3_kernel", "pairwise_rank_kernel"),
+                                    # the warps' and deformable convs'
+                                    # gathers and their scatter-adds
+                                    ("gather_scatter",
+                                     "_scatter_gather_elementwise"),
+                                    # cuDNN's bn_fw / bn_bw kernels
+                                    ("batch_norm", "cudnn::bn_"),
                                     ("cudnn_dgrad", "dgrad"),
                                     ("cudnn_wgrad", "wgrad"),
                                     ("optimizer", "multi_tensor_apply"),
@@ -1707,7 +2056,9 @@ def phase_profile_training(tmp: Path, dev) -> dict:
             f"{share['k1_kernel']:.2f}, its dW/db kernel "
             f"{share['k1_dw_kernel']:.2f}, the PyTorch kernels of its "
             f"backward (W^T, the zero bias, casts) {k1_rest / 6:.2f}, "
-            f"cuDNN dgrad {share['cudnn_dgrad']:.2f}, "
+            f"K3 {share['k3_kernel']:.3f}, gathers and scatter-adds "
+            f"{share['gather_scatter']:.2f}, cuDNN BatchNorm "
+            f"{share['batch_norm']:.2f}, cuDNN dgrad {share['cudnn_dgrad']:.2f}, "
             f"wgrad {share['cudnn_wgrad']:.2f}, optimizer "
             f"{share['optimizer']:.2f}, H2D {share['h2d']:.3f}")
         for k, ms, c in rows[:12]:
@@ -1767,12 +2118,16 @@ def main() -> int:
     k1_bwd = phase_kernel_squeeze_backward(dev)
     with tempfile.TemporaryDirectory() as tmp:
         training = phase_training(Path(tmp), card, dev)
+        tree = training.pop("sequences")
+        log("phase 9: the MISR and FRVSR training paths, DUF and MoE "
+            "training")
+        sliced = phase_slice_training(Path(tmp), tree, card, dev)
         results = {"card": smi, "build_seconds": build_s,
                    "kernel": {"concat_conv1x1": k1,
                               "concat_conv1x1_backward": k1_bwd,
                               "pairwise_rank": k3, "duf_dynamic_filter": k2},
                    "paths": paths, "card_vs_cpu": cpu_ref,
-                   "training": training}
+                   "training": training, "slice_training": sliced}
         if args.profile:
             log("phase 8: torch.profiler traces")
             results["profile"] = phase_profile(dev)
@@ -1858,6 +2213,11 @@ def main() -> int:
         "source": "vsr_tpu_torch/csrc/duf_filter.cu",
         "replaces": "vsr_tpu/ops/pallas_duf.py:72",
         "launches": launches("duf"),
+        # DUF under AcdcMISRTrainer: its validation pass (one launch a
+        # window, none in the train steps), then main --test on the
+        # checkpoint through AcdcMISRPredictor.
+        "train_launches": sliced["duf"]["launches"],
+        "test_launches": sliced["duf"]["test"]["launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -1868,6 +2228,11 @@ def main() -> int:
         "source": "vsr_tpu_torch/csrc/pairwise_rank.cu",
         "replaces": "vsr_tpu/ops/rank.py:68",
         "launches": launches("moe"),
+        # MoE-EDSR under AcdcSISRTrainer: every MoE layer of every train
+        # step and validation forward.
+        "train_launches": sliced["moe"]["rank_pallas"]["launches"],
+        "train_launches_per_step":
+            sliced["moe"]["rank_pallas"]["launches_per_train_step"],
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],

@@ -476,3 +476,108 @@ def test_duf_kernel_casts_bf16_and_refuses_grad(rng, dev):
     logits.requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
         df.duf_dynamic_filter(x, logits, 3, 2)
+
+
+# ------------------------- the MISR / FRVSR slice: warps, DUF route, MoE
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("w", [17, 31, 64, 96])
+def test_warp_gradient_conventions_on_the_card(rng, dev, w, padding_mode):
+    """Integer samples (zero and integer flows, on and past the border) and
+    FRVSR's normalized mesh: the card's gradients are the CPU's, which the
+    CPU tests hold against JAX's hat convention."""
+    from vsr_tpu_torch.models.frvsr import stn_warp
+    from vsr_tpu_torch.ops.warp import flow_warp
+
+    img = rng.standard_normal((2, 2, 6, w)).astype(np.float32)
+    cot = rng.standard_normal((2, 2, 6, w)).astype(np.float32)
+    flows = [np.zeros((2, 2, 6, w), np.float32),
+             rng.integers(-2, 3, (2, 2, 6, w)).astype(np.float32)]
+    for fn in (flow_warp, stn_warp):
+        for flow in flows:
+            grads = []
+            for device in (dev, torch.device("cpu")):
+                i = torch.from_numpy(img).to(device).requires_grad_(True)
+                f = torch.from_numpy(flow).to(device).requires_grad_(True)
+                out = fn(i, f, padding_mode=padding_mode)
+                (out * torch.from_numpy(cot).to(device)).sum().backward()
+                grads.append([t.detach().cpu() for t in (out, i.grad, f.grad)])
+            for got, want in zip(*grads):
+                scale = max(1.0, want.abs().max().item())
+                torch.testing.assert_close(got, want, rtol=1e-5,
+                                           atol=1e-5 * scale)
+
+
+def test_deform_conv_gradients_on_the_card(rng, dev):
+    from vsr_tpu_torch.ops.deform_conv import deform_conv2d
+
+    x = rng.standard_normal((2, 8, 9, 11)).astype(np.float32)
+    offsets = [np.zeros((2, 2, 2, 9, 9, 11), np.float32),
+               (1.3 * rng.standard_normal((2, 2, 2, 9, 9, 11))).astype(
+                   np.float32)]
+    wt = (0.2 * rng.standard_normal((5, 8, 3, 3))).astype(np.float32)
+    mask = rng.uniform(0, 1, (2, 2, 9, 9, 11)).astype(np.float32)
+    for off in offsets:
+        grads = []
+        for device in (dev, torch.device("cpu")):
+            leaves = [torch.from_numpy(a).to(device).requires_grad_(True)
+                      for a in (x, off, wt, mask)]
+            out = deform_conv2d(leaves[0], leaves[1], leaves[2], None,
+                                leaves[3])
+            (out ** 2).sum().backward()
+            grads.append([out.detach().cpu()]
+                         + [t.grad.cpu() for t in leaves])
+        for got, want in zip(*grads):
+            scale = max(1.0, want.abs().max().item())
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * scale)
+
+
+def test_dufnet_takes_the_plain_route_under_autograd(rng, dev):
+    from vsr_tpu_torch.models import DUFNet
+
+    net = DUFNet(1, 1, 7, 5, 2, use_pallas_filter=True, device=dev,
+                 generator=torch.Generator().manual_seed(0)).train()
+    x = torch.from_numpy(rng.standard_normal((2, 7, 1, 8, 8)).astype(
+        np.float32)).to(dev)
+    before = df.duf_dynamic_filter.launches
+    net(x).mean().backward()  # a train step: no K2, no refusal
+    assert df.duf_dynamic_filter.launches == before
+    assert all(p.grad is not None for p in net.parameters())
+    net.eval()
+    with torch.no_grad():
+        served = net(x)
+    assert df.duf_dynamic_filter.launches == before + 1
+    plain = DUFNet(1, 1, 7, 5, 2, device=dev).eval()
+    plain.load_state_dict(net.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(served, plain(x), rtol=1e-4, atol=1e-4)
+
+
+def test_rank_kernel_inside_a_moe_train_step(rng, dev):
+    """K3 runs in the forward of a train step, once per MoE layer, on the
+    detached affinities; its ranks are the twin's, bit for bit."""
+    from vsr_tpu_torch.models import MoEEDSRNet
+
+    net = MoEEDSRNet(1, 1, num_resblocks=4, num_features=16,
+                     upscale_factor=2, num_experts=4, group_size=64,
+                     moe_every=2, router_impl="rank_pallas", device=dev,
+                     generator=torch.Generator().manual_seed(1)).train()
+    affinities = []
+    hooks = [layer.register_forward_pre_hook(
+        lambda m, args: affinities.append(
+            m.affinities(args[0])[0].detach()))
+        for layer in net.moes.values()]
+    x = torch.from_numpy(rng.standard_normal((4, 1, 16, 16)).astype(
+        np.float32)).to(dev)
+    before = rk.pairwise_rank.launches
+    net(x).abs().mean().backward()
+    for h in hooks:
+        h.remove()
+    assert rk.pairwise_rank.launches == before + len(net.moes) == before + 2
+    for af in affinities:
+        torch.testing.assert_close(rk.pairwise_rank(af),
+                                   rk.pairwise_rank_reference(af), rtol=0,
+                                   atol=0)
+    assert net.moes["1"].router.grad is not None

@@ -339,9 +339,13 @@ def test_unknown_trainer_keywords_raise(tree, tmp_path, kwargs):
     "AcdcSISRSRFBTrainer", "Dsb15SISRSRFBTrainer", "AcdcMISRTrainer",
     "AcdcFRVSRTrainer", "Acdc3DSRTrainer", "Dsb154DSRTrainer"])
 def test_trainers_not_ported_raise_by_name(name):
-    if "SRFB" in name:  # ported since: a trainer of the SISR family
-        assert issubclass(get_class("trainer", name), trainers.SISRSRFBTrainer)
-        return
+    ported_since = {"SRFB": trainers.SISRSRFBTrainer,
+                    "FRVSR": trainers.FRVSRTrainer,
+                    "MISR": trainers.MISRTrainer}
+    for family, cls in ported_since.items():
+        if family in name:
+            assert issubclass(get_class("trainer", name), cls)
+            return
     with pytest.raises(NotImplementedError, match=name):
         get_class("trainer", name)()
 

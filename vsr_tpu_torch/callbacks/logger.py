@@ -134,11 +134,18 @@ class SISRSRFBLogger(BaseLogger):
         return _to_uint8_grid(pairs)
 
 
+class MISRLogger(SISRLogger):
+    """Windows in, the centre frame out: the SISR grid against ``hr_img``."""
+
+
 class VSRLogger(BaseLogger):
-    """Sequences (N, T, H, W, C): show the last frame."""
+    """Sequences (N, T, H, W, C): show the last frame. A tuple of outputs
+    (FRVSR's ``(sr, warped_lr)``) shows its first, the SR frames."""
 
     def _make_grid(self, batch, outputs):
         hr = np.asarray(batch["hr_imgs"])
+        if isinstance(outputs, tuple):
+            outputs = outputs[0]
         outs = np.asarray(outputs)[:, hr.shape[1] - 1]
         pairs = [img for t, o in zip(hr[:, -1], outs) for img in (t, o)]
         return _to_uint8_grid(pairs)
@@ -149,6 +156,8 @@ for _name, _cls in [
     ("Dsb15SISRLogger", SISRLogger),
     ("AcdcSISRSRFBLogger", SISRSRFBLogger),
     ("Dsb15SISRSRFBLogger", SISRSRFBLogger),
+    ("AcdcMISRLogger", MISRLogger),
+    ("Dsb15MISRLogger", MISRLogger),
     ("AcdcVSRLogger", VSRLogger),
     ("Dsb15VSRLogger", VSRLogger),
 ]:

@@ -129,6 +129,8 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
         """net -> (items, C, H, W), one frame-shaped output per item."""
         out = net(zb)
         if video_t:  # (D, T, C, H, W): flatten the frames back out
+            if isinstance(out, tuple):  # FRVSR's (sr, warped_lr)
+                out = out[0]
             return out.reshape(-1, *out.shape[2:])
         if isinstance(out, tuple) or out.dim() != 4:
             raise NotImplementedError(

@@ -5,8 +5,7 @@ flax path.
 dicts of numpy arrays (``{"params": {...}}``, plus ``"batch_stats"`` for the
 BatchNorm nets) and fills every parameter and buffer of the port's net. It
 is strict: every flax leaf must be used, every torch parameter and buffer
-filled (BatchNorm's ``num_batches_tracked`` counter apart: flax has none),
-every shape match. Layouts:
+filled, every shape match. Layouts:
 
 - conv ``(kh, kw, C_in, C_out)`` -> ``(C_out, C_in, kh, kw)``;
 - 3D conv ``(kd, kh, kw, C_in, C_out)`` -> ``(C_out, C_in, kd, kh, kw)``;
@@ -16,8 +15,11 @@ every shape match. Layouts:
   spatial axes flipped (flax's transposed conv correlates, torch's
   convolves);
 - PReLU ``alpha (1,)`` -> ``weight (1,)``;
+- a deformable conv pack's ``weight (kh, kw, C_in, C_out)`` -> ``(C_out,
+  C_in, kh, kw)``, and its offset conv like any conv (its output channels
+  keep the stored order, see ``models/edvr.py``);
 - BatchNorm ``params scale, bias`` -> ``weight, bias`` and ``batch_stats
-  mean, var`` -> ``running_mean, running_var``;
+  mean, var`` -> ``running_mean, running_var`` (TOFlow's SpyNet, DUF);
 - the MoE leaves ``router (d, e)``, ``expert_wi (e, d, hid)``, ``expert_bi``,
   ``expert_wo``, ``expert_bo`` keep their shapes.
 
@@ -43,9 +45,15 @@ from vsr_tpu_torch.models.common import (Conv, Conv3D, ConvTranspose,
 from vsr_tpu_torch.models.drf import DRFNet, _OutBlock
 from vsr_tpu_torch.models.duf import DUFNet, _DenseBackbone, _DenseBlock
 from vsr_tpu_torch.models.edsr import EDSRNet, _ResBlock, _UpBlock
+from vsr_tpu_torch.models.edvr import (DeformConvPack, EDVRNet, PCDAlign,
+                                       PredeblurPyramid, ResidualBlockNoBN)
 from vsr_tpu_torch.models.feedback import FBlock, InBlock, PReLU
+from vsr_tpu_torch.models.frvsr import FNet, FRVSRNet, SRNet
 from vsr_tpu_torch.models.moe import ExpertChoiceMoE, MoEEDSRNet
+from vsr_tpu_torch.models.rbpn import (DBPNet, RBPNet, _ConvP, _DeconvP,
+                                       _ResChain)
 from vsr_tpu_torch.models.srfbn import SRFBNet, _RBlock
+from vsr_tpu_torch.models.toflow import SpyNet, TOFlowNet
 
 Slot = tuple[tuple[str, ...], torch.Tensor, Callable[[np.ndarray], np.ndarray]]
 
@@ -147,6 +155,119 @@ def _out_block_slots(prefix: tuple[str, ...], block: _OutBlock) -> Iterator[Slot
                            block.tail.conv)
 
 
+def _plain_slots(path: tuple[str, ...], conv: nn.Module,
+                 kernel: Callable = _conv_kernel) -> Iterator[Slot]:
+    """A flax ``nn.Conv`` / ``nn.ConvTranspose`` used directly (its kernel
+    and bias at ``path``, no wrapping module)."""
+    yield ("params", *path, "kernel"), conv.weight, kernel
+    yield ("params", *path, "bias"), conv.bias, _same
+
+
+def _spynet_slots(prefix: tuple[str, ...], spy: SpyNet) -> Iterator[Slot]:
+    for i, block in enumerate(spy.blocks):
+        yield from _numbered_slots(prefix + (f"_SpyNetBlock_{i}",), block)
+
+
+def _convp_slots(prefix: tuple[str, ...],
+                 m: _ConvP | _DeconvP) -> Iterator[Slot]:
+    """RBPN's conv / deconv + PReLU: ``Conv_0/Conv_0`` or
+    ``ConvTranspose_0/ConvTranspose_0``, and ``_PReLU_0/alpha``."""
+    name = "ConvTranspose_0" if isinstance(m, _DeconvP) else "Conv_0"
+    yield from _conv_slots(prefix + (name, name), m.conv)
+    if m.act is not None:
+        yield ("params", *prefix, "_PReLU_0", "alpha"), m.act.weight, _same
+
+
+def _reschain_slots(prefix: tuple[str, ...],
+                    chain: _ResChain) -> Iterator[Slot]:
+    for i, block in enumerate(chain):
+        path = prefix + (f"_ResnetBlock_{i}",)
+        yield ("params", *path, "_PReLU_0", "alpha"), block.act.weight, _same
+        yield from _numbered_slots(path, block)
+
+
+def _dbpn_slots(prefix: tuple[str, ...], net: DBPNet) -> Iterator[Slot]:
+    yield from _convp_slots(prefix + ("_ConvP_0",), net.head)
+    for i, up in enumerate(net.ups):
+        path = prefix + (f"_UpBlock_{i}",)
+        yield from _convp_slots(path + ("_DeconvP_0",), up.deconvs[0])
+        yield from _convp_slots(path + ("_ConvP_0",), up.conv)
+        yield from _convp_slots(path + ("_DeconvP_1",), up.deconvs[1])
+    for i, down in enumerate(net.downs):
+        path = prefix + (f"_DownBlock_{i}",)
+        yield from _convp_slots(path + ("_ConvP_0",), down.convs[0])
+        yield from _convp_slots(path + ("_DeconvP_0",), down.deconv)
+        yield from _convp_slots(path + ("_ConvP_1",), down.convs[1])
+    yield from _convp_slots(prefix + ("_ConvP_1",), net.tail)
+
+
+def _rbpn_slots(net: RBPNet) -> Iterator[Slot]:
+    for name, m in (("_ConvP_0", net.feat0), ("_ConvP_1", net.feat1),
+                    ("_DeconvP_0", net.res1_up), ("_ConvP_2", net.res2_conv),
+                    ("_ConvP_3", net.res3_down), ("_ConvP_4", net.output)):
+        yield from _convp_slots((name,), m)
+    yield from _dbpn_slots(("DBPNet_0",), net.dbpn)
+    for i, chain in enumerate((net.res1_chain, net.res2_chain,
+                               net.res3_chain)):
+        yield from _reschain_slots((f"_ResChain_{i}",), chain)
+
+
+def _fnet_slots(prefix: tuple[str, ...], fnet: FNet) -> Iterator[Slot]:
+    for i, conv in enumerate(fnet.convs):
+        yield from _plain_slots(prefix + (f"Conv_{i}",), conv)
+
+
+def _srnet_slots(prefix: tuple[str, ...], srnet: SRNet) -> Iterator[Slot]:
+    for i, conv in enumerate(srnet.convs):
+        yield from _plain_slots(prefix + (f"Conv_{i}",), conv)
+    for i, block in enumerate(srnet.blocks):
+        for j, conv in enumerate(block.convs):
+            yield from _plain_slots(prefix + (f"_ResBlock_{i}", f"Conv_{j}"),
+                                    conv)
+    for i, deconv in enumerate(srnet.deconvs):
+        yield from _plain_slots(prefix + (f"ConvTranspose_{i}",), deconv,
+                                _deconv_kernel)
+
+
+def _rb_slots(prefix: tuple[str, ...],
+              block: ResidualBlockNoBN) -> Iterator[Slot]:
+    for j, conv in enumerate(block.convs):
+        yield from _plain_slots(prefix + (f"Conv_{j}",), conv)
+
+
+def _dcn_slots(prefix: tuple[str, ...],
+               pack: DeformConvPack) -> Iterator[Slot]:
+    yield from _plain_slots(prefix + ("Conv_0",), pack.offset_conv)
+    yield ("params", *prefix, "weight"), pack.weight, _conv_kernel
+    yield ("params", *prefix, "bias"), pack.bias, _same
+
+
+def _pcd_slots(prefix: tuple[str, ...], pcd: PCDAlign) -> Iterator[Slot]:
+    yield from _numbered_slots(prefix, pcd)
+    for i, dcn in enumerate(pcd.dcns):
+        yield from _dcn_slots(prefix + (f"ModulatedDeformConvPack_{i}",), dcn)
+
+
+def _predeblur_slots(prefix: tuple[str, ...],
+                     pyr: PredeblurPyramid) -> Iterator[Slot]:
+    yield from _numbered_slots(prefix, pyr)
+    for i, block in enumerate(pyr.blocks):
+        yield from _rb_slots(prefix + (f"ResidualBlockNoBN_{i}",), block)
+
+
+def _edvr_slots(net: EDVRNet) -> Iterator[Slot]:
+    yield from _numbered_slots((), net)  # the top-level convs
+    for i, block in enumerate([*net.front, *net.back]):
+        yield from _rb_slots((f"ResidualBlockNoBN_{i}",), block)
+    if net.predeblur is not None:
+        yield from _predeblur_slots(("PredeblurPyramid_0",), net.predeblur)
+    yield from _pcd_slots(("PCDAlign_0",), net.pcd)
+    if net.tsa is not None:
+        yield from _numbered_slots(("TSAFusion_0",), net.tsa)
+    yield from _conv_slots(("FoldableConv_0",), net.hr_conv)
+    yield from _conv_slots(("FoldableConv_1",), net.last_conv)
+
+
 def module_slots(module: nn.Module) -> Iterator[Slot]:
     """(flax path from the collection down, torch parameter or buffer,
     layout transform) for one of the port's nets or blocks, each against the
@@ -171,6 +292,21 @@ def module_slots(module: nn.Module) -> Iterator[Slot]:
         yield from _numbered_slots(("InBlock_0",), module.in_block)
         yield from _numbered_slots(step + ("FBlock_0",), module.step.fblock)
         yield from _numbered_slots(step + ("_RBlock_0",), module.step.rblock)
+    elif isinstance(module, TOFlowNet):
+        yield from _numbered_slots((), module)  # the fusion head
+        yield from _spynet_slots(("SpyNet_0",), module.spynet)
+    elif isinstance(module, RBPNet):
+        yield from _rbpn_slots(module)
+    elif isinstance(module, DBPNet):
+        yield from _dbpn_slots((), module)
+    elif isinstance(module, FRVSRNet):
+        # The scanned step's parameters are broadcast over the frames.
+        yield from _fnet_slots(("step", "FNet_0"), module.step.fnet)
+        yield from _srnet_slots(("step", "SRNet_0"), module.step.srnet)
+    elif isinstance(module, EDVRNet):
+        yield from _edvr_slots(module)
+    elif isinstance(module, DeformConvPack):
+        yield from _dcn_slots((), module)
     elif isinstance(module, (InBlock, FBlock, _RBlock, _ResBlock, _UpBlock,
                              _DenseBlock)):
         yield from _numbered_slots((), module)
@@ -216,9 +352,7 @@ def load_jax_params(net: nn.Module, variables: Mapping[str, Any]) -> None:
                          f"{['/'.join(p) for p in unused]}, missing "
                          f"{['/'.join(p) for p in missing]}")
     filled = {id(tensor) for _, tensor, _ in slots}
-    targets = [*net.named_parameters(), *(
-        (name, b) for name, b in net.named_buffers()
-        if not name.endswith("num_batches_tracked"))]
+    targets = [*net.named_parameters(), *net.named_buffers()]
     unfilled = [name for name, t in targets if id(t) not in filled]
     if unfilled or len(filled) != len(slots):
         raise ValueError(f"port parameters and buffers not mapped "

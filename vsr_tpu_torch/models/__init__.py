@@ -4,7 +4,12 @@ from vsr_tpu_torch.models.bicubic import Bicubic
 from vsr_tpu_torch.models.drf import DRFNet
 from vsr_tpu_torch.models.duf import DUFNet
 from vsr_tpu_torch.models.edsr import EDSRNet
+from vsr_tpu_torch.models.edvr import EDVRNet
+from vsr_tpu_torch.models.frvsr import FRVSRNet
 from vsr_tpu_torch.models.moe import MoEEDSRNet
+from vsr_tpu_torch.models.rbpn import RBPNet
 from vsr_tpu_torch.models.srfbn import SRFBNet
+from vsr_tpu_torch.models.toflow import TOFlowNet
 
-__all__ = ["Bicubic", "DRFNet", "DUFNet", "EDSRNet", "MoEEDSRNet", "SRFBNet"]
+__all__ = ["Bicubic", "DRFNet", "DUFNet", "EDSRNet", "EDVRNet", "FRVSRNet",
+           "MoEEDSRNet", "RBPNet", "SRFBNet", "TOFlowNet"]

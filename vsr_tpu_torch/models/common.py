@@ -88,6 +88,42 @@ class ConvTranspose(nn.ConvTranspose2d):
                             kernel_size * kernel_size * in_channels, generator)
 
 
+class BatchNorm(nn.Module):
+    """BatchNorm over every axis but the channel axis 1 (any rank), with
+    flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` semantics.
+
+    Train mode normalizes with the batch's biased statistics and updates
+    the buffers as ``(1 - momentum) * running + momentum * batch`` with the
+    *biased* batch variance (``nn.BatchNorm*d`` folds in the unbiased one,
+    so its running variance drifts from flax's every step). Eval mode
+    normalizes with the buffers. The buffers keep ``nn.BatchNorm*d``'s
+    names, ``running_mean`` and ``running_var``; there is no
+    ``num_batches_tracked`` (flax has no such counter)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        with torch.no_grad():
+            dims = [d for d in range(x.dim()) if d != 1]
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 class FoldableConv(Conv):
     """SAME conv that can alternatively run FOLDED through the
     ``pixel_shuffle(factor)`` that would otherwise precede it.

@@ -7,8 +7,9 @@ unpadded t-convs, with the running concat trimmed to match) -> two 1x1x1
 Conv3D branches: per-pixel upsampling filters (softmax over k^2) applied to
 the raw centre frame, plus a pixel-shuffled residual.
 
-Layout is NCDHW with T as depth (the JAX net is NDHWC). BatchNorm follows
-the torch convention; the port serves it in eval mode (running statistics).
+Layout is NCDHW with T as depth (the JAX net is NDHWC). BatchNorm is the
+port's ``models.common.BatchNorm``: flax's statistics and update, in train
+mode as in eval mode.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vsr_tpu_torch.data.datasets import misr_target_index
-from vsr_tpu_torch.models.common import Conv, Conv3D, resolve_dtype
+from vsr_tpu_torch.models.common import (BatchNorm, Conv, Conv3D,
+                                         resolve_dtype)
 from vsr_tpu_torch.ops.duf_filter import duf_dynamic_filter
 from vsr_tpu_torch.ops.dynamic_filter import apply_dynamic_filters
 from vsr_tpu_torch.registry import register
@@ -31,9 +33,9 @@ _BACKBONES = {
 }
 
 
-def _batch_norm(channels: int) -> nn.BatchNorm3d:
-    # flax's momentum 0.9 is the complement of torch's 0.1.
-    return nn.BatchNorm3d(channels, eps=1e-5, momentum=0.1)
+def _batch_norm(channels: int) -> BatchNorm:
+    # flax's momentum 0.9 is the complement of the port's 0.1.
+    return BatchNorm(channels, eps=1e-5, momentum=0.1)
 
 
 class _DenseBlock(nn.Module):
@@ -97,8 +99,17 @@ class DUFNet(nn.Module):
     CUDA tensor; without it by the plain softmax +
     ``apply_dynamic_filters``. ``dtype``, ``device``, ``generator``: as
     ``DRFNet``. The JAX net's ``train`` flag is the module's own mode here:
-    ``eval()`` serves with BatchNorm's running statistics (the pipeline sets
-    it); training is not held against the JAX net yet.
+    ``train()`` normalizes with the batch statistics and updates the running
+    ones, ``eval()`` serves with the running statistics (the pipeline sets
+    it).
+
+    The filter's route is picked once per call, in the open: when autograd
+    records the call (grad mode on, and a parameter or the input requires a
+    gradient) the plain softmax + ``apply_dynamic_filters`` runs, as the
+    JAX package trains DUF through XLA; otherwise, with
+    ``use_pallas_filter``, ``duf_dynamic_filter`` (on a CUDA tensor, K2).
+    The TPU kernel has no backward, so none is owed, and the wrapper keeps
+    refusing a CUDA call that needs one.
     """
 
     serving_mode = "window"
@@ -132,6 +143,10 @@ class DUFNet(nn.Module):
             Conv3D(256, 256, **one), Conv3D(256, in_channels * r2, **one)])
         self.to(device=device, dtype=self.dtype)
 
+    def _records_gradients(self, x: torch.Tensor) -> bool:
+        return torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for p in self.parameters()))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, c, h, w = x.shape
         if t != self.num_frames:
@@ -150,7 +165,8 @@ class DUFNet(nn.Module):
         res = self.residual_convs[1](F.relu(self.residual_convs[0](feats)))
         residual = F.pixel_shuffle(res[:, :, 0], self.upscale_factor)
 
-        if self.use_pallas_filter and self.in_channels == 1:
+        if self.use_pallas_filter and self.in_channels == 1 and not (
+                self._records_gradients(x)):
             out = duf_dynamic_filter(target[:, 0], filter_logits,
                                      self.size_filter,
                                      self.upscale_factor)[:, None]

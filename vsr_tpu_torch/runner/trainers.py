@@ -1,6 +1,6 @@
 """Trainers: the epoch/step control loop (port of
 ``vsr_tpu/runner/trainers.py``: the trainer core, SISR, SISR with a
-feedback net (SRFB) and VSR).
+feedback net (SRFB), MISR, VSR and FRVSR).
 
 The same ``train()`` epoch loop as the JAX package (train epoch -> valid
 epoch -> scheduler -> logger -> monitor-driven checkpoint -> early stop) and
@@ -13,7 +13,10 @@ metrics on denormalized ``clip(round(x * std + mean), 0, 255)`` outputs
 under ``no_grad``. Scalar logs accumulate on the device, weighted by the
 real batch size, and are read once per epoch: no host round trip per step.
 Randomness comes from the explicit ``RngTree``; nothing reads global RNG
-state. Batches arrive channels-last numpy; the trainer moves each to the
+state. A net's BatchNorm running statistics are buffers: the train step
+updates them (the port's ``BatchNorm``, flax's update), and the checkpoint
+saves and restores them with the parameters, so resume and preemption
+reproduce them. Batches arrive channels-last numpy; the trainer moves each to the
 device (pinned memory, non-blocking) and permutes it to the nets' NCHW /
 ``(N, T, C, h, w)`` layout.
 
@@ -42,6 +45,13 @@ from vsr_tpu_torch.registry import register
 from vsr_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
 from vsr_tpu_torch.utils.rng import RngTree
+
+
+def _detached(outputs):
+    """A net's output, or tuple of outputs (FRVSR), off the graph."""
+    if isinstance(outputs, tuple):
+        return tuple(o.detach() for o in outputs)
+    return outputs.detach()
 
 
 class BaseTrainer:
@@ -179,7 +189,7 @@ class BaseTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
         self.optimizer.step()
-        outputs = outputs.detach()
+        outputs = _detached(outputs)
         with torch.no_grad():
             metrics = self._compute_metrics(outputs, targets)
         return self._scalars(total, losses, metrics), outputs
@@ -440,6 +450,15 @@ class SISRSRFBTrainer(SISRTrainer):
         return super()._compute_metrics(outputs[-1], targets)
 
 
+class MISRTrainer(SISRTrainer):
+    """The window ``lr_imgs`` -> the centre ``hr_img``."""
+
+    def _get_inputs_targets(self, batch):
+        # (N, T, h, w, C) -> (N, T, C, h, w); (N, H, W, C) -> (N, C, H, W)
+        return (self._to_device(batch["lr_imgs"]).permute(0, 1, 4, 2, 3),
+                self._to_device(batch["hr_img"]).permute(0, 3, 1, 2))
+
+
 class VSRTrainer(BaseTrainer):
     """lr_imgs -> hr_imgs sequences; losses and metrics are means over the
     frames of per-frame values and log weights are batch * T. Validation
@@ -471,6 +490,29 @@ class VSRTrainer(BaseTrainer):
         return [self._frame_mean(fn, o, t) for fn in self.metric_fns]
 
 
+class FRVSRTrainer(VSRTrainer):
+    """FRVSR returns ``(sr, warped_lr)``: a ``FlowLoss`` compares the warped
+    LR frames with the LR input, every other loss SR with HR; the metrics
+    are on SR only. Targets are the pair ``(lr, hr)``."""
+
+    def _get_inputs_targets(self, batch):
+        lr, hr = super()._get_inputs_targets(batch)
+        return lr, (lr, hr)
+
+    def _outputs_to_numpy(self, outputs):
+        return tuple(super(FRVSRTrainer, self)._outputs_to_numpy(o)
+                     for o in outputs)
+
+    def _compute_losses(self, outputs, targets):
+        (sr, warped), (lr, hr) = outputs, targets
+        return [self._frame_mean(fn, warped, lr)
+                if fn.__class__.__name__ == "FlowLoss"
+                else self._frame_mean(fn, sr, hr) for fn in self.loss_fns]
+
+    def _compute_metrics(self, outputs, targets):
+        return super()._compute_metrics(outputs[0], targets[1])
+
+
 def _make_dataset_twin(base: type, name: str, stats: str) -> type:
     cls = type(name, (base,), {"dataset_stats": stats})
     register("trainer", name)(cls)
@@ -483,8 +525,15 @@ AcdcSISRSRFBTrainer = _make_dataset_twin(SISRSRFBTrainer,
                                          "AcdcSISRSRFBTrainer", "acdc")
 Dsb15SISRSRFBTrainer = _make_dataset_twin(SISRSRFBTrainer,
                                           "Dsb15SISRSRFBTrainer", "dsb15")
+AcdcMISRTrainer = _make_dataset_twin(MISRTrainer, "AcdcMISRTrainer", "acdc")
+Dsb15MISRTrainer = _make_dataset_twin(MISRTrainer, "Dsb15MISRTrainer",
+                                      "dsb15")
 AcdcVSRTrainer = _make_dataset_twin(VSRTrainer, "AcdcVSRTrainer", "acdc")
 Dsb15VSRTrainer = _make_dataset_twin(VSRTrainer, "Dsb15VSRTrainer", "dsb15")
+AcdcFRVSRTrainer = _make_dataset_twin(FRVSRTrainer, "AcdcFRVSRTrainer",
+                                      "acdc")
+Dsb15FRVSRTrainer = _make_dataset_twin(FRVSRTrainer, "Dsb15FRVSRTrainer",
+                                       "dsb15")
 
 
 def _not_ported(name: str) -> None:
@@ -495,6 +544,6 @@ def _not_ported(name: str) -> None:
     register("trainer", name)(type(name, (), {"__init__": __init__}))
 
 
-for _family in ("MISR", "FRVSR", "3DSR", "4DSR"):
+for _family in ("3DSR", "4DSR"):
     for _dataset in ("Acdc", "Dsb15"):
         _not_ported(f"{_dataset}{_family}Trainer")
