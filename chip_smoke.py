@@ -33,7 +33,13 @@ config for its net, with random seeded weights:
   every train step), ``acdc_misr_toflow_x2.yaml``, ``acdc_misr_rbpn_x2.yaml``,
   ``acdc_misr_edvr_x4.yaml`` and ``acdc_vsr_frvsr_x4.yaml``, then ``main
   --test`` on DUF (``AcdcMISRPredictor``, K2) and FRVSR (the VSR predictor
-  on a tuple output).
+  on a tuple output);
+- the volumetric slice, one epoch each at the configs' widths and batches:
+  ``configs/train/acdc_3d_vol_x2.yaml`` (Volume3DSRNet, 8 resblocks of 32,
+  ``fused_tail``) and ``acdc_4d_vol_x2.yaml`` (Volume4DSRNet, 4 resblocks
+  of 32, ``remat``, ``fused_tail``) on a volume tree of its own, then
+  ``main --test`` on ``configs/test/acdc_{3d,4d}_vol_x2.yaml`` and the
+  infer CLI's volume mode. No kernel of the port lies on these paths.
 
 Phases; any failure exits non-zero and prints no result:
 
@@ -106,12 +112,27 @@ Phases; any failure exits non-zero and prints no result:
    largest entry where K1 or K3 runs in the step, of the net's largest
    entry where none does; MoE mask first), step times,
    patches/s, peak memory; ``main --test`` on FRVSR;
-10. prints the kernels' JSON line, then the final JSON line.
+10. the volumetric slice: a tree of 3 patients of 12 slices of 192 x 192 x
+   30 (2 train, 1 valid, which is the test split too), low-passed like
+   phase 7's; Volume3DSRNet and Volume4DSRNet trained through ``run_train``
+   (no parameter NaN, ``model_best.ckpt``; the first batch on the card
+   against the CPU: loss <= 1e-4 relative, gradients <= 1e-3 of the net's
+   largest entry; 4D: the first step's gradients with ``remat`` on and off
+   within 1e-6 of the net's largest entry, with the peak memory of both),
+   the trained checkpoint served by the infer CLI in volume mode (= the
+   trainer's validation output to <= 1 grey), ``main --test`` (a row per
+   frame, the NIfTI shapes, mean PSNR within 0.01 dB of the trainer's
+   validation PSNR), 3 full 192 x 192 x 10 x 30 volumes through
+   ``make_pipeline`` with ``fused_tail`` on and off (>= 99.9 % exact grey,
+   <= 1 grey; frames/s, ms a volume, peak memory); every kernel's launch
+   count reads 0 throughout;
+11. prints the kernels' JSON line, then the final JSON line.
 
 ``--profile`` adds one ``torch.profiler`` trace of a full volume per serving
-path (f32, and bf16 for DRFNet) and of 6 train steps per training path,
-this slice's nets included (device time by kernel, idle share, K1's own
-kernels against the PyTorch rest of its backward) to the details.
+path (f32, and bf16 for DRFNet; the two volume nets) and of 6 train steps
+per training path, the MISR / FRVSR and volume nets included (device time
+by kernel, idle share, K1's own kernels against the PyTorch rest of its
+backward) to the details.
 
 Usage: python3 chip_smoke.py [--out details.json] [--profile]
 """
@@ -1649,10 +1670,11 @@ CARD_VS_CPU_SAMPLES = 4
 
 
 def outputs_frames(outputs) -> int:
-    """Frames in one output: (N, C, H, W), (N, T, C, H, W) or FRVSR's
-    (sr, warped_lr) pair."""
+    """Frames in one output: (N, C, H, W), (N, T, C, H, W), FRVSR's
+    (sr, warped_lr) pair, or a volume net's (N, 1, D, H, W) (one frame a
+    volume) or (N, T, 1, D, H, W)."""
     o = outputs[0] if isinstance(outputs, tuple) else outputs
-    return o.shape[0] * (o.shape[1] if o.dim() == 5 else 1)
+    return o.shape[0] * (o.shape[1] if o.dim() >= 5 else 1)
 
 
 def slice_run(what: str, cfg, card: str, kernel: str, per_step: int,
@@ -1966,10 +1988,12 @@ def phase_slice_training(tmp: Path, tree: dict, card: str, dev) -> dict:
     return res
 
 
-def phase_profile_training(tmp: Path, dev) -> dict:
+def phase_profile_training(tmp: Path, dev, runs: list | None = None,
+                           tree: Path | None = None) -> dict:
     """``torch.profiler`` over 6 train steps of each training path (DRFNet
     and SRFBNet kernel on and off, EDSRNet; DUF, MoE-EDSR with K3, TOFlow,
-    RBPN, EDVR and FRVSR) after 3 warm-up steps: device time by
+    RBPN, EDVR and FRVSR; or ``runs``, (key, config, net arguments) on
+    ``tree``) after 3 warm-up steps: device time by
     kernel, the idle share against the wall time of 6 unprofiled steps, and
     for K1 the device time of its own kernels (forward and dx launches
     together, phase 6 times them apart; the dW / db kernel with its second
@@ -1988,7 +2012,7 @@ def phase_profile_training(tmp: Path, dev) -> dict:
             return backward(ctx, grad_out)
 
     res = {}
-    for key, name, kwargs in (
+    for key, name, kwargs in runs or (
             ("vsr_fused", "acdc_vsr_drf_x2", {"fused_squeeze": True}),
             ("vsr_unfused", "acdc_vsr_drf_x2", {"fused_squeeze": False}),
             ("srfb_fused", "acdc_sisr_srfb_x2", {"fused_squeeze": True}),
@@ -1998,8 +2022,8 @@ def phase_profile_training(tmp: Path, dev) -> dict:
             ("moe", "acdc_sisr_moe_x2", {"router_impl": "rank_pallas"}),
             *((key, name, kwargs) for key, (name, kwargs)
               in ALIGN_RUNS.items())):
-        cfg = training_config(name, tmp / "tree", tmp / f"profile_{key}",
-                              kwargs, tmp)
+        cfg = training_config(name, tree or tmp / "tree",
+                              tmp / f"profile_{key}", kwargs, tmp)
         cfg.trainer.kwargs.num_epochs = 0  # build everything, train nothing
         trainer = run_train(cfg)
         batches = list(trainer.train_dataloader.epoch(trainer.rng_tree, 1))[:3]
@@ -2066,6 +2090,335 @@ def phase_profile_training(tmp: Path, dev) -> dict:
     return res
 
 
+# ================================================================= volumes
+
+# Patients of VOL_SLICES slice sequences (ACDC stacks hold about 6-20; the
+# test configs' SSIM with dim 3 needs a depth of 11 or more); the valid
+# patient doubles as the test split.
+VOL_SLICES = 12
+VOL_PATIENTS = {"train": 2, "valid": 1}
+VOL_SERVE_T = 6  # frames of the validation patient served by the CLI
+# (config, net, training samples' frames): configs/train/acdc_3d_vol_x2.yaml
+# (batch 4 of [32, 32, 4] LR crops) and acdc_4d_vol_x2.yaml (batch 2 of
+# 5-frame windows of those crops, remat and fused_tail).
+VOL_RUNS = {"3d": ("acdc_3d_vol_x2", "Volume3DSRNet", 1),
+            "4d": ("acdc_4d_vol_x2", "Volume4DSRNet", 5)}
+REMAT_SHARE = 1e-6  # remat on vs off: of the net's largest gradient entry
+
+
+def make_volume_tree(root: Path, dev) -> dict:
+    """``videos/{train,valid,test}/{HR,LR/X2}/patientNNN/...sequenceSS.nii.gz``
+    for VOL_PATIENTS patients of VOL_SLICES slices of HR x HR x T_FRAMES,
+    each slice low-passed like the training tree and its LR made by the
+    port's k-space chain on the card; the test split is the validation
+    split again. Returns the validation patient's HR volume (H, W, D, T)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vsr_tpu_torch.io.nifti import save_nifti
+    from vsr_tpu_torch.preprocess.kspace import kspace_downscale_torch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    jobs, valid_hr = [], []
+    for split, patients in VOL_PATIENTS.items():
+        for p in range(1, patients + 1):
+            pat = f"patient{p:03d}"
+            for s in range(1, VOL_SLICES + 1):
+                hr = smooth_sequence(rng)  # (H, W, 1, T) uint8
+                frames = torch.from_numpy(np.ascontiguousarray(
+                    np.moveaxis(hr[:, :, 0], -1, 0))).float().to(dev)
+                lr = np.moveaxis(kspace_downscale_torch(frames, FACTOR).cpu()
+                                 .numpy(), 0, -1).astype(np.uint8)[:, :, None]
+                for sub, vol in (("HR", hr), (f"LR/X{FACTOR}", lr)):
+                    for into in ((split, "test") if split == "valid"
+                                 else (split,)):
+                        jobs.append((vol, root / "videos" / into / sub / pat
+                                     / f"{pat}_2d+1d_sequence{s:02d}.nii.gz"))
+                if split == "valid":
+                    valid_hr.append(hr[:, :, 0])
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: save_nifti(*job), jobs))
+    seconds = time.perf_counter() - t0
+    log(f"  wrote the volume tree: {sum(VOL_PATIENTS.values())} patients of "
+        f"{VOL_SLICES} slices of {HR}x{HR}x{T_FRAMES} (+ LR x{FACTOR}; test = "
+        f"valid), {len(jobs)} files, in {seconds:.1f} s")
+    return {"seconds": seconds, "files": len(jobs),
+            "valid_hr": np.stack(valid_hr, axis=2).astype(np.float32)}
+
+
+def remat_on_off(cfg, trainer, dev) -> dict:
+    """The first train step (the config's seeded weights, the first batch)
+    of Volume4DSRNet with ``remat`` on and off on the card: every gradient
+    within REMAT_SHARE of the net's largest entry; the step's peak memory
+    above what was held before it, both ways."""
+    from vsr_tpu_torch.main import build_net
+
+    batch = next(trainer.train_dataloader.epoch(trainer.rng_tree, 1))
+    inputs, targets = trainer._get_inputs_targets(batch)
+    grads, peak = {}, {}
+    for remat in (True, False):
+        cfg.net.kwargs.remat = remat
+        net = build_net(cfg, dev).train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        trainer._weighted_total(trainer._compute_losses(
+            net(inputs), targets)).backward()
+        torch.cuda.synchronize()
+        peak[remat] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        grads[remat] = {k: p.grad for k, p in net.named_parameters()}
+    cfg.net.kwargs.remat = True
+    scale = max(g.abs().max().item() for g in grads[False].values())
+    share = max((grads[True][k] - g).abs().max().item() / scale
+                for k, g in grads[False].items())
+    log(f"  4d first step, remat on vs off: gradients differ by {share:.3g} of "
+        f"the net's largest entry (bar {REMAT_SHARE:g}); peak memory of the "
+        f"step {peak[True]:.3f} GB with remat, {peak[False]:.3f} GB without")
+    if share > REMAT_SHARE:
+        raise SystemExit("4d: the gradients with remat on and off differ")
+    return {"gradient_share": share, "peak_memory_gb_remat": peak[True],
+            "peak_memory_gb_no_remat": peak[False]}
+
+
+def volume_served(what: str, net: str, net_kwargs: dict, ckpt: Path,
+                  valid_hr: np.ndarray, valid_outputs: list, tmp: Path) -> dict:
+    """The infer CLI serves the first VOL_SERVE_T frames of the validation
+    patient (it makes the LR itself, by the k-space chain the tree was made
+    with) with the trained checkpoint, in volume mode; its output must be
+    the trainer's own validation output of those frames to <= 1 grey (4D:
+    the recurrence is causal, so a shorter sequence gives the same first
+    frames)."""
+    from vsr_tpu_torch import infer
+    from vsr_tpu_torch.io.nifti import load_nifti, save_nifti
+    from vsr_tpu_torch.utils.normalize import DATASET_STATS
+
+    src = tmp / f"{what}_serve_in"
+    save_nifti(np.ascontiguousarray(valid_hr[..., :VOL_SERVE_T]),
+               src / "patient001" / "patient001_4d.nii")
+    reset_launches()
+    stats = infer.main([str(src), str(tmp / f"{what}_served"), "--psnr",
+                        "--net", net, "--net-kwargs", json.dumps(net_kwargs),
+                        "--checkpoint", str(ckpt)])
+    check_launches(f"{what} served", "concat_conv1x1", 0)
+    served = load_nifti(tmp / f"{what}_served" / "patient001"
+                        / "patient001_4d_sr.nii.gz")  # (H, W, D, T)
+    if what == "3d":  # one (1, 1, D, H, W) output a validation frame
+        own = torch.cat([o[:, 0] for o in valid_outputs[:VOL_SERVE_T]])
+    else:  # one (1, T, 1, D, H, W) output, the whole sequence
+        own = valid_outputs[0][0, :VOL_SERVE_T, 0]
+    mean, std = DATASET_STATS["acdc"]
+    own = torch.clamp(torch.round(own * std + mean), 0.0, 255.0)
+    own = own.permute(2, 3, 1, 0).cpu().numpy()  # (T, D, H, W) -> (H, W, D, T)
+    exact, worst = agreement(served, own)
+    log(f"  {what} served by the infer CLI with the trained checkpoint "
+        f"({HR}x{HR}x{VOL_SLICES}x{VOL_SERVE_T}): PSNR {stats['psnr_mean']:.3f}"
+        f" dB, end to end {stats['frames_per_sec']:.2f} frames/s, pipeline "
+        f"{stats['pipeline_frames_per_sec']:.2f} frames/s; vs the trainer's "
+        f"own validation output {exact * 100:.3f}% exact, max {worst:g} grey")
+    if served.shape != own.shape or worst > 1:
+        raise SystemExit(f"{what}: the served output of the trained checkpoint "
+                         "is not the trainer's own validation output")
+    return {"psnr": stats["psnr_mean"], "exact_fraction": exact,
+            "max_grey_diff": worst, "frames_per_sec": stats["frames_per_sec"],
+            "pipeline_frames_per_sec": stats["pipeline_frames_per_sec"]}
+
+
+def volume_test_run(what: str, name: str, tree: Path, run: Path, tmp: Path,
+                    train_stats: dict, card: str) -> dict:
+    """``main --test`` on the trained checkpoint: a row of ``results.csv``
+    per validation frame, the NIfTI volumes of their shapes, no port kernel,
+    and the mean PSNR of the rows against the trainer's validation PSNR."""
+    import csv
+
+    from vsr_tpu_torch import main as port_main
+    from vsr_tpu_torch.io.nifti import load_nifti
+
+    path = testing_config(name, tree, run, {}, tmp)
+    reset_launches()
+    t0 = time.perf_counter()
+    port_main.main([str(path), "--test"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_launches(what, "concat_conv1x1", 0)
+    out = run / "predictions"
+    with open(out / "results.csv", newline="") as f:
+        rows = list(csv.reader(f))
+    header, rows = rows[0], rows[1:]
+    values = np.array([[float(v) for v in r[1:]] for r in rows])
+    vols = sorted(out.glob("volumes/*/*.nii.gz"))
+    want = ([(HR, HR, VOL_SLICES)] * T_FRAMES if what == "test 3d"
+            else [(HR, HR, VOL_SLICES, T_FRAMES)])
+    shapes = [load_nifti(v).shape for v in vols]
+    if (len(rows) != T_FRAMES or shapes != want
+            or rows[0][0] != "patient001_frame01"
+            or not np.isfinite(values).all()):
+        raise SystemExit(f"{what}: {len(rows)} rows (first {rows[0][:1]}), "
+                         f"NIfTI shapes {sorted(set(shapes))}")
+    psnr = float(values[:, header.index("PSNR") - 1].mean())
+    valid = train_stats["valid_psnr_by_epoch"][-1]
+    res = {"seconds": seconds, "frames": len(rows),
+           "frames_per_sec": len(rows) / seconds, "psnr": psnr,
+           "trainer_valid_psnr": valid, "columns": header[1:],
+           "means": dict(zip(header[1:], values.mean(axis=0).tolist()))}
+    log(f"  {what}: {len(rows)} rows, {len(vols)} NIfTI volumes in "
+        f"{seconds:.2f} s ({res['frames_per_sec']:.2f} frames/s, files "
+        f"included); mean PSNR {psnr:.4f} dB vs the trainer's validation "
+        f"PSNR {valid:.4f} dB; means "
+        f"{ {k: round(v, 4) for k, v in res['means'].items()} } [{card}]")
+    if abs(psnr - valid) > TEST_PSNR_TOL:
+        raise SystemExit(f"{what}: main --test scores {psnr:.4f} dB, the "
+                         f"trainer's validation pass {valid:.4f} dB")
+    return res
+
+
+def volume_serving(key: str, net: str, state: dict, net_kwargs: dict, dev,
+                   card: str) -> dict:
+    """FULL_VOLUMES noise volumes of HR x HR x FULL_SLICES x T_FRAMES
+    through ``make_pipeline`` in volume mode, the trained weights with
+    ``fused_tail`` on and off (f32, TF32 off): pipeline frames/s, wall ms a
+    volume, peak memory; the two must agree to >= 99.9 % exact grey and
+    <= 1 grey, and no port kernel runs."""
+    from vsr_tpu_torch.infer import VOLUME_NETS, make_pipeline
+    from vsr_tpu_torch.registry import build
+
+    frames = [as_frames(make_volume(20 + i, FULL_SLICES))
+              for i in range(FULL_VOLUMES)]
+    runs, srs = {}, {}
+    for fused in (True, False):
+        model = build("net", {"name": net, "kwargs": dict(
+            net_kwargs, fused_tail=fused)}, device=dev)
+        model.load_state_dict(state)
+        pipe = make_pipeline(model, FACTOR, "acdc",
+                             volume=(VOLUME_NETS[net], T_FRAMES))
+        pipe(torch.from_numpy(frames[0]).to(dev))  # library handles, caches
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        walls, outs = [], []
+        for f in frames:
+            t0 = time.perf_counter()
+            outs.append(pipe(torch.from_numpy(f).to(dev))[1].cpu().numpy())
+            walls.append((time.perf_counter() - t0) * 1e3)
+        check_launches(f"{key} serving", "concat_conv1x1", 0)
+        name = "fused_tail" if fused else "unfused"
+        for sr in outs:
+            check_sr(f"{key} {name}", sr, (FULL_SLICES * T_FRAMES, HR, HR))
+        n = FULL_SLICES * T_FRAMES * len(frames)
+        runs[name] = {"pipeline_frames_per_sec": n * 1e3 / sum(walls),
+                      "wall_ms_per_volume": statistics.median(walls),
+                      "peak_memory_gb": (torch.cuda.max_memory_allocated()
+                                         - held) / 1e9}
+        srs[name] = outs
+        log(f"  {key} serving {name} ({len(frames)} volumes of {HR}x{HR}x"
+            f"{FULL_SLICES}x{T_FRAMES}, pipeline, no file I/O): "
+            f"{runs[name]['pipeline_frames_per_sec']:.1f} frames/s, "
+            f"{runs[name]['wall_ms_per_volume']:.1f} ms a volume, peak memory "
+            f"{runs[name]['peak_memory_gb']:.2f} GB [{card}]")
+    stats = [agreement(a, b) for a, b in zip(srs["fused_tail"], srs["unfused"])]
+    exact, worst = min(e for e, _ in stats), max(m for _, m in stats)
+    log(f"  {key} serving, fused_tail on vs off: {exact * 100:.4f}% exact, "
+        f"max {worst:g} grey")
+    if exact < 0.999 or worst > 1:
+        raise SystemExit(f"{key}: fused_tail on and off serve different SR")
+    runs["fused_vs_unfused"] = {"exact_fraction": exact,
+                                "max_grey_diff": worst}
+    return runs
+
+
+def phase_volumes(tmp: Path, card: str, dev) -> dict:
+    """The volumetric slice: Volume3DSRNet and Volume4DSRNet trained through
+    ``run_train`` at their configs' widths and batches for one epoch on a
+    volume tree of their own, each first batch held against the CPU (4D
+    also with remat on and off), the checkpoint served by the infer CLI and
+    tested by ``main --test``, full volumes served with fused_tail on and
+    off. No kernel of the port lies on these paths: every launch count
+    reads 0."""
+    res, failed = {}, []
+    tree = tmp / "volume_tree"
+    log("phase 10a: the volume tree")
+    made = make_volume_tree(tree, dev)
+    res["tree"] = {k: made[k] for k in ("seconds", "files")}
+    for key, (name, net, frames_per_sample) in VOL_RUNS.items():
+        log(f"phase 10{'b' if key == '3d' else 'c'}: {net} trained at "
+            f"{name}'s width and batch, one epoch")
+        cfg = training_config(name, tree, tmp / f"vol_{key}", {}, tmp)
+        cfg.dataset.kwargs.data_dir = str(tree / "videos")
+        cfg.trainer.kwargs.num_epochs = cfg.monitor.kwargs.saved_freq = 1
+        run = slice_run(key, cfg, card, "concat_conv1x1", 0, 0)
+        res[key] = dict(run["stats"], patch_frames_per_sec=run["stats"][
+            "patches_per_sec"] * frames_per_sample)
+        log(f"  {key}: {res[key]['patch_frames_per_sec']:.1f} patch-frames/s "
+            f"in a step")
+        if not (tmp / f"vol_{key}" / "checkpoints" / "model_best.ckpt").is_file():
+            raise SystemExit(f"{key}: no model_best.ckpt")
+        res[key]["card_vs_cpu"] = card_vs_cpu(key, run["trainer"], dev)
+        gate_card_vs_cpu(key, res[key]["card_vs_cpu"], failed)
+        if key == "4d":
+            res[key]["remat"] = remat_on_off(cfg, run["trainer"], dev)
+        check_launches(f"{key} card vs CPU and remat", "concat_conv1x1", 0)
+        ckpt = tmp / f"vol_{key}" / "checkpoints" / "model_best.ckpt"
+        res[key]["serve"] = volume_served(
+            key, net, dict(cfg.net.kwargs), ckpt, made["valid_hr"],
+            run["valid_outputs"], tmp)
+        res[key]["test"] = volume_test_run(
+            f"test {key}", name, tree, tmp / f"vol_{key}", tmp, res[key], card)
+        res[key]["serving"] = volume_serving(
+            key, net, run["trainer"].net.state_dict(), dict(cfg.net.kwargs),
+            dev, card)
+    if failed:
+        raise SystemExit("; ".join(failed))
+    return res
+
+
+def phase_profile_volumes(dev) -> dict:
+    """One ``torch.profiler`` trace of a full volume through each volume
+    net's pipeline (seeded weights, fused_tail on): device time by kernel,
+    the idle share against the median wall of 3 unprofiled runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vsr_tpu_torch.config import load_config
+    from vsr_tpu_torch.infer import VOLUME_NETS, make_pipeline
+    from vsr_tpu_torch.registry import build
+
+    root = Path(__file__).resolve().parent
+    frames = torch.from_numpy(as_frames(make_volume(30, FULL_SLICES)))
+    res = {}
+    for key, (name, net, _) in VOL_RUNS.items():
+        kwargs = dict(load_config(root / "configs" / "train" / f"{name}.yaml")
+                      .net.kwargs, fused_tail=True)
+        pipe = make_pipeline(
+            build("net", {"name": net, "kwargs": kwargs}, device=dev,
+                  generator=torch.Generator().manual_seed(0)),
+            FACTOR, "acdc", volume=(VOLUME_NETS[net], T_FRAMES))
+
+        def once():
+            out = pipe(frames.to(dev))[1].cpu()
+            torch.cuda.synchronize()
+            return out
+
+        once()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            once()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            once()
+        rows = device_rows(prof)
+        busy, wall = sum(r[1] for r in rows), statistics.median(walls)
+        res[key] = {"wall_ms": wall, "busy_ms": busy,
+                    "idle_share": 1 - busy / wall,
+                    "top": [{"kernel": k[:100], "ms": ms, "calls": c}
+                            for k, ms, c in rows[:20]]}
+        log(f"  profile {key} serving: wall {wall:.1f} ms, busy {busy:.1f} ms, "
+            f"idle share {1 - busy / wall:.3f}")
+        for k, ms, c in rows[:12]:
+            log(f"    {ms:9.2f} ms {c:6d} x {k[:90]}")
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="",
@@ -2122,17 +2475,29 @@ def main() -> int:
         log("phase 9: the MISR and FRVSR training paths, DUF and MoE "
             "training")
         sliced = phase_slice_training(Path(tmp), tree, card, dev)
+        log("phase 10: the volumetric slice, Volume3DSRNet and Volume4DSRNet "
+            "(no port kernel on these paths)")
+        t0 = time.perf_counter()
+        volumes = phase_volumes(Path(tmp), card, dev)
+        volumes["seconds"] = time.perf_counter() - t0
+        log(f"  phase 10 took {volumes['seconds']:.1f} s")
         results = {"card": smi, "build_seconds": build_s,
                    "kernel": {"concat_conv1x1": k1,
                               "concat_conv1x1_backward": k1_bwd,
                               "pairwise_rank": k3, "duf_dynamic_filter": k2},
                    "paths": paths, "card_vs_cpu": cpu_ref,
-                   "training": training, "slice_training": sliced}
+                   "training": training, "slice_training": sliced,
+                   "volumes": volumes}
         if args.profile:
             log("phase 8: torch.profiler traces")
             results["profile"] = phase_profile(dev)
             results["profile_training"] = phase_profile_training(
                 Path(tmp), dev)
+            results["profile_volumes"] = phase_profile_volumes(dev)
+            results["profile_training_volumes"] = phase_profile_training(
+                Path(tmp), dev, [(f"vol_{key}", name, {}) for key, (name, _, _)
+                                 in VOL_RUNS.items()],
+                Path(tmp) / "volume_tree")
     results["seconds"] = time.perf_counter() - started
     log(f"  chip_smoke took {results['seconds']:.1f} s [{card}]")
     if args.out:

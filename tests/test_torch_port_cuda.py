@@ -581,3 +581,65 @@ def test_rank_kernel_inside_a_moe_train_step(rng, dev):
                                    rk.pairwise_rank_reference(af), rtol=0,
                                    atol=0)
     assert net.moes["1"].router.grad is not None
+
+
+# ------------------------------------------------------- the volumetric nets
+
+
+def _kernel_launches():
+    return (fs.concat_conv1x1.launches, fs.concat_conv1x1_dw.launches,
+            df.duf_dynamic_filter.launches, rk.pairwise_rank.launches)
+
+
+@pytest.mark.parametrize("net_name,shape", [
+    ("Volume3DSRNet", (2, 1, 4, 16, 16)),
+    ("Volume4DSRNet", (2, 3, 1, 4, 16, 16))])
+def test_volume_nets_on_the_card_equal_the_cpu(rng, dev, net_name, shape):
+    """A train-mode forward and backward of each volume net (``fused_tail``;
+    4D with ``remat``) on the card against the CPU: outputs at the forward
+    bar, the loss within 1e-4 relative, every gradient within 1e-3 of the
+    net's largest gradient entry (no kernel of the port runs here: PyTorch
+    on the card against PyTorch on the CPU). No port kernel is launched."""
+    from vsr_tpu_torch import models
+
+    kw = dict(fused_tail=True, **({"remat": True} if "4D" in net_name else {}))
+    cpu_net = getattr(models, net_name)(
+        1, 1, num_features=8, num_resblocks=2, upscale_factor=2,
+        generator=torch.Generator().manual_seed(0), **kw).train()
+    card_net = getattr(models, net_name)(
+        1, 1, num_features=8, num_resblocks=2, upscale_factor=2, device=dev,
+        **kw).train()
+    card_net.load_state_dict(cpu_net.state_dict())
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    before = _kernel_launches()
+    results = []
+    for net, device in ((cpu_net, "cpu"), (card_net, dev)):
+        out = net(x.to(device))
+        loss = out.square().mean()
+        loss.backward()
+        results.append((out.detach().cpu(), loss.item(), {
+            k: p.grad.cpu() for k, p in net.named_parameters()}))
+    assert _kernel_launches() == before
+    (out_cpu, loss_cpu, g_cpu), (out_card, loss_card, g_card) = results
+    torch.testing.assert_close(out_card, out_cpu, rtol=1e-4, atol=1e-4)
+    assert abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    scale = max(g.abs().max().item() for g in g_cpu.values())
+    for name, g in g_cpu.items():
+        assert (g_card[name] - g).abs().max().item() <= 1e-3 * scale, name
+
+
+def test_volume4d_remat_on_the_card_keeps_the_gradients(rng, dev):
+    from vsr_tpu_torch.models import Volume4DSRNet
+
+    x = torch.from_numpy(rng.standard_normal((2, 3, 1, 4, 16, 16)).astype(
+        np.float32)).to(dev)
+    grads = []
+    for remat in (False, True):
+        net = Volume4DSRNet(1, 1, num_features=8, num_resblocks=2,
+                            remat=remat, fused_tail=True, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        net(x).square().mean().backward()
+        grads.append({k: p.grad for k, p in net.named_parameters()})
+    scale = max(g.abs().max().item() for g in grads[0].values())
+    for name, g in grads[0].items():
+        assert (grads[1][name] - g).abs().max().item() <= 1e-6 * scale, name

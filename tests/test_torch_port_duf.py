@@ -4,6 +4,8 @@ weight: the same numpy-seeded inputs, the flax variables (``params`` and
 ``load_jax_params``. JAX runs as its own tests run it on the CPU: the Pallas
 dynamic-filter kernel in interpret mode."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,7 @@ import pytest
 import torch
 
 import vsr_tpu.ops.pallas_duf as pallas_duf
+from tests._torch_parity import init as _init
 from vsr_tpu.models import DUFNet as JaxDUFNet
 from vsr_tpu.models import common as jcommon
 from vsr_tpu.models import duf as jduf
@@ -56,10 +59,11 @@ def _last(t, ndim_spatial=2):
     return np.moveaxis(t.detach().numpy(), -ndim_spatial - 1, -1)
 
 
-def _init(module, *xs, seed=0, **kw):
-    args = [jnp.asarray(x) for x in xs]
-    variables = module.init(jax.random.PRNGKey(seed), *args, **kw)
-    return jax.tree_util.tree_map(np.asarray, variables)
+def _apply(module, variables, x, **kw):
+    """``module.apply`` under ``jit``: eager, DUF's backbone runs op by op
+    and took most of this file's time."""
+    return np.asarray(jax.jit(functools.partial(module.apply, **kw))(
+        variables, jnp.asarray(x)))
 
 
 def _randomize(variables, rng):
@@ -81,8 +85,8 @@ def _randomize(variables, rng):
 def test_conv3d(rng):
     x = rng.standard_normal((2, 5, 6, 7, 3)).astype(np.float32)
     jconv = jcommon.Conv3D(4, (3, 3, 3), padding=(0, 1, 1))
-    variables = _init(jconv, x)
-    want = np.asarray(jconv.apply(variables, jnp.asarray(x)))
+    variables = _randomize(_init(jconv, x), rng)
+    want = _apply(jconv, variables, x)
     conv = common.Conv3D(3, 4, (3, 3, 3), padding=(0, 1, 1))
     load_jax_params(conv, variables)
     with torch.no_grad():
@@ -94,8 +98,21 @@ def test_conv3d(rng):
 @pytest.mark.parametrize("kw", [dict(fold_shuffle2d=2),
                                 dict(out_dtype=torch.float32)])
 def test_conv3d_refuses_volumetric_knobs(kw):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        common.Conv3D(4, 4, **kw)
+    if "out_dtype" in kw:  # the bf16 carry: still refused
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            common.Conv3D(4, 4, **kw)
+        return
+    # Ported since the volumetric slice: the conv folded through the
+    # in-plane shuffle before it, on the plain conv's parameters.
+    conv = common.Conv3D(4, 4, **kw)
+    plain = common.Conv3D(4, 4)
+    plain.load_state_dict(conv.state_dict())
+    pre = torch.randn(1, 16, 3, 5, 6, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        folded = common.pixel_shuffle_2d_in_3d(conv(pre), 2)
+        want = plain(common.pixel_shuffle_2d_in_3d(pre, 2))
+    assert folded.shape == want.shape == (1, 4, 3, 10, 12)
+    torch.testing.assert_close(folded, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("backbone", ["_DenseLayer16"])
@@ -103,7 +120,7 @@ def test_dense_backbone(rng, backbone):
     x = rng.standard_normal((1, 7, 6, 6, 64)).astype(np.float32)
     jback = jduf._DenseBackbone(backbone)
     variables = _randomize(_init(jback, x, train=False), rng)
-    want = np.asarray(jback.apply(variables, jnp.asarray(x), train=False))
+    want = _apply(jback, variables, x, train=False)
     back = duf._DenseBackbone(backbone).eval()
     load_jax_params(back, variables)
     with torch.no_grad():
@@ -123,7 +140,7 @@ def test_dufnet(rng, interpret_mode, backbone, use_pallas_filter):
     jnet = JaxDUFNet(**kw)
     variables = _randomize(_init(jnet, x, seed=5, train=False), rng)
     assert set(variables) == {"params", "batch_stats"}
-    want = np.asarray(jnet.apply(variables, jnp.asarray(x), train=False))
+    want = _apply(jnet, variables, x, train=False)
     net = DUFNet(**kw).eval()
     load_jax_params(net, variables)
     with torch.no_grad():
@@ -142,7 +159,7 @@ def test_dufnet_even_window_and_three_channels(rng):
     x = rng.standard_normal((1, 8, 8, 8, 3)).astype(np.float32)
     jnet = JaxDUFNet(**kw)
     variables = _randomize(_init(jnet, x, seed=6, train=False), rng)
-    want = np.asarray(jnet.apply(variables, jnp.asarray(x), train=False))
+    want = _apply(jnet, variables, x, train=False)
     net = DUFNet(**kw).eval()
     load_jax_params(net, variables)
     with torch.no_grad():

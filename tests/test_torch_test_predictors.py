@@ -293,8 +293,13 @@ def test_vsr_predictor_scores_a_tuple_output_on_its_first_element(
 @pytest.mark.parametrize("name", ["Acdc3DSRPredictor", "Dsb153DSRPredictor",
                                   "Acdc4DSRPredictor", "Dsb154DSRPredictor"])
 def test_volume_predictors_raise_by_name(name):
-    with pytest.raises(NotImplementedError, match=name):
-        get_class("predictor", name)()
+    # Ported since the volumetric slice: each name resolves to its family,
+    # with the JAX twin's statistics.
+    cls = get_class("predictor", name)
+    base = (predictors.VolumePredictor if "3DSR" in name
+            else predictors.Volume4DPredictor)
+    assert issubclass(cls, base)
+    assert cls.dataset_stats == getattr(jpredictors, name).dataset_stats
 
 
 @pytest.mark.parametrize("name,base,stats", [
@@ -419,8 +424,10 @@ def test_main_test_mode_refusals(trained, tree, coordinates, tmp_path):
     cfg.predictor.kwargs.t_bucket = 16
     with pytest.raises(TypeError, match="t_bucket"):
         port_main.run_test(cfg)
-    cfg.predictor.name = "Acdc3DSRPredictor"
-    with pytest.raises(NotImplementedError, match="Acdc3DSRPredictor"):
+    cfg.predictor.name = "Acdc3DSRPredictor"  # builds, then wants volumes
+    del cfg.predictor.kwargs["t_bucket"]
+    cfg.net.kwargs = FAMILIES["srfb"]["net_kwargs"]
+    with pytest.raises(KeyError, match="lr_vol"):
         port_main.run_test(cfg)
     cfg = _test_config("acdc_sisr_srfb_x2", tree, coordinates, run)
     del cfg.predictor.kwargs["device"]

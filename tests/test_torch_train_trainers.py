@@ -341,7 +341,9 @@ def test_unknown_trainer_keywords_raise(tree, tmp_path, kwargs):
 def test_trainers_not_ported_raise_by_name(name):
     ported_since = {"SRFB": trainers.SISRSRFBTrainer,
                     "FRVSR": trainers.FRVSRTrainer,
-                    "MISR": trainers.MISRTrainer}
+                    "MISR": trainers.MISRTrainer,
+                    "3DSR": trainers.VolumeTrainer,
+                    "4DSR": trainers.Volume4DTrainer}
     for family, cls in ported_since.items():
         if family in name:
             assert issubclass(get_class("trainer", name), cls)

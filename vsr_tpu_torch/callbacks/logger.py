@@ -11,7 +11,10 @@ grids under ``<log_dir>/images``, written by the module's own PNG encoder
 raises.
 
 Batches and outputs arrive channels-last, as the loader makes them: the
-trainer hands over ``(N, H, W, C)`` / ``(N, T, H, W, C)`` numpy arrays.
+trainer hands over ``(N, H, W, C)`` / ``(N, T, H, W, C)`` numpy arrays, and
+for the volume nets their outputs in the JAX nets' ``(N, D, H, W, C)`` /
+``(N, T, D, H, W, C)`` layouts beside the batches' ``(N, H, W, D, C)`` /
+``(N, T, H, W, D, C)``.
 """
 
 from __future__ import annotations
@@ -151,6 +154,31 @@ class VSRLogger(BaseLogger):
         return _to_uint8_grid(pairs)
 
 
+class VolumeLogger(BaseLogger):
+    """3D volumes, batch (N, H, W, D, C) / outputs (N, D, H, W, C): show the
+    middle depth slice."""
+
+    def _make_grid(self, batch, outputs):
+        targets = np.asarray(batch["hr_vol"])
+        outs = np.asarray(outputs)
+        d = targets.shape[3] // 2
+        pairs = [img for t, o in zip(targets, outs) for img in (t[:, :, d], o[d])]
+        return _to_uint8_grid(pairs)
+
+
+class Volume4DLogger(BaseLogger):
+    """4D sequences, batch (N, T, H, W, D, C) / outputs (N, T, D, H, W, C):
+    show the mid-depth slice of the last frame."""
+
+    def _make_grid(self, batch, outputs):
+        hr = np.asarray(batch["hr_vols"])
+        t, d = hr.shape[1] - 1, hr.shape[4] // 2
+        outs = np.asarray(outputs)[:, t, d]
+        pairs = [img for tg, o in zip(hr[:, t, :, :, d], outs)
+                 for img in (tg, o)]
+        return _to_uint8_grid(pairs)
+
+
 for _name, _cls in [
     ("AcdcSISRLogger", SISRLogger),
     ("Dsb15SISRLogger", SISRLogger),
@@ -160,5 +188,9 @@ for _name, _cls in [
     ("Dsb15MISRLogger", MISRLogger),
     ("AcdcVSRLogger", VSRLogger),
     ("Dsb15VSRLogger", VSRLogger),
+    ("Acdc3DSRLogger", VolumeLogger),
+    ("Dsb153DSRLogger", VolumeLogger),
+    ("Acdc4DSRLogger", Volume4DLogger),
+    ("Dsb154DSRLogger", Volume4DLogger),
 ]:
     register("logger", _name)(_cls)

@@ -1,16 +1,21 @@
-"""ACDC / DSB15 datasets for the SISR / MISR / VSR task regimes (port of
-``vsr_tpu/data/datasets.py``; the tests pin every sample to the original's).
+"""ACDC / DSB15 datasets for the SISR / MISR / VSR / 3D / 4D task regimes
+(port of ``vsr_tpu/data/datasets.py``; the tests pin every sample to the
+original's).
 
 - SISR pairs per-frame ``imgs`` NIfTIs,
 - MISR/VSR window ``videos`` sequences with circular wrap-around at the
   cardiac-cycle boundary,
-- VSR valid/test yields whole variable-length sequences.
+- VSR valid/test yields whole variable-length sequences,
+- the volume datasets stack a patient's slice sequences of the ``videos``
+  tree into (H, W, D, C) volumes, one per frame (3D), or into windows of
+  volumes (4D; whole sequences for valid/test).
 
-Arrays stay channels-last numpy, (H, W, C) frames and (T, H, W, C) windows;
+Arrays stay channels-last numpy, (H, W, C) frames, (T, H, W, C) windows,
+(H, W, D, C) volumes and (T, H, W, D, C) volume windows;
 ``__getitem__(index, rng=...)`` takes an explicit numpy Generator for
 augmentation, so samples are reproducible without global seeding. The Dsb15
-classes only change the registry name. The volume datasets are not ported
-yet, and ``native_decode`` (the C++ NIfTI decoder) is refused.
+classes only change the registry name. ``native_decode`` (the C++ NIfTI
+decoder) is refused.
 """
 
 from __future__ import annotations
@@ -278,6 +283,109 @@ class AcdcVSRDataset(_SequenceDataset):
         return {"lr_imgs": lr, "hr_imgs": hr, "index": index}
 
 
+@register("dataset")
+class AcdcVolumeDataset(_SRDatasetMixin):
+    """3D volumetric SR: one sample per (patient, frame), all depth slices
+    of that frame stacked into an (H, W, D, C) volume, from the ``videos``
+    tree (each patient's per-slice sequences give the depth axis). The
+    layout is the 4D transform convention, so ``RandomCropPatch`` crops it
+    in-plane-scaled and depth-unscaled."""
+
+    def __init__(self, **kwargs: Any):
+        super().__init__(**kwargs)
+        lr_root = self.data_dir / self.type / "LR" / f"X{self.downscale_factor}"
+        hr_root = self.data_dir / self.type / "HR"
+        # patient -> sorted per-slice sequence paths.
+        self.patients: list[str] = sorted(
+            p.name for p in hr_root.iterdir() if p.is_dir()
+        ) if hr_root.is_dir() else []
+        self.lr_seqs = {
+            p: sorted((lr_root / p).glob("*2d+1d*.nii.gz")) for p in self.patients
+        }
+        self.hr_seqs = {
+            p: sorted((hr_root / p).glob("*2d+1d*.nii.gz")) for p in self.patients
+        }
+        self.data: list[tuple[str, int]] = []
+        for p in self.patients:
+            if not self.lr_seqs[p]:
+                continue
+            # Stacking needs every slice sequence of a patient to share
+            # (H, W, T): refuse a heterogeneous series up front.
+            shapes = {_nifti_shape(q) for q in self.lr_seqs[p]}
+            if len(shapes) > 1:
+                raise ValueError(
+                    f"Patient {p} has heterogeneous slice sequences "
+                    f"{sorted(shapes)}; the volumetric datasets require "
+                    f"uniform (H, W, T) per patient — exclude or resample "
+                    f"this patient")
+            T = _nifti_shape(self.lr_seqs[p][0])[-1]
+            self.data.extend((p, t) for t in range(T))
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def sample_name(self, index: int):
+        patient, t = self.data[index]
+        return patient, "", f"{t + 1:0>2d}"
+
+    def _stack_volume(self, paths, t: int) -> np.ndarray:
+        slices = [self._load(p)[..., t] for p in paths]  # each (H, W, C)
+        return np.stack(slices, axis=2)  # (H, W, D, C)
+
+    def __getitem__(self, index: int, rng: np.random.Generator | None = None) -> dict:
+        patient, t = self.data[index]
+        lr_vol = self._stack_volume(self.lr_seqs[patient], t)
+        hr_vol = self._stack_volume(self.hr_seqs[patient], t)
+        imgs = (lr_vol, hr_vol)
+        if self.type == "train":
+            imgs = self.augments(*imgs, rng=rng)
+        lr_vol, hr_vol = self.transforms(*imgs)
+        return {"lr_vol": lr_vol, "hr_vol": hr_vol, "index": index}
+
+
+@register("dataset")
+class AcdcVolumeVSRDataset(AcdcVolumeDataset):
+    """4D spatio-temporal SR: circular windows of ``num_frames`` volumetric
+    frames for training; valid/test yields each patient's whole sequence.
+    Sample = {'lr_vols': (T, h, w, D, C), 'hr_vols': (T, H, W, D, C)}."""
+
+    def __init__(self, num_frames: int = 5, temporal_order: str = "last",
+                 **kwargs: Any):
+        super().__init__(**kwargs)
+        if temporal_order not in ("last", "middle"):
+            raise ValueError(
+                f"The temporal order should be 'last' or 'middle'. Got {temporal_order}."
+            )
+        self.num_frames = num_frames
+        self.temporal_order = temporal_order
+        if self.type != "train":
+            # Whole sequences: one sample per patient.
+            self.data = [(p, 0) for p in self.patients if self.lr_seqs[p]]
+
+    def _load_4d(self, seqs) -> np.ndarray:
+        """Stack per-slice (H, W, 1, T) sequences -> (H, W, D, T)."""
+        slices = [self._load(p)[:, :, 0, :] for p in seqs]  # (H, W, T)
+        return np.stack(slices, axis=2)
+
+    def __getitem__(self, index: int, rng: np.random.Generator | None = None) -> dict:
+        patient, t = self.data[index]
+        lr_4d = self._load_4d(self.lr_seqs[patient])
+        hr_4d = self._load_4d(self.hr_seqs[patient])
+        if self.type == "train":
+            lr_4d = extract_window(lr_4d, t, self.num_frames, self.temporal_order)
+            hr_4d = extract_window(hr_4d, t, self.num_frames, self.temporal_order)
+        n = lr_4d.shape[-1]
+        imgs = tuple(lr_4d[..., i][..., None] for i in range(n)) + tuple(
+            hr_4d[..., i][..., None] for i in range(n)
+        )  # 2n arrays of (H, W, D, 1)
+        if self.type == "train":
+            imgs = self.augments(*imgs, rng=rng)
+        imgs = self.transforms(*imgs)
+        lr = np.stack(imgs[: len(imgs) // 2], axis=0)  # (T, h, w, D, C)
+        hr = np.stack(imgs[len(imgs) // 2 :], axis=0)
+        return {"lr_vols": lr, "hr_vols": hr, "index": index}
+
+
 # DSB15 variants: identical behavior, distinct registry names.
 @register("dataset")
 class Dsb15SISRDataset(AcdcSISRDataset):
@@ -291,4 +399,14 @@ class Dsb15MISRDataset(AcdcMISRDataset):
 
 @register("dataset")
 class Dsb15VSRDataset(AcdcVSRDataset):
+    pass
+
+
+@register("dataset")
+class Dsb15VolumeDataset(AcdcVolumeDataset):
+    pass
+
+
+@register("dataset")
+class Dsb15VolumeVSRDataset(AcdcVolumeVSRDataset):
     pass

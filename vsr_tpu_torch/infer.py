@@ -1,11 +1,15 @@
 """Batch inference CLI: raw volumes -> k-space LR -> SR (port of
-``vsr_tpu/infer.py``: frame, whole-sequence video and MISR window modes).
+``vsr_tpu/infer.py``: frame, whole-sequence video, MISR window and volume
+modes).
 
 Walks a directory of raw 4D NIfTI volumes; for each, simulates the k-space
 LR input, normalizes it, runs the net, denormalizes, and writes the SR
 sequence as NIfTI. The net sees single frames (SISR nets, the default), each
-slice's whole time series (``--video``, VSR nets) or one circular window of
-``--windows`` frames per output frame (MISR nets).
+slice's whole time series (``--video``, VSR nets), one circular window of
+``--windows`` frames per output frame (MISR nets) or, for the volumetric
+nets and without a flag, the study's volumes: each time point one (D, h, w)
+sample (``Volume3DSRNet``) or the whole scan one (T, D, h, w) sample
+(``Volume4DSRNet``).
 
 Usage:
   python -m vsr_tpu_torch.infer <input_dir> <output_dir> --video \
@@ -21,6 +25,9 @@ Usage:
       --chunk 100 --net DUFNet --net-kwargs '{"in_channels":1,
       "out_channels":1,"num_frames":7,"size_filter":5,"upscale_factor":2,
       "use_pallas_filter":true}'
+  python -m vsr_tpu_torch.infer <input_dir> <output_dir> --fused-tail \
+      --net Volume4DSRNet --net-kwargs '{"in_channels":1,"out_channels":1,
+      "num_features":32,"num_resblocks":4,"upscale_factor":2}'
 
 Weights come from ``--checkpoint`` (a checkpoint of the port's own trainer,
 ``vsr_tpu_torch/utils/checkpoint.py``) or, without it, from a seeded init
@@ -54,21 +61,59 @@ _NOT_PORTED = {"int8": "--int8", "w8a8": "--w8a8", "mesh": "--mesh",
 # A net class's ``serving_mode`` -> the flag that selects the mode.
 _MODE_FLAGS = {"frame": "neither --video nor --windows", "video": "--video",
                "window": "--windows N"}
+# The volumetric nets (``serving_mode = "volume"``), served without a mode
+# flag: each time point one (D, h, w) sample ("3d") or the whole scan one
+# (T, D, h, w) sample ("4d").
+VOLUME_NETS = {"Volume3DSRNet": "3d", "Volume4DSRNet": "4d"}
+
+
+def resolve_volume(net_name: str, *, video: bool = False, windows: int = 0,
+                   seq_t: int | None = 0, chunk: int = 0,
+                   n_frames: int | None = None,
+                   exc=ValueError) -> tuple[str, int | None] | None:
+    """``(mode, t)`` for a volumetric net (``None`` otherwise), after
+    checking the flags it is served with; raises ``exc`` on misuse.
+    ``seq_t=None`` checks the flags alone, before a volume is read."""
+    vmode = VOLUME_NETS.get(net_name)
+    if not vmode:
+        return None
+    if video or windows:
+        raise exc("--video/--video-t/--windows do not apply to the "
+                  "volumetric nets (volume mode is automatic)")
+    if seq_t is not None and not seq_t:
+        raise exc("volumetric nets need --seq-t (frames per slice, T of "
+                  "the N = D*T frame dim)")
+    if vmode == "4d" and chunk:
+        raise exc("--chunk has no effect on 4D volume serving (the whole "
+                  "scan is one sample)")
+    if seq_t and n_frames is not None and n_frames % seq_t:
+        raise exc(f"frames dim {n_frames} is not a multiple of the "
+                  f"per-slice T {seq_t} (volume mode regroups N = D*T)")
+    return (vmode, seq_t)
 
 
 def make_prep(factor: int, dataset: str, video_t: int = 0,
-              window: tuple[int, int, str] | None = None):
+              window: tuple[int, int, str] | None = None,
+              volume: tuple[str, int] | None = None):
     """HR float frames (N, H, W) -> (lr_frames, z). ``z`` is the net-input
     batch: the frames ``(N, 1, h, w)``; with ``video_t`` the ``N // video_t``
     sequences ``(D, T, 1, h, w)``; with ``window = (n_frames, seq_t, order)``
-    one circular window per frame, ``(N, n_frames, 1, h, w)``."""
+    one circular window per frame, ``(N, n_frames, 1, h, w)``; with
+    ``volume = ("3d" | "4d", t)`` the N = D*t slice-major frames regrouped
+    into t volumes of D slices, ``(T, 1, D, h, w)`` ("3d", each time point
+    one sample) or ``(1, T, 1, D, h, w)`` ("4d", the scan one sample)."""
     mean, std = DATASET_STATS[dataset]
 
     def prep(hr_frames: torch.Tensor):
         lr = kspace_downscale_torch(hr_frames, factor)
         z = ((lr - mean) / (std + 1e-10))[:, None]
         n, _, h, w = z.shape
-        if video_t:
+        if volume:
+            vmode, vt = volume
+            z = z.reshape(n // vt, vt, 1, h, w).permute(1, 2, 0, 3, 4)
+            if vmode == "4d":
+                z = z[None]
+        elif video_t:
             z = z.reshape(n // video_t, video_t, 1, h, w)
         elif window:
             nf, seq_t, order = window
@@ -87,6 +132,7 @@ def make_prep(factor: int, dataset: str, video_t: int = 0,
 def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
                   video_t: int = 0,
                   window: tuple[int, int, str] | None = None,
+                  volume: tuple[str, int] | None = None,
                   chunk: int = 0):
     """HR float frames (N, H, W) -> (lr_frames, sr_frames), float32 tensors
     holding uint8 values, on the frames' device.
@@ -98,10 +144,13 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
     every output frame gets one circular window of ``n_frames`` frames of
     its slice's ``seq_t``-frame sequence, gathered on the device;
     ``order='middle'`` centres the window on the output frame, ``'last'``
-    ends it there.
+    ends it there. ``volume = ("3d" | "4d", t)``: for the volumetric nets,
+    the frames are regrouped into volumes (``make_prep``) and the SR volumes
+    back into slice-major frames.
 
-    ``chunk``: feed the net the frames / windows ``chunk`` at a time (frame
-    and window modes only; the video path is already sequence-batched).
+    ``chunk``: feed the net the frames / windows / 3D volumes ``chunk`` at a
+    time (not the video path, already sequence-batched, nor 4D volumes, one
+    sample).
     Bounds the live activation memory; the last chunk is padded by
     edge-repeat and sliced back (exact: the items are independent).
 
@@ -116,18 +165,26 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
     if window and video_t:
         raise ValueError("window (MISR) and video_t (VSR) are mutually "
                          "exclusive")
+    if volume and (video_t or window):
+        raise ValueError("volume serving excludes video_t/window modes")
+    if volume and volume[0] == "4d" and chunk:
+        raise ValueError("chunk has no effect on 4D volume serving (the "
+                         "whole scan is one sample)")
     if window and window[2] not in ("middle", "last"):
         raise ValueError(f"window order must be 'middle' or 'last', got "
                          f"{window[2]!r}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mean, std = DATASET_STATS[dataset]
-    prep = make_prep(factor, dataset, video_t, window)
+    prep = make_prep(factor, dataset, video_t, window, volume)
     net.eval()
 
     def apply(zb: torch.Tensor) -> torch.Tensor:
-        """net -> (items, C, H, W), one frame-shaped output per item."""
+        """net -> (items, C, H, W), one frame-shaped output per item (a
+        volumetric net's output as it comes)."""
         out = net(zb)
+        if volume:
+            return out
         if video_t:  # (D, T, C, H, W): flatten the frames back out
             if isinstance(out, tuple):  # FRVSR's (sr, warped_lr)
                 out = out[0]
@@ -153,6 +210,13 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
             sr = torch.cat(outs)
         else:
             sr = apply(z)
+        if volume:
+            # (T, C, D, H, W) ("4d": with a leading 1) back to slice-major
+            # frames (D*T, C, H, W), the inverse of prep's regrouping.
+            if volume[0] == "4d":
+                sr = sr[0]
+            sr = sr.permute(2, 0, 1, 3, 4).reshape(-1, *sr.shape[1:2],
+                                                   *sr.shape[3:])
         sr = sr[:, 0].float()
         return lr, torch.clamp(torch.round(sr * std + mean), 0.0, 255.0)
 
@@ -167,6 +231,8 @@ def run(args) -> dict:
     if args.windows and args.video:
         raise SystemExit("--windows (MISR) and --video (VSR) are mutually "
                          "exclusive")
+    resolve_volume(args.net, video=args.video, windows=args.windows,
+                   seq_t=None, chunk=args.chunk, exc=SystemExit)
     if args.chunk < 0 or args.windows < 0:
         raise SystemExit("--chunk and --windows must be >= 0 (0 = disabled)")
     if args.chunk and args.video:
@@ -176,6 +242,8 @@ def run(args) -> dict:
         raise SystemExit(f"--checkpoint: no such file: {args.checkpoint}")
     mode = "video" if args.video else "window" if args.windows else "frame"
     net_mode = getattr(get_class("net", args.net), "serving_mode", mode)
+    if net_mode == "volume":
+        mode = net_mode
     if net_mode != mode:
         raise SystemExit(f"{args.net} is served in {net_mode} mode: pass "
                          f"{_MODE_FLAGS[net_mode]}")
@@ -213,6 +281,8 @@ def run(args) -> dict:
         h, w, d, t = data.shape
         frames = np.moveaxis(data.reshape(h, w, d * t), -1, 0)  # (D*T, H, W)
 
+        volume = resolve_volume(args.net, seq_t=t, chunk=args.chunk,
+                                n_frames=len(frames), exc=SystemExit)
         key = t if mode != "frame" else None
         if key not in pipelines:
             pipelines[key] = make_pipeline(
@@ -220,7 +290,7 @@ def run(args) -> dict:
                 video_t=t if mode == "video" else 0,
                 window=((args.windows, t, args.window_order)
                         if mode == "window" else None),
-                chunk=args.chunk)
+                volume=volume, chunk=args.chunk)
         t0 = time.perf_counter()
         lr, sr = pipelines[key](
             torch.from_numpy(np.ascontiguousarray(frames)).to(device))
@@ -297,9 +367,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         choices=["middle", "last"], default="middle",
                         help="window alignment relative to the output frame")
     parser.add_argument("--chunk", type=int, default=0,
-                        help="feed the net this many frames/windows at a "
-                             "time (frame and window modes; bounds live "
-                             "memory)")
+                        help="feed the net this many frames/windows/3D "
+                             "volumes at a time (frame, window and 3D volume "
+                             "modes; bounds live memory)")
     parser.add_argument("--preset", choices=["tuned", "fast"], default="",
                         help="not yet ported")
     return parser.parse_args(argv)

@@ -24,7 +24,10 @@ filled, every shape match. Layouts:
   ``expert_wo``, ``expert_bo`` keep their shapes.
 
 Numbered flax children (``Conv_i``, ``_ResBlock_i``, ``Conv3D_i``, ...)
-follow flax's creation order, which the port's module lists keep.
+follow flax's creation order, which the port's module lists keep. The
+volumetric nets' tails continue the ``Conv3D_k`` numbering of their parent
+(``Volume3DSRNet``: head 0, body end 1, then the tail; ``Volume4DSRNet``'s
+``step``: the squeeze 0, then the tail), folded or not.
 
 ``from_jax_tree(net, tree)`` reads the same slot table the other way: it
 lays a flax-shaped tree of numpy arrays (gradients, or updated parameters)
@@ -54,6 +57,8 @@ from vsr_tpu_torch.models.rbpn import (DBPNet, RBPNet, _ConvP, _DeconvP,
                                        _ResChain)
 from vsr_tpu_torch.models.srfbn import SRFBNet, _RBlock
 from vsr_tpu_torch.models.toflow import SpyNet, TOFlowNet
+from vsr_tpu_torch.models.vol3d import Volume3DSRNet, VolumeTail, _ResBlock3D
+from vsr_tpu_torch.models.vol4d import Volume4DSRNet, _Vol4DStep
 
 Slot = tuple[tuple[str, ...], torch.Tensor, Callable[[np.ndarray], np.ndarray]]
 
@@ -268,6 +273,23 @@ def _edvr_slots(net: EDVRNet) -> Iterator[Slot]:
     yield from _conv_slots(("FoldableConv_1",), net.last_conv)
 
 
+def _volume_tail_slots(prefix: tuple[str, ...], tail: VolumeTail,
+                       first: int) -> Iterator[Slot]:
+    """A volumetric tail's convs continue the ``Conv3D_k`` numbering of the
+    module that holds them at ``first``; a folded last conv keeps the plain
+    conv's leaves."""
+    for k, conv in enumerate([*tail.ups, tail.last], start=first):
+        yield from _conv_slots(prefix + (f"Conv3D_{k}", "Conv_0"), conv)
+
+
+def _vol4d_step_slots(prefix: tuple[str, ...],
+                      step: _Vol4DStep) -> Iterator[Slot]:
+    yield from _conv_slots(prefix + ("Conv3D_0", "Conv_0"), step.squeeze)
+    for i, block in enumerate(step.blocks):
+        yield from _numbered_slots(prefix + (f"_ResBlock3D_{i}",), block)
+    yield from _volume_tail_slots(prefix, step.tail, 1)
+
+
 def module_slots(module: nn.Module) -> Iterator[Slot]:
     """(flax path from the collection down, torch parameter or buffer,
     layout transform) for one of the port's nets or blocks, each against the
@@ -305,10 +327,23 @@ def module_slots(module: nn.Module) -> Iterator[Slot]:
         yield from _srnet_slots(("step", "SRNet_0"), module.step.srnet)
     elif isinstance(module, EDVRNet):
         yield from _edvr_slots(module)
+    elif isinstance(module, Volume3DSRNet):
+        yield from _conv_slots(("Conv3D_0", "Conv_0"), module.head)
+        for i, block in enumerate(module.blocks):
+            yield from _numbered_slots((f"_ResBlock3D_{i}",), block)
+        yield from _conv_slots(("Conv3D_1", "Conv_0"), module.body_end)
+        yield from _volume_tail_slots((), module.tail, 2)
+    elif isinstance(module, Volume4DSRNet):
+        # The scanned step's parameters are broadcast over the frames (and
+        # ``nn.remat`` leaves the tree as it is).
+        yield from _conv_slots(("Conv3D_0", "Conv_0"), module.head)
+        yield from _vol4d_step_slots(("step",), module.step)
+    elif isinstance(module, _Vol4DStep):
+        yield from _vol4d_step_slots((), module)
     elif isinstance(module, DeformConvPack):
         yield from _dcn_slots((), module)
     elif isinstance(module, (InBlock, FBlock, _RBlock, _ResBlock, _UpBlock,
-                             _DenseBlock)):
+                             _DenseBlock, _ResBlock3D)):
         yield from _numbered_slots((), module)
     elif isinstance(module, _OutBlock):
         yield from _out_block_slots((), module)

@@ -10,6 +10,9 @@ from vsr_tpu_torch.models.moe import MoEEDSRNet
 from vsr_tpu_torch.models.rbpn import RBPNet
 from vsr_tpu_torch.models.srfbn import SRFBNet
 from vsr_tpu_torch.models.toflow import TOFlowNet
+from vsr_tpu_torch.models.vol3d import Volume3DSRNet
+from vsr_tpu_torch.models.vol4d import Volume4DSRNet
 
 __all__ = ["Bicubic", "DRFNet", "DUFNet", "EDSRNet", "EDVRNet", "FRVSRNet",
-           "MoEEDSRNet", "RBPNet", "SRFBNet", "TOFlowNet"]
+           "MoEEDSRNet", "RBPNet", "SRFBNet", "TOFlowNet", "Volume3DSRNet",
+           "Volume4DSRNet"]

@@ -15,7 +15,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vsr_tpu_torch.ops.fused_squeeze import concat_conv1x1
-from vsr_tpu_torch.ops.fused_tail import fuse_conv_through_shuffle
+from vsr_tpu_torch.ops.fused_tail import (fuse_conv3d_through_shuffle2d,
+                                          fuse_conv_through_shuffle)
 
 
 def resolve_dtype(dtype: torch.dtype | str | None) -> torch.dtype:
@@ -53,8 +54,15 @@ class Conv(nn.Conv2d):
 
 class Conv3D(nn.Conv3d):
     """3D conv, NCDHW (the JAX one is NDHWC), per-dim pixel padding,
-    torch-default init. The JAX module's ``fold_shuffle2d`` and ``out_dtype``
-    belong to the volumetric nets and are refused."""
+    torch-default init.
+
+    ``fold_shuffle2d=r`` (> 0): the conv consumes the PRE-shuffle array
+    (``in_channels * r^2`` channels) of a ``pixel_shuffle_2d_in_3d(., r)``
+    that would otherwise precede it and computes the conv folded through
+    that shuffle (``ops/fused_tail.py``); it returns the pre-shuffle result
+    (``out_channels * r^2`` channels) for the caller to shuffle. The weight
+    and bias are the unfolded conv's, so checkpoints interchange. The JAX
+    module's ``out_dtype`` (an f32 output under bf16 compute) is refused."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: tuple[int, int, int] = (3, 3, 3),
@@ -63,15 +71,43 @@ class Conv3D(nn.Conv3d):
                  bias: bool = True, *, fold_shuffle2d: int = 0,
                  out_dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
-        for name, value in (("fold_shuffle2d", fold_shuffle2d),
-                            ("out_dtype", out_dtype)):
-            if value:
+        if out_dtype:
+            raise NotImplementedError(
+                "Conv3D out_dtype is not yet ported to vsr_tpu_torch")
+        k = tuple(kernel_size)
+        if fold_shuffle2d:
+            if tuple(strides) != (1, 1, 1) or not (k[1] % 2 and k[2] % 2):
                 raise NotImplementedError(
-                    f"Conv3D {name} is not yet ported to vsr_tpu_torch")
-        super().__init__(in_channels, out_channels, tuple(kernel_size),
-                         tuple(strides), tuple(padding), bias=bias)
+                    "fold_shuffle2d supports stride-1, odd-H/W-kernel "
+                    f"convs only (got strides={tuple(strides)}, kernel={k})")
+            if tuple(padding[1:]) != (k[1] // 2, k[2] // 2):
+                raise NotImplementedError(
+                    f"fold_shuffle2d needs SAME H/W padding "
+                    f"({k[1] // 2}, {k[2] // 2}); got {tuple(padding[1:])}")
+        super().__init__(in_channels, out_channels, k, tuple(strides),
+                         tuple(padding), bias=bias)
+        self.fold_shuffle2d = fold_shuffle2d
         torch_default_init_(self.weight, self.bias,
                             math.prod(kernel_size) * in_channels, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fold_shuffle2d:
+            return super().forward(x)
+        K, B = fuse_conv3d_through_shuffle2d(self.weight, self.bias,
+                                             self.fold_shuffle2d)
+        return F.conv3d(x, K, B, padding=(self.padding[0], K.shape[-2] // 2,
+                                          K.shape[-1] // 2))
+
+
+def pixel_shuffle_2d_in_3d(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(N, C*r^2, D, H, W) -> (N, C, D, H*r, W*r): the in-plane shuffle of
+    the volumetric tails, channels packed ``c*r^2 + i*r + j`` for row phase
+    ``i`` and column phase ``j`` (the JAX function's and
+    ``F.pixel_shuffle``'s packing); depth is untouched."""
+    n, c, d, h, w = x.shape
+    x = x.reshape(n, c // (r * r), r, r, d, h, w)
+    x = x.permute(0, 1, 4, 5, 2, 6, 3)  # (n, c, d, h, i, w, j)
+    return x.reshape(n, c // (r * r), d, h * r, w * r)
 
 
 class ConvTranspose(nn.ConvTranspose2d):

@@ -1,8 +1,9 @@
 """Fold a SAME conv THROUGH a preceding pixel-shuffle (weight transform).
 
-Port of ``vsr_tpu/ops/fused_tail.py``'s ``fuse_conv_through_shuffle`` in
-torch's layout. Because pixel-shuffle is a fixed permutation, the final conv
-of a sub-pixel tail can run on the PRE-shuffle array:
+Port of ``vsr_tpu/ops/fused_tail.py``'s ``fuse_conv_through_shuffle`` and
+``fuse_conv3d_through_shuffle2d`` in torch's layout. Because pixel-shuffle
+is a fixed permutation, the final conv of a sub-pixel tail can run on the
+PRE-shuffle array:
 
     out(r*y+py, r*x+px, o)
       = b_o + sum_{dy,dx,c} W[o,c,dy,dx] * shuffled(r*y+py+dy, r*x+px+dx, c)
@@ -57,8 +58,11 @@ def _fold_index(kernel_size: int, factor: int,
                 device: torch.device) -> torch.Tensor:
     """``_fold_taps`` on ``device``, copied there once: serving folds the
     tail weight every frame, and a fresh host-to-device copy would stall
-    the card's queue each time."""
-    return torch.tensor(_fold_taps(kernel_size, factor), device=device)
+    the card's queue each time. Made outside inference mode, whatever the
+    caller's mode: the cached tensor also serves folds that autograd records
+    (a fused tail trained in a process that served one before)."""
+    with torch.inference_mode(False):
+        return torch.tensor(_fold_taps(kernel_size, factor), device=device)
 
 
 def fuse_conv_through_shuffle(weight: torch.Tensor, bias: torch.Tensor | None,
@@ -78,4 +82,21 @@ def fuse_conv_through_shuffle(weight: torch.Tensor, bias: torch.Tensor | None,
     K = folded.permute(0, 2, 3, 1, 4, 5, 6, 7).reshape(
         cout * r * r, cin * r * r, kq, kq)
     B = None if bias is None else bias.repeat_interleave(r * r)
+    return K, B
+
+
+def fuse_conv3d_through_shuffle2d(weight: torch.Tensor,
+                                  bias: torch.Tensor | None, factor: int):
+    """3D variant for the volumetric tails: rearrange a (Cout, Cin, kd, k, k)
+    SAME-conv weight that runs AFTER ``pixel_shuffle_2d_in_3d(factor)`` (H
+    and W shuffled, depth untouched; ``models/vol3d.py``) into a
+    (Cout*r^2, Cin*r^2, kd, kq, kq) weight that runs BEFORE it. The depth
+    taps pass through: the H/W fold is the 2D fold applied to each depth
+    tap, with the same channel packing. Returns (K, B); apply as
+    ``pixel_shuffle_2d_in_3d(F.conv3d(pre, K, B, padding=(pd, kq // 2,
+    kq // 2)), factor)``."""
+    K = torch.stack([fuse_conv_through_shuffle(weight[:, :, d], None,
+                                               factor)[0]
+                     for d in range(weight.shape[2])], dim=2)
+    B = None if bias is None else bias.repeat_interleave(factor * factor)
     return K, B

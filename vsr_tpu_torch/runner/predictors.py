@@ -1,11 +1,12 @@
 """Predictors: test-set evaluation + CSV/PNG/GIF export (port of
 ``vsr_tpu/runner/predictors.py``).
 
-Batch-size-1 streaming evaluation, per-sample (SISR / MISR) or per-frame
-(VSR) metric rows in ``results.csv``, per-frame PNGs, per-sequence GIFs
-(the trailing sequence's too), and ``Cardiac*`` metrics receiving the
-patient name. Nets returning tuples are evaluated on ``outputs[0]``. Row
-names, column order and file names are the JAX package's.
+Batch-size-1 streaming evaluation, per-sample (SISR / MISR / 3D volume) or
+per-frame (VSR, 4D volume sequence) metric rows in ``results.csv``,
+per-frame PNGs, per-sequence GIFs (the trailing sequence's too), NIfTI SR
+volumes, and ``Cardiac*`` metrics receiving the patient name. Nets
+returning tuples are evaluated on ``outputs[0]``. Row names, column order
+and file names are the JAX package's.
 
 The net runs on the predictor's device under ``torch.no_grad()``, and so do
 every loss and metric (the ``Cardiac*`` crops included: a crop is a slice,
@@ -14,7 +15,7 @@ come to the host in one copy. The JAX predictor pads sequences to T buckets
 only to bound its recompiles; there is no compile step here, so sequences
 run at their own length and ``t_bucket`` is not a parameter. PNGs and GIFs
 are written by the port's own encoders (``callbacks/logger.py:write_png``,
-``utils/gif.py``). The volume predictors are not ported and raise.
+``utils/gif.py``); SR volumes by the port's NIfTI writer (``io/nifti.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from torch import nn
 
 from vsr_tpu_torch.callbacks.logger import write_png
+from vsr_tpu_torch.io.nifti import save_nifti
 from vsr_tpu_torch.registry import register
 from vsr_tpu_torch.utils.checkpoint import load_checkpoint
 from vsr_tpu_torch.utils.gif import write_gif
@@ -331,6 +333,11 @@ class VSRPredictor(BasePredictor):
             for t in range(outputs.shape[1])]
         return torch.stack(rows), d_out[0, :, 0]
 
+    def _sequence_tensors(self, batch: dict):
+        """(1, T, h, w, C) numpy -> (1, T, C, h, w) on the device."""
+        return (self._to_device(batch["lr_imgs"]).movedim(-1, -3),
+                self._to_device(batch["hr_imgs"]).movedim(-1, -3))
+
     def predict(self) -> dict:
         dataset = self.test_dataloader.dataset
         results = [self._csv_header()] if self.exported else None
@@ -339,10 +346,8 @@ class VSRPredictor(BasePredictor):
         for batch in self.test_dataloader:
             index = int(np.asarray(batch["index"])[0])
             patient, sid, _ = dataset.sample_name(index)
-            # (1, T, h, w, C) -> (1, T, C, h, w)
             scalars, frames = self._eval_sequence(
-                self._to_device(batch["lr_imgs"]).movedim(-1, -3),
-                self._to_device(batch["hr_imgs"]).movedim(-1, -3), patient)
+                *self._sequence_tensors(batch), patient)
             rows, imgs = self._to_host(scalars,
                                        frames if self.exported else None)
             t_frames = rows.shape[0]
@@ -354,6 +359,69 @@ class VSRPredictor(BasePredictor):
             self._add_to_log(log, rows.mean(axis=0), weight=t_frames)
             count += t_frames
         return self._finish(log, count, results)
+
+
+class VolumePredictor(BasePredictor):
+    """3D volumetric SR: one (H, W, D, C) volume per sample, a row per
+    (patient, frame), losses and metrics on the whole denormalized volume
+    (SSIM ``dim: 3`` applies directly); exports each SR volume as
+    ``volumes/<patient>/frameNN_sr.nii.gz`` (H, W, D) and its middle slice
+    as ``frameNN_mid.png``."""
+
+    def predict(self) -> dict:
+        dataset = self.test_dataloader.dataset
+        results = [self._csv_header()] if self.exported else None
+        log = self._init_log()
+        count = 0
+        for batch in self.test_dataloader:
+            index = int(np.asarray(batch["index"])[0])
+            patient, _, fid = dataset.sample_name(index)
+            with torch.no_grad():
+                # (1, H, W, D, C) -> (1, C, D, H, W)
+                inputs = self._to_device(batch["lr_vol"]).permute(0, 4, 3, 1, 2)
+                targets = self._to_device(batch["hr_vol"]).permute(0, 4, 3, 1, 2)
+                output = self.net(inputs)
+                losses = [fn(output, targets) for fn in self.loss_fns]
+                d_out = self._denormalize(output)
+                scalars = self._frame_scalars(
+                    losses, d_out, self._denormalize(targets), patient)
+            rows, vols = self._to_host(
+                scalars[None], d_out[:, 0] if self.exported else None)
+            if self.exported:
+                results.append([f"{patient}_frame{fid}"]
+                               + [float(v) for v in rows[0]])
+                vol = vols[0]  # (D, H, W)
+                out_dir = self.saved_dir / "volumes" / patient
+                out_dir.mkdir(parents=True, exist_ok=True)
+                save_nifti(np.moveaxis(vol, 0, -1).astype(np.float32),
+                           out_dir / f"frame{fid}_sr.nii.gz")
+                write_png(out_dir / f"frame{fid}_mid.png",
+                          vol[vol.shape[0] // 2])
+            self._add_to_log(log, rows[0])
+            count += 1
+        return self._finish(log, count, results)
+
+
+class Volume4DPredictor(VSRPredictor):
+    """4D spatio-temporal SR: whole volumetric sequences, per-frame losses
+    and metrics (a row ``<patient>_frameTT`` per frame, T-weighted log),
+    the SR sequence exported as one ``volumes/<patient>/sequence_sr.nii.gz``
+    of (H, W, D, T)."""
+
+    def _sequence_tensors(self, batch: dict):
+        """(1, T, h, w, D, C) numpy -> (1, T, C, D, h, w) on the device."""
+        return (self._to_device(batch["lr_vols"]).permute(0, 1, 5, 4, 2, 3),
+                self._to_device(batch["hr_vols"]).permute(0, 1, 5, 4, 2, 3))
+
+    def _row_name(self, patient: str, sid, t: int) -> str:
+        return f"{patient}_frame{t + 1:0>2d}"
+
+    def _export_sequence(self, imgs: np.ndarray, patient: str, sid) -> None:
+        """imgs: the denormalized (T, D, H, W) uint8 SR volumes."""
+        out_dir = self.saved_dir / "volumes" / patient
+        out_dir.mkdir(parents=True, exist_ok=True)
+        save_nifti(imgs.transpose(2, 3, 1, 0).astype(np.float32),
+                   out_dir / "sequence_sr.nii.gz")
 
 
 def _twin(base: type, name: str, stats: str) -> type:
@@ -370,16 +438,7 @@ AcdcMISRPredictor = _twin(MISRPredictor, "AcdcMISRPredictor", "acdc")
 Dsb15MISRPredictor = _twin(MISRPredictor, "Dsb15MISRPredictor", "dsb15")
 AcdcVSRPredictor = _twin(VSRPredictor, "AcdcVSRPredictor", "acdc")
 Dsb15VSRPredictor = _twin(VSRPredictor, "Dsb15VSRPredictor", "dsb15")
-
-
-def _not_ported(name: str) -> None:
-    def __init__(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            f"the {name} predictor is not yet ported to vsr_tpu_torch")
-
-    register("predictor", name)(type(name, (), {"__init__": __init__}))
-
-
-for _name in ("Acdc3DSRPredictor", "Dsb153DSRPredictor", "Acdc4DSRPredictor",
-              "Dsb154DSRPredictor"):
-    _not_ported(_name)
+Acdc3DSRPredictor = _twin(VolumePredictor, "Acdc3DSRPredictor", "acdc")
+Dsb153DSRPredictor = _twin(VolumePredictor, "Dsb153DSRPredictor", "dsb15")
+Acdc4DSRPredictor = _twin(Volume4DPredictor, "Acdc4DSRPredictor", "acdc")
+Dsb154DSRPredictor = _twin(Volume4DPredictor, "Dsb154DSRPredictor", "dsb15")

@@ -1,6 +1,6 @@
 """Trainers: the epoch/step control loop (port of
 ``vsr_tpu/runner/trainers.py``: the trainer core, SISR, SISR with a
-feedback net (SRFB), MISR, VSR and FRVSR).
+feedback net (SRFB), MISR, VSR, FRVSR, and the 3D and 4D volume trainers).
 
 The same ``train()`` epoch loop as the JAX package (train epoch -> valid
 epoch -> scheduler -> logger -> monitor-driven checkpoint -> early stop) and
@@ -18,7 +18,7 @@ updates them (the port's ``BatchNorm``, flax's update), and the checkpoint
 saves and restores them with the parameters, so resume and preemption
 reproduce them. Batches arrive channels-last numpy; the trainer moves each to the
 device (pinned memory, non-blocking) and permutes it to the nets' NCHW /
-``(N, T, C, h, w)`` layout.
+``(N, T, C, h, w)`` / ``(N, C, D, h, w)`` / ``(N, T, C, D, h, w)`` layout.
 
 The nets train in float32 with TF32 off (constructing a trainer turns it
 off for cuDNN and cuBLAS, process-wide, as the serving pipeline does); a net
@@ -33,7 +33,7 @@ from __future__ import annotations
 import logging
 import signal
 from pathlib import Path
-from typing import Any, Iterator, Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 import torch
@@ -513,6 +513,38 @@ class FRVSRTrainer(VSRTrainer):
         return super()._compute_metrics(outputs[0], targets[1])
 
 
+class VolumeTrainer(SISRTrainer):
+    """3D volumetric SR: ``lr_vol`` -> ``hr_vol``, (N, H, W, D, C) batches
+    permuted to the net's (N, C, D, H, W); losses and metrics on whole
+    volumes (SSIM ``dim: 3`` applies directly). The logger gets the
+    outputs as (N, D, H, W, C), the JAX net's layout."""
+
+    def _get_inputs_targets(self, batch):
+        return (self._to_device(batch["lr_vol"]).permute(0, 4, 3, 1, 2),
+                self._to_device(batch["hr_vol"]).permute(0, 4, 3, 1, 2))
+
+    def _outputs_to_numpy(self, outputs):
+        return outputs.permute(0, 2, 3, 4, 1).cpu().numpy()
+
+
+class Volume4DTrainer(VSRTrainer):
+    """4D spatio-temporal SR: (N, T, H, W, D, C) batches permuted to the
+    net's (N, T, C, D, H, W); losses and metrics are means over the frames
+    of per-frame volume values, log weights batch * T, as in the VSR
+    trainer. The logger gets (N, T, D, H, W, C)."""
+
+    def _get_inputs_targets(self, batch):
+        return (self._to_device(batch["lr_vols"]).permute(0, 1, 5, 4, 2, 3),
+                self._to_device(batch["hr_vols"]).permute(0, 1, 5, 4, 2, 3))
+
+    def _outputs_to_numpy(self, outputs):
+        return outputs.permute(0, 1, 3, 4, 5, 2).cpu().numpy()
+
+    def _batch_weight(self, batch):
+        lr = batch["lr_vols"]
+        return float(lr.shape[0] * lr.shape[1])
+
+
 def _make_dataset_twin(base: type, name: str, stats: str) -> type:
     cls = type(name, (base,), {"dataset_stats": stats})
     register("trainer", name)(cls)
@@ -534,16 +566,10 @@ AcdcFRVSRTrainer = _make_dataset_twin(FRVSRTrainer, "AcdcFRVSRTrainer",
                                       "acdc")
 Dsb15FRVSRTrainer = _make_dataset_twin(FRVSRTrainer, "Dsb15FRVSRTrainer",
                                        "dsb15")
-
-
-def _not_ported(name: str) -> None:
-    def __init__(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            f"the {name} trainer is not yet ported to vsr_tpu_torch")
-
-    register("trainer", name)(type(name, (), {"__init__": __init__}))
-
-
-for _family in ("3DSR", "4DSR"):
-    for _dataset in ("Acdc", "Dsb15"):
-        _not_ported(f"{_dataset}{_family}Trainer")
+Acdc3DSRTrainer = _make_dataset_twin(VolumeTrainer, "Acdc3DSRTrainer", "acdc")
+Dsb153DSRTrainer = _make_dataset_twin(VolumeTrainer, "Dsb153DSRTrainer",
+                                      "dsb15")
+Acdc4DSRTrainer = _make_dataset_twin(Volume4DTrainer, "Acdc4DSRTrainer",
+                                     "acdc")
+Dsb154DSRTrainer = _make_dataset_twin(Volume4DTrainer, "Dsb154DSRTrainer",
+                                      "dsb15")
