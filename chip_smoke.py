@@ -39,7 +39,12 @@ config for its net, with random seeded weights:
   ``fused_tail``) and ``acdc_4d_vol_x2.yaml`` (Volume4DSRNet, 4 resblocks
   of 32, ``remat``, ``fused_tail``) on a volume tree of its own, then
   ``main --test`` on ``configs/test/acdc_{3d,4d}_vol_x2.yaml`` and the
-  infer CLI's volume mode. No kernel of the port lies on these paths.
+  infer CLI's volume mode. No kernel of the port lies on these paths;
+- the device-epoch slice: the four ``configs/train/*_device.yaml`` through
+  the device trainers (the train split resident on the card, the step
+  captured as one CUDA graph and replayed; bf16 compute on float32
+  parameters), the DRF one also through K1 forward and backward in bf16,
+  then ``main --test`` on their ``configs/test/*_device.yaml`` twins.
 
 Phases; any failure exits non-zero and prints no result:
 
@@ -78,7 +83,12 @@ Phases; any failure exits non-zero and prints no result:
    launches bit-equal; also rows of pixels off 16 bytes, off the kernel's
    step and tiles, and pointers off 16 bytes) and against cuDNN's weight
    and bias gradient, with its bound by bytes beside its bound at the
-   float32 rate;
+   float32 rate; then the same in bf16 under float32 master weights (what
+   bf16 training hands K1) against autograd through the twin in bf16, at
+   the training shapes and at the device-epoch config's (N = 8, 32 x 32 and
+   64 x 64): the activated output at twice the bf16 forward's bar, dx at
+   that bar, dW / db / dalpha within 1e-2 of their terms' magnitudes, timed
+   against ``torch.cat`` + library bf16 conv + ``prelu``;
 7. training: writes a seeded, low-passed (learnable) processed tree; trains
    DRFNet through ``run_train`` with K1 on, on again and off from one seed,
    and EDSRNet once. Gates: K1's forward launches are 12 per frame step of
@@ -126,7 +136,26 @@ Phases; any failure exits non-zero and prints no result:
    ``make_pipeline`` with ``fused_tail`` on and off (>= 99.9 % exact grey,
    <= 1 grey; frames/s, ms a volume, peak memory); every kernel's launch
    count reads 0 throughout;
-11. prints the kernels' JSON line, then the final JSON line.
+11. the device-epoch trainers: the four ``configs/train/*_device.yaml``
+   (EDSRNet 16 x 64 bf16, DRFNet F=64 G=6 bf16 ``carry_f32``, Volume3DSRNet
+   8 x 32 bf16, Volume4DSRNet 4 x 32 f32 ``remat``) trained through
+   ``run_train`` at their widths, batches, patches and steps per epoch for 2
+   epochs (the train split resident on the card, each trainer's step
+   captured once as a CUDA graph after 3 eager steps and replayed; no
+   parameter NaN, all float32); the DRF config also with ``carry_f32``
+   removed and ``fused_squeeze`` on and off (K1 forward, dx and dW / db in
+   bf16 training under the graph: 12 launches of each per frame step of
+   every train step, counted as the calls per step that the counters read
+   times the eager steps and replays, 0 off; the batch and patch are the
+   shapes phase 6 held K1 at; first loss on vs off within 1e-2 relative);
+   8 steps of that config eagerly and through the graph
+   from the same draws (per-step losses within 1e-5 relative); the DRF
+   device checkpoint resumed by the host-loop ``AcdcVSRTrainer`` for one
+   epoch; ``main --test`` on the four ``configs/test/*_device.yaml`` (mean
+   PSNR within 0.01 dB of the trainer's validation PSNR); a trace of 20
+   replayed steps of each run (device time, idle share, and K1's kernels
+   counted per replay against the launch count);
+12. prints the kernels' JSON line, then the final JSON line.
 
 ``--profile`` adds one ``torch.profiler`` trace of a full volume per serving
 path (f32, and bf16 for DRFNet; the two volume nets) and of 6 train steps
@@ -888,6 +917,9 @@ TRAIN_HR = TRAIN_LR * FACTOR
 TRAIN_SQUEEZES = {(k, TRAIN_LR if side == LR else TRAIN_HR): count
                   for (k, side), count in STEP_SQUEEZES.items()}
 TRAIN_EPOCHS = 3
+# configs/train/acdc_vsr_drf_x2_device.yaml: batches of 8 patches of
+# TRAIN_LR x TRAIN_LR, the shapes K1 gets in device-epoch training.
+DEVICE_N = 8
 TREE_SEQUENCES = {"train": (2, 2), "valid": (1, 2)}  # patients, slices each
 # The test split holds the validation sequences again, so that what
 # ``main --test`` scores is what the trainer's validation pass scored.
@@ -1021,6 +1053,88 @@ def dw_case(name, xs, g) -> dict:
     return res
 
 
+# K1's backward in bf16 under float32 master weights (what bf16 training
+# hands it: ``FusedSqueezeConv`` casts W and b to bf16 at use) against
+# autograd through the twin's squeeze in float32 on the same bf16-rounded
+# operands (the forward's reference: the library's bf16 conv rounds its own
+# way), rounded to bf16 before the PReLU as the kernel's output is: dx at
+# the bf16 forward's bar; the activated output at twice its rtol (two bf16
+# roundings, the squeeze's and the PReLU's, and the squeeze's may fall on
+# either side of a tie: one ulp, 0.78 % at worst, then the PReLU's); dW, db
+# (rounded to bf16 by the kernel's path, as in the JAX backward) and the
+# PReLU weight's gradient within 1e-2 of the sum of their terms' magnitudes.
+BF16_SUM_TOL = 1e-2
+BF16_ACT_TOL = dict(atol=BF16_TOL["atol"], rtol=2 * BF16_TOL["rtol"])
+
+
+def backward_case_bf16(name, xs, w, b, g, dev) -> dict:
+    """One shape, alpha 0.2 / 0 / -0.3: the kernel's bf16 gradients against
+    the float32 twin's on the bf16-rounded operands, with float32 leaves
+    for W, b and alpha."""
+    from vsr_tpu_torch.ops.fused_squeeze import (concat_conv1x1,
+                                                 concat_conv1x1_reference)
+
+    bf = torch.bfloat16
+    xs16, g16 = [x.to(bf) for x in xs], g.to(bf)
+    with torch.no_grad():
+        pre = concat_conv1x1_reference(xs16, w.to(bf), b.to(bf)).float()
+    near_kink = pre.abs() < KINK
+    g16 = g16.masked_fill(near_kink, 0.0)
+    abs_g = g16.float().abs()
+    res = {"dx": 0.0, "dw": 0.0, "db": 0.0, "dalpha": 0.0, "ok": True,
+           "near_kink": int(near_kink.sum())}
+
+    def kernel(xs_, w_, b_, a_):
+        return concat_conv1x1(xs_, w_.to(bf), b_.to(bf), a_)
+
+    def twin(xs_, w_, b_, a_):
+        # The squeeze in float32 on the rounded operands, its output rounded
+        # to bf16 and the PReLU in bf16, as on the kernel's path: both
+        # backwards then see the same bf16 gradient at the squeeze's output.
+        out = concat_conv1x1_reference(xs_, w_.to(bf).float(),
+                                       b_.to(bf).float()).to(bf)
+        return torch.nn.functional.prelu(out, a_.to(bf))
+
+    for a in ALPHAS:
+        alpha = torch.full((1,), a, device=dev)
+        out, dxs, dw, db, da = squeeze_grads(kernel, xs16, w, b, alpha, g16)
+        ref, rxs, rw, rb, ra = squeeze_grads(
+            twin, [x.float() for x in xs16], w, b, alpha, g16)
+        torch.cuda.synchronize()
+        g_pre = torch.where(pre > 0, abs_g, abs(a) * abs_g)
+        dw_scale = torch.cat([torch.bmm(g_pre.flatten(2),
+                                        x.float().abs().flatten(2)
+                                        .transpose(1, 2))
+                              for x in xs16], dim=2).sum(0)
+        checks = {
+            "types": (out.dtype == bf and all(d.dtype == bf for d in dxs)
+                      and dw.dtype == db.dtype == da.dtype == torch.float32),
+            "out": within(out.float(), ref.float(), **BF16_ACT_TOL),
+            "dx": all(within(d.float(), r.float(), **BF16_TOL)
+                      for d, r in zip(dxs, rxs)),
+            "dw": bool(((dw - rw).abs()
+                        <= BF16_SUM_TOL * dw_scale + 1e-6).all()),
+            "db": bool(((db - rb).abs()
+                        <= BF16_SUM_TOL * g_pre.sum(dim=(0, 2, 3)) + 1e-6
+                        ).all()),
+            "dalpha": bool((da - ra).abs() <= BF16_SUM_TOL
+                           * (abs_g * pre.abs()).sum() + 1e-6)}
+        res["dx"] = max(res["dx"], max((d.float() - r.float()).abs().max()
+                                       .item() for d, r in zip(dxs, rxs)))
+        res["dw"] = max(res["dw"], (dw - rw).abs().max().item())
+        res["db"] = max(res["db"], (db - rb).abs().max().item())
+        res["dalpha"] = max(res["dalpha"], (da - ra).abs().item())
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            res["ok"] = False
+            log(f"  K1 bf16 backward {name} alpha={a}: FAIL {bad}")
+    log(f"  K1 bf16 backward {name} (float32 master W, b, alpha; "
+        f"{res['near_kink']} outputs at the PReLU's kink left out): max err "
+        f"dx {res['dx']:.3g}, dW {res['dw']:.3g}, db {res['db']:.3g}, dalpha "
+        f"{res['dalpha']:.3g} ({'ok' if res['ok'] else 'FAIL'})")
+    return res
+
+
 def phase_kernel_squeeze_backward(dev) -> dict:
     """K1's gradient on the card against the twin's autograd, and one frame
     step's 12 squeezes forward + backward against ``torch.cat`` + library
@@ -1040,12 +1154,13 @@ def phase_kernel_squeeze_backward(dev) -> dict:
         g = torch.randn(n, f_out, h, w, generator=gen).to(dev)
         return xs, wt, b, g
 
-    cases, dw_cases, rows = {}, {}, []
+    cases, bf16_cases, dw_cases, rows = {}, {}, {}, []
     alpha = torch.full((1,), 0.2, device=dev)
     for (k, side), count in sorted(TRAIN_SQUEEZES.items()):
         xs, w, b, g = operands(TRAIN_N, (F_,) * k, F_, side, side)
         name = f"train k={k} {side}x{side} N={TRAIN_N}"
         cases[name] = backward_case(name, xs, w, b, g, dev)
+        bf16_cases[name] = backward_case_bf16(name, xs, w, b, g, dev)
         dw_cases[name] = dw_case(name, xs, g)
         # The library's form of dW and db: cuDNN's weight and bias gradient
         # of the 1x1 conv on the concatenated input.
@@ -1083,8 +1198,40 @@ def phase_kernel_squeeze_backward(dev) -> dict:
             out = fwd()
             return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
 
+        # bf16 training: bf16 activations and gradient, float32 masters
+        # cast to bf16 at use (FusedSqueezeConv), against the same under
+        # autograd through torch.cat + the library's bf16 conv + prelu.
+        xs16, g16 = [x.detach().bfloat16() for x in xs], g.bfloat16()
+        leaves16 = [t.requires_grad_(True) for t in (*xs16, w, b, alpha)]
+
+        def fwd_kernel16():
+            return concat_conv1x1(xs16, w.bfloat16(), b.bfloat16(), alpha)
+
+        def fwd_library16():
+            return library_squeeze_prelu(xs16, w[:, :, None, None].bfloat16(),
+                                         b.bfloat16(), alpha.bfloat16())
+
+        def both16(fwd):
+            return lambda: torch.autograd.grad(fwd(), leaves16, g16)
+
+        def backward_only16(fwd):
+            out = fwd()
+            return lambda: torch.autograd.grad(out, leaves16, g16,
+                                               retain_graph=True)
+
         px = TRAIN_N * side * side
-        row = {"k": k, "side": side, "count_per_step": count,
+        bf16_row = {
+            "bf16_fwd_bwd_ms": median_ms(both16(fwd_kernel16), spins=5),
+            "bf16_fwd_bwd_library_ms": median_ms(both16(fwd_library16),
+                                                 spins=5),
+            "bf16_backward_ms": median_ms(backward_only16(fwd_kernel16),
+                                          spins=5),
+            "bf16_backward_library_ms": median_ms(
+                backward_only16(fwd_library16), spins=5),
+            # bf16 g, x_i and dx, W and dW as bf16 (cast at use), db f32.
+            "bf16_bytes": 2 * (px * (F_ + 2 * k * F_) + 2 * k * F_ * F_)
+            + 4 * F_}
+        row = {"k": k, "side": side, "count_per_step": count, **bf16_row,
                "fwd_bwd_ms": median_ms(both(fwd_kernel), spins=5),
                "fwd_bwd_library_ms": median_ms(both(fwd_library), spins=5),
                "backward_ms": median_ms(backward_only(fwd_kernel), spins=5),
@@ -1139,9 +1286,18 @@ def phase_kernel_squeeze_backward(dev) -> dict:
     xs, _, _, g = operands(TRAIN_N, (F_, F_), F_, TRAIN_LR, TRAIN_LR)
     name = f"pointers off 16 bytes, k=2 {TRAIN_LR}x{TRAIN_LR} N={TRAIN_N}"
     dw_cases[name] = dw_case(name, [off_by_one(x) for x in xs], off_by_one(g))
+    # bf16 at the shapes of device-epoch training (phase 11e).
+    for (k, side) in sorted(TRAIN_SQUEEZES):
+        xs, w, b, g = operands(DEVICE_N, (F_,) * k, F_, side, side)
+        name = f"device k={k} {side}x{side} N={DEVICE_N}"
+        bf16_cases[name] = backward_case_bf16(name, xs, w, b, g, dev)
     bad = [name for name, c in cases.items() if not c["ok"]]
     if bad:
         raise SystemExit(f"K1's backward disagrees with its twin's at {bad}")
+    bad = [name for name, c in bf16_cases.items() if not c["ok"]]
+    if bad:
+        raise SystemExit(f"K1's bf16 backward disagrees with its twin's at "
+                         f"{bad}")
     bad = [name for name, c in dw_cases.items() if not c["ok"]]
     if bad:
         raise SystemExit(f"K1's dW / db kernel disagrees with its twin at {bad}")
@@ -1149,11 +1305,15 @@ def phase_kernel_squeeze_backward(dev) -> dict:
                for key in ("fwd_bwd_ms", "fwd_bwd_library_ms", "backward_ms",
                            "backward_library_ms", "dx_ms", "bytes", "flops",
                            "dw_ms", "dw_plain_ms", "dw_library_ms",
-                           "dw_bytes", "dw_flops")}
+                           "dw_bytes", "dw_flops", "bf16_fwd_bwd_ms",
+                           "bf16_fwd_bwd_library_ms", "bf16_backward_ms",
+                           "bf16_backward_library_ms", "bf16_bytes")}
     summary["bound_ms"], summary["bound_by"] = bound(
         summary["bytes"], summary["flops"], PEAK_F32)
     summary["dw_bound_ms"], summary["dw_bound_by"] = bound(
         summary["dw_bytes"], summary["dw_flops"], PEAK_F32)
+    summary["bf16_bound_ms"], summary["bf16_bound_by"] = bound(
+        summary["bf16_bytes"], summary["flops"], PEAK_BF16)
     # The kernel multiplies on the tensor cores (three TF32 products), so
     # the bytes bound it; the float32 rate outside them is the larger, and
     # the one reported.
@@ -1171,7 +1331,17 @@ def phase_kernel_squeeze_backward(dev) -> dict:
         f"{summary['bound_ms']:.4f} ms by {summary['bound_by']}; forward + "
         f"backward {summary['fwd_bwd_ms']:.4f} ms vs "
         f"{summary['fwd_bwd_library_ms']:.4f} ms")
-    return {"cases": cases, "dw_cases": dw_cases, "rows": rows,
+    log(f"  K1 bf16 backward (float32 masters), the same step: backward "
+        f"{summary['bf16_backward_ms']:.4f} ms vs autograd through torch.cat "
+        f"+ library bf16 conv + prelu {summary['bf16_backward_library_ms']:.4f}"
+        f" ms, bound {summary['bf16_bound_ms']:.4f} ms by "
+        f"{summary['bf16_bound_by']}; forward + backward "
+        f"{summary['bf16_fwd_bwd_ms']:.4f} ms vs "
+        f"{summary['bf16_fwd_bwd_library_ms']:.4f} ms")
+    return {"cases": cases, "bf16_cases": bf16_cases, "dw_cases": dw_cases,
+            "rows": rows,
+            "bf16_max_abs_err": max(max(c["dx"], c["dw"], c["db"])
+                                    for c in bf16_cases.values()),
             "per_step": summary,
             "max_abs_err": max(max(c["dx"], c["dw"], c["db"])
                                for c in cases.values()),
@@ -1415,7 +1585,7 @@ def check_loss_fell(what: str, stats: dict) -> None:
 
 
 def testing_config(name: str, tree: Path, run: Path, net_kwargs: dict,
-                   tmp: Path):
+                   tmp: Path, exported: bool | None = None):
     """``configs/test/<name>.yaml`` pointed at the temporary tree and at the
     best checkpoint of the training run ``run``, written to a file as a
     user's config would be; returns the file's path."""
@@ -1432,6 +1602,8 @@ def testing_config(name: str, tree: Path, run: Path, net_kwargs: dict,
         if "coordinates_path" in (spec.get("kwargs") or {}):
             spec.kwargs.coordinates_path = str(tree / "coordinates.pkl")
     cfg.predictor.kwargs.saved_dir = str(out)
+    if exported is not None:
+        cfg.predictor.kwargs.exported = exported
     path = tmp / f"{run.name}_test.yaml"
     save_config(cfg, path)
     return path
@@ -1439,7 +1611,8 @@ def testing_config(name: str, tree: Path, run: Path, net_kwargs: dict,
 
 def test_run(what: str, name: str, tree: Path, run: Path, net_kwargs: dict,
              tmp: Path, train_stats: dict, want_launches: int,
-             card: str, kernel: str = "concat_conv1x1") -> dict:
+             card: str, kernel: str = "concat_conv1x1",
+             psnr_tol: float | None = TEST_PSNR_TOL) -> dict:
     """``python -m vsr_tpu_torch.main <test config> --test`` (its ``main``)
     on the best checkpoint of a training run: the launch counts, a row of
     ``results.csv``, a PNG per frame and a GIF per sequence, and the mean
@@ -1487,7 +1660,7 @@ def test_run(what: str, name: str, tree: Path, run: Path, net_kwargs: dict,
         f"PSNR of epoch {best + 1} {want:.4f} dB; means "
         f"{ {k: round(v, 4) for k, v in res['means'].items()} }; {kernel} "
         f"launches {want_launches} [{card}]")
-    if abs(psnr - want) > TEST_PSNR_TOL:
+    if psnr_tol is not None and abs(psnr - want) > psnr_tol:
         raise SystemExit(f"{what}: main --test scores {psnr:.4f} dB, the "
                          f"trainer's validation pass {want:.4f} dB")
     return res
@@ -2224,7 +2397,9 @@ def volume_served(what: str, net: str, net_kwargs: dict, ckpt: Path,
 
 
 def volume_test_run(what: str, name: str, tree: Path, run: Path, tmp: Path,
-                    train_stats: dict, card: str) -> dict:
+                    train_stats: dict, card: str,
+                    per_frame: bool | None = None,
+                    psnr_tol: float | None = TEST_PSNR_TOL) -> dict:
     """``main --test`` on the trained checkpoint: a row of ``results.csv``
     per validation frame, the NIfTI volumes of their shapes, no port kernel,
     and the mean PSNR of the rows against the trainer's validation PSNR."""
@@ -2246,7 +2421,9 @@ def volume_test_run(what: str, name: str, tree: Path, run: Path, tmp: Path,
     header, rows = rows[0], rows[1:]
     values = np.array([[float(v) for v in r[1:]] for r in rows])
     vols = sorted(out.glob("volumes/*/*.nii.gz"))
-    want = ([(HR, HR, VOL_SLICES)] * T_FRAMES if what == "test 3d"
+    if per_frame is None:
+        per_frame = what == "test 3d"
+    want = ([(HR, HR, VOL_SLICES)] * T_FRAMES if per_frame
             else [(HR, HR, VOL_SLICES, T_FRAMES)])
     shapes = [load_nifti(v).shape for v in vols]
     if (len(rows) != T_FRAMES or shapes != want
@@ -2255,7 +2432,9 @@ def volume_test_run(what: str, name: str, tree: Path, run: Path, tmp: Path,
         raise SystemExit(f"{what}: {len(rows)} rows (first {rows[0][:1]}), "
                          f"NIfTI shapes {sorted(set(shapes))}")
     psnr = float(values[:, header.index("PSNR") - 1].mean())
-    valid = train_stats["valid_psnr_by_epoch"][-1]
+    # The epoch the monitor kept as best (the last one of a one-epoch run).
+    best = int(np.argmin(train_stats["valid_loss_by_epoch"]))
+    valid = train_stats["valid_psnr_by_epoch"][best]
     res = {"seconds": seconds, "frames": len(rows),
            "frames_per_sec": len(rows) / seconds, "psnr": psnr,
            "trainer_valid_psnr": valid, "columns": header[1:],
@@ -2265,7 +2444,7 @@ def volume_test_run(what: str, name: str, tree: Path, run: Path, tmp: Path,
         f"included); mean PSNR {psnr:.4f} dB vs the trainer's validation "
         f"PSNR {valid:.4f} dB; means "
         f"{ {k: round(v, 4) for k, v in res['means'].items()} } [{card}]")
-    if abs(psnr - valid) > TEST_PSNR_TOL:
+    if psnr_tol is not None and abs(psnr - valid) > psnr_tol:
         raise SystemExit(f"{what}: main --test scores {psnr:.4f} dB, the "
                          f"trainer's validation pass {valid:.4f} dB")
     return res
@@ -2368,6 +2547,370 @@ def phase_volumes(tmp: Path, card: str, dev) -> dict:
             dev, card)
     if failed:
         raise SystemExit("; ".join(failed))
+    return res
+
+
+# ========================================================== device epochs
+
+# The four device-epoch configs: (config, tree, frames a training sample).
+DEVICE_RUNS = {"sisr": ("acdc_sisr_edsr_x2_device", "tree", 1),
+               "vsr": ("acdc_vsr_drf_x2_device", "tree", TRAIN_T),
+               "3d": ("acdc_3d_vol_x2_device", "volume_tree", 1),
+               "4d": ("acdc_4d_vol_x2_device", "volume_tree", 5)}
+DEVICE_EPOCHS = 2
+# The DRF device config through K1: carry_f32 does not compose with
+# fused_squeeze (the JAX package refuses the pair too), so it is removed.
+K1_DEVICE = {"carry_f32": False, "fused_squeeze": True}
+GRAPH_STEPS = 8      # the epoch run eagerly and through the graph
+GRAPH_TOL = 1e-5     # per-step loss, relative: the same kernels and draws
+K1_ON_OFF_TOL = 1e-2  # first loss, relative: bf16 forwards that round apart
+PROFILE_REPLAYS = 20
+# A trace may drop kernel records (CUPTI's buffers: one run of 20 replays
+# counted 4 % fewer of every kernel); it never adds any. K1's launches are
+# counted in TRACE_TRIES short traces and the most any of them saw is
+# held to the expected count.
+TRACE_TRIES, TRACE_REPLAYS = 3, 5
+
+
+def k1_calls() -> tuple[int, int, int]:
+    """K1's counters: the forward's calls, the dx calls of its backward,
+    the dW / db kernel's calls."""
+    fwd, dw = (kernel_counters()[k] for k in ("concat_conv1x1",
+                                               "concat_conv1x1_dw"))
+    return fwd.launches, fwd.backward_launches, dw.launches
+
+
+class EpochClock:
+    """Times the device trainers' training passes (synchronized on both
+    sides), keeps each epoch's per-step scalars, and sums what K1's
+    counters (``k1_calls``) read over the training passes alone."""
+
+    def __enter__(self):
+        from vsr_tpu_torch.runner.device_trainer import DeviceTrainerMixin
+
+        self._cls, self.seconds, self.logs = DeviceTrainerMixin, [], []
+        self.k1_train_calls = [0, 0, 0]
+        self._saved = saved = DeviceTrainerMixin._run_epoch
+        clock = self
+
+        def timed(trainer, mode, epoch):
+            if mode != "training":
+                return saved(trainer, mode, epoch)
+            before = k1_calls()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved(trainer, mode, epoch)
+            torch.cuda.synchronize()
+            clock.seconds.append(time.perf_counter() - t0)
+            clock.logs.append(trainer.engine.log.clone())
+            clock.k1_train_calls = [n + a - b for n, a, b in zip(
+                clock.k1_train_calls, k1_calls(), before)]
+            return out
+
+        DeviceTrainerMixin._run_epoch = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._run_epoch = self._saved
+
+
+def device_config(name: str, tree: Path, saved: Path, tmp: Path,
+                  net_kwargs: dict | None = None, **trainer_kwargs):
+    cfg = training_config(name, tree, saved, net_kwargs or {}, tmp)
+    cfg.trainer.kwargs.num_epochs = cfg.monitor.kwargs.saved_freq = (
+        DEVICE_EPOCHS)
+    cfg.trainer.kwargs.update(trainer_kwargs)
+    return cfg
+
+
+def device_run(what: str, cfg, card: str, frames: int, k1: bool) -> dict:
+    """``run_train`` of a device config: the epochs' captures, replays and
+    eager steps, K1's launch counts (each counts its Python calls: the
+    captured step once, its replays not at all; the launches on the card
+    are the calls per step times the eager steps and replays), finite
+    parameters, the per-step losses, the step time of the all-replay last
+    epoch."""
+    from vsr_tpu_torch.main import run_train
+    from vsr_tpu_torch.runner.device_trainer import WARMUP_STEPS
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with EpochClock() as clock:
+        trainer = run_train(cfg)
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    eng, per_epoch = trainer.engine, trainer.steps_per_epoch
+    steps = per_epoch * DEVICE_EPOCHS
+    if (eng.eager_steps, eng.captures, eng.replays) != (
+            WARMUP_STEPS, 1, steps - WARMUP_STEPS):
+        raise SystemExit(f"{what}: {eng.eager_steps} eager steps, "
+                         f"{eng.captures} captures, {eng.replays} replays "
+                         f"for {steps} steps")
+    per_step = SQUEEZES_PER_STEP * frames if k1 else 0
+    calls = eng.eager_steps + eng.captures
+    valid = SQUEEZES_PER_STEP * TEST_FRAMES * DEVICE_EPOCHS if k1 else 0
+    check_launches(what, "concat_conv1x1", per_step * calls + valid,
+                   per_step * calls)
+    # Per kernel (forward, dx, dW / db): the calls the counters read in the
+    # training passes, per Python call of the step, times the steps that
+    # ran on the card (eager steps and replays).
+    ran = eng.eager_steps + eng.replays
+    k1_per_step, k1_launches = {}, {}
+    for kind, n in zip(("forward", "dx", "dw"), clock.k1_train_calls):
+        if n % calls:
+            raise SystemExit(f"{what}: {n} {kind} calls of K1 in {calls} "
+                             "calls of the step")
+        k1_per_step[kind] = n // calls
+        k1_launches[kind] = n // calls * ran
+    if not all(torch.isfinite(v).all() and v.dtype == torch.float32
+               for v in trainer.net.state_dict().values()):
+        raise SystemExit(f"{what}: a parameter is not a finite float32")
+    epochs = [json.loads(line) for line in
+              (Path(cfg.main.saved_dir) / "log" / "metrics.jsonl")
+              .read_text().splitlines()]
+    if len(epochs) != DEVICE_EPOCHS or not (
+            Path(cfg.main.saved_dir) / "checkpoints" / "model_best.ckpt"
+    ).is_file():
+        raise SystemExit(f"{what}: {len(epochs)} epochs logged, or no "
+                         "model_best.ckpt")
+    losses = torch.cat([log_[:, 0] for log_ in clock.logs]).tolist()
+    step_ms = clock.seconds[-1] * 1e3 / per_epoch
+    batch = trainer.batch_size
+    res = {"steps": steps, "steps_per_epoch": per_epoch, "batch": batch,
+           "eager_steps": eng.eager_steps, "replays": eng.replays,
+           "buffer_mb": (trainer.lr_buf.nbytes + trainer.hr_buf.nbytes) / 1e6,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "train_loss_by_epoch": [e["train"]["Loss"] for e in epochs],
+           "valid_loss_by_epoch": [e["valid"]["Loss"] for e in epochs],
+           "valid_psnr_by_epoch": [e["valid"]["PSNR"] for e in epochs],
+           "epoch_seconds": clock.seconds, "replay_step_ms": step_ms,
+           "patch_frames_per_sec": batch * frames * 1e3 / step_ms,
+           "peak_memory_gb": peak_gb,
+           # What ran on the card in the train steps, per kernel (forward,
+           # dx, dW / db): per step times the eager steps and replays.
+           "k1_launches": k1_launches,
+           "k1_validation_launches": valid,
+           "k1_launches_per_step": k1_per_step}
+    log(f"  {what}: {steps} steps ({eng.eager_steps} eager, 1 captured, "
+        f"{eng.replays} replays), loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(validation {[round(v, 4) for v in res['valid_loss_by_epoch']]}), "
+        f"epochs {[round(t, 2) for t in clock.seconds]} s, replayed step "
+        f"{step_ms:.2f} ms ({res['patch_frames_per_sec']:.0f} patch-frames/s),"
+        f" buffers {res['buffer_mb']:.0f} MB, peak memory {peak_gb:.2f} GB, "
+        f"K1 launches in the train steps {k1_launches} [{card}]")
+    return {"stats": res, "trainer": trainer, "logs": clock.logs}
+
+
+def replay_profile(what: str, trainer, card: str) -> dict:
+    """``PROFILE_REPLAYS`` replays of the captured step, timed, then traced:
+    device time by kernel and the idle share; and the K1 kernels' launches
+    a replay as ``TRACE_TRIES`` traces of ``TRACE_REPLAYS`` replays count
+    them (the most of each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = trainer.engine
+
+    def replays(n):
+        eng.counter.zero_()
+        for _ in range(n):
+            eng.graph.replay()
+        torch.cuda.synchronize()
+
+    replays(3)
+    t0 = time.perf_counter()
+    replays(PROFILE_REPLAYS)
+    wall = (time.perf_counter() - t0) * 1e3 / PROFILE_REPLAYS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        replays(PROFILE_REPLAYS)
+    rows = device_rows(prof)
+    busy = sum(r[1] for r in rows) / PROFILE_REPLAYS
+    words = (("k1", "concat_conv1x1_kernel"), ("k1_dw", "concat_dw_kernel"),
+             ("k1_dw_reduce", "concat_dw_reduce_kernel"))
+    tries = []
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as short:
+            replays(TRACE_REPLAYS)
+        found = device_rows(short)
+        tries.append({name: sum(c for k, _, c in found if word in k)
+                      / TRACE_REPLAYS for name, word in words})
+    counts = {name: max(t[name] for t in tries) for name, _ in words}
+    res = {"wall_ms_per_step": wall, "busy_ms_per_step": busy,
+           "idle_share": 1 - busy / wall, "trace_launches_per_step": counts,
+           "trace_tries": tries,
+           "top": [{"kernel": k[:100], "ms_per_step": ms / PROFILE_REPLAYS,
+                    "calls": c // PROFILE_REPLAYS} for k, ms, c in rows[:12]]}
+    log(f"  profile {what}: replayed step {wall:.2f} ms wall, {busy:.2f} ms "
+        f"busy, idle share {res['idle_share']:.3f}; K1 kernels a step in the "
+        f"trace {counts} [{card}]")
+    for k, ms, c in rows[:8]:
+        log(f"    {ms / PROFILE_REPLAYS:9.3f} ms/step "
+            f"{c // PROFILE_REPLAYS:5d} x {k[:90]}")
+    return res
+
+
+def test_in_dtype(what: str, name: str, tree: Path, run: Path, tmp: Path,
+                  train_stats: dict, net_kwargs: dict, card: str) -> dict:
+    """``run_test`` of a test config with ``net_kwargs`` and nothing
+    exported: its log's mean PSNR against the trainer's validation PSNR of
+    the epoch the monitor kept."""
+    from vsr_tpu_torch.config import load_config
+    from vsr_tpu_torch.main import run_test
+
+    path = testing_config(name, tree, run, net_kwargs, tmp, exported=False)
+    t0 = time.perf_counter()
+    log_ = run_test(load_config(path))
+    seconds = time.perf_counter() - t0
+    best = int(np.argmin(train_stats["valid_loss_by_epoch"]))
+    want = train_stats["valid_psnr_by_epoch"][best]
+    log(f"  {what}: mean PSNR {log_['PSNR']:.4f} dB vs the trainer's "
+        f"validation PSNR of epoch {best + 1} {want:.4f} dB, in {seconds:.2f}"
+        f" s (nothing exported) [{card}]")
+    if abs(log_["PSNR"] - want) > TEST_PSNR_TOL:
+        raise SystemExit(f"{what}: main --test scores {log_['PSNR']:.4f} dB, "
+                         f"the trainer's validation pass {want:.4f} dB")
+    return {"psnr": log_["PSNR"], "trainer_valid_psnr": want,
+            "seconds": seconds, "log": log_}
+
+
+def phase_device_epochs(tmp: Path, card: str, dev) -> dict:
+    """The four ``*_device.yaml`` configs trained through ``run_train`` at
+    their widths, batches, patches and steps per epoch for two epochs (one
+    captured CUDA graph of the step each, replayed), the DRF one also
+    through K1 (bf16 training, carry_f32 off) with the kernel on and off,
+    one epoch eagerly and through the graph from the same draws, a device
+    checkpoint resumed by the host-loop trainer, ``main --test`` on the
+    four test twins, and a trace of the replays."""
+    from vsr_tpu_torch.main import run_train
+    from vsr_tpu_torch.runner.device_trainer import WARMUP_STEPS
+
+    res, runs = {}, {}
+    for key, (name, tree, frames) in DEVICE_RUNS.items():
+        log(f"phase 11{'abcd'[list(DEVICE_RUNS).index(key)]}: {name}, "
+            f"{DEVICE_EPOCHS} device epochs")
+        cfg = device_config(name, tmp / tree, tmp / f"dev_{key}", tmp)
+        runs[key] = device_run(f"device {key}", cfg, card, frames, k1=False)
+        res[key] = runs[key]["stats"]
+
+    log("phase 11e: the DRF device config through K1 (bf16, fused_squeeze), "
+        "on and off")
+    name, tree, frames = DEVICE_RUNS["vsr"]
+    for label, on in (("k1_on", True), ("k1_off", False)):
+        cfg = device_config(name, tmp / tree, tmp / f"dev_vsr_{label}", tmp,
+                            dict(K1_DEVICE, fused_squeeze=on))
+        runs[label] = device_run(f"device vsr {label}", cfg, card, frames,
+                                 k1=on)
+        res[label] = runs[label]["stats"]
+    on, off = res["k1_on"]["first_loss"], res["k1_off"]["first_loss"]
+    res["k1_first_loss_relative_diff"] = rel = abs(on - off) / abs(off)
+    shape = (res["k1_on"]["batch"], runs["k1_on"]["trainer"].patch)
+    if shape != (DEVICE_N, TRAIN_LR):
+        raise SystemExit(f"device vsr: batch and patch {shape}, phase 6 held "
+                         f"K1 at {(DEVICE_N, TRAIN_LR)}")
+    log(f"  K1 on vs off: first loss {on:.6f} vs {off:.6f} (relative "
+        f"{rel:.3g}); launches a train step with it on "
+        f"{res['k1_on']['k1_launches_per_step']}, 0 with it off; replayed "
+        f"step {res['k1_on']['replay_step_ms']:.2f} vs "
+        f"{res['k1_off']['replay_step_ms']:.2f} ms")
+    if rel > K1_ON_OFF_TOL:
+        raise SystemExit(f"device vsr: first loss with K1 on and off differ "
+                         f"by {rel:.3g} relative")
+
+    log("phase 11f: one epoch eagerly and through the graph, same draws")
+    step_losses = {}
+    for graph in (True, False):
+        cfg = device_config(name, tmp / tree, tmp / f"dev_graph_{graph}", tmp,
+                            K1_DEVICE, steps_per_epoch=GRAPH_STEPS)
+        cfg.trainer.kwargs.num_epochs = 0  # built, not trained
+        trainer = run_train(cfg)
+        trainer._ensure_buffers()
+        trainer.engine.use_graph = graph
+        trainer._run_epoch("training", 1)
+        step_losses[graph] = trainer.engine.log[:, 0].clone()
+        if graph and trainer.engine.replays != GRAPH_STEPS - WARMUP_STEPS:
+            raise SystemExit("graph vs eager: the graph epoch did not replay")
+        if not graph and trainer.engine.graph is not None:
+            raise SystemExit("graph vs eager: the eager epoch captured")
+    diff = ((step_losses[True] - step_losses[False]).abs()
+            / step_losses[False].abs()).max().item()
+    res["graph_vs_eager"] = {"steps": GRAPH_STEPS, "max_relative_diff": diff,
+                             "graph": step_losses[True].tolist(),
+                             "eager": step_losses[False].tolist()}
+    log(f"  graph vs eager, {GRAPH_STEPS} steps of the DRF K1 config: per-step"
+        f" losses within {diff:.3g} relative")
+    if diff > GRAPH_TOL:
+        raise SystemExit(f"graph vs eager: per-step losses differ by "
+                         f"{diff:.3g} relative")
+
+    log("phase 11g: a device checkpoint resumed by the host-loop trainer")
+    ckpt = tmp / "dev_vsr" / "checkpoints" / f"model_{DEVICE_EPOCHS}.ckpt"
+    cfg = training_config("acdc_vsr_drf_x2", tmp / "tree", tmp / "dev_host",
+                          {"dtype": "bfloat16", "carry_f32": True,
+                           "fused_tail": True}, tmp, loaded_path=str(ckpt))
+    cfg.trainer.kwargs.num_epochs = DEVICE_EPOCHS + 1
+    reset_launches()
+    host = run_train(cfg)
+    epochs = [json.loads(line)["epoch"] for line in
+              (tmp / "dev_host" / "log" / "metrics.jsonl").read_text()
+              .splitlines()]
+    adam = {float(st["step"]) for st in host.optimizer.state.values()}
+    want = {float(res["vsr"]["steps"] + len(host.train_dataloader))}
+    res["host_resume"] = {"epochs": epochs, "adam_steps": sorted(adam),
+                          "valid_psnr": json.loads(
+                              (tmp / "dev_host" / "log" / "metrics.jsonl")
+                              .read_text().splitlines()[-1])["valid"]["PSNR"]}
+    log(f"  the host-loop AcdcVSRTrainer resumed model_{DEVICE_EPOCHS}.ckpt "
+        f"of the device run: epochs {epochs}, Adam steps {sorted(adam)} "
+        f"(want {sorted(want)}), validation PSNR "
+        f"{res['host_resume']['valid_psnr']:.3f} dB")
+    if epochs != [DEVICE_EPOCHS + 1] or adam != want or not all(
+            torch.isfinite(v).all() for v in host.net.state_dict().values()):
+        raise SystemExit("the host-loop trainer did not resume the device "
+                         "checkpoint")
+
+    log("phase 11h: main --test on the four test twins")
+    from vsr_tpu_torch.config import load_config
+
+    root = Path(__file__).resolve().parent
+    for key, (name, tree, _) in DEVICE_RUNS.items():
+        # A twin that serves in float32 what was trained (and validated) in
+        # bf16 scores it apart from the trainer's validation pass by bf16's
+        # rounding: it runs as written, reported, and again with the
+        # training dtype and no files written (its log: the mean of its
+        # rows), held to the trainer's validation PSNR.
+        dtypes = [load_config(root / "configs" / kind / f"{name}.yaml")
+                  .net.kwargs.get("dtype") for kind in ("train", "test")]
+        same = dtypes[0] == dtypes[1]
+        what, run = f"device test {key}", tmp / f"dev_{key}"
+        tol = TEST_PSNR_TOL if same else None
+        if tree == "tree":
+            res[key]["test"] = test_run(what, name, tmp / tree, run, {}, tmp,
+                                        res[key], 0, card, psnr_tol=tol)
+        else:
+            res[key]["test"] = volume_test_run(what, name, tmp / tree, run,
+                                               tmp, res[key], card,
+                                               per_frame=key == "3d",
+                                               psnr_tol=tol)
+        if not same:
+            res[key]["test_in_training_dtype"] = test_in_dtype(
+                f"{what} in {dtypes[0]}", name, tmp / tree, run, tmp,
+                res[key], {"dtype": dtypes[0]}, card)
+
+    log("phase 11i: traces of the replayed steps")
+    for key in (*DEVICE_RUNS, "k1_on", "k1_off"):
+        res[key]["profile"] = replay_profile(key, runs[key]["trainer"], card)
+    counts = res["k1_on"]["profile"]["trace_launches_per_step"]
+    per_step = res["k1_on"]["k1_launches_per_step"]
+    # The kernel's forward and dx launches, the dW / db kernel with its
+    # second pass, as the counters read them per step.
+    want = {"k1": per_step["forward"] + per_step["dx"],
+            "k1_dw": per_step["dw"], "k1_dw_reduce": per_step["dw"]}
+    off = res["k1_off"]["profile"]["trace_launches_per_step"]
+    if counts != want or any(off.values()):
+        raise SystemExit(f"the trace counts K1 kernels {counts} a replayed "
+                         f"step with it on (want {want}), {off} with it off")
     return res
 
 
@@ -2481,13 +3024,19 @@ def main() -> int:
         volumes = phase_volumes(Path(tmp), card, dev)
         volumes["seconds"] = time.perf_counter() - t0
         log(f"  phase 10 took {volumes['seconds']:.1f} s")
+        log("phase 11: the device-epoch trainers (captured CUDA graphs), the "
+            "four *_device.yaml configs, bf16 training through K1")
+        t0 = time.perf_counter()
+        device = phase_device_epochs(Path(tmp), card, dev)
+        device["seconds"] = time.perf_counter() - t0
+        log(f"  phase 11 took {device['seconds']:.1f} s")
         results = {"card": smi, "build_seconds": build_s,
                    "kernel": {"concat_conv1x1": k1,
                               "concat_conv1x1_backward": k1_bwd,
                               "pairwise_rank": k3, "duf_dynamic_filter": k2},
                    "paths": paths, "card_vs_cpu": cpu_ref,
                    "training": training, "slice_training": sliced,
-                   "volumes": volumes}
+                   "volumes": volumes, "device_epochs": device}
         if args.profile:
             log("phase 8: torch.profiler traces")
             results["profile"] = phase_profile(dev)
@@ -2531,6 +3080,24 @@ def main() -> int:
         "backward_library_ms": k1_bwd["per_step"]["backward_library_ms"],
         "backward_bound_ms": k1_bwd["per_step"]["bound_ms"],
         "backward_bound_by": k1_bwd["per_step"]["bound_by"],
+        # The same in bf16 under float32 master weights (bf16 training),
+        # against autograd through torch.cat + the library's bf16 conv +
+        # prelu; dx, dW, db against the bf16 twin's.
+        "bf16_backward_max_abs_err": k1_bwd["bf16_max_abs_err"],
+        "bf16_backward_ms": k1_bwd["per_step"]["bf16_backward_ms"],
+        "bf16_backward_library_ms":
+            k1_bwd["per_step"]["bf16_backward_library_ms"],
+        "bf16_backward_bound_ms": k1_bwd["per_step"]["bf16_bound_ms"],
+        "bf16_backward_bound_by": k1_bwd["per_step"]["bf16_bound_by"],
+        # Device-epoch training of the DRF device config through K1 (bf16,
+        # one captured CUDA graph a step): launches of the forward and of
+        # the dx launch in the train steps, replays included (the counters'
+        # calls per step x eager steps and replays; the trace counts them
+        # per replay).
+        "device_train_launches": device["k1_on"]["k1_launches"]["forward"],
+        "device_backward_launches": device["k1_on"]["k1_launches"]["dx"],
+        "device_trace_launches_per_step":
+            device["k1_on"]["profile"]["trace_launches_per_step"]["k1"],
         # SRFBNet under AcdcSISRSRFBTrainer, kernel on (48 per train step
         # and per validation frame), and main --test on its checkpoint and
         # on DRFNet's.
@@ -2565,6 +3132,7 @@ def main() -> int:
         "replaces": "vsr_tpu/ops/fused_squeeze.py:104",
         "launches": training["vsr"]["fused"]["backward_launches"],
         "srfb_launches": training["srfb"]["fused"]["backward_launches"],
+        "device_launches": device["k1_on"]["k1_launches"]["dw"],
         "max_abs_err": k1_bwd["dw_max_abs_err"],
         "ms": k1_bwd["per_step"]["dw_ms"],
         "plain_ms": k1_bwd["per_step"]["dw_plain_ms"],

@@ -7,6 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from flax import linen
 
 from vsr_tpu_torch.interop import from_jax_tree, load_jax_params
 
@@ -36,7 +37,8 @@ def init(module, *xs, seed=0, **kw):
     over +-1/sqrt(fan-in), as flax's torch-style initializers draw them;
     BatchNorm scales and variances are one, every other leaf zero, for
     ``randomize`` to fill."""
-    shapes = jax.eval_shape(functools.partial(module.init, **kw),
+    # Unbound: flax's feedback PReLU has a field named ``init``.
+    shapes = jax.eval_shape(functools.partial(linen.Module.init, module, **kw),
                             jax.random.PRNGKey(seed),
                             *[jnp.asarray(x) for x in xs])
     draw = np.random.default_rng(seed)

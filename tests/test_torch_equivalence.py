@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from tests._torch_parity import init, randomize
 from vsr_tpu.models import EDSRNet
 
 F_, B_ = 8, 2  # features, resblocks
@@ -77,12 +78,13 @@ def test_edsr_forward_matches_torch_with_shared_weights(rng):
     net = EDSRNet(in_channels=1, out_channels=1, num_resblocks=B_,
                   num_features=F_, upscale_factor=2)
     x = rng.random((2, 12, 12, 1)).astype(np.float32)
-    params = net.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    # Drawn with numpy over the traced shapes (no flax init compiled).
+    params = randomize(init(net, x), np.random.default_rng(0))
 
     tnet = _build_torch_edsr().eval()
     _copy_params_to_torch(params, tnet)
 
-    ours = np.asarray(net.apply(params, jnp.asarray(x)))
+    ours = np.asarray(jax.jit(net.apply)(params, jnp.asarray(x)))
     with torch.no_grad():
         golden = tnet(torch.from_numpy(x.transpose(0, 3, 1, 2))).numpy()
     golden = golden.transpose(0, 2, 3, 1)

@@ -401,6 +401,92 @@ def test_trainer_takes_two_steps_on_the_card(rng, dev, tmp_path, task):
             fs.concat_conv1x1_dw.launches) == want
 
 
+@pytest.mark.parametrize("alpha", [0.2, -0.3])
+def test_fused_squeeze_module_bf16_training_backward(rng, dev, alpha):
+    """bf16 training's K1: ``FusedSqueezeConv(dtype=bfloat16)`` casts its
+    float32 masters to bf16 at use; its output and gradients against the
+    plain module path (``Conv`` on the ``torch.cat``) in float32 on the same
+    bf16-rounded operands: output and dx at the bf16 forward's bar, dW / db /
+    dalpha within 1e-2 of their terms' magnitudes, all float32 where the
+    parameters are."""
+    from vsr_tpu_torch.models import common, feedback
+
+    channels, f, n, h, w = (64, 64, 64), 64, 4, 16, 16
+    xs, wt, b = _operands(rng, dev, channels, f, n, h, w)
+    fused = common.FusedSqueezeConv(sum(channels), f, dtype="bfloat16").to(dev)
+    plain = common.Conv(sum(channels), f, 1, padding=0).to(dev)
+    act_f, act_p = feedback.PReLU(alpha).to(dev), feedback.PReLU(alpha).to(dev)
+    with torch.no_grad():
+        fused.weight.copy_(wt)
+        fused.bias.copy_(b)
+        plain.weight.copy_(wt.bfloat16().float()[:, :, None, None])
+        plain.bias.copy_(b.bfloat16().float())
+    x16 = [x.bfloat16().requires_grad_(True) for x in xs]
+    x16p = [x.detach().float().requires_grad_(True) for x in x16]
+    g = torch.from_numpy(rng.standard_normal((n, f, h, w)).astype(np.float32)
+                         ).to(dev).bfloat16()
+    with torch.no_grad():
+        pre = plain(torch.cat(x16p, dim=1))
+    g = g.masked_fill(pre.abs() < 1e-4, 0.0)
+    out = fused(x16, act_f.weight)
+    # The squeeze rounded to bf16 before the PReLU, as the kernel's is: both
+    # backwards see the same bf16 gradient at the squeeze's output.
+    ref = act_p(plain(torch.cat(x16p, dim=1)).bfloat16())
+    out.backward(g)
+    ref.backward(g)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=8e-3, atol=1e-4)
+    for a, r in zip(x16, x16p):
+        assert a.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(a.grad.float(), r.grad.float(), rtol=8e-3,
+                                   atol=1e-4)
+    g_pre = torch.where(pre > 0, g.float().abs(), abs(alpha) * g.float().abs())
+    terms_w = torch.einsum("nfhw,nchw->fc", g_pre,
+                           torch.cat(x16p, dim=1).detach().abs())
+    for got, want, terms in (
+            (fused.weight.grad, plain.weight.grad[:, :, 0, 0], terms_w),
+            (fused.bias.grad, plain.bias.grad, g_pre.sum(dim=(0, 2, 3))),
+            (act_f.weight.grad, act_p.weight.grad,
+             (g.float().abs() * pre.abs()).sum())):
+        assert got.dtype == torch.float32
+        assert bool(((got - want).abs() <= 1e-2 * terms + 1e-6).all())
+
+
+def test_device_epoch_graph_equals_eager(rng, dev, tmp_path):
+    """One device epoch of a bf16 DRFNet through K1 as a captured CUDA
+    graph (3 eager steps, a capture, replays) and all eager, from the same
+    seed and draws: per-step losses within 1e-5 relative, K1 launched by
+    the Python calls of the eager steps and the capture only."""
+    from vsr_tpu_torch.config import load_config
+    from vsr_tpu_torch.main import run_train
+
+    tree = _write_tree(tmp_path / "tree", rng)
+    logs = {}
+    for graph in (True, False):
+        cfg = load_config("configs/train/acdc_vsr_drf_x2_device.yaml")
+        cfg.main.saved_dir = str(tmp_path / f"run_{graph}")
+        cfg.dataset.kwargs.data_dir = str(tree / "videos")
+        cfg.dataset.kwargs.num_frames = 3
+        cfg.dataloader.kwargs.update(train_batch_size=3, num_workers=0)
+        cfg.net.kwargs.update(num_features=8, num_groups=2, carry_f32=False,
+                              fused_squeeze=True)
+        cfg.trainer.kwargs.update(num_epochs=0, patch=8, steps_per_epoch=7)
+        trainer = run_train(cfg)  # built on the card, not trained
+        trainer._ensure_buffers()
+        trainer.engine.use_graph = graph
+        fs.concat_conv1x1.launches = fs.concat_conv1x1.backward_launches = 0
+        trainer._run_epoch("training", 1)
+        torch.cuda.synchronize()
+        logs[graph] = trainer.engine.log[:, 0].cpu()
+        calls = 4 if graph else 7  # 3 eager + the capture, or 7 eager
+        assert trainer.engine.replays == (4 if graph else 0)
+        assert fs.concat_conv1x1.backward_launches == 4 * 3 * calls
+        assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+                   for p in trainer.net.parameters())
+    torch.testing.assert_close(logs[True], logs[False], rtol=1e-5, atol=0)
+
+
 # ------------------------------------------------------------------ K3 rank
 
 

@@ -98,9 +98,20 @@ def test_conv3d(rng):
 @pytest.mark.parametrize("kw", [dict(fold_shuffle2d=2),
                                 dict(out_dtype=torch.float32)])
 def test_conv3d_refuses_volumetric_knobs(kw):
-    if "out_dtype" in kw:  # the bf16 carry: still refused
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            common.Conv3D(4, 4, **kw)
+    if "out_dtype" in kw:
+        # Ported since the bf16 slice: bf16 operands accumulated in float32
+        # and not rounded back; refused with the fold, as in the JAX module.
+        with pytest.raises(NotImplementedError, match="out_dtype"):
+            common.Conv3D(4, 4, fold_shuffle2d=2, **kw)
+        conv = common.Conv3D(4, 4, dtype="bfloat16", **kw)
+        x = torch.randn(1, 4, 3, 5, 6, generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            got = conv(x)
+            want = torch.nn.functional.conv3d(
+                x.bfloat16().double(), conv.weight.bfloat16().double(),
+                conv.bias.bfloat16().double(), padding=1)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-5)
         return
     # Ported since the volumetric slice: the conv folded through the
     # in-plane shuffle before it, on the plain conv's parameters.

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_parity import init, randomize
 from vsr_tpu.models import EDSRNet as JaxEDSRNet
 from vsr_tpu.models import MoEEDSRNet as JaxMoEEDSRNet
 from vsr_tpu.models import edsr as jedsr
@@ -40,9 +41,24 @@ def _last(t, ndim_spatial=2):
 
 
 def _init(module, *xs, seed=0, **kw):
-    args = [jnp.asarray(x) for x in xs]
-    variables = module.init(jax.random.PRNGKey(seed), *args, **kw)
-    return jax.tree_util.tree_map(np.asarray, variables)
+    """The module's variables drawn with numpy over its traced shapes
+    (``tests/_torch_parity.init``: no flax init compiled; biases and other
+    constant leaves randomized), the MoE router and expert weights
+    LeCun-normal over their fan-in, as flax draws them, and the PReLU alphas
+    at flax's 0.2."""
+    draw = np.random.default_rng(seed + 1000)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name in ("router", "expert_wi", "expert_wo"):
+            fan_in = leaf.shape[-2]
+            return (draw.standard_normal(leaf.shape) / np.sqrt(fan_in)
+                    ).astype(np.float32)
+        if name == "alpha":
+            return np.full(leaf.shape, 0.2, np.float32)
+        return leaf
+    return jax.tree_util.tree_map_with_path(
+        fill, randomize(init(module, *xs, seed=seed, **kw), draw))
 
 
 def _randomize(variables, rng):
@@ -304,7 +320,10 @@ def test_seeded_init_of_the_new_nets_is_deterministic():
 ])
 def test_new_nets_serve_in_bf16(rng, make, shape, out_dtype):
     net = make().eval()
-    assert {p.dtype for p in net.parameters()} == {torch.bfloat16}
+    # EDSRNet follows the precision policy (float32 parameters, bf16
+    # compute); the MoE and DUF nets still hold their parameters in bf16.
+    assert {p.dtype for p in net.parameters()} == (
+        {torch.float32} if isinstance(net, EDSRNet) else {torch.bfloat16})
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     with torch.no_grad():
         out = net(x)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import vsr_tpu.infer as jinfer
+from tests._torch_parity import init, randomize
 from vsr_tpu.data.datasets import misr_target_index as jax_misr_target_index
 from vsr_tpu.io import nifti as jnifti
 from vsr_tpu.models import DRFNet as JaxDRFNet
@@ -34,6 +35,14 @@ from vsr_tpu_torch.preprocess import intensity, kspace, resize
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
 
 REPO = Path(__file__).resolve().parents[1]
+
+
+def _variables(jnet, shape, seed, **kw):
+    """The net's variables drawn with numpy over its traced shapes
+    (``tests/_torch_parity.init``: no flax init compiled), biases and other
+    constant leaves randomized."""
+    return randomize(init(jnet, np.zeros(shape, np.float32), seed=seed, **kw),
+                     np.random.default_rng(seed))
 
 
 @pytest.fixture(autouse=True)
@@ -123,8 +132,7 @@ def test_video_pipeline_matches_jax(rng, fused_squeeze):
     kw = dict(in_channels=1, out_channels=1, num_features=8, num_groups=2,
               upscale_factor=2, fused_tail=True, fused_squeeze=fused_squeeze)
     jnet = JaxDRFNet(**kw)
-    variables = jnet.init(jax.random.PRNGKey(0),
-                          jnp.zeros((1, 2, side // 2, side // 2, 1)))
+    variables = _variables(jnet, (1, 2, side // 2, side // 2, 1), seed=0)
     frames = np.round(rng.random((d * t, side, side)) * 255).astype(np.float32)
     lr_j, sr_j = jinfer.make_pipeline(jnet, variables, 2, "acdc",
                                       video_t=t)(frames)
@@ -148,7 +156,7 @@ MOE_KW = dict(in_channels=1, out_channels=1, num_resblocks=2, num_features=8,
 def _frame_nets(router_impl, dispatch_impl):
     kw = dict(MOE_KW, router_impl=router_impl, dispatch_impl=dispatch_impl)
     jnet = JaxMoEEDSRNet(**kw)
-    variables = jnet.init(jax.random.PRNGKey(1), jnp.zeros((1, 12, 12, 1)))
+    variables = _variables(jnet, (1, 12, 12, 1), seed=1)
     net = MoEEDSRNet(**kw)
     load_jax_params(net, jax.tree_util.tree_map(np.asarray, variables))
     return jnet, variables, net
@@ -177,8 +185,7 @@ def _window_nets(nf, use_pallas_filter, rng):
     kw = dict(in_channels=1, out_channels=1, num_frames=nf, size_filter=3,
               upscale_factor=2, use_pallas_filter=use_pallas_filter)
     jnet = JaxDUFNet(**kw)
-    variables = jax.tree_util.tree_map(np.asarray, jnet.init(
-        jax.random.PRNGKey(2), jnp.zeros((1, nf, 8, 8, 1)), train=False))
+    variables = _variables(jnet, (1, nf, 8, 8, 1), seed=2, train=False)
     stats = jax.tree_util.tree_map_with_path(
         lambda path, leaf: (rng.uniform(0.5, 1.5, leaf.shape) if
                             path[-1].key == "var" else

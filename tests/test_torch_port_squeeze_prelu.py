@@ -15,8 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from flax import linen
 
+from tests._torch_parity import init, randomize
 from vsr_tpu.models import DRFNet as JaxDRFNet
 from vsr_tpu.models import feedback as jfeedback
 from vsr_tpu.ops.fused_squeeze import concat_matmul
@@ -185,10 +185,12 @@ def test_requires_grad_refusal_covers_the_prelu_weight(monkeypatch):
 
 
 def _jax(module, *xs, seed=0):
-    args = [jnp.asarray(x) for x in xs]
-    variables = linen.Module.init(module, jax.random.PRNGKey(seed), *args)
-    variables = jax.tree_util.tree_map(np.asarray, variables)
-    return variables, np.asarray(module.apply(variables, *args))
+    """Variables drawn with numpy over the module's traced shapes (no flax
+    init compiled; ``tests/_torch_parity.init``), biases randomized, and the
+    jitted apply."""
+    variables = randomize(init(module, *xs, seed=seed),
+                          np.random.default_rng(seed))
+    return variables, jax.jit(module.apply)
 
 
 def _randomize_alphas(variables, rng):
@@ -208,9 +210,9 @@ def test_fblock_fused_squeeze_with_epilogue_matches_flax(rng, groups):
     x = rng.standard_normal((2, 8, 8, f)).astype(np.float32)
     h = rng.standard_normal((2, 8, 8, f)).astype(np.float32)
     jblock = jfeedback.FBlock(f, groups, 2, fused_squeeze=True)
-    variables, _ = _jax(jblock, x, h)
+    variables, apply = _jax(jblock, x, h)
     variables = _randomize_alphas(variables, rng)
-    want = np.asarray(jblock.apply(variables, jnp.asarray(x), jnp.asarray(h)))
+    want = np.asarray(apply(variables, jnp.asarray(x), jnp.asarray(h)))
     block = feedback.FBlock(f, groups, 2, fused_squeeze=True)
     load_jax_params(block, variables)  # strict: every leaf used once
     assert len(block.prelus) == 4 * groups
@@ -271,9 +273,9 @@ def test_drfnet_fused_squeeze_with_epilogue_matches_flax(rng, groups,
               fused_squeeze=True)
     x = rng.standard_normal((2, 3, 8, 8, 1)).astype(np.float32)
     jnet = JaxDRFNet(**kw)
-    variables, _ = _jax(jnet, x, seed=3)
+    variables, apply = _jax(jnet, x, seed=3)
     variables = _randomize_alphas(variables, rng)
-    want = np.asarray(jnet.apply(variables, jnp.asarray(x)))
+    want = np.asarray(apply(variables, jnp.asarray(x)))
     net = DRFNet(**kw)
     load_jax_params(net, variables)
     with torch.no_grad():

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_parity import init, randomize
 from vsr_tpu.models.bicubic import Bicubic as JaxBicubic
 from vsr_tpu.models.srfbn import SRFBNet as JaxSRFBNet
 from vsr_tpu.ops import upsample as jupsample
@@ -92,7 +93,9 @@ def test_bicubic_net_matches_jax_and_has_no_parameters(rng, factor):
 def _jax_net_and_variables(fused_squeeze, rng, steps=2):
     kwargs = dict(KWARGS, num_steps=steps)
     jnet = JaxSRFBNet(**kwargs, fused_squeeze=fused_squeeze)
-    variables = jnet.init(jax.random.PRNGKey(2), jnp.zeros((1, 12, 12, 1)))
+    # Drawn with numpy over the traced shapes (no flax init compiled).
+    variables = randomize(init(jnet, np.zeros((1, 12, 12, 1), np.float32),
+                               seed=2), np.random.default_rng(2))
     # Distinct PReLU weights, a negative one among them.
     alphas = iter(rng.uniform(-0.3, 0.5, 64).astype(np.float32))
     variables = jax.tree_util.tree_map_with_path(
@@ -105,7 +108,7 @@ def _jax_net_and_variables(fused_squeeze, rng, steps=2):
 def test_srfbnet_forward_matches_jax(rng, fused_squeeze):
     jnet, variables, kwargs = _jax_net_and_variables(fused_squeeze, rng, steps=3)
     x = rng.standard_normal((2, 12, 14, 1)).astype(np.float32)
-    want = np.asarray(jnet.apply(variables, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jnet.apply)(variables, jnp.asarray(x)))
     net = SRFBNet(**kwargs, fused_squeeze=fused_squeeze, device="cpu")
     load_jax_params(net, variables)
     with torch.no_grad():
@@ -126,7 +129,8 @@ def test_srfbnet_parameter_gradients_match_jax(rng, fused_squeeze):
         out = jnet.apply({"params": params}, jnp.asarray(x))
         return jnp.mean(jnp.abs(out - jnp.asarray(target)[None]))
 
-    want = jax.tree_util.tree_map(np.asarray, jax.grad(loss)(variables["params"]))
+    want = jax.tree_util.tree_map(np.asarray,
+                                  jax.jit(jax.grad(loss))(variables["params"]))
     net = SRFBNet(**kwargs, fused_squeeze=fused_squeeze, device="cpu")
     load_jax_params(net, variables)
     torch.mean(torch.abs(net(_nchw(x)) - _nchw(target)[None])).backward()
@@ -168,7 +172,10 @@ def test_srfbnet_builds_from_the_config_kwargs_and_takes_bf16():
         KWARGS, fused_squeeze=True, unroll=1, dtype="bfloat16")}, device="cpu",
         generator=torch.Generator().manual_seed(0))
     out = net(torch.zeros(1, 1, 8, 8))
-    assert out.dtype == torch.bfloat16 and out.shape == (2, 1, 1, 16, 16)
+    # float32 parameters, bf16 convs; the bilinear global residual keeps the
+    # float32 input's dtype, so the outputs are float32, as in the JAX net.
+    assert {p.dtype for p in net.parameters()} == {torch.float32}
+    assert out.dtype == torch.float32 and out.shape == (2, 1, 1, 16, 16)
 
 
 def test_srfbnet_hands_the_squeeze_contiguous_features(monkeypatch):

@@ -7,14 +7,13 @@ port's trainer wrote."""
 import csv
 import pickle
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from flax import serialization
 from PIL import Image
 
+from tests._torch_parity import init, randomize
 from tests.synth import make_processed_tree
 from vsr_tpu import losses as jlosses
 from vsr_tpu import metrics as jmetrics
@@ -144,8 +143,9 @@ def jax_results(tree, coordinates, interpret_mode, tmp_path_factory):
         saved = tmp_path_factory.mktemp(f"jax_{family}")
         net = getattr(jmodels, f["net"])(**f["net_kwargs"])
         init_kwargs = {"train": False} if family == "misr" else {}
-        variables = jax.tree_util.tree_map(np.asarray, net.init(
-            jax.random.PRNGKey(7), jnp.zeros(f["example"]), **init_kwargs))
+        variables = randomize(init(net, np.zeros(f["example"], np.float32),
+                                   seed=7, **init_kwargs),
+                              np.random.default_rng(7))
         predictor = getattr(jpredictors, f["predictor"])(
             test_dataloader=JaxDataloader(_dataset(jdatasets, family, tree),
                                           batch_size=1),

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from flax import linen
 
+from tests._torch_parity import init, randomize
 from vsr_tpu.models import DRFNet as JaxDRFNet
 from vsr_tpu.models import EDSRNet as JaxEDSRNet
 from vsr_tpu.models import feedback as jfeedback
@@ -39,17 +39,18 @@ def _compare(jax_module, torch_module, inputs, target, alpha=None):
     """L1 loss of the module's output against ``target`` on both sides;
     every parameter's gradient must agree."""
     args = [jnp.asarray(x) for x in inputs]
-    variables = linen.Module.init(jax_module, jax.random.PRNGKey(0), *args)
-    if alpha is not None:  # the PReLU weights: the default 0.2 is one case
-        variables = jax.tree_util.tree_map_with_path(
-            lambda path, v: jnp.full_like(v, alpha)
-            if path[-1].key == "alpha" else v, variables)
+    # Drawn with numpy over the traced shapes (no flax init compiled); the
+    # PReLU weights: flax's default 0.2 unless the case sets one.
+    variables = randomize(init(jax_module, *inputs), np.random.default_rng(0))
+    variables = jax.tree_util.tree_map_with_path(
+        lambda path, v: np.full_like(v, 0.2 if alpha is None else alpha)
+        if path[-1].key == "alpha" else v, variables)
 
     def loss(params):
         out = jax_module.apply({"params": params}, *args)
         return jnp.mean(jnp.abs(out - jnp.asarray(target)))
 
-    want_loss, grads = jax.value_and_grad(loss)(variables["params"])
+    want_loss, grads = jax.jit(jax.value_and_grad(loss))(variables["params"])
     load_jax_params(torch_module, jax.tree_util.tree_map(np.asarray, variables))
     out = torch_module(*[_first(x) for x in inputs])
     got_loss = torch.mean(torch.abs(out - _first(target)))
@@ -97,9 +98,9 @@ def test_edsrnet_gradients_match_jax(rng):
 def test_from_jax_tree_is_the_inverse_of_load_jax_params(rng):
     kw = dict(in_channels=1, out_channels=1, num_features=8, num_groups=2,
               upscale_factor=2, fused_squeeze=True)
-    x = jnp.zeros((1, 2, 8, 8, 1), jnp.float32)
-    variables = jax.tree_util.tree_map(
-        np.asarray, JaxDRFNet(**kw).init(jax.random.PRNGKey(1), x))
+    x = np.zeros((1, 2, 8, 8, 1), np.float32)
+    variables = randomize(init(JaxDRFNet(**kw), x, seed=1),
+                          np.random.default_rng(1))
     net = DRFNet(**kw)
     load_jax_params(net, variables)
     laid = from_jax_tree(net, variables)  # with the "params" level ...

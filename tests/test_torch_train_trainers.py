@@ -360,14 +360,21 @@ def test_dsb15_twins_denormalize_with_their_own_statistics():
 
 
 def test_a_net_that_is_not_float32_raises(tree, tmp_path):
+    """A bf16-compute net keeps float32 parameters and is taken; a net whose
+    parameters were cast to bf16 is refused."""
     trainer_kwargs = dict(TASKS["vsr"])
-    net = models.DRFNet(**trainer_kwargs["net_kwargs"], dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="float32"):
-        trainers.AcdcVSRTrainer(
+
+    def make(net):
+        return trainers.AcdcVSRTrainer(
             train_dataloader=None, valid_dataloader=None, net=net,
             loss_fns=[], loss_weights=[], metric_fns=[],
             optimizer=optim.Adam(), lr_scheduler=None, logger=None,
             monitor=None, num_epochs=1, device="cpu")
+
+    net = models.DRFNet(**trainer_kwargs["net_kwargs"], dtype="bfloat16")
+    assert make(net).net is net
+    with pytest.raises(ValueError, match="float32"):
+        make(net.to(torch.bfloat16))
 
 
 # ----------------------------------------------- the config-driven entry

@@ -204,14 +204,28 @@ def test_interop_covers_the_step_and_is_strict(rng):
      "fused_tail needs an upsampling tail"),
     (lambda: Volume3DSRNet(1, 1, upscale_factor=5), "upscale_factor=5"),
     (lambda: Volume3DSRNet(1, 1, dtype="bfloat16"), "dtype=bfloat16"),
-    (lambda: _ResBlock3D(4, 0.1, acc_f32=True), "acc_f32"),
+    (lambda: _ResBlock3D(4, 0.1, acc_f32=True, dtype=torch.bfloat16),
+     "acc_f32"),
     (lambda: Volume4DSRNet(1, 1, upscale_factor=1, fused_tail=True),
      "fused_tail needs an upsampling tail"),
     (lambda: Volume4DSRNet(1, 1, dtype=torch.bfloat16), "dtype="),
     (lambda: Volume4DSRNet(1, 1, carry_f32=True), "carry_f32"),
     (lambda: Volume4DSRNet(1, 1, unroll=2), "TPU lax.scan knob"),
-    (lambda: common.Conv3D(4, 4, out_dtype=torch.float32), "out_dtype")])
+    (lambda: common.Conv3D(4, 4, fold_shuffle2d=2, out_dtype=torch.float32),
+     "out_dtype")])
 def test_refusals(build, match):
+    if match in ("dtype=bfloat16", "acc_f32"):
+        # Ported since the bf16 slice: bf16 compute on float32 parameters,
+        # and the float32 residual accumulator.
+        net = build()
+        assert {p.dtype for p in net.parameters()} == {torch.float32}
+        x = torch.zeros((1, 1, 2, 4, 4) if match == "dtype=bfloat16"
+                        else (1, 4, 2, 4, 4)).bfloat16()
+        with torch.no_grad():
+            out = net(x)
+        assert out.dtype == (torch.bfloat16 if match == "dtype=bfloat16"
+                             else torch.float32)
+        return
     with pytest.raises(NotImplementedError, match=match):
         build()
 

@@ -4,6 +4,16 @@ Initialization follows torch's conv defaults as the JAX package restates
 them: weight U(+-sqrt(1/fan_in)), bias U(+-1/sqrt(fan_in)), with fan_in =
 k*k*C_in, drawn from an explicit ``torch.Generator`` (``None``: the global
 one). Parameters are created on the CPU; the net moves them to its device.
+
+Precision policy (flax's ``dtype``): a module's ``dtype`` is its *compute*
+dtype, never its parameters'. The input, weight and bias are cast to it at
+use (``promote_dtype(x, kernel, bias, dtype=...)``); with ``dtype=None`` the
+module computes in the promotion of the input's and the weight's dtypes. So
+a bf16 net keeps float32 parameters (and float32 optimizer state), and a
+step of the optimizer moves them by what flax's does. ``out_dtype``
+(``Conv``, ``Conv3D``) is ``make_accum_conv``: the conv of the compute-dtype
+operands accumulated in ``out_dtype`` and not rounded back, with the plain
+compute-dtype conv backward (``accum_conv``).
 """
 
 from __future__ import annotations
@@ -22,9 +32,70 @@ from vsr_tpu_torch.ops.fused_tail import (fuse_conv3d_through_shuffle2d,
 def resolve_dtype(dtype: torch.dtype | str | None) -> torch.dtype:
     """A net's ``dtype`` argument (``None``: float32; a ``torch.dtype`` or
     its name, e.g. ``"bfloat16"``)."""
-    if isinstance(dtype, str):
-        dtype = getattr(torch, dtype)
-    return dtype or torch.float32
+    return _as_dtype(dtype) or torch.float32
+
+
+def _as_dtype(dtype: torch.dtype | str | None) -> torch.dtype | None:
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def compute_dtype(dtype: torch.dtype | None, x: torch.Tensor,
+                  weight: torch.Tensor) -> torch.dtype:
+    """flax's ``promote_dtype``: the module's ``dtype``, else the promotion
+    of the input's and the weight's."""
+    return dtype or torch.promote_types(x.dtype, weight.dtype)
+
+
+def _cast(t: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
+    return None if t is None else t.to(dtype)
+
+
+class _AccumConv(torch.autograd.Function):
+    """``make_accum_conv``'s custom VJP: the forward convolves the
+    compute-dtype operands in ``out_dtype`` (for bf16 operands and a float32
+    ``out_dtype`` that is the bf16 product accumulated in float32, exact
+    products, one rounding per add, no rounding of the result; TF32 is
+    switched off for the call), the backward is the plain compute-dtype
+    conv backward with the cotangent cast down first."""
+
+    @staticmethod
+    def forward(ctx, x, weight, out_dtype, stride, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.geometry = (stride, padding)
+        conv = F.conv2d if x.dim() == 4 else F.conv3d
+        cudnn, matmul = (torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return conv(x.to(out_dtype), weight.to(out_dtype), None, stride,
+                        padding)
+        finally:
+            torch.backends.cudnn.allow_tf32 = cudnn
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        stride, padding = ctx.geometry
+        nd = x.dim() - 2
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            grad.to(x.dtype), x, weight, None, list(stride), list(padding),
+            [1] * nd, False, [0] * nd, 1,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw, None, None, None
+
+
+def accum_conv(x: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor | None, out_dtype: torch.dtype,
+               stride, padding) -> torch.Tensor:
+    """A 2D or 3D conv of compute-dtype ``x`` and ``weight`` emitted in
+    ``out_dtype`` (``_AccumConv``); the compute-dtype ``bias`` is added in
+    ``out_dtype`` outside it, as flax adds it after its conv, so its
+    gradient is summed in ``out_dtype`` and rounded to the compute dtype."""
+    y = _AccumConv.apply(x, weight, out_dtype, tuple(stride), tuple(padding))
+    return y if bias is None else y + bias.to(out_dtype).reshape(
+        -1, *[1] * (x.dim() - 2))
 
 
 def torch_default_init_(weight: torch.Tensor, bias: torch.Tensor | None,
@@ -40,16 +111,28 @@ def torch_default_init_(weight: torch.Tensor, bias: torch.Tensor | None,
 
 class Conv(nn.Conv2d):
     """2D conv with torch-geometry padding (``kernel_size=3, padding=1``
-    keeps the size)."""
+    keeps the size). ``dtype`` / ``out_dtype``: the precision policy of the
+    module docstring."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
-                 bias: bool = True, *,
+                 bias: bool = True, *, dtype: torch.dtype | str | None = None,
+                 out_dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding, bias=bias)
+        self.dtype = _as_dtype(dtype)
+        self.out_dtype = out_dtype
         torch_default_init_(self.weight, self.bias,
                             kernel_size * kernel_size * in_channels, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self.dtype, x, self.weight)
+        x, w, b = x.to(dt), self.weight.to(dt), _cast(self.bias, dt)
+        if self.out_dtype is not None:
+            return accum_conv(x, w, b, self.out_dtype, self.stride,
+                              self.padding)
+        return self._conv_forward(x, w, b)
 
 
 class Conv3D(nn.Conv3d):
@@ -61,21 +144,31 @@ class Conv3D(nn.Conv3d):
     that would otherwise precede it and computes the conv folded through
     that shuffle (``ops/fused_tail.py``); it returns the pre-shuffle result
     (``out_channels * r^2`` channels) for the caller to shuffle. The weight
-    and bias are the unfolded conv's, so checkpoints interchange. The JAX
-    module's ``out_dtype`` (an f32 output under bf16 compute) is refused."""
+    and bias are the unfolded conv's, so checkpoints interchange. The weight
+    and bias are cast to the compute dtype first, then folded (as the JAX
+    module does). ``dtype`` / ``out_dtype``: the module docstring's policy;
+    ``out_dtype`` with ``fold_shuffle2d`` is refused, as in the JAX module.
+
+    With ``dtype=None`` the folded conv computes in the promotion of the
+    input's and the weight's dtypes, like the unfolded one; the JAX module
+    computes its folded conv in the input's dtype there
+    (``vsr_tpu/models/common.py:318``), so a bf16 input to an f32 conv
+    folds in bf16 in the JAX package and in float32 here."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: tuple[int, int, int] = (3, 3, 3),
                  strides: tuple[int, int, int] = (1, 1, 1),
                  padding: tuple[int, int, int] = (1, 1, 1),
                  bias: bool = True, *, fold_shuffle2d: int = 0,
+                 dtype: torch.dtype | str | None = None,
                  out_dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
-        if out_dtype:
-            raise NotImplementedError(
-                "Conv3D out_dtype is not yet ported to vsr_tpu_torch")
         k = tuple(kernel_size)
         if fold_shuffle2d:
+            if out_dtype is not None:
+                raise NotImplementedError(
+                    "fold_shuffle2d ignores out_dtype (the folded conv has "
+                    "no accumulation-dtype hook): the combination is refused")
             if tuple(strides) != (1, 1, 1) or not (k[1] % 2 and k[2] % 2):
                 raise NotImplementedError(
                     "fold_shuffle2d supports stride-1, odd-H/W-kernel "
@@ -87,14 +180,20 @@ class Conv3D(nn.Conv3d):
         super().__init__(in_channels, out_channels, k, tuple(strides),
                          tuple(padding), bias=bias)
         self.fold_shuffle2d = fold_shuffle2d
+        self.dtype = _as_dtype(dtype)
+        self.out_dtype = out_dtype
         torch_default_init_(self.weight, self.bias,
                             math.prod(kernel_size) * in_channels, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self.dtype, x, self.weight)
+        x, w, b = x.to(dt), self.weight.to(dt), _cast(self.bias, dt)
+        if self.out_dtype is not None:
+            return accum_conv(x, w, b, self.out_dtype, self.stride,
+                              self.padding)
         if not self.fold_shuffle2d:
-            return super().forward(x)
-        K, B = fuse_conv3d_through_shuffle2d(self.weight, self.bias,
-                                             self.fold_shuffle2d)
+            return self._conv_forward(x, w, b)
+        K, B = fuse_conv3d_through_shuffle2d(w, b, self.fold_shuffle2d)
         return F.conv3d(x, K, B, padding=(self.padding[0], K.shape[-2] // 2,
                                           K.shape[-1] // 2))
 
@@ -116,12 +215,20 @@ class ConvTranspose(nn.ConvTranspose2d):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 4, stride: int = 2, padding: int = 1,
-                 bias: bool = True, *,
+                 bias: bool = True, *, dtype: torch.dtype | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding, bias=bias)
+        self.dtype = _as_dtype(dtype)
         torch_default_init_(self.weight, self.bias,
                             kernel_size * kernel_size * in_channels, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self.dtype, x, self.weight)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
+                                  _cast(self.bias, dt), self.stride,
+                                  self.padding, self.output_padding,
+                                  self.groups, self.dilation)
 
 
 class BatchNorm(nn.Module):
@@ -168,22 +275,28 @@ class FoldableConv(Conv):
     ``forward(pre, folded=True)``: consumes the PRE-shuffle array
     (``C_in * factor^2`` channels) and returns the PRE-shuffle result
     (``C_out * factor^2`` channels) through the folded weight
-    (ops/fused_tail.py). One parameter set serves both modes."""
+    (ops/fused_tail.py). One parameter set serves both modes. Both compute
+    in ``dtype``, else in the input's dtype (the JAX module's rule); the
+    weight is cast before it is folded."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, factor: int = 2, *,
+                 dtype: torch.dtype | str | None = None,
                  generator: torch.Generator | None = None):
         if kernel_size % 2 == 0:
             raise ValueError(
                 f"FoldableConv requires an odd kernel, got {kernel_size}")
         super().__init__(in_channels, out_channels, kernel_size,
-                         padding=kernel_size // 2, generator=generator)
+                         padding=kernel_size // 2, dtype=dtype,
+                         generator=generator)
         self.factor = factor
 
     def forward(self, x: torch.Tensor, folded: bool = False) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        x, w, b = x.to(dt), self.weight.to(dt), self.bias.to(dt)
         if not folded:
-            return super().forward(x)
-        K, B = fuse_conv_through_shuffle(self.weight, self.bias, self.factor)
+            return self._conv_forward(x, w, b)
+        K, B = fuse_conv_through_shuffle(w, b, self.factor)
         return F.conv2d(x, K, B, padding=K.shape[-1] // 2)
 
 
@@ -194,12 +307,13 @@ class ShuffleConv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, factor: int = 2, fused: bool = False,
-                 *, generator: torch.Generator | None = None):
+                 *, dtype: torch.dtype | str | None = None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.factor = factor
         self.fused = fused
         self.conv = FoldableConv(in_channels, out_channels, kernel_size,
-                                 factor, generator=generator)
+                                 factor, dtype=dtype, generator=generator)
 
     def forward(self, pre: torch.Tensor) -> torch.Tensor:
         """pre: (N, C*factor^2, H, W) -> (N, out_channels, H*f, W*f)."""
@@ -213,16 +327,24 @@ class FusedSqueezeConv(nn.Module):
     fused concat + 1x1 kernel (``ops/fused_squeeze.py``): the concat never
     materializes. Weight ``(F, sum C)`` and bias ``(F,)``, initialized as
     the 1x1 conv it stands in for. ``forward(xs, prelu_weight)`` also
-    applies the PReLU that follows the squeeze, in the kernel's epilogue."""
+    applies the PReLU that follows the squeeze, in the kernel's epilogue.
+    The inputs, weight and bias are cast to the compute dtype before the
+    kernel, as flax's ``_FusedSqueezeConv`` promotes them, so in bf16 the
+    kernel's ``dW`` / ``db`` (summed in float32) are rounded to bf16 before
+    they reach the float32 parameters, as in the JAX backward."""
 
     def __init__(self, in_channels: int, out_channels: int, *,
+                 dtype: torch.dtype | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.in_channels = in_channels
+        self.dtype = _as_dtype(dtype)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels))
         self.bias = nn.Parameter(torch.empty(out_channels))
         torch_default_init_(self.weight, self.bias, in_channels, generator)
 
     def forward(self, xs: list[torch.Tensor],
                 prelu_weight: torch.Tensor | None = None) -> torch.Tensor:
-        return concat_conv1x1(xs, self.weight, self.bias, prelu_weight)
+        dt = compute_dtype(self.dtype, xs[0], self.weight)
+        return concat_conv1x1([x.to(dt) for x in xs], self.weight.to(dt),
+                              self.bias.to(dt), prelu_weight)

@@ -17,11 +17,13 @@ from vsr_tpu_torch.registry import register
 
 class _ResBlock(nn.Module):
     def __init__(self, num_features: int, res_scale: float, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.res_scale = res_scale
         self.convs = nn.ModuleList(
-            Conv(num_features, num_features, 3, padding=1, generator=generator)
+            Conv(num_features, num_features, 3, padding=1, dtype=dtype,
+                 generator=generator)
             for _ in range(2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -35,6 +37,7 @@ class _UpBlock(nn.Module):
     tail performs that final shuffle (optionally folded into its conv)."""
 
     def __init__(self, num_features: int, upscale_factor: int, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         f = upscale_factor
@@ -43,7 +46,8 @@ class _UpBlock(nn.Module):
         stages = 1 if f == 3 else int(math.log2(f))
         self.convs = nn.ModuleList(
             Conv(num_features, self.split(f) ** 2 * num_features, 3,
-                 padding=1, generator=generator) for _ in range(stages))
+                 padding=1, dtype=dtype, generator=generator)
+            for _ in range(stages))
 
     @staticmethod
     def split(upscale_factor: int) -> int:
@@ -60,8 +64,8 @@ class _UpBlock(nn.Module):
 class EDSRNet(nn.Module):
     """Single-image SR: ``(N, C, h, w) -> (N, C_out, H, W)``.
     ``fused_tail=True`` folds the final conv through the last pixel shuffle
-    (same parameters, same result). ``dtype``, ``device``, ``generator``:
-    as ``DRFNet``."""
+    (same parameters, same result). ``dtype`` (the compute dtype; the
+    parameters stay float32), ``device``, ``generator``: as ``DRFNet``."""
 
     serving_mode = "frame"
 
@@ -72,21 +76,23 @@ class EDSRNet(nn.Module):
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.dtype = resolve_dtype(dtype)
+        self.dtype = dt = resolve_dtype(dtype)
         f = num_features
-        self.head = Conv(in_channels, f, 3, padding=1, generator=generator)
+        self.head = Conv(in_channels, f, 3, padding=1, dtype=dt,
+                         generator=generator)
         self.blocks = nn.ModuleList(
-            _ResBlock(f, res_scale, generator=generator)
+            _ResBlock(f, res_scale, dtype=dt, generator=generator)
             for _ in range(num_resblocks))
-        self.body_end = Conv(f, f, 3, padding=1, generator=generator)
-        self.up = _UpBlock(f, upscale_factor, generator=generator)
+        self.body_end = Conv(f, f, 3, padding=1, dtype=dt, generator=generator)
+        self.up = _UpBlock(f, upscale_factor, dtype=dt, generator=generator)
         self.tail = ShuffleConv(f, out_channels, 3,
                                 factor=_UpBlock.split(upscale_factor),
-                                fused=fused_tail, generator=generator)
-        self.to(device=device, dtype=self.dtype)
+                                fused=fused_tail, dtype=dt,
+                                generator=generator)
+        self.to(device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        head = self.head(x.to(self.dtype))
+        head = self.head(x)
         body = head
         for block in self.blocks:
             body = block(body)

@@ -26,15 +26,17 @@ class _RBlock(nn.Module):
     """Reconstruction: strided deconv -> PReLU -> 3x3 conv."""
 
     def __init__(self, num_features: int, out_channels: int,
-                 upscale_factor: int, *,
+                 upscale_factor: int, *, dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         k, s, p = PROJECTION_PARAMS[upscale_factor]
         self.deconvs = nn.ModuleList([ConvTranspose(
-            num_features, num_features, k, s, p, generator=generator)])
+            num_features, num_features, k, s, p, dtype=dtype,
+            generator=generator)])
         self.prelus = nn.ModuleList([PReLU()])
         self.convs = nn.ModuleList([Conv(num_features, out_channels, 3,
-                                         padding=1, generator=generator)])
+                                         padding=1, dtype=dtype,
+                                         generator=generator)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.convs[0](self.prelus[0](self.deconvs[0](x)))
@@ -46,12 +48,13 @@ class _SRFBStep(nn.Module):
 
     def __init__(self, num_features: int, num_groups: int, out_channels: int,
                  upscale_factor: int, fused_squeeze: bool = False, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.fblock = FBlock(num_features, num_groups, upscale_factor,
-                             fused_squeeze, generator=generator)
+                             fused_squeeze, dtype=dtype, generator=generator)
         self.rblock = _RBlock(num_features, out_channels, upscale_factor,
-                              generator=generator)
+                              dtype=dtype, generator=generator)
 
     def forward(self, hidden: torch.Tensor, feat: torch.Tensor,
                 upscaled_input: torch.Tensor):
@@ -63,7 +66,10 @@ class _SRFBStep(nn.Module):
 class SRFBNet(nn.Module):
     """``(N, C, h, w) -> (num_steps, N, C_out, H, W)``.
 
-    ``dtype``, ``device``, ``generator`` as for the other nets. Knobs of the
+    ``dtype`` (the compute dtype; the parameters stay float32), ``device``,
+    ``generator`` as for the other nets. The bilinear upsampling of the
+    input, and so the global residual add, stay in the input's dtype, as in
+    the JAX net (a float32 input gives float32 outputs). Knobs of the
     JAX net that the port has not carried (``subpixel_deconv``,
     ``carry_f32``) raise ``NotImplementedError``, and so does the TPU
     ``lax.scan`` knob ``unroll`` at any value but 1.
@@ -92,14 +98,14 @@ class SRFBNet(nn.Module):
         self.dtype = resolve_dtype(dtype)
         self.num_steps = num_steps
         self.upscale_factor = upscale_factor
-        self.in_block = InBlock(in_channels, num_features, generator=generator)
+        self.in_block = InBlock(in_channels, num_features, dtype=self.dtype,
+                                generator=generator)
         self.step = _SRFBStep(num_features, num_groups, out_channels,
-                              upscale_factor, fused_squeeze,
+                              upscale_factor, fused_squeeze, dtype=self.dtype,
                               generator=generator)
-        self.to(device=device, dtype=self.dtype)
+        self.to(device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
         # Contiguous NCHW for the fused squeeze: the library's convs hand
         # back channels-last features for a channels-last (or one-channel,
         # permuted) input.

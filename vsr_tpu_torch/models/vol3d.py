@@ -17,14 +17,6 @@ from vsr_tpu_torch.models.common import (Conv3D, pixel_shuffle_2d_in_3d,
 from vsr_tpu_torch.registry import register
 
 
-def refuse_non_f32(net: str, dtype) -> None:
-    """The volumetric nets compute in float32 only: the JAX package's bf16
-    compute (with its f32 carries) is the mixed-precision work still to
-    port."""
-    if resolve_dtype(dtype) != torch.float32:
-        raise NotImplementedError(
-            f"{net} dtype={dtype} is not yet ported to vsr_tpu_torch (bf16 "
-            "compute of the volumetric nets is mixed-precision work)")
 
 
 def upsample_stages(upscale_factor: int, fused_tail: bool) -> tuple[int, int]:
@@ -44,20 +36,21 @@ def upsample_stages(upscale_factor: int, fused_tail: bool) -> tuple[int, int]:
 
 
 class _ResBlock3D(nn.Module):
-    """``x + res_scale * conv(relu(conv(x)))``. The JAX block's ``acc_f32``
-    (an f32 accumulator under bf16 compute) is refused."""
+    """``x + res_scale * conv(relu(conv(x)))`` in the compute ``dtype``.
+    ``acc_f32``: the second conv accumulates in float32 and emits float32
+    (``Conv3D.out_dtype``), so the ``x + 0.1 y`` add runs in float32."""
 
     def __init__(self, num_features: int, res_scale: float,
-                 acc_f32: bool = False, *,
+                 acc_f32: bool = False, *, dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if acc_f32:
-            raise NotImplementedError(
-                "_ResBlock3D acc_f32 is not yet ported to vsr_tpu_torch")
         self.res_scale = res_scale
-        self.convs = nn.ModuleList(
-            Conv3D(num_features, num_features, generator=generator)
-            for _ in range(2))
+        self.convs = nn.ModuleList([
+            Conv3D(num_features, num_features, dtype=dtype,
+                   generator=generator),
+            Conv3D(num_features, num_features, dtype=dtype,
+                   out_dtype=torch.float32 if acc_f32 else None,
+                   generator=generator)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.convs[1](F.relu(self.convs[0](x))) * self.res_scale
@@ -71,17 +64,18 @@ class VolumeTail(nn.Module):
 
     def __init__(self, num_features: int, out_channels: int,
                  upscale_factor: int, fused_tail: bool = False, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         f = num_features
         self.stages, self.r_last = upsample_stages(upscale_factor, fused_tail)
         self.fused_tail = fused_tail
         self.ups = nn.ModuleList(
-            Conv3D(f, self.r_last ** 2 * f, generator=generator)
+            Conv3D(f, self.r_last ** 2 * f, dtype=dtype, generator=generator)
             for _ in range(self.stages))
         self.last = Conv3D(f, out_channels,
                            fold_shuffle2d=self.r_last if fused_tail else 0,
-                           generator=generator)
+                           dtype=dtype, generator=generator)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         for i, conv in enumerate(self.ups):
@@ -97,8 +91,9 @@ class VolumeTail(nn.Module):
 class Volume3DSRNet(nn.Module):
     """``(N, C, D, h, w) -> (N, C_out, D, h r, w r)``. ``fused_tail``
     computes the final conv folded through the last shuffle (same
-    parameters, same result to float reassociation). ``device``,
-    ``generator``: as ``DRFNet``; ``dtype`` other than float32 is refused."""
+    parameters, same result to float reassociation). ``dtype`` (the compute
+    dtype; the parameters stay float32), ``device``, ``generator``: as
+    ``DRFNet``."""
 
     serving_mode = "volume"
 
@@ -110,15 +105,15 @@ class Volume3DSRNet(nn.Module):
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        refuse_non_f32("Volume3DSRNet", dtype)
+        self.dtype = dt = resolve_dtype(dtype)
         f = num_features
-        self.head = Conv3D(in_channels, f, generator=generator)
+        self.head = Conv3D(in_channels, f, dtype=dt, generator=generator)
         self.blocks = nn.ModuleList(
-            _ResBlock3D(f, res_scale, generator=generator)
+            _ResBlock3D(f, res_scale, dtype=dt, generator=generator)
             for _ in range(num_resblocks))
-        self.body_end = Conv3D(f, f, generator=generator)
+        self.body_end = Conv3D(f, f, dtype=dt, generator=generator)
         self.tail = VolumeTail(f, out_channels, upscale_factor, fused_tail,
-                               generator=generator)
+                               dtype=dt, generator=generator)
         self.to(device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from vsr_tpu_torch.models.common import Conv3D
-from vsr_tpu_torch.models.vol3d import VolumeTail, _ResBlock3D, refuse_non_f32
+from vsr_tpu_torch.models.common import Conv3D, resolve_dtype
+from vsr_tpu_torch.models.vol3d import VolumeTail, _ResBlock3D
 from vsr_tpu_torch.registry import register
 
 _MODES = ("full", "recur", "tail")
@@ -84,7 +84,10 @@ class Volume4DSRNet(nn.Module):
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        refuse_non_f32("Volume4DSRNet", dtype)
+        if resolve_dtype(dtype) != torch.float32:
+            raise NotImplementedError(
+                f"Volume4DSRNet dtype={dtype} is not yet ported to "
+                "vsr_tpu_torch (its bf16 compute goes with carry_f32)")
         if carry_f32:
             raise NotImplementedError(
                 "Volume4DSRNet carry_f32 is not yet ported to vsr_tpu_torch")
@@ -102,7 +105,10 @@ class Volume4DSRNet(nn.Module):
 
     def _step(self, *args):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(self.step, *args, use_reentrant=False)
+            # No randomness in the step: nothing to save and restore, and
+            # no generator state read inside a captured CUDA graph.
+            return checkpoint(self.step, *args, use_reentrant=False,
+                              preserve_rng_state=False)
         return self.step(*args)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -59,8 +59,13 @@ for _name, _lr in _OPTIMIZERS.items():
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """A learning rate held as a tensor (a captured CUDA graph reads it by
+    address) is filled in place; a float one is replaced."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:

@@ -16,7 +16,7 @@ from typing import Any, Callable, Mapping
 # category -> {name -> class}
 _REGISTRIES: dict[str, dict[str, type]] = {}
 
-# category -> the module whose import registers its members.
+# category -> the module (or modules) whose import registers its members.
 _MODULES = {
     "net": "vsr_tpu_torch.models",
     "dataset": "vsr_tpu_torch.data.datasets",
@@ -28,7 +28,8 @@ _MODULES = {
     "lr_scheduler": "vsr_tpu_torch.optim",
     "logger": "vsr_tpu_torch.callbacks.logger",
     "monitor": "vsr_tpu_torch.callbacks.monitor",
-    "trainer": "vsr_tpu_torch.runner.trainers",
+    "trainer": ("vsr_tpu_torch.runner.trainers",
+                "vsr_tpu_torch.runner.device_trainer"),
     "predictor": "vsr_tpu_torch.runner.predictors",
 }
 # category -> a resolver of names the category's modules did not register.
@@ -58,8 +59,9 @@ def register_fallback(category: str,
 
 
 def get_class(category: str, name: str) -> type:
-    if category in _MODULES:  # importing it registers the members
-        importlib.import_module(_MODULES[category])
+    modules = _MODULES.get(category, ())
+    for module in (modules,) if isinstance(modules, str) else modules:
+        importlib.import_module(module)  # importing it registers the members
     bucket = _REGISTRIES.get(category, {})
     if name not in bucket and category in _FALLBACKS:
         found = _FALLBACKS[category](name)

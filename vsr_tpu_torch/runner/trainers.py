@@ -20,9 +20,11 @@ reproduce them. Batches arrive channels-last numpy; the trainer moves each to th
 device (pinned memory, non-blocking) and permutes it to the nets' NCHW /
 ``(N, T, C, h, w)`` / ``(N, C, D, h, w)`` / ``(N, T, C, D, h, w)`` layout.
 
-The nets train in float32 with TF32 off (constructing a trainer turns it
-off for cuDNN and cuBLAS, process-wide, as the serving pipeline does); a net
-whose parameters are not float32 is refused. The JAX trainer pads validation
+TF32 is off (constructing a trainer turns it off for cuDNN and cuBLAS,
+process-wide, as the serving pipeline does). Parameters and optimizer state
+are float32; a net may compute in bf16 (its ``dtype``, the precision policy
+of ``models/common.py``, flax's mixed precision), and a net that holds
+parameters of another dtype is refused. The JAX trainer pads validation
 sequences to T buckets only to bound its recompiles; there is no compile
 step here, so sequences run at their own length and ``t_bucket`` is not a
 parameter. Knobs of the JAX trainer that are not ported raise when passed.
@@ -54,13 +56,68 @@ def _detached(outputs):
     return outputs.detach()
 
 
-class BaseTrainer:
+def training_precision(net: nn.Module) -> None:
+    """The trainers' precision policy: a net's parameters are float32
+    (a bf16 net computes in bf16 and keeps them float32; a net that holds
+    another dtype is refused), and TF32 is turned off for cuDNN and cuBLAS,
+    process-wide."""
+    bad = sorted({str(p.dtype) for p in net.parameters()
+                  if p.dtype != torch.float32})
+    if bad:
+        raise ValueError(
+            f"the trainer takes float32 parameters (a bf16 net computes in "
+            f"bf16 and keeps them float32); this net holds {bad} parameters")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class TrainStep:
+    """The train step of the host-loop and the device-epoch trainers. A
+    subclass holds ``net``, ``optimizer``, ``loss_weights`` and
+    ``dataset_stats`` and gives the ``_compute_losses`` /
+    ``_compute_metrics`` hooks."""
+
+    dataset_stats = "acdc"
+
+    def _compute_losses(self, outputs, targets) -> list:
+        raise NotImplementedError
+
+    def _compute_metrics(self, outputs, targets) -> list:
+        raise NotImplementedError
+
+    def _denorm(self, x: torch.Tensor) -> torch.Tensor:
+        mean, std = DATASET_STATS[self.dataset_stats]
+        return torch.clamp(torch.round(x * std + mean), 0.0, 255.0)
+
+    def _scalars(self, total, losses, metrics) -> torch.Tensor:
+        """The step's scalars in the order of ``_scalar_names``, one float32
+        vector on the device."""
+        return torch.stack([v.detach().float() for v in
+                            (total, *losses, *metrics)])
+
+    def _weighted_total(self, losses: list) -> torch.Tensor:
+        return sum(w * l for w, l in zip(self.loss_weights, losses))
+
+    def _train_step(self, inputs, targets):
+        """One step. Returns (the scalars vector, the outputs, detached)."""
+        self.net.train()
+        outputs = self.net(inputs)
+        losses = self._compute_losses(outputs, targets)
+        total = self._weighted_total(losses)
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        self.optimizer.step()
+        outputs = _detached(outputs)
+        with torch.no_grad():
+            metrics = self._compute_metrics(outputs, targets)
+        return self._scalars(total, losses, metrics), outputs
+
+
+class BaseTrainer(TrainStep):
     """Args mirror the JAX trainer. ``optimizer`` is the config's
     ``OptimizerFactory`` (bound to the net's parameters here) or a ready
     ``torch.optim.Optimizer``. ``device``: where the net trains (``cuda``
     unless the caller asks for ``cpu``)."""
-
-    dataset_stats = "acdc"
 
     def __init__(
         self,
@@ -102,15 +159,7 @@ class BaseTrainer:
                 raise NotImplementedError(
                     f"trainer {name} is not yet ported to vsr_tpu_torch")
         self.device = torch.device(device)
-        bad = sorted({str(p.dtype) for p in net.parameters()
-                      if p.dtype != torch.float32})
-        if bad:
-            raise NotImplementedError(
-                f"the trainer takes a float32 net; this one holds {bad} "
-                "parameters (mixed-precision training is not yet ported to "
-                "vsr_tpu_torch)")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        training_precision(net)
         self.prefetch_to_device = bool(prefetch_to_device)
         self.train_dataloader = train_dataloader
         self.valid_dataloader = valid_dataloader
@@ -145,23 +194,22 @@ class BaseTrainer:
     def _get_inputs_targets(self, batch: dict):
         raise NotImplementedError
 
-    def _compute_losses(self, outputs, targets) -> list:
-        raise NotImplementedError
-
-    def _compute_metrics(self, outputs, targets) -> list:
-        raise NotImplementedError
-
     def _outputs_to_numpy(self, outputs: torch.Tensor) -> np.ndarray:
         """The net's channels-first outputs as the channels-last numpy the
         loggers take."""
         raise NotImplementedError
 
+    def _host_outputs(self, outputs):
+        """``_outputs_to_numpy`` of float32 copies (numpy has no bf16);
+        None stays None (a device epoch keeps no batch for the logger)."""
+        if outputs is None:
+            return None
+        if isinstance(outputs, tuple):
+            return self._outputs_to_numpy(tuple(o.float() for o in outputs))
+        return self._outputs_to_numpy(outputs.float())
+
     def _batch_weight(self, batch: dict) -> float:
         return float(batch["index"].shape[0])
-
-    def _denorm(self, x: torch.Tensor) -> torch.Tensor:
-        mean, std = DATASET_STATS[self.dataset_stats]
-        return torch.clamp(torch.round(x * std + mean), 0.0, 255.0)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         tensor = torch.from_numpy(np.ascontiguousarray(array))
@@ -170,29 +218,6 @@ class BaseTrainer:
         return tensor
 
     # ----------------------------------------------------------------- steps
-
-    def _scalars(self, total, losses, metrics) -> torch.Tensor:
-        """The step's scalars in the order of ``_scalar_names``, one float32
-        vector on the device."""
-        return torch.stack([v.detach().float() for v in
-                            (total, *losses, *metrics)])
-
-    def _weighted_total(self, losses: list) -> torch.Tensor:
-        return sum(w * l for w, l in zip(self.loss_weights, losses))
-
-    def _train_step(self, inputs, targets):
-        """One step. Returns (the scalars vector, the outputs, detached)."""
-        self.net.train()
-        outputs = self.net(inputs)
-        losses = self._compute_losses(outputs, targets)
-        total = self._weighted_total(losses)
-        self.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        self.optimizer.step()
-        outputs = _detached(outputs)
-        with torch.no_grad():
-            metrics = self._compute_metrics(outputs, targets)
-        return self._scalars(total, losses, metrics), outputs
 
     @torch.no_grad()
     def _eval_step(self, inputs, targets):
@@ -363,9 +388,9 @@ class BaseTrainer:
             if self.logger is not None:
                 self.logger.write(
                     self.epoch, train_log, train_batch,
-                    self._outputs_to_numpy(train_outputs),
+                    self._host_outputs(train_outputs),
                     valid_log, valid_batch,
-                    self._outputs_to_numpy(valid_outputs))
+                    self._host_outputs(valid_outputs))
 
             saved_path = self.monitor.is_saved(self.epoch)
             if saved_path:
@@ -399,12 +424,18 @@ class BaseTrainer:
             **(extra_aux or {}),
         }
         save_checkpoint(path, {"net": self.net.state_dict(),
-                               "optimizer": self.optimizer.state_dict()}, aux)
+                               "optimizer": self._optimizer_state()}, aux)
+
+    def _optimizer_state(self) -> dict:
+        return self.optimizer.state_dict()
+
+    def _load_optimizer_state(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state)
 
     def load(self, path: str | Path) -> None:
         state, aux = load_checkpoint(path, map_location=self.device)
         self.net.load_state_dict(state["net"], strict=True)
-        self.optimizer.load_state_dict(state["optimizer"])
+        self._load_optimizer_state(state["optimizer"])
         self.epoch = aux["epoch"] + 1
         if aux.get("mid_epoch"):
             # Step-granular preemption checkpoint: aux epoch is the last
