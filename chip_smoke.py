@@ -44,7 +44,12 @@ config for its net, with random seeded weights:
   the device trainers (the train split resident on the card, the step
   captured as one CUDA graph and replayed; bf16 compute on float32
   parameters), the DRF one also through K1 forward and backward in bf16,
-  then ``main --test`` on their ``configs/test/*_device.yaml`` twins.
+  then ``main --test`` on their ``configs/test/*_device.yaml`` twins;
+- the serving deployment: the three serving paths exported as artifacts
+  (``vsr_tpu_torch.export``), served by the HTTP daemon
+  (``vsr_tpu_torch.serve``) and as online streams
+  (``vsr_tpu_torch.stream``), and phase 7's checkpoint through the daemon's
+  live backend.
 
 Phases; any failure exits non-zero and prints no result:
 
@@ -155,15 +160,41 @@ Phases; any failure exits non-zero and prints no result:
    PSNR within 0.01 dB of the trainer's validation PSNR); a trace of 20
    replayed steps of each run (device time, idle share, and K1's kernels
    counted per replay against the launch count);
-12. prints the kernels' JSON line, then the final JSON line.
+12. the serving deployment: (a) the DRF (K1), MoE (K3) and DUF (K2)
+   pipelines exported with ``torch.export`` at (300, 192, 192) on the
+   card, saved, loaded back and run on a noise volume: equal to
+   ``make_pipeline``'s and to the kernel-off program's (the DRF one exported
+   with ``fused_squeeze: false``) at >= 99.9 % exact grey, <= 1 grey, with
+   360 K1 / 8 K3 / 3 K2 launches a volume; (b) one HTTP daemon
+   (``serve.make_server`` on 127.0.0.1, a thread) per artifact, each taking
+   16 .npy volumes from 8 closed-loop clients, DRF also a NIfTI volume and
+   two half volumes that share one program call; every response against
+   the artifact called directly (the same bar; how many are bit-equal is
+   printed), ``/metrics`` counting the requests, the launches = per volume
+   x program calls; the p50 and the largest of the 16 request latencies
+   and volumes/s through HTTP beside the direct call's; (c) the streams: DRF
+   ``RecurrentStream`` (12 K1 a push), MoE ``FrameStream`` (8 K3 a push),
+   DUF ``WindowStream`` (one K2 an emitted output, boundary frames by
+   ``flush``) and Volume4DSRNet (``configs/train/acdc_4d_vol_x2.yaml``, no
+   kernel), 30 pushes of (10, 192, 192) each against the batch pipeline of
+   the same volume, median push latency; (d) phase 7's DRF checkpoint
+   through the daemon's live backend (NIfTI in, .nii.gz out) against the
+   output ``infer --checkpoint`` served in phase 7;
+13. prints the kernels' JSON line, then the final JSON line.
 
 ``--profile`` adds one ``torch.profiler`` trace of a full volume per serving
 path (f32, and bf16 for DRFNet; the two volume nets) and of 6 train steps
 per training path, the MISR / FRVSR and volume nets included (device time
 by kernel, idle share, K1's own kernels against the PyTorch rest of its
-backward) to the details.
+backward) to the details, and whether the DRF f32 pipeline repeats its bits
+with ``cudnn.deterministic`` off and on, at what cost a volume.
 
-Usage: python3 chip_smoke.py [--out details.json] [--profile]
+``--latency N`` runs only the build, phase 12a and phase 12b with N
+requests per client (8 N a daemon; a p99 is printed from 100 on), then
+traces one volume through the DRF artifact and through ``make_pipeline``
+(device kernels and host operators, and where their totals differ).
+
+Usage: python3 chip_smoke.py [--out details.json] [--profile | --latency N]
 """
 
 from __future__ import annotations
@@ -1779,6 +1810,12 @@ def phase_training(tmp: Path, card: str, dev) -> dict:
     res["serve"] = {"trained_psnr": served["trained"][0],
                     "untrained_psnr": served["untrained"][0],
                     "exact_fraction": exact, "max_grey_diff": worst}
+    # Phase 12d serves the same checkpoint through the daemon's live backend.
+    res["served_checkpoint"] = {
+        "ckpt": str(tmp / "vsr_fused" / "checkpoints"
+                    / f"model_{TRAIN_EPOCHS}.ckpt"),
+        "nifti": str(tmp / "serve_in" / "patient001" / "patient001_4d.nii"),
+        "net_kwargs": net_kwargs, "sr": served["trained"][1]}
 
     log("phase 7e: card vs CPU, one training batch")
     res["card_vs_cpu"] = card_vs_cpu("vsr", runs["fused"]["trainer"], dev,
@@ -2962,6 +2999,515 @@ def phase_profile_volumes(dev) -> dict:
     return res
 
 
+def phase_profile_determinism(dev, card: str) -> dict:
+    """Does the DRF f32 pipeline (kernel on) repeat its bits on the card,
+    with ``cudnn.deterministic`` off (the default) and on, and what does
+    each cost a volume? Per setting: one traced call (its largest device
+    kernel), then two timed calls compared bit for bit; the flag is
+    restored."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vsr_tpu_torch.infer import make_pipeline
+
+    path = PATHS[0]
+    pipe = make_pipeline(build_net(path, path.on, dev), FACTOR, "acdc",
+                         **path.pipe_kw(T_FRAMES))
+    x = torch.from_numpy(as_frames(make_volume(40, FULL_SLICES))).to(dev)
+    res = {}
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                pipe(x)[1].cpu()
+            name, top_ms, calls = device_rows(prof)[0]
+            outs, ms = [], []
+            for _ in range(2):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                outs.append(pipe(x)[1].cpu().numpy())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            mode = "on" if det else "off"
+            res[mode] = {"repeat_bit_equal": bool(np.array_equal(*outs)),
+                         "ms": statistics.median(ms),
+                         "largest_kernel": {"name": name[:120], "ms": top_ms,
+                                            "calls": calls}}
+            log(f"  drf make_pipeline repeated, cudnn.deterministic {mode}: "
+                f"bit-equal {res[mode]['repeat_bit_equal']}, "
+                f"{res[mode]['ms']:.1f} ms a volume; largest kernel "
+                f"{top_ms:.1f} ms ({calls} x {name[:60]}) [{card}]")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return res
+
+
+# ================================================================ deployment
+
+# configs/train/acdc_4d_vol_x2.yaml's net, served as a stream (no kernel).
+VOL4D_CONFIG = "acdc_4d_vol_x2"
+CLIENTS, REQUESTS_PER_CLIENT = 8, 2   # phase 12b's traffic, every daemon
+P99_MIN_REQUESTS = 100  # fewer: report the largest latency, not a p99
+BATCH_WAIT_MS = 50.0  # lets two half volumes share one program call
+HALF_SLICES = FULL_SLICES // 2
+
+
+def post(url: str, body: bytes, ctype: str) -> tuple[bytes, float, dict]:
+    """One POST: the response body, its wall seconds and headers."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        out = resp.read()
+        headers = dict(resp.headers)
+    return out, time.perf_counter() - t0, headers
+
+
+def npy_bytes(arr: np.ndarray) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def from_npy(body: bytes) -> np.ndarray:
+    import io
+
+    return np.load(io.BytesIO(body), allow_pickle=False)
+
+
+def gate_agreement(what: str, got: np.ndarray, want: np.ndarray) -> dict:
+    """>= 99.9 % exact grey and <= 1 grey (bit-equal passes)."""
+    if got.shape != want.shape:
+        raise SystemExit(f"{what}: shape {got.shape} vs {want.shape}")
+    exact, worst = agreement(got, want)
+    if exact < 0.999 or worst > 1:
+        raise SystemExit(f"{what}: {exact * 100:.4f}% exact, max {worst:g} "
+                         "grey")
+    return {"exact_fraction": exact, "max_grey_diff": worst}
+
+
+def timed_volume(fn, frames: np.ndarray, dev, reps: int = 2) -> float:
+    """Median wall ms of one volume through ``fn`` (H2D, program, D2H)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn(torch.from_numpy(frames).to(dev))[1].cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def deploy_artifacts(tmp: Path, frames: np.ndarray, card: str, dev) -> dict:
+    """12a: each path's pipeline exported at the full frames shape on the
+    card, saved, loaded back, run on one noise volume: against
+    ``make_pipeline`` on the same net, against the kernel-off program, and
+    its launches per volume."""
+    from vsr_tpu_torch import export
+    from vsr_tpu_torch.infer import make_pipeline
+
+    res = {}
+    x = torch.from_numpy(frames).to(dev)
+    for path in PATHS:
+        net = build_net(path, path.on, dev)
+        mode = path.pipe_kw(T_FRAMES)
+        t0 = time.perf_counter()
+        program, meta = export.export_serving(net, frames.shape, FACTOR,
+                                              **mode)
+        export_s = time.perf_counter() - t0
+        file = tmp / f"{path.key}.pt2.zip"
+        t0 = time.perf_counter()
+        export.save_artifact(file, program, {**meta, "net": path.net})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = export.ExportedServing(file, device=dev)
+        load_s = time.perf_counter() - t0
+        ops = sum(1 for n in program.graph.nodes
+                  if str(n.target) == f"vsr_tpu_torch.{path.kernel}.default")
+        del program
+        pipe = make_pipeline(net, FACTOR, "acdc", **mode)
+        want = pipe(x)[1].cpu().numpy()
+        reset_launches()
+        got = served(frames)[1].cpu().numpy()
+        launches = check_launches(f"{path.key} artifact", path.kernel,
+                                  path.launches_per_volume(FULL_SLICES))
+        check_sr(f"{path.key} artifact", got, frames.shape)
+        vs_pipeline = gate_agreement(f"{path.key} artifact vs make_pipeline",
+                                     got, want)
+        plain_net = build_net(path, path.off, dev)
+        if path.key == "drf":  # exported too, run without a save / load
+            plain_prog, _ = export.export_serving(plain_net, frames.shape,
+                                                  FACTOR, **mode)
+            with torch.inference_mode():
+                plain = plain_prog.module()(x)[1].cpu().numpy()
+            del plain_prog
+        else:
+            plain = make_pipeline(plain_net, FACTOR, "acdc", **mode)(x)[1]
+            plain = plain.cpu().numpy()
+        vs_plain = gate_agreement(f"{path.key} artifact vs the kernel-off "
+                                  "program", got, plain)
+        artifact_ms = timed_volume(served, frames, dev)
+        pipeline_ms = timed_volume(pipe, frames, dev)
+        res[path.key] = {
+            "file_mb": file.stat().st_size / 1e6, "op_nodes": ops,
+            "export_s": export_s, "save_s": save_s, "load_s": load_s,
+            "launches": launches, "vs_pipeline": vs_pipeline,
+            "vs_plain": vs_plain, "artifact_ms": artifact_ms,
+            "pipeline_ms": pipeline_ms, "served": served, "pipe": pipe,
+            "out": got}
+        log(f"  {path.key} artifact ({frames.shape}, {ops} {path.kernel} op "
+            f"nodes, {res[path.key]['file_mb']:.1f} MB): export "
+            f"{export_s:.1f} s, save {save_s:.1f} s, load {load_s:.1f} s; "
+            f"{path.kernel} launches {launches} a volume; vs make_pipeline "
+            f"{vs_pipeline['exact_fraction'] * 100:.4f}% exact; a volume "
+            f"{artifact_ms:.1f} ms (artifact) vs {pipeline_ms:.1f} ms "
+            f"(make_pipeline) [{card}]")
+    return res
+
+
+def latency_stats(lat: list[float]) -> dict:
+    """p50 and the largest of ``n`` request latencies in ms; a p99 only
+    from P99_MIN_REQUESTS requests on, below that it would be the largest
+    sample under another name."""
+    out = {"requests": len(lat), "p50_ms": 1e3 * float(np.percentile(lat, 50)),
+           "max_ms": 1e3 * max(lat)}
+    if len(lat) >= P99_MIN_REQUESTS:
+        out["p99_ms"] = 1e3 * float(np.percentile(lat, 99))
+    return out
+
+
+def deploy_daemon(tmp: Path, arts: dict, vols: list, card: str, dev,
+                  per_client: int = REQUESTS_PER_CLIENT) -> dict:
+    """12b: one daemon per artifact (a geometry routes to one program), each
+    taking the same traffic: CLIENTS threads, each POSTing ``per_client``
+    .npy volumes back to back (closed loop). DRF also takes a NIfTI volume
+    and two concurrent half volumes that share one program call. Every
+    response is held against the artifact called directly; ``/metrics``
+    counts the requests."""
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vsr_tpu_torch import serve
+    from vsr_tpu_torch.infer import load_hr_frames
+    from vsr_tpu_torch.io.nifti import save_nifti
+
+    res = {}
+    for path in PATHS:
+        art = arts[path.key]
+        served = art["served"]
+        drf = path.key == "drf"
+        # The direct calls every response is held against, made before the
+        # counts are reset.
+        direct = [served(v)[1].cpu().numpy() for v in vols]
+        if drf:
+            # A NIfTI volume (int16, 10 slices x 30 frames), answered as
+            # .npy; two half volumes against their solo (padded) calls.
+            nii = tmp / "daemon_in.nii"
+            save_nifti(np.moveaxis(vols[0].reshape(
+                FULL_SLICES, T_FRAMES, HR, HR), (0, 1), (2, 3)).astype(
+                np.int16), nii)
+            frames_nii, geom = load_hr_frames(nii)
+            want_nii = served(frames_nii.astype(np.float32))[1].cpu().numpy()
+            half = [v[:HALF_SLICES * T_FRAMES] for v in vols]
+            want_half = [served(np.concatenate(
+                [h] + [h[-T_FRAMES:]] * (FULL_SLICES - HALF_SLICES)))[1]
+                .cpu().numpy()[:len(h)] for h in half]
+        reset_launches()
+        srv = serve.make_server([served], port=0, warmup=True, device=dev,
+                                batch_wait_ms=BATCH_WAIT_MS)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            bodies = [npy_bytes(v) for v in vols]
+
+            def client(c):
+                out = []
+                for r in range(per_client):
+                    j = (c * per_client + r) % len(vols)
+                    body, sec, _ = post(f"{url}/v1/sr", bodies[j],
+                                        "application/x-npy")
+                    out.append((j, from_npy(body), sec))
+                return out
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(CLIENTS) as ex:
+                done = [o for outs in ex.map(client, range(CLIENTS))
+                        for o in outs]
+            wall = time.perf_counter() - t0
+            held = [gate_agreement(f"{path.key} daemon response", sr,
+                                   direct[j]) for j, sr, _ in done]
+            entry = {"clients": CLIENTS, "wall_s": wall,
+                     **latency_stats([sec for _, _, sec in done]),
+                     "bit_equal_responses": sum(
+                         h["max_grey_diff"] == 0 for h in held),
+                     "min_exact_fraction": min(
+                         h["exact_fraction"] for h in held),
+                     "max_grey_diff": max(h["max_grey_diff"] for h in held),
+                     "volumes_per_s": len(done) / wall,
+                     "direct_volumes_per_s": 1e3 / art["artifact_ms"]}
+            sent = len(done)
+            if drf:
+                body, _, _ = post(f"{url}/v1/sr?format=npy",
+                                  nii.read_bytes(), "application/octet-stream")
+                entry["nifti"] = gate_agreement(
+                    "drf daemon NIfTI response", from_npy(body), want_nii)
+                coalesced = srv.metrics.coalesced_requests
+                with ThreadPoolExecutor(2) as ex:
+                    outs = list(ex.map(lambda h: from_npy(post(
+                        f"{url}/v1/sr", npy_bytes(h), "application/x-npy")[0]),
+                        half))
+                entry["half"] = [gate_agreement(
+                    "drf daemon coalesced half volume vs its solo call", g, w)
+                    for g, w in zip(outs, want_half)]
+                entry["coalesced_half_volumes"] = (
+                    srv.metrics.coalesced_requests - coalesced)
+                entry["nifti_geom"] = list(geom)
+                sent += 3
+            with urllib.request.urlopen(f"{url}/metrics") as resp:
+                text = resp.read().decode()
+            calls = srv.metrics.batch_calls + 1  # + the warm-up call
+            entry.update(program_calls=calls,
+                         batched_calls=srv.metrics.batch_calls,
+                         coalesced_requests=srv.metrics.coalesced_requests)
+            line = f'vsr_requests_total{{endpoint="/v1/sr",status="200"}} {sent}'
+            if line not in text or srv.metrics.volumes != sent:
+                raise SystemExit(f"{path.key} daemon: /metrics does not count "
+                                 f"the {sent} requests")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        entry["launches"] = check_launches(
+            f"{path.key} daemon", path.kernel,
+            path.launches_per_volume(FULL_SLICES) * calls)
+        if drf and entry["coalesced_half_volumes"] < 2:
+            raise SystemExit("drf daemon: the half volumes did not coalesce")
+        res[path.key] = entry
+        p99 = (f"p99 {entry['p99_ms']:.1f} ms, " if "p99_ms" in entry else "")
+        log(f"  {path.key} daemon: {entry['requests']} .npy volumes from "
+            f"{CLIENTS} clients, p50 {entry['p50_ms']:.1f} ms, {p99}max of "
+            f"{entry['requests']} {entry['max_ms']:.1f} ms, "
+            f"{entry['volumes_per_s']:.3f} volumes/s through HTTP vs "
+            f"{entry['direct_volumes_per_s']:.3f} direct; {calls} program "
+            f"calls, {entry['launches']} {path.kernel} launches; "
+            f"{entry['bit_equal_responses']} of {entry['requests']} responses "
+            f"bit-equal to the direct call (min "
+            f"{entry['min_exact_fraction'] * 100:.4f}% exact, max "
+            f"{entry['max_grey_diff']:g} grey) [{card}]")
+    return res
+
+
+def push_all(stream, seq: np.ndarray) -> tuple[dict, list]:
+    """Push the (D, T, H, W) sequence a time point at a time, then flush:
+    SR frames by output index and each push's wall ms (SR copied back)."""
+    out, lat = {}, []
+    for t in range(seq.shape[1]):
+        t0 = time.perf_counter()
+        got = stream.push(seq[:, t])
+        if got is not None:
+            t_out = got[0] if len(got) == 3 else t
+            out[t_out] = got[-1].cpu().numpy()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    for t_out, _lr, sr in stream.flush():
+        out[t_out] = sr.cpu().numpy()
+    return out, lat
+
+
+def deploy_streams(frames: np.ndarray, card: str, dev) -> dict:
+    """12c: the streams at the full geometry, one time point (10 slices) a
+    push, against the batch pipeline of the same volume."""
+    from vsr_tpu_torch.infer import build_serving_net, make_pipeline
+    from vsr_tpu_torch.stream import make_stream
+
+    root = Path(__file__).resolve().parent
+    from vsr_tpu_torch.config import load_config
+
+    vol4d_kw = dict(load_config(root / "configs" / "train"
+                                / f"{VOL4D_CONFIG}.yaml").net.kwargs)
+    seq = frames.reshape(FULL_SLICES, T_FRAMES, HR, HR)
+    x = torch.from_numpy(frames).to(dev)
+    cases = [(path.key, path.net, build_net(path, path.on, dev),
+              path.pipe_kw(T_FRAMES), path.kernel,
+              {"drf": SQUEEZES_PER_STEP * T_FRAMES, "moe": MOE_LAYERS * T_FRAMES,
+               "duf": T_FRAMES}[path.key]) for path in PATHS]
+    cases.append(("vol4d", "Volume4DSRNet", build_serving_net(
+        "Volume4DSRNet", vol4d_kw, device=dev), {"volume": ("4d", T_FRAMES)},
+        None, 0))
+    res = {}
+    for key, net_name, net, mode, kernel, want_launches in cases:
+        _, want = make_pipeline(net, FACTOR, "acdc", **mode)(x)
+        want = want.cpu().numpy().reshape(FULL_SLICES, T_FRAMES, HR, HR)
+        windows = mode["window"][0] if "window" in mode else 0
+        stream = make_stream(net, FACTOR, windows=windows)
+        reset_launches()
+        out, lat = push_all(stream, seq)
+        launches = check_launches(f"{key} stream", kernel or "concat_conv1x1",
+                                  want_launches)
+        if sorted(out) != list(range(T_FRAMES)):
+            raise SystemExit(f"{key} stream: outputs {sorted(out)}")
+        got = np.stack([out[t] for t in range(T_FRAMES)], axis=1)
+        res[key] = dict(gate_agreement(f"{key} stream vs its batch pipeline",
+                                       got, want),
+                        family=type(stream).__name__, launches=launches,
+                        median_push_ms=statistics.median(lat),
+                        max_push_ms=max(lat))
+        log(f"  {key} {type(stream).__name__}: {T_FRAMES} pushes of "
+            f"({FULL_SLICES}, {HR}, {HR}), median push {res[key]['median_push_ms']:.2f}"
+            f" ms (max {res[key]['max_push_ms']:.1f}), vs the batch pipeline "
+            f"{res[key]['exact_fraction'] * 100:.4f}% exact, max "
+            f"{res[key]['max_grey_diff']:g} grey, {kernel or 'no kernel'} "
+            f"launches {launches} [{card}]")
+    return res
+
+
+def deploy_checkpoint(tmp: Path, served7: dict, card: str, dev) -> dict:
+    """12d: the daemon's live backend serves phase 7's DRF checkpoint (the
+    one ``infer --checkpoint`` served there) on its NIfTI volume: equal to
+    phase 7's served output."""
+    import threading
+
+    from vsr_tpu_torch import serve
+    from vsr_tpu_torch.io.nifti import load_nifti
+
+    reset_launches()
+    live = serve.LivePipeline(
+        net_name="DRFNet", net_kwargs=served7["net_kwargs"],
+        checkpoint=served7["ckpt"], frames_shape=(T_FRAMES, HR, HR),
+        factor=FACTOR, video_t=T_FRAMES, device=dev)
+    srv = serve.make_server([], port=0, warmup=True, live=[live], device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body, sec, headers = post(
+            f"http://127.0.0.1:{srv.server_address[1]}/v1/sr",
+            Path(served7["nifti"]).read_bytes(), "application/octet-stream")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    launches = check_launches("checkpoint daemon", "concat_conv1x1",
+                              2 * SQUEEZES_PER_STEP * T_FRAMES)
+    out = tmp / "checkpoint_daemon_sr.nii.gz"
+    out.write_bytes(body)
+    got = load_nifti(out)
+    res = dict(gate_agreement("the daemon's live checkpoint pipeline vs "
+                              "phase 7's infer --checkpoint", got,
+                              served7["sr"]),
+               launches=launches, request_ms=sec * 1e3,
+               content_type=headers.get("Content-Type"))
+    log(f"  live DRF pipeline on phase 7's checkpoint over HTTP (NIfTI in, "
+        f".nii.gz out): vs phase 7's infer --checkpoint output "
+        f"{res['exact_fraction'] * 100:.4f}% exact, max "
+        f"{res['max_grey_diff']:g} grey; {launches} K1 launches (warm-up + "
+        f"request) [{card}]")
+    return res
+
+
+def trace_artifact_vs_pipeline(arts: dict, frames: np.ndarray, card: str,
+                               dev, key: str = "drf") -> dict:
+    """One volume through a path's loaded artifact and through
+    ``make_pipeline`` on the same net, each traced once after 3 unprofiled
+    runs: wall, device busy ms, device kernels, host ATen operators
+    dispatched, and the device kernels and host operators whose totals
+    differ most between the two."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.from_numpy(frames).to(dev)
+    res, kernels, host_ops = {}, {}, {}
+    for name, fn in (("artifact", arts[key]["served"]),
+                     ("make_pipeline", arts[key]["pipe"])):
+        def once():
+            fn(x)[1].cpu()
+            torch.cuda.synchronize(dev)
+
+        once()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            once()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            once()
+        rows = device_rows(prof)
+        host = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU
+                and e.key.startswith(("aten::", "vsr_tpu_torch::"))]
+        kernels[name] = {k: (ms, c) for k, ms, c in rows}
+        host_ops[name] = {e.key: (e.self_cpu_time_total / 1e3, e.count)
+                          for e in host}
+        res[name] = {"wall_ms": statistics.median(walls),
+                     "busy_ms": sum(r[1] for r in rows),
+                     "kernels": sum(r[2] for r in rows),
+                     "host_ops": sum(e.count for e in host),
+                     "host_self_ms": sum(e.self_cpu_time_total
+                                         for e in host) / 1e3}
+        log(f"  {key} {name}: wall {res[name]['wall_ms']:.1f} ms, busy "
+            f"{res[name]['busy_ms']:.1f} ms, {res[name]['kernels']} kernels, "
+            f"{res[name]['host_ops']} host ATen ops ({res[name]['host_self_ms']:.1f}"
+            f" ms self) [{card}]")
+
+    def diff(table, n=8):
+        a, b = table["artifact"], table["make_pipeline"]
+        rows = [(k, a.get(k, (0, 0))[0] - b.get(k, (0, 0))[0],
+                 a.get(k, (0, 0))[1], b.get(k, (0, 0))[1]) for k in {*a, *b}]
+        rows.sort(key=lambda r: -abs(r[1]))
+        return [{"name": k[:100], "ms_diff": d, "calls_artifact": ca,
+                 "calls_pipeline": cp} for k, d, ca, cp in rows[:n]]
+
+    res["kernel_diff"] = diff(kernels)
+    res["host_op_diff"] = diff(host_ops)
+    for what in ("kernel_diff", "host_op_diff"):
+        log(f"  {key} artifact - make_pipeline, {what}:")
+        for r in res[what]:
+            log(f"    {r['ms_diff']:+9.2f} ms {r['calls_artifact']:6d} vs "
+                f"{r['calls_pipeline']:6d} x {r['name'][:80]}")
+    return res
+
+
+def phase_latency(tmp: Path, card: str, dev, per_client: int) -> dict:
+    """``--latency``: phase 12a's artifacts, then each daemon under CLIENTS
+    closed-loop clients of ``per_client`` requests each (enough for a p99),
+    and the DRF artifact traced against ``make_pipeline``."""
+    frames = as_frames(make_volume(40, FULL_SLICES))
+    vols = [frames, as_frames(make_volume(41, FULL_SLICES))]
+    log("latency: artifacts (torch.export at the full frames shape)")
+    arts = deploy_artifacts(tmp, frames, card, dev)
+    log(f"latency: the HTTP daemons, {CLIENTS} clients x {per_client} "
+        "requests")
+    res = {"daemon": deploy_daemon(tmp, arts, vols, card, dev,
+                                   per_client=per_client)}
+    log("latency: the DRF artifact against make_pipeline, traced")
+    res["trace"] = trace_artifact_vs_pipeline(arts, frames, card, dev)
+    res["artifacts"] = {k: {n: v for n, v in a.items()
+                            if n not in ("served", "pipe", "out")}
+                        for k, a in arts.items()}
+    return res
+
+
+def phase_deployment(tmp: Path, card: str, dev, served7: dict) -> dict:
+    """Phase 12: the serving deployment (artifacts, daemon, streams, the
+    checkpoint's live pipeline), K1, K2 and K3 through each."""
+    frames = as_frames(make_volume(40, FULL_SLICES))
+    vols = [frames, as_frames(make_volume(41, FULL_SLICES))]
+    res = {}
+    log("phase 12a: artifacts (torch.export at the full frames shape)")
+    arts = deploy_artifacts(tmp, frames, card, dev)
+    log("phase 12b: the HTTP daemon")
+    res["daemon"] = deploy_daemon(tmp, arts, vols, card, dev)
+    res["artifacts"] = {k: {n: v for n, v in a.items()
+                            if n not in ("served", "pipe", "out")}
+                        for k, a in arts.items()}
+    del arts
+    log("phase 12c: streams")
+    res["streams"] = deploy_streams(frames, card, dev)
+    log("phase 12d: the checkpoint through the daemon's live backend")
+    res["checkpoint"] = deploy_checkpoint(tmp, served7, card, dev)
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="",
@@ -2970,6 +3516,11 @@ def main() -> int:
                         help="add a torch.profiler trace of one full volume "
                              "per serving path and of 6 train steps per "
                              "training path")
+    parser.add_argument("--latency", type=int, default=0, metavar="N",
+                        help="only build, export the three artifacts and "
+                             f"drive each daemon with {CLIENTS} clients x N "
+                             "requests (a p99 from 100 requests on), and "
+                             "trace the DRF artifact against make_pipeline")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3001,6 +3552,20 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.latency:
+        with tempfile.TemporaryDirectory() as tmp:
+            results = {"card": smi, "latency": phase_latency(
+                Path(tmp), card, dev, args.latency)}
+        results["seconds"] = time.perf_counter() - started
+        log(f"  chip_smoke --latency took {results['seconds']:.1f} s [{card}]")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(results, indent=1))
+        print(json.dumps({"latency": {k: {n: e[n] for n in (
+            "requests", "p50_ms", "p99_ms", "max_ms", "volumes_per_s",
+            "direct_volumes_per_s") if n in e}
+            for k, e in results["latency"]["daemon"].items()}}), flush=True)
+        return 0
     log("phase 3: kernel vs twin")
     k1 = phase_kernel_squeeze(dev)
     k3 = phase_kernel_rank(dev)
@@ -3015,6 +3580,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         training = phase_training(Path(tmp), card, dev)
         tree = training.pop("sequences")
+        served7 = training.pop("served_checkpoint")
         log("phase 9: the MISR and FRVSR training paths, DUF and MoE "
             "training")
         sliced = phase_slice_training(Path(tmp), tree, card, dev)
@@ -3030,19 +3596,29 @@ def main() -> int:
         device = phase_device_epochs(Path(tmp), card, dev)
         device["seconds"] = time.perf_counter() - t0
         log(f"  phase 11 took {device['seconds']:.1f} s")
+        log("phase 12: the serving deployment (exported artifacts, the HTTP "
+            "daemon, online streams, the checkpoint's live pipeline), K1, K2 "
+            "and K3 through each")
+        t0 = time.perf_counter()
+        deploy = phase_deployment(Path(tmp), card, dev, served7)
+        deploy["seconds"] = time.perf_counter() - t0
+        log(f"  phase 12 took {deploy['seconds']:.1f} s")
         results = {"card": smi, "build_seconds": build_s,
                    "kernel": {"concat_conv1x1": k1,
                               "concat_conv1x1_backward": k1_bwd,
                               "pairwise_rank": k3, "duf_dynamic_filter": k2},
                    "paths": paths, "card_vs_cpu": cpu_ref,
                    "training": training, "slice_training": sliced,
-                   "volumes": volumes, "device_epochs": device}
+                   "volumes": volumes, "device_epochs": device,
+                   "deployment": deploy}
         if args.profile:
             log("phase 8: torch.profiler traces")
             results["profile"] = phase_profile(dev)
             results["profile_training"] = phase_profile_training(
                 Path(tmp), dev)
             results["profile_volumes"] = phase_profile_volumes(dev)
+            results["profile_determinism"] = phase_profile_determinism(
+                dev, card)
             results["profile_training_volumes"] = phase_profile_training(
                 Path(tmp), dev, [(f"vol_{key}", name, {}) for key, (name, _, _)
                                  in VOL_RUNS.items()],
@@ -3057,6 +3633,13 @@ def main() -> int:
 
     def launches(key):
         return paths[key]["cli"]["runs"]["on"]["launches"]
+
+    def routes(key):
+        """A path's launches through phase 12's routes: its artifact (one
+        volume), its daemon (warm-up + requests), its stream (30 pushes)."""
+        return {"export_launches": deploy["artifacts"][key]["launches"],
+                "serve_launches": deploy["daemon"][key]["launches"],
+                "stream_launches": deploy["streams"][key]["launches"]}
 
     print(json.dumps({"kernels": [{
         # Per DRFNet frame step: its 12 squeezes at N = 10 slices. The twin
@@ -3106,6 +3689,9 @@ def main() -> int:
             training["srfb"]["fused"]["backward_launches"],
         "srfb_test_launches": training["test"]["srfb"]["launches"],
         "vsr_test_launches": training["test"]["vsr"]["launches"],
+        **routes("drf"),
+        # Phase 7's checkpoint through the daemon's live backend.
+        "live_checkpoint_launches": deploy["checkpoint"]["launches"],
         "max_abs_err": k1["f32_max_abs_err"],
         "ms": per_step["f32_ms"], "plain_ms": per_step["f32_plain_ms"],
         "bound_ms": per_step["f32_bound_ms"],
@@ -3133,6 +3719,8 @@ def main() -> int:
         "launches": training["vsr"]["fused"]["backward_launches"],
         "srfb_launches": training["srfb"]["fused"]["backward_launches"],
         "device_launches": device["k1_on"]["k1_launches"]["dw"],
+        # Serving has no backward: phase 12 gates these at 0.
+        "export_launches": 0, "serve_launches": 0, "stream_launches": 0,
         "max_abs_err": k1_bwd["dw_max_abs_err"],
         "ms": k1_bwd["per_step"]["dw_ms"],
         "plain_ms": k1_bwd["per_step"]["dw_plain_ms"],
@@ -3151,6 +3739,7 @@ def main() -> int:
         # checkpoint through AcdcMISRPredictor.
         "train_launches": sliced["duf"]["launches"],
         "test_launches": sliced["duf"]["test"]["launches"],
+        **routes("duf"),
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -3166,6 +3755,7 @@ def main() -> int:
         "train_launches": sliced["moe"]["rank_pallas"]["launches"],
         "train_launches_per_step":
             sliced["moe"]["rank_pallas"]["launches_per_train_step"],
+        **routes("moe"),
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],

@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+# Imported by its own name (pytest puts tests/ on sys.path): an installed
+# ``tests`` package would shadow ``tests._torch_cases``.
+from _torch_cases import run_cases, subdir
 from vsr_tpu_torch.ops import duf_filter as df
 from vsr_tpu_torch.ops import fused_squeeze as fs
 from vsr_tpu_torch.ops import rank as rk
@@ -729,3 +732,136 @@ def test_volume4d_remat_on_the_card_keeps_the_gradients(rng, dev):
     scale = max(g.abs().max().item() for g in grads[0].values())
     for name, g in grads[0].items():
         assert (grads[1][name] - g).abs().max().item() <= 1e-6 * scale, name
+
+
+# ------------------------------------------- serving routes: ops, artifact,
+# daemon, stream
+
+
+def _case_custom_ops_launch_their_kernels(rng, dev):
+    """The ops a traced program calls: on CUDA tensors each launches its
+    kernel (counted on the wrapper) and matches the twin."""
+    xs, w, b = _operands(rng, dev, (64, 64), 64)
+    alpha = torch.tensor([0.2], device=dev)
+    x = torch.from_numpy(rng.standard_normal((3, 12, 16)).astype(
+        np.float32)).to(dev)
+    logits = torch.from_numpy(rng.standard_normal((3, 25 * 4, 12, 16)).astype(
+        np.float32)).to(dev)
+    af = torch.from_numpy(rng.random((6, 256)).astype(np.float32)).to(dev)
+    before = (fs.concat_conv1x1.launches, df.duf_dynamic_filter.launches,
+              rk.pairwise_rank.launches)
+    ops = torch.ops.vsr_tpu_torch
+    with torch.inference_mode():
+        k1 = ops.concat_conv1x1(xs, w, b, alpha)
+        k2 = ops.duf_dynamic_filter(x, logits, 5, 2)
+        k3 = ops.pairwise_rank(af)
+    torch.cuda.synchronize()
+    assert (fs.concat_conv1x1.launches, df.duf_dynamic_filter.launches,
+            rk.pairwise_rank.launches) == tuple(n + 1 for n in before)
+    torch.testing.assert_close(
+        k1, fs.concat_conv1x1_reference(xs, w, b, alpha), rtol=1e-4,
+        atol=1e-4)
+    torch.testing.assert_close(
+        k2, df.duf_dynamic_filter_reference(x, logits, 5, 2), rtol=0,
+        atol=1e-4)
+    assert torch.equal(k3, rk.pairwise_rank_reference(af))
+
+
+_DRF_KW = dict(in_channels=1, out_channels=1, num_features=16, num_groups=2,
+               upscale_factor=2, fused_squeeze=True, fused_tail=True)
+
+
+def _drf_artifact(tmp_path, dev, t=3, d=2, side=48):
+    from vsr_tpu_torch import export
+    from vsr_tpu_torch.infer import build_serving_net
+
+    net = build_serving_net("DRFNet", _DRF_KW, device=dev)
+    program, meta = export.export_serving(net, (d * t, side, side), 2,
+                                          video_t=t)
+    path = tmp_path / "drf.pt2.zip"
+    export.save_artifact(path, program, {**meta, "net": "DRFNet"})
+    return net, path
+
+
+def _case_artifact_traced_on_the_card_launches_k1(rng, dev, tmp_path):
+    from vsr_tpu_torch import export
+    from vsr_tpu_torch.infer import make_pipeline
+
+    net, path = _drf_artifact(tmp_path, dev)
+    with pytest.raises(ValueError, match="traced for device 'cuda'"):
+        export.ExportedServing(path, device="cpu")
+    served = export.ExportedServing(path, device=dev)
+    assert served.meta["device"] == "cuda"
+    frames = np.round(rng.random((6, 48, 48)) * 255).astype(np.float32)
+    before = fs.concat_conv1x1.launches
+    _, sr = served(frames)
+    torch.cuda.synchronize()
+    assert fs.concat_conv1x1.launches - before == 3 * 4  # T x squeezes
+    _, want = make_pipeline(net, 2, "acdc", video_t=3)(
+        torch.from_numpy(frames).to(dev))
+    diff = (sr - want).abs()
+    assert (diff == 0).float().mean().item() >= 0.999
+    assert diff.max().item() <= 1.0
+
+
+def _case_daemon_round_trip_on_the_card(rng, dev, tmp_path):
+    import io
+    import threading
+    import urllib.request
+
+    from vsr_tpu_torch import export
+    from vsr_tpu_torch.serve import make_server
+
+    _, path = _drf_artifact(tmp_path, dev)
+    srv = make_server([path], port=0, warmup=True, device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        frames = np.round(rng.random((6, 48, 48)) * 255).astype(np.float32)
+        buf = io.BytesIO()
+        np.save(buf, frames)
+        before = fs.concat_conv1x1.launches
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/v1/sr",
+            data=buf.getvalue(), headers={"Content-Type": "application/x-npy"})
+        with urllib.request.urlopen(req) as resp:
+            got = np.load(io.BytesIO(resp.read()))
+        assert fs.concat_conv1x1.launches - before == 12
+        want = export.ExportedServing(path, device=dev)(frames)[1]
+        np.testing.assert_array_equal(got, want.cpu().numpy())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def _case_stream_on_the_card_launches_k1(rng, dev):
+    from vsr_tpu_torch.infer import build_serving_net, make_pipeline
+    from vsr_tpu_torch.stream import make_stream
+
+    net = build_serving_net("DRFNet", _DRF_KW, device=dev)
+    hr = np.round(rng.random((2, 3, 48, 48)) * 255).astype(np.float32)
+    stream = make_stream(net, factor=2)
+    before = fs.concat_conv1x1.launches
+    outs = [stream.push(hr[:, t])[1] for t in range(3)]
+    torch.cuda.synchronize()
+    assert fs.concat_conv1x1.launches - before == 3 * 4
+    got = torch.stack(outs, dim=1).reshape(6, 48, 48)
+    _, want = make_pipeline(net, 2, "acdc", video_t=3)(
+        torch.from_numpy(hr.reshape(6, 48, 48)).to(dev))
+    diff = (got - want).abs()
+    assert (diff == 0).float().mean().item() >= 0.999
+    assert diff.max().item() <= 1.0
+
+
+def test_serving_routes_launch_their_kernels_on_the_card(rng, dev, tmp_path):
+    """One test for the four cases, every case run and each failure named
+    (see tests/test_torch_serve.py for why): the ops, an artifact traced on
+    the card, a daemon round trip, a stream."""
+    run_cases([
+        ("_case_custom_ops_launch_their_kernels",
+         lambda: _case_custom_ops_launch_their_kernels(rng, dev)),
+        *[(c.__name__, lambda c=c: c(rng, dev, subdir(tmp_path, c.__name__)))
+          for c in (_case_artifact_traced_on_the_card_launches_k1,
+                    _case_daemon_round_trip_on_the_card)],
+        ("_case_stream_on_the_card_launches_k1",
+         lambda: _case_stream_on_the_card_launches_k1(rng, dev))])

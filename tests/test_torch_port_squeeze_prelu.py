@@ -175,9 +175,19 @@ def test_requires_grad_refusal_covers_the_prelu_weight(monkeypatch):
                                     ar).sum().backward()
         want = wr.grad if grad_on == "weight" else ar.grad
         torch.testing.assert_close(plain(leaf.grad), want, rtol=1e-5, atol=1e-5)
+    # Serving reaches the kernel through the custom op, whose CUDA kernel
+    # is called here as the dispatcher calls it for a CUDA tensor.
     launched.clear()
+    handed = []
+
+    def op(xs_, w_, b_, alpha_):
+        handed.append(alpha_ is alpha)
+        return fs._concat_conv1x1_cuda(xs_, w_, b_, alpha_)
+
+    monkeypatch.setattr(torch.ops.vsr_tpu_torch, "concat_conv1x1", op)
     with torch.no_grad():
         fs.concat_conv1x1(xs, w, b, alpha)
+    assert handed == [True]
     assert launched == [("launches", True)]  # serving keeps the epilogue
 
 

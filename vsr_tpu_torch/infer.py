@@ -30,8 +30,10 @@ Usage:
       "num_features":32,"num_resblocks":4,"upscale_factor":2}'
 
 Weights come from ``--checkpoint`` (a checkpoint of the port's own trainer,
-``vsr_tpu_torch/utils/checkpoint.py``) or, without it, from a seeded init
-(generator seed 0). A flax msgpack checkpoint of ``vsr_tpu`` is refused.
+``vsr_tpu_torch/utils/checkpoint.py``, or a flax msgpack checkpoint of
+``vsr_tpu``) or, without it, from a seeded init (generator seed 0):
+:func:`build_serving_net`, which the export CLI, the serving daemon and the
+streams share.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ from vsr_tpu_torch.preprocess.intensity import (center_crop_multiple,
                                                 clip_outliers_minmax)
 from vsr_tpu_torch.preprocess.kspace import kspace_downscale_torch
 from vsr_tpu_torch.registry import build, get_class
-from vsr_tpu_torch.utils.checkpoint import load_checkpoint
+from vsr_tpu_torch.utils.checkpoint import load_net_weights
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
 
 # JAX CLI flags this port does not serve yet: dest -> flag.
@@ -90,6 +92,45 @@ def resolve_volume(net_name: str, *, video: bool = False, windows: int = 0,
         raise exc(f"frames dim {n_frames} is not a multiple of the "
                   f"per-slice T {seq_t} (volume mode regroups N = D*T)")
     return (vmode, seq_t)
+
+
+def build_serving_net(net_name: str, net_kwargs: dict, checkpoint: str = "",
+                      *, device: torch.device | str = "cuda",
+                      ema: bool = False) -> torch.nn.Module:
+    """Registry-build a net for serving, in eval mode on ``device``: seeded
+    init (generator seed 0) and, with ``checkpoint``, the weights of a
+    checkpoint of the port or of ``vsr_tpu`` (``load_net_weights``). The
+    block behind the infer CLI, ``export``, the daemon's live pipelines and
+    its stream sessions (``vsr_tpu.infer.build_serving_net``).
+
+    The JAX package passes ``train=False`` to the BatchNorm nets
+    (``TRAIN_FLAG_NETS``); here every serving net is in eval mode, which
+    serves BatchNorm from its running statistics. ``ema`` (serving the
+    EMA twin an EMA-tracking trainer keeps) is refused: the port's trainers
+    track no EMA yet."""
+    if ema:
+        raise ValueError("--ema is not yet ported to vsr_tpu_torch (its "
+                         "trainers track no parameter EMA)")
+    net = build("net", {"name": net_name, "kwargs": dict(net_kwargs)},
+                device=device, generator=torch.Generator().manual_seed(0))
+    if checkpoint:
+        load_net_weights(net, checkpoint, map_location=device)
+        logging.info(f'Loaded the weights of "{checkpoint}".')
+    return net.eval()
+
+
+def net_device(net: torch.nn.Module) -> torch.device:
+    """Where the net's parameters live (the CPU for a net without any)."""
+    param = next(net.parameters(), None)
+    return param.device if param is not None else torch.device("cpu")
+
+
+def denormalize(sr: torch.Tensor, dataset: str) -> torch.Tensor:
+    """Net output ``(N, C, H, W)`` -> float32 ``(N, H, W)`` of channel 0,
+    denormalized, rounded and clipped to [0, 255]."""
+    mean, std = DATASET_STATS[dataset]
+    sr = sr[:, 0].float()
+    return torch.clamp(torch.round(sr * std + mean), 0.0, 255.0)
 
 
 def make_prep(factor: int, dataset: str, video_t: int = 0,
@@ -175,7 +216,6 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
                          f"{window[2]!r}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mean, std = DATASET_STATS[dataset]
     prep = make_prep(factor, dataset, video_t, window, volume)
     net.eval()
 
@@ -217,10 +257,24 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
                 sr = sr[0]
             sr = sr.permute(2, 0, 1, 3, 4).reshape(-1, *sr.shape[1:2],
                                                    *sr.shape[3:])
-        sr = sr[:, 0].float()
-        return lr, torch.clamp(torch.round(sr * std + mean), 0.0, 255.0)
+        return lr, denormalize(sr, dataset)
 
     return pipeline
+
+
+def load_hr_frames(path: Path) -> tuple[np.ndarray, tuple[int, int, int, int]]:
+    """One NIfTI volume -> (frames (d*t, h, w), (h, w, d, t)) with the
+    serving preprocessing: outlier clip, center crop to a multiple of 12, a
+    3D volume as one frame per slice. The frames are contiguous, of the
+    volume's type after the clip."""
+    data = clip_outliers_minmax(load_nifti(path))
+    if data.ndim == 3:
+        data = data[..., None]  # (H, W, D) -> single-frame
+    h0, hn, w0, wn = center_crop_multiple(data.shape[:2])
+    data = data[h0:hn, w0:wn]  # (H, W, D, T)
+    h, w, d, t = data.shape
+    frames = np.moveaxis(data.reshape(h, w, d * t), -1, 0)  # (D*T, H, W)
+    return np.ascontiguousarray(frames), (h, w, d, t)
 
 
 def run(args) -> dict:
@@ -253,15 +307,11 @@ def run(args) -> dict:
         net_kwargs["dtype"] = torch.bfloat16
     if args.fused_tail:
         net_kwargs["fused_tail"] = True
-    net = build("net", {"name": args.net, "kwargs": net_kwargs},
-                device=device, generator=torch.Generator().manual_seed(0))
-    if args.checkpoint:
-        try:
-            state, _ = load_checkpoint(args.checkpoint, map_location=device)
-        except ValueError as err:  # a flax msgpack file, or another one
-            raise SystemExit(f"--checkpoint: {err}") from err
-        net.load_state_dict(state["net"], strict=True)
-        logging.info(f'Loaded the weights of "{args.checkpoint}".')
+    try:
+        net = build_serving_net(args.net, net_kwargs, args.checkpoint,
+                                device=device)
+    except ValueError as err:  # a file that is no checkpoint of either kind
+        raise SystemExit(f"--checkpoint: {err}") from err
 
     paths = sorted(Path(args.input_dir).glob("**/*.nii*"))
     if not paths:
@@ -273,13 +323,7 @@ def run(args) -> dict:
     psnr_rows: list[tuple[str, float]] = []
     start = time.perf_counter()
     for path in paths:
-        data = clip_outliers_minmax(load_nifti(path))
-        if data.ndim == 3:
-            data = data[..., None]  # (H, W, D) -> single-frame
-        h0, hn, w0, wn = center_crop_multiple(data.shape[:2])
-        data = data[h0:hn, w0:wn]  # (H, W, D, T)
-        h, w, d, t = data.shape
-        frames = np.moveaxis(data.reshape(h, w, d * t), -1, 0)  # (D*T, H, W)
+        frames, (h, w, d, t) = load_hr_frames(path)
 
         volume = resolve_volume(args.net, seq_t=t, chunk=args.chunk,
                                 n_frames=len(frames), exc=SystemExit)
@@ -292,8 +336,7 @@ def run(args) -> dict:
                         if mode == "window" else None),
                 volume=volume, chunk=args.chunk)
         t0 = time.perf_counter()
-        lr, sr = pipelines[key](
-            torch.from_numpy(np.ascontiguousarray(frames)).to(device))
+        lr, sr = pipelines[key](torch.from_numpy(frames).to(device))
         sr_np = sr.cpu().numpy()  # waits for the device
         pipeline_seconds += time.perf_counter() - t0
         n_frames += d * t
@@ -355,8 +398,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         help="torch device to serve on (cuda, cuda:1, cpu)")
     parser.add_argument("--checkpoint", default="",
                         help="a checkpoint written by the port's trainer "
-                             "(model_N.ckpt, model_best.ckpt); a flax "
-                             "msgpack checkpoint is refused")
+                             "(model_N.ckpt, model_best.ckpt) or by "
+                             "vsr_tpu's (a flax msgpack file)")
     parser.add_argument("--int8", action="store_true", help="not yet ported")
     parser.add_argument("--w8a8", action="store_true", help="not yet ported")
     parser.add_argument("--mesh", default="", help="not yet ported")

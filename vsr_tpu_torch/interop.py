@@ -369,9 +369,18 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> dict[tuple[str, ...], Any]:
     return flat
 
 
+def _as_f32(leaf: Any) -> np.ndarray:
+    """A leaf as float32 numpy: a numpy array, or a ``torch.bfloat16``
+    tensor (how ``utils/msgpack.py`` reads a bfloat16 leaf)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.float().numpy()
+    return np.asarray(leaf, dtype=np.float32)
+
+
 def load_jax_params(net: nn.Module, variables: Mapping[str, Any]) -> None:
     """Fill ``net``'s parameters and buffers from a flax variables tree
-    (strict)."""
+    (strict). Leaves are numpy arrays or, for bfloat16 ones, torch
+    tensors."""
     extra = sorted(set(variables) - {"params", "batch_stats"})
     if "params" not in variables or extra:
         raise ValueError(f"expected the 'params' collection (and "
@@ -394,7 +403,7 @@ def load_jax_params(net: nn.Module, variables: Mapping[str, Any]) -> None:
                          f"one-to-one: unfilled {unfilled}")
     with torch.no_grad():
         for path, tensor, transform in slots:
-            value = transform(np.asarray(leaves[path], dtype=np.float32))
+            value = transform(_as_f32(leaves[path]))
             if tuple(value.shape) != tuple(tensor.shape):
                 raise ValueError(f"{'/'.join(path)}: flax shape "
                                  f"{value.shape} vs port {tuple(tensor.shape)}")

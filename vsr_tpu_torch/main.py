@@ -10,7 +10,7 @@ resolves to ``torch.nn`` (``losses.py``).
 The net trains on ``trainer.kwargs.device`` of the config and is tested on
 ``predictor.kwargs.device`` (default ``cuda`` for both); ``--device``
 overrides it. ``--test`` loads ``main.loaded_path``, a checkpoint that the
-port's trainer wrote (a flax msgpack file is refused), and writes
+port's trainer or ``vsr_tpu``'s wrote (a flax msgpack file), and writes
 ``results.csv``, PNGs and GIFs under ``predictor.kwargs.saved_dir``.
 ``main.distributed`` is not ported yet and raises.
 """

@@ -126,6 +126,7 @@ class DRFNet(nn.Module):
                 "carry_f32 does not compose with fused_squeeze (the fused "
                 "concat-matmul kernel emits the compute dtype)")
         self.dtype = resolve_dtype(dtype)
+        self.upscale_factor = upscale_factor
         self.carry_f32 = check_carry_f32(carry_f32, self.dtype, num_experts)
         for name, value in (("remat", remat), ("subpixel_deconv", subpixel_deconv),
                             ("num_experts>0", num_experts)):

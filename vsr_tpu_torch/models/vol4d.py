@@ -97,6 +97,7 @@ class Volume4DSRNet(nn.Module):
                 "knob; the port's frame loop is a Python loop (unroll 1)")
         self.remat = remat
         self.hoist_tail = hoist_tail
+        self.upscale_factor = upscale_factor
         self.head = Conv3D(in_channels, num_features, generator=generator)
         self.step = _Vol4DStep(num_features, num_resblocks, out_channels,
                                upscale_factor, res_scale, fused_tail,

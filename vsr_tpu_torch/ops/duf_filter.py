@@ -19,6 +19,11 @@ coalesce along it, and no transpose is paid. One channel only (``x`` is
 
 Inputs are cast to float32 and the result is float32, as in the JAX
 wrapper. Serving only: a CUDA call that would need gradients is refused.
+
+Where no gradient is recorded the call goes through the custom op
+``torch.ops.vsr_tpu_torch.duf_dynamic_filter`` (CPU: the twin, CUDA: the
+kernel, fake: the output's shape), so ``torch.export`` records the op and a
+loaded program launches the kernel and counts it on the wrapper.
 """
 
 from __future__ import annotations
@@ -70,16 +75,34 @@ def duf_dynamic_filter(x: torch.Tensor, logits: torch.Tensor, size: int,
     *pre-softmax*, channel ``= tap * upscale^2 + s``. Returns float32
     ``(N, H*upscale, W*upscale)``: softmax + filtering + pixel shuffle.
     ``duf_dynamic_filter.launches`` counts the kernel's launches."""
-    n, h, w = _check(x, logits, size, upscale)
+    _check(x, logits, size, upscale)
     device = x.device
-    if device.type == "cpu":
-        return duf_dynamic_filter_reference(x, logits, size, upscale)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"duf_dynamic_filter runs on cpu or cuda, not {device}")
     if torch.is_grad_enabled() and (x.requires_grad or logits.requires_grad):
+        if device.type == "cpu":
+            return duf_dynamic_filter_reference(x, logits, size, upscale)
         raise RuntimeError(
             "duf_dynamic_filter's CUDA kernel has no backward: call it under "
             "torch.no_grad() / torch.inference_mode() (serving only)")
+    return torch.ops.vsr_tpu_torch.duf_dynamic_filter(x, logits, size, upscale)
+
+
+duf_dynamic_filter.launches = 0
+
+
+@torch.library.custom_op("vsr_tpu_torch::duf_dynamic_filter", mutates_args=(),
+                         device_types="cpu")
+def _duf_dynamic_filter_op(x: torch.Tensor, logits: torch.Tensor, size: int,
+                           upscale: int) -> torch.Tensor:
+    """The op without autograd that serving reaches: the twin on CPU
+    tensors, the kernel on CUDA tensors."""
+    return duf_dynamic_filter_reference(x, logits, size, upscale)
+
+
+@_duf_dynamic_filter_op.register_kernel("cuda")
+def _duf_dynamic_filter_cuda(x, logits, size, upscale):
+    n, h, w = _check(x, logits, size, upscale)
     if n > 65535:
         raise ValueError(f"duf_dynamic_filter takes at most 65535 images, "
                          f"got {n}")
@@ -90,9 +113,9 @@ def duf_dynamic_filter(x: torch.Tensor, logits: torch.Tensor, size: int,
 
     lib = _build.load()
     out = torch.empty((n, h * upscale, w * upscale), dtype=torch.float32,
-                      device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.vsr_duf_filter(xf.data_ptr(), lf.data_ptr(), out.data_ptr(),
                                 n, h, w, size, upscale, stream)
     if rc != 0:
@@ -102,4 +125,7 @@ def duf_dynamic_filter(x: torch.Tensor, logits: torch.Tensor, size: int,
     return out
 
 
-duf_dynamic_filter.launches = 0
+@_duf_dynamic_filter_op.register_fake
+def _duf_dynamic_filter_fake(x, logits, size, upscale):
+    n, h, w = x.shape
+    return x.new_empty((n, h * upscale, w * upscale), dtype=torch.float32)

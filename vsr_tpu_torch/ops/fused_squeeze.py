@@ -39,6 +39,12 @@ kernel stands behind this one), on a CPU tensor its plain twin (one matmul
 over the images and pixels of each ``x_i``, and a sum). Saved for the
 backward are the ``x_i`` and ``W``, never a concatenated copy. Under
 ``torch.no_grad()`` serving keeps the fused epilogue bit for bit.
+
+Serving: where no gradient is recorded the call goes through the custom op
+``torch.ops.vsr_tpu_torch.concat_conv1x1`` (its CPU implementation is the
+twin, its CUDA one the kernel, its fake one the output's shape and dtype),
+so ``torch.export`` records the op, not ``torch.cat`` + conv, and a loaded
+program launches the kernel and counts its launches on the wrapper.
 """
 
 from __future__ import annotations
@@ -94,17 +100,18 @@ def concat_conv1x1(xs: Sequence[torch.Tensor], weight: torch.Tensor,
     if not xs:
         raise ValueError("concat_conv1x1 needs at least one input")
     device = xs[0].device
-    if device.type == "cpu":
-        return concat_conv1x1_reference(xs, weight, bias, prelu_weight)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"concat_conv1x1 runs on cpu or cuda, not {device}")
-    _check(xs, weight, bias)
     if prelu_weight is not None:
         _check_prelu_weight(prelu_weight, device)
     if not (torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (*xs, weight, bias, prelu_weight))):
-        return _launch(xs, weight, bias, prelu_weight)
+        return torch.ops.vsr_tpu_torch.concat_conv1x1(xs, weight, bias,
+                                                      prelu_weight)
+    if device.type == "cpu":
+        return concat_conv1x1_reference(xs, weight, bias, prelu_weight)
+    _check(xs, weight, bias)
     out = _ConcatConv1x1.apply(weight, bias, *xs)
     if prelu_weight is None:
         return out
@@ -113,6 +120,31 @@ def concat_conv1x1(xs: Sequence[torch.Tensor], weight: torch.Tensor,
 
 concat_conv1x1.launches = 0
 concat_conv1x1.backward_launches = 0
+
+
+@torch.library.custom_op("vsr_tpu_torch::concat_conv1x1", mutates_args=(),
+                         device_types="cpu")
+def _concat_conv1x1_op(xs: list[torch.Tensor], weight: torch.Tensor,
+                       bias: torch.Tensor, prelu_weight: torch.Tensor | None
+                       ) -> torch.Tensor:
+    """The op without autograd that serving reaches: the twin on CPU
+    tensors, the kernel on CUDA tensors."""
+    return concat_conv1x1_reference(xs, weight, bias, prelu_weight)
+
+
+@_concat_conv1x1_op.register_kernel("cuda")
+def _concat_conv1x1_cuda(xs, weight, bias, prelu_weight):
+    xs = list(xs)
+    _check(xs, weight, bias)
+    if prelu_weight is not None:
+        _check_prelu_weight(prelu_weight, xs[0].device)
+    return _launch(xs, weight, bias, prelu_weight)
+
+
+@_concat_conv1x1_op.register_fake
+def _concat_conv1x1_fake(xs, weight, bias, prelu_weight):
+    n, _, h, w = xs[0].shape
+    return xs[0].new_empty((n, weight.shape[0], h, w))
 
 
 def _launch(xs: list[torch.Tensor], weight: torch.Tensor, bias: torch.Tensor,

@@ -65,6 +65,17 @@ def _fold_index(kernel_size: int, factor: int,
         return torch.tensor(_fold_taps(kernel_size, factor), device=device)
 
 
+def _fold_index_for(weight: torch.Tensor, kernel_size: int,
+                    factor: int) -> torch.Tensor:
+    """The cached index for a plain tensor or parameter; a fresh one for a
+    tensor subclass, which is what ``torch.export`` traces with (its fake
+    tensors: one made then is fake too, a constant of the traced program,
+    and must not be cached)."""
+    if type(weight) in (torch.Tensor, torch.nn.Parameter):
+        return _fold_index(kernel_size, factor, weight.device)
+    return _fold_index.__wrapped__(kernel_size, factor, weight.device)
+
+
 def fuse_conv_through_shuffle(weight: torch.Tensor, bias: torch.Tensor | None,
                               factor: int):
     """Rearrange a (Cout, Cin, k, k) SAME-conv weight that runs AFTER
@@ -74,7 +85,7 @@ def fuse_conv_through_shuffle(weight: torch.Tensor, bias: torch.Tensor | None,
     cout, cin, k, _ = weight.shape
     r = factor
     kq = fused_extent(k, r)
-    idx = _fold_index(k, r, weight.device)
+    idx = _fold_index_for(weight, k, r)
     taps = torch.cat([weight.reshape(cout * cin, k * k),
                       weight.new_zeros(cout * cin, 1)], dim=1)
     folded = taps[:, idx].reshape(cout, cin, r, r, r, r, kq, kq)

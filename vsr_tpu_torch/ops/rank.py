@@ -15,7 +15,10 @@ element counts it. MoE affinities are softmax outputs (>= 0, never NaN), so
 neither case arises where the layer calls this.
 
 The rank is an integer and carries no gradient: callers pass a detached
-tensor.
+tensor. The call goes through the custom op
+``torch.ops.vsr_tpu_torch.pairwise_rank`` (CPU: the twin, CUDA: the kernel,
+fake: the output's shape), so ``torch.export`` records the op and a loaded
+program launches the kernel and counts it on the wrapper.
 """
 
 from __future__ import annotations
@@ -66,18 +69,38 @@ def pairwise_rank(af: torch.Tensor) -> torch.Tensor:
     if af.requires_grad and torch.is_grad_enabled():
         raise RuntimeError("pairwise_rank has no gradient (integer output): "
                            "pass af.detach()")
-    device = af.device
-    if device.type == "cpu":
-        return pairwise_rank_reference(af)
-    if device.type != "cuda":
-        raise ValueError(f"pairwise_rank runs on cpu or cuda, not {device}")
+    if af.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pairwise_rank runs on cpu or cuda, not {af.device}")
+    return torch.ops.vsr_tpu_torch.pairwise_rank(af)
+
+
+pairwise_rank.launches = 0
+
+
+@torch.library.custom_op("vsr_tpu_torch::pairwise_rank", mutates_args=(),
+                         device_types="cpu")
+def _pairwise_rank_op(af: torch.Tensor) -> torch.Tensor:
+    """The op that the wrapper reaches: the twin on CPU tensors, the kernel
+    on CUDA tensors."""
+    return pairwise_rank_reference(af)
+
+
+@_pairwise_rank_op.register_kernel("cuda")
+def _pairwise_rank_cuda(af):
+    if af.dtype != torch.float32 or not af.is_contiguous():
+        raise ValueError("pairwise_rank's kernel takes contiguous float32 "
+                         f"scores, got {af.dtype}")
+    gs = af.shape[-1]
+    if af.numel() == 0 or gs > MAX_GS:
+        raise ValueError(f"pairwise_rank's kernel takes non-empty rows of at "
+                         f"most {MAX_GS} scores, got {tuple(af.shape)}")
 
     from vsr_tpu_torch import _build
 
     lib = _build.load()
-    out = torch.empty(af.shape, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    out = torch.empty(af.shape, dtype=torch.int32, device=af.device)
+    with torch.cuda.device(af.device):
+        stream = torch.cuda.current_stream(af.device).cuda_stream
         rc = lib.vsr_pairwise_rank(af.data_ptr(), out.data_ptr(),
                                    af.numel() // gs, gs, stream)
     if rc != 0:
@@ -87,4 +110,6 @@ def pairwise_rank(af: torch.Tensor) -> torch.Tensor:
     return out
 
 
-pairwise_rank.launches = 0
+@_pairwise_rank_op.register_fake
+def _pairwise_rank_fake(af):
+    return torch.empty_like(af, dtype=torch.int32)

@@ -59,6 +59,17 @@ def _matrix_on(in_size: int, out_size: int, mode: str, align_corners: bool,
                         dtype=torch.float32, device=device)
 
 
+def _matrix_for(x: torch.Tensor, in_size: int, out_size: int, mode: str,
+                align_corners: bool) -> torch.Tensor:
+    """The cached matrix for a plain tensor; a fresh one for a tensor
+    subclass, which is what ``torch.export`` traces with (its fake tensors:
+    one made then is fake too and must not be cached)."""
+    if type(x) in (torch.Tensor, torch.nn.Parameter):
+        return _matrix_on(in_size, out_size, mode, align_corners, x.device)
+    return _matrix_on.__wrapped__(in_size, out_size, mode, align_corners,
+                                  x.device)
+
+
 def _resize(x: torch.Tensor, mode: str, scale, size,
             align_corners: bool) -> torch.Tensor:
     in_h, in_w = x.shape[-2], x.shape[-1]
@@ -68,8 +79,8 @@ def _resize(x: torch.Tensor, mode: str, scale, size,
         out_h, out_w = in_h * scale, in_w * scale
     else:
         raise ValueError("Provide scale or size")
-    r_h = _matrix_on(in_h, out_h, mode, align_corners, x.device)
-    r_w = _matrix_on(in_w, out_w, mode, align_corners, x.device)
+    r_h = _matrix_for(x, in_h, out_h, mode, align_corners)
+    r_w = _matrix_for(x, in_w, out_w, mode, align_corners)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:

@@ -32,7 +32,7 @@ from torch import nn
 from vsr_tpu_torch.callbacks.logger import write_png
 from vsr_tpu_torch.io.nifti import save_nifti
 from vsr_tpu_torch.registry import register
-from vsr_tpu_torch.utils.checkpoint import load_checkpoint
+from vsr_tpu_torch.utils.checkpoint import load_net_weights
 from vsr_tpu_torch.utils.gif import write_gif
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
 
@@ -74,9 +74,8 @@ class BasePredictor:
 
     def load(self, path: str | Path) -> None:
         """Restore the net's parameters only, from a checkpoint of the
-        port's format."""
-        state, _ = load_checkpoint(path, map_location=self.device)
-        self.net.load_state_dict(state["net"], strict=True)
+        port's format or of ``vsr_tpu`` (a flax msgpack file)."""
+        load_net_weights(self.net, path, map_location=self.device)
 
     # --------------------------------------------------------------- hooks
 
