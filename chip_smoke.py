@@ -180,7 +180,28 @@ Phases; any failure exits non-zero and prints no result:
    the same volume, median push latency; (d) phase 7's DRF checkpoint
    through the daemon's live backend (NIfTI in, .nii.gz out) against the
    output ``infer --checkpoint`` served in phase 7;
-13. prints the kernels' JSON line, then the final JSON line.
+13. quantized serving: (a) the W8A8 kernel (``csrc/w8a8_conv.cu``) against
+   its twin at every eligible conv shape of EDSRNet x2 (16 x 64,
+   ``configs/test/acdc_sisr_edsr_x2.yaml``), DRFNet x2 (F=64 G=6) and
+   DUFNet x2 (``--windows 7 --chunk 100``) at full width: the int32
+   accumulators bit-equal, the outputs within 1e-6 of the largest entry
+   (float32) or one bf16 ulp, float32 and bf16, dynamic and static scale, on
+   the first 2 items of each batch; at the full shape the kernel's median
+   time against its bound (bytes at 3.35 TB/s, int8 operations at 1,979
+   TOPS), cuDNN's bf16 conv and unfold + ``torch._int_mm`` (its accumulators
+   equal the kernel's); (b) the pipelines on a 192 x 192 x 10 x 30 volume of
+   phase 7's low-passed sequences with the trained checkpoints of phases 7
+   and 9: EDSRNet f32 and bf16 unquantized, ``--int8``, ``--w8a8`` (lazy)
+   and ``--w8a8-scales``; DRFNet unquantized, ``--int8`` (K1 360 a volume on
+   dequantized weights) and W8A8 with callback-calibrated scales (K1 still
+   360, the k6 s2 convs through the kernel); DUFNet unquantized and
+   ``--w8a8`` (K2 3): frames/s against the unquantized run, weight bytes,
+   launches = calibrated convs x calls, PSNR against the HR volume within
+   0.05 dB (int8) and 0.5 dB (W8A8) of the unquantized run's; (c) W8A8 and
+   int8 artifacts of the EDSR net exported, loaded and run against the live
+   pipelines, and the daemon's live backend with ``--w8a8-scales``
+   answering 2 requests;
+14. prints the kernels' JSON line, then the final JSON line.
 
 ``--profile`` adds one ``torch.profiler`` trace of a full volume per serving
 path (f32, and bf16 for DRFNet; the two volume nets) and of 6 train steps
@@ -189,12 +210,16 @@ by kernel, idle share, K1's own kernels against the PyTorch rest of its
 backward) to the details, and whether the DRF f32 pipeline repeats its bits
 with ``cudnn.deterministic`` off and on, at what cost a volume.
 
+``--quantized`` runs only the build and phase 13 (seeded weights where no
+trained checkpoint exists) and prints a summary line.
+
 ``--latency N`` runs only the build, phase 12a and phase 12b with N
 requests per client (8 N a daemon; a p99 is printed from 100 on), then
 traces one volume through the DRF artifact and through ``make_pipeline``
 (device kernels and host operators, and where their totals differ).
 
-Usage: python3 chip_smoke.py [--out details.json] [--profile | --latency N]
+Usage: python3 chip_smoke.py [--out details.json] [--profile | --latency N |
+                             --quantized]
 """
 
 from __future__ import annotations
@@ -585,11 +610,12 @@ def kernel_counters() -> dict:
     from vsr_tpu_torch.ops.fused_squeeze import (concat_conv1x1,
                                                  concat_conv1x1_dw)
     from vsr_tpu_torch.ops.rank import pairwise_rank
+    from vsr_tpu_torch.ops.w8a8_conv import w8a8_conv
 
     return {"concat_conv1x1": concat_conv1x1,
             "concat_conv1x1_dw": concat_conv1x1_dw,
             "duf_dynamic_filter": duf_dynamic_filter,
-            "pairwise_rank": pairwise_rank}
+            "pairwise_rank": pairwise_rank, "w8a8_conv": w8a8_conv}
 
 
 def reset_launches() -> None:
@@ -3508,6 +3534,477 @@ def phase_deployment(tmp: Path, card: str, dev, served7: dict) -> dict:
     return res
 
 
+# ========================================================= quantized serving
+
+PEAK_INT8 = 1979e12  # dense int8 tensor-core operations/s (data sheet)
+# configs/test/acdc_sisr_edsr_x2.yaml's net (frame mode, no chunk).
+EDSR_KWARGS = dict(in_channels=1, out_channels=1, num_resblocks=16,
+                   num_features=64, upscale_factor=FACTOR)
+INT8_PSNR_BAR, W8A8_PSNR_BAR = 0.05, 0.5  # dB: tests/test_quantize.py's
+W8A8_CHECK_ITEMS = 2   # batch items held against the twin per shape
+SHAPE_REPS = 3         # CUDA-event timings per conv shape (median)
+LIBRARY_MAX_BYTES = 4e9  # im2col matrices larger than this are not timed
+# tests/test_torch_quantize.py's bars for the kernel against the twin:
+# float32 within 1e-6 of the largest output entry, bf16 within one ulp.
+W8A8_F32_SHARE = 1e-6
+
+
+def w8a8_bytes_and_ops(x_shape, weight_shape, out_shape, x_itemsize: int,
+                       out_itemsize: int) -> tuple[int, int]:
+    """The bytes one W8A8 conv must move (the activations read once, the
+    int8 weights, their scales and the bias read once, the output written
+    once) and its int8 multiply-adds counted as two operations each."""
+    f, k = weight_shape[0], int(np.prod(weight_shape[1:]))
+    n_bytes = (int(np.prod(x_shape)) * x_itemsize + f * k + 8 * f
+               + int(np.prod(out_shape)) * out_itemsize)
+    return n_bytes, 2 * int(np.prod(out_shape)) * k
+
+
+def eligible_conv_shapes(net, z, shapes: dict) -> None:
+    """Add the geometry of every eligible conv that one forward of ``net``
+    on ``z`` calls: ``(x shape, weight shape, stride, padding, groups)`` ->
+    where it was seen."""
+    from vsr_tpu_torch import quantize
+    from vsr_tpu_torch.models.common import intercept_convs
+
+    paths = quantize._conv_paths(net)
+
+    def record(mod, x, plain):
+        if id(mod) in paths and quantize._conv_eligible(mod, x, 16):
+            key = (tuple(x.shape), tuple(mod.weight.shape), tuple(mod.stride),
+                   tuple(mod.padding), mod.groups)
+            shapes.setdefault(key, set()).add(paths[id(mod)])
+        return plain(x)
+
+    with torch.inference_mode(), intercept_convs(record):
+        net(z)
+
+
+def int_mm_conv(xq: torch.Tensor, wq: torch.Tensor, stride, padding,
+                groups: int) -> torch.Tensor | None:
+    """The library's int8 convolution: the int8 activations unfolded into
+    k copies (``Tensor.unfold`` views, one copy) and ``torch._int_mm``.
+    ``None`` where it does not apply (groups, ``_int_mm``'s multiples of 8)
+    or the unfolded matrix passes ``LIBRARY_MAX_BYTES``."""
+    import torch.nn.functional as F
+
+    rank = xq.dim() - 2
+    k = wq[0].numel()
+    out = [(s + 2 * p - kk) // st + 1 for s, p, kk, st in
+           zip(xq.shape[2:], padding, wq.shape[2:], stride)]
+    rows = xq.shape[0] * int(np.prod(out))
+    if groups != 1 or k % 8 or wq.shape[0] % 8 or rows * k > LIBRARY_MAX_BYTES:
+        return None
+    pads = [p for pad in reversed(padding) for p in (pad, pad)]
+    cols = F.pad(xq, pads)
+    for d in range(rank):
+        cols = cols.unfold(2 + d, wq.shape[2 + d], stride[d])
+    # (N, C, *out, *kernel) -> (N, *out, C, *kernel) -> rows x k
+    perm = [0, *range(2, 2 + rank), 1, *range(2 + rank, 2 + 2 * rank)]
+    cols = cols.permute(perm).reshape(rows, k)
+    return torch._int_mm(cols, wq.reshape(wq.shape[0], k).t())
+
+
+def w8a8_shape(key, dev, gen, where: set) -> dict:
+    """One eligible conv shape: the kernel against the twin on its first
+    items (int32 accumulators bit-equal, outputs at the CPU tests' bars;
+    float32 and bf16, dynamic and static scale), then at the full shape the
+    kernel's median time against its bound, cuDNN's bf16 conv, and unfold +
+    ``torch._int_mm`` (whose accumulators must equal the kernel's)."""
+    import torch.nn.functional as F
+
+    from vsr_tpu_torch.ops import w8a8_conv as wc
+
+    xshape, wshape, stride, padding, groups = key
+    x = torch.randn(xshape, device=dev, generator=gen)
+    w = 0.05 * torch.randn(wshape, device=dev, generator=gen)
+    b = torch.randn(wshape[0], device=dev, generator=gen)
+    res = {"x": list(xshape), "weight": list(wshape), "stride": list(stride),
+           "padding": list(padding), "groups": groups,
+           "convs": sorted(where), "max_abs_err": 0.0}
+    cut = x[:W8A8_CHECK_ITEMS]
+    static = 1.25 * float(wc.dynamic_scale(cut))
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            xc = cut.to(dtype)
+            for scale in (None, static):
+                args = (xc, w, b, scale, stride, padding, groups)
+                acc = wc.w8a8_conv(*args, out_dtype=torch.int32)
+                want_acc = wc.w8a8_conv_reference(*args, out_dtype=torch.int32)
+                out = wc.w8a8_conv(*args, out_dtype=dtype)
+                want = wc.w8a8_conv_reference(*args, out_dtype=dtype).float()
+                err = (out.float() - want).abs()
+                if dtype == torch.float32:
+                    ok = err.max().item() <= W8A8_F32_SHARE * want.abs().max().item()
+                else:
+                    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(
+                        out.float().abs(), want.abs()) + 1e-30)) - 7)
+                    ok = bool((err <= ulp).all())
+                if not (torch.equal(acc, want_acc) and ok):
+                    raise SystemExit(
+                        f"w8a8_conv disagrees with its twin at x {xshape}, "
+                        f"weight {wshape} ({dtype}, scale {scale}): "
+                        f"accumulators equal {torch.equal(acc, want_acc)}, "
+                        f"max error {err.max().item():.3g}")
+                res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
+        xs = float(wc.dynamic_scale(x))
+        full = (x, w, b, xs, stride, padding, groups)
+        res["ms"] = median_ms(lambda: wc.w8a8_conv(*full), reps=SHAPE_REPS)
+        xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+        res["bf16_ms"] = median_ms(
+            lambda: wc.w8a8_conv(xb, w, b, xs, stride, padding, groups,
+                                 torch.bfloat16), reps=SHAPE_REPS)
+        conv = F.conv2d if len(wshape) == 4 else F.conv3d
+        res["cudnn_bf16_ms"] = median_ms(
+            lambda: conv(xb, wb, bb, stride, padding, 1, groups),
+            reps=SHAPE_REPS)
+        xq = wc.quantize_activations(x, torch.tensor(xs, device=dev)).to(
+            torch.int8)
+        wq, _ = wc.quantize_weight(w)
+        lib = int_mm_conv(xq, wq, stride, padding, groups)
+        res["library_ms"] = None
+        if lib is not None:
+            acc = wc.w8a8_conv(*full, out_dtype=torch.int32)
+            rank = len(stride)
+            lib = lib.reshape(acc.shape[0], *acc.shape[2:], -1).permute(
+                0, rank + 1, *range(1, rank + 1))
+            if not torch.equal(lib, acc):
+                raise SystemExit(f"unfold + _int_mm and the kernel's "
+                                 f"accumulators differ at x {xshape}")
+            res["library_ms"] = median_ms(
+                lambda: int_mm_conv(xq, wq, stride, padding, groups),
+                reps=SHAPE_REPS)
+        out_shape = wc._out_shape(x, w, stride, padding)
+    res["out"] = list(out_shape)
+    for name, size in (("", 4), ("bf16_", 2)):
+        n_bytes, ops = w8a8_bytes_and_ops(xshape, wshape, out_shape, size,
+                                          size)
+        res[f"{name}bound_ms"], res[f"{name}bound_by"] = bound(
+            n_bytes, ops, PEAK_INT8)
+    res["bytes"], res["ops"] = w8a8_bytes_and_ops(xshape, wshape, out_shape,
+                                                  4, 4)
+    return res
+
+
+# The serving runs of 13b: (path key, net, its config's kwargs, the
+# make_pipeline mode, the trained checkpoint of phases 7 / 9 if present).
+QUANT_NETS = {
+    "edsr": ("EDSRNet", EDSR_KWARGS, {}, "sisr/checkpoints/model_best.ckpt"),
+    "drf": ("DRFNet", dict(DRF_KWARGS, fused_squeeze=True, fused_tail=True),
+            dict(video_t=T_FRAMES),
+            f"vsr_fused/checkpoints/model_{TRAIN_EPOCHS}.ckpt"),
+    "duf": ("DUFNet", dict(DUF_KWARGS, use_pallas_filter=True),
+            dict(window=(DUF_KWARGS["num_frames"], T_FRAMES, "middle"),
+                 chunk=DUF_CHUNK), "duf/checkpoints/model_1.ckpt"),
+}
+
+
+def quality_volume() -> np.ndarray:
+    """(D*T, H, W) HR frames of FULL_SLICES slices: phase 7's low-passed
+    train and validation sequences (the same seed and draws) in turn."""
+    rng = np.random.default_rng(11)
+    seqs = [smooth_sequence(rng) for _ in range(6)]
+    vol = np.concatenate([seqs[i % len(seqs)] for i in range(FULL_SLICES)],
+                         axis=2).astype(np.float32)
+    return as_frames(vol)
+
+
+def psnr(sr: np.ndarray, hr: np.ndarray) -> float:
+    """The infer CLI's ``--psnr``: the mean over frames, max 255."""
+    mse = np.mean(np.square(sr.astype(np.float64) - hr.astype(np.float64)),
+                  axis=(1, 2))
+    return float(np.mean(10.0 * np.log10(255.0 ** 2 / (mse + 1e-10))))
+
+
+def quant_launches() -> dict:
+    counters = kernel_counters()
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def quant_run(what: str, key: str, form: str, frames: np.ndarray, dev,
+              ckpt: str, bf16: bool = False, scales: dict | None = None,
+              base: dict | None = None) -> dict:
+    """One quantized serving run: the pipeline ``infer`` builds for the
+    form (``"plain"``, ``"int8"``, ``"w8a8"`` lazy, ``"scales"``), a
+    warm-up volume (the lazy form calibrates there), then two volumes: the
+    launches per volume, the median wall ms of a volume (H2D and D2H
+    included), the SR's PSNR against the HR input, weight bytes."""
+    from vsr_tpu_torch import quantize
+    from vsr_tpu_torch.infer import build_serving_net, make_pipeline
+
+    name, kwargs, mode, _ = QUANT_NETS[key]
+    kwargs = dict(kwargs, dtype="bfloat16") if bf16 else kwargs
+    net = build_serving_net(name, kwargs, ckpt, device=dev)
+    f32_bytes = quantize.quantized_nbytes(net, {})
+    weight_bytes = f32_bytes
+    kw = {}
+    if form == "int8":
+        q8, s8 = quantize.quantize_params(net)
+        weight_bytes = quantize.quantized_nbytes(net, q8)
+        net = quantize.make_quantized_apply(net, q8, s8)
+        kw = dict(int8=True)
+    elif form == "w8a8":
+        kw = dict(w8a8=True)
+    elif form == "scales":
+        kw = dict(w8a8=scales)
+    pipe = make_pipeline(net, FACTOR, "acdc", **mode, **kw)
+    pipe(torch.from_numpy(frames).to(dev))  # warm-up; a lazy pipeline calibrates
+    reset_launches()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        sr = pipe(torch.from_numpy(frames).to(dev))[1].cpu().numpy()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: v // 2 for k, v in quant_launches().items()}
+    check_sr(what, sr, frames.shape)
+    ms = statistics.median(times)
+    res = {"launches": launches, "volume_ms": ms,
+           "frames_per_s": len(frames) / ms * 1e3,
+           "psnr": psnr(sr, frames), "weight_bytes": weight_bytes,
+           "f32_weight_bytes": f32_bytes, "sr": sr, "pipe": pipe}
+    if form == "w8a8":  # the scales the lazy calibration kept
+        res["scales"] = pipe.act_scales
+    if base is not None:
+        res["psnr_delta"] = base["psnr"] - res["psnr"]
+        res["speed_vs_plain"] = res["frames_per_s"] / base["frames_per_s"]
+        exact, worst = agreement(sr, base["sr"])
+        res["vs_plain"] = {"exact_fraction": exact, "max_grey_diff": worst}
+    log(f"  {what}: {res['frames_per_s']:.1f} frames/s ({ms:.1f} ms a "
+        f"volume" + (f", {res['speed_vs_plain']:.3f}x the unquantized run"
+                     if base else "") + f"), PSNR {res['psnr']:.3f} dB"
+        + (f" (delta {res['psnr_delta']:+.4f})" if base else "")
+        + f", weights {weight_bytes / 1e6:.2f} MB of {f32_bytes / 1e6:.2f} "
+        f"MB float32, launches {launches}")
+    return res
+
+
+def pipe_input(key: str, frames: np.ndarray, dev) -> torch.Tensor:
+    from vsr_tpu_torch.infer import make_prep
+
+    mode = QUANT_NETS[key][2]
+    prep = make_prep(FACTOR, "acdc", mode.get("video_t", 0),
+                     mode.get("window"))
+    with torch.inference_mode():
+        return prep(torch.from_numpy(frames).to(dev))[1]
+
+
+def expected_w8a8_launches(key: str, scales: dict) -> int:
+    """Eligible (calibrated) convs x their calls in one volume: DRF's step
+    convs once per frame, DUF's once per chunk of windows."""
+    if key == "drf":
+        return sum(T_FRAMES if p.startswith("step/") else 1 for p in scales)
+    if key == "duf":
+        return len(scales) * -(-FULL_SLICES * T_FRAMES // DUF_CHUNK)
+    return len(scales)
+
+
+def gate_quant(what: str, res: dict, want: dict, bar: float | None) -> None:
+    got = {k: v for k, v in res["launches"].items() if v}
+    want = {k: v for k, v in want.items() if v}
+    if got != want:
+        raise SystemExit(f"{what}: kernel launches {got}, expected {want}")
+    if bar is not None and not abs(res["psnr_delta"]) < bar:
+        raise SystemExit(f"{what}: PSNR delta {res['psnr_delta']:.4f} dB "
+                         f"against the unquantized run (bar {bar} dB)")
+
+
+def quant_pipelines(tmp: Path, frames: np.ndarray, card: str, dev) -> dict:
+    """13b: each net's unquantized run, then its quantized forms."""
+    res = {}
+    for key in QUANT_NETS:
+        ckpt = tmp / QUANT_NETS[key][3]
+        ckpt = str(ckpt) if ckpt.is_file() else ""
+        runs = res[key] = {"checkpoint": ckpt or "seeded init"}
+        k2 = -(-FULL_SLICES * T_FRAMES // DUF_CHUNK) if key == "duf" else 0
+        k1 = SQUEEZES_PER_STEP * T_FRAMES if key == "drf" else 0
+        base_launches = {"concat_conv1x1": k1, "duf_dynamic_filter": k2}
+        dtypes = (False, True) if key == "edsr" else (False,)
+        for bf16 in dtypes:
+            tag = f"{key} {'bf16' if bf16 else 'f32'}"
+            base = runs[f"{'bf16' if bf16 else 'f32'}_plain"] = quant_run(
+                f"{tag} unquantized", key, "plain", frames, dev, ckpt, bf16)
+            gate_quant(f"{tag} unquantized", base, base_launches, None)
+            forms = {}
+            if key != "duf":
+                forms["int8"] = quant_run(f"{tag} --int8", key, "int8", frames,
+                                          dev, ckpt, bf16, base=base)
+                gate_quant(f"{tag} --int8", forms["int8"], base_launches,
+                           INT8_PSNR_BAR)
+            if key == "drf":  # the scan body's convs need callback scales
+                from vsr_tpu_torch import quantize
+                from vsr_tpu_torch.infer import build_serving_net
+
+                net = build_serving_net(QUANT_NETS[key][0],
+                                        QUANT_NETS[key][1], ckpt, device=dev)
+                scales = quantize.calibrate_w8a8(
+                    net, [pipe_input(key, frames, dev)], method="callback")
+                forms["scales"] = quant_run(
+                    f"{tag} --w8a8-scales (callback calibration)", key,
+                    "scales", frames, dev, ckpt, bf16, scales, base)
+            else:
+                lazy = forms["w8a8"] = quant_run(
+                    f"{tag} --w8a8", key, "w8a8", frames, dev, ckpt, bf16,
+                    base=base)
+                scales = lazy.pop("scales")
+                gate_quant(f"{tag} --w8a8", lazy, dict(
+                    base_launches,
+                    w8a8_conv=expected_w8a8_launches(key, scales)),
+                    W8A8_PSNR_BAR)
+                if key == "edsr":
+                    forms["scales"] = quant_run(
+                        f"{tag} --w8a8-scales", key, "scales", frames, dev,
+                        ckpt, bf16, scales, base)
+            if "scales" in forms:
+                gate_quant(f"{tag} --w8a8-scales", forms["scales"], dict(
+                    base_launches,
+                    w8a8_conv=expected_w8a8_launches(key, scales)),
+                    W8A8_PSNR_BAR)
+            for form, run in forms.items():
+                runs[f"{'bf16' if bf16 else 'f32'}_{form}"] = run
+            if not bf16:  # the float32 net's scales, which 13c exports
+                runs["scales"] = scales
+    return res
+
+
+def quant_deployment(tmp: Path, frames: np.ndarray, edsr: dict, card: str,
+                     dev) -> dict:
+    """13c: W8A8 (``--w8a8-scales``) and int8 artifacts of the EDSR net
+    exported at the full frames shape on the card, loaded and run against
+    the live pipelines; the daemon's live backend with ``--w8a8-scales``
+    answering 2 requests."""
+    import threading
+
+    from vsr_tpu_torch import export, serve
+    from vsr_tpu_torch.infer import build_serving_net
+
+    ckpt = edsr["checkpoint"] if edsr["checkpoint"] != "seeded init" else ""
+    kwargs, scales = QUANT_NETS["edsr"][1], edsr["scales"]
+    res = {}
+    for form, kw, live in (("w8a8", dict(w8a8=scales), edsr["f32_scales"]),
+                           ("int8", dict(int8=True), edsr["f32_int8"])):
+        net = build_serving_net("EDSRNet", kwargs, ckpt, device=dev)
+        t0 = time.perf_counter()
+        program, meta = export.export_serving(net, frames.shape, FACTOR, **kw)
+        ops = sum(1 for n in program.graph.nodes
+                  if str(n.target) == "vsr_tpu_torch.w8a8_conv.default")
+        file = tmp / f"edsr_{form}.pt2.zip"
+        export.save_artifact(file, program, {**meta, "net": "EDSRNet"})
+        served = export.ExportedServing(file, device=dev)
+        setup_s = time.perf_counter() - t0
+        reset_launches()
+        got = served(frames)[1].cpu().numpy()
+        launches = quant_launches()
+        want = len(scales) if form == "w8a8" else 0
+        if launches["w8a8_conv"] != want or ops != want:
+            raise SystemExit(f"{form} artifact: {launches['w8a8_conv']} "
+                             f"w8a8_conv launches and {ops} op nodes, "
+                             f"expected {want}")
+        res[form] = dict(gate_agreement(f"{form} artifact vs its live "
+                                        "pipeline", got, live["sr"]),
+                         launches=launches["w8a8_conv"], op_nodes=ops,
+                         export_save_load_s=setup_s,
+                         file_mb=file.stat().st_size / 1e6,
+                         artifact_ms=timed_volume(served, frames, dev))
+        log(f"  EDSR {form} artifact ({res[form]['file_mb']:.1f} MB, {ops} "
+            f"w8a8_conv nodes; export + save + load {setup_s:.1f} s): "
+            f"{res[form]['exact_fraction'] * 100:.4f}% exact vs the live "
+            f"pipeline, {res[form]['artifact_ms']:.1f} ms a volume [{card}]")
+    file = tmp / "edsr_scales.json"
+    file.write_text(json.dumps(scales))
+    args = serve.parse_args([
+        "--net", "EDSRNet", "--net-kwargs", json.dumps(kwargs),
+        "--frames-shape", ",".join(map(str, frames.shape)),
+        "--w8a8-scales", str(file), "--device", str(dev)]
+        + (["--checkpoint", ckpt] if ckpt else []))
+    reset_launches()
+    (live,) = serve.live_from_args(args)
+    srv = serve.make_server([], port=0, warmup=True, live=[live], device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        lat = []
+        for _ in range(2):
+            body, sec, _ = post(
+                f"http://127.0.0.1:{srv.server_address[1]}/v1/sr",
+                npy_bytes(frames), "application/x-npy")
+            lat.append(sec * 1e3)
+            gate_agreement("the daemon's W8A8 live backend vs the live "
+                           "pipeline", from_npy(body), edsr["f32_scales"]["sr"])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    launches = quant_launches()["w8a8_conv"]
+    if launches != 3 * len(scales):  # warm-up + 2 requests
+        raise SystemExit(f"W8A8 daemon: {launches} launches, expected "
+                         f"{3 * len(scales)}")
+    res["daemon"] = {"launches": launches, "request_ms": lat}
+    log(f"  the daemon's live backend with --w8a8-scales: 2 requests, "
+        f"{lat[0]:.1f} / {lat[1]:.1f} ms, {launches} w8a8_conv launches "
+        f"(warm-up + requests) [{card}]")
+    return res
+
+
+def phase_quantized(tmp: Path, card: str, dev) -> dict:
+    """Phase 13: int8 and W8A8 serving. 13a the W8A8 kernel against its
+    twin at every eligible conv shape of EDSRNet, DRFNet and DUFNet at
+    full width; 13b the pipelines (f32 and EDSR bf16) on a 192 x 192 x 10 x
+    30 volume of phase 7's low-passed sequences, with the trained
+    checkpoints of phases 7 and 9; 13c artifacts and the daemon."""
+    from vsr_tpu_torch.infer import build_serving_net
+
+    frames = quality_volume()
+    res = {"shapes": []}
+    log("phase 13a: the W8A8 kernel against its twin at every eligible conv "
+        "shape")
+    shapes: dict = {}
+    for key, (name, kwargs, _, _) in QUANT_NETS.items():
+        net = build_serving_net(name, kwargs, device=dev)
+        z = pipe_input(key, frames, dev)
+        chunk = QUANT_NETS[key][2].get("chunk")
+        eligible_conv_shapes(net, z[:chunk] if chunk else z, shapes)
+        del net, z
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for key, where in shapes.items():
+        row = w8a8_shape(key, dev, gen, where)
+        res["shapes"].append(row)
+        torch.cuda.empty_cache()
+        log(f"  x {row['x']} weight {row['weight']} s{row['stride']} "
+            f"p{row['padding']} ({len(where)} convs): err "
+            f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms (bf16 "
+            f"{row['bf16_ms']:.3f}), bound {row['bound_ms']:.3f} by "
+            f"{row['bound_by']}; cuDNN bf16 {row['cudnn_bf16_ms']:.3f}; unfold"
+            f" + _int_mm " + (f"{row['library_ms']:.3f}"
+                              if row["library_ms"] is not None
+                              else "not timed") + f" [{card}]")
+    main = max(res["shapes"], key=lambda r: (len(r["convs"]), r["ops"]))
+    with torch.inference_mode():
+        from vsr_tpu_torch.ops import w8a8_conv as wc
+
+        x = torch.randn(main["x"], device=dev, generator=gen)
+        w = 0.05 * torch.randn(main["weight"], device=dev, generator=gen)
+        b = torch.randn(main["weight"][0], device=dev, generator=gen)
+        xs = float(wc.dynamic_scale(x))
+        main["plain_ms"] = median_ms(lambda: wc.w8a8_conv_reference(
+            x, w, b, xs, main["stride"], main["padding"], main["groups"]),
+            reps=SHAPE_REPS)
+        del x, w, b
+    res["main"] = main
+    log(f"  the most used shape, x {main['x']} weight {main['weight']}: "
+        f"kernel {main['ms']:.3f} ms, twin {main['plain_ms']:.3f} ms [{card}]")
+    log("phase 13b: quantized pipelines at the configs' widths")
+    res["pipelines"] = quant_pipelines(tmp, frames, card, dev)
+    log("phase 13c: quantized artifacts and the daemon's live backend")
+    res["deployment"] = quant_deployment(tmp, frames, res["pipelines"]["edsr"],
+                                         card, dev)
+    for runs in res["pipelines"].values():
+        for run in runs.values():
+            if isinstance(run, dict):
+                run.pop("sr", None)
+                run.pop("pipe", None)
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="",
@@ -3521,6 +4018,9 @@ def main() -> int:
                              f"drive each daemon with {CLIENTS} clients x N "
                              "requests (a p99 from 100 requests on), and "
                              "trace the DRF artifact against make_pipeline")
+    parser.add_argument("--quantized", action="store_true",
+                        help="only build and run phase 13 (quantized "
+                             "serving) on seeded weights")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3566,6 +4066,21 @@ def main() -> int:
             "direct_volumes_per_s") if n in e}
             for k, e in results["latency"]["daemon"].items()}}), flush=True)
         return 0
+    if args.quantized:
+        with tempfile.TemporaryDirectory() as tmp:
+            results = {"card": smi, "quantized": phase_quantized(
+                Path(tmp), card, dev)}
+        results["seconds"] = time.perf_counter() - started
+        log(f"  chip_smoke --quantized took {results['seconds']:.1f} s "
+            f"[{card}]")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(results, indent=1))
+        main = results["quantized"]["main"]
+        print(json.dumps({"w8a8_conv": {k: main[k] for k in (
+            "x", "weight", "ms", "plain_ms", "bound_ms", "library_ms",
+            "cudnn_bf16_ms")}}), flush=True)
+        return 0
     log("phase 3: kernel vs twin")
     k1 = phase_kernel_squeeze(dev)
     k3 = phase_kernel_rank(dev)
@@ -3603,6 +4118,12 @@ def main() -> int:
         deploy = phase_deployment(Path(tmp), card, dev, served7)
         deploy["seconds"] = time.perf_counter() - t0
         log(f"  phase 12 took {deploy['seconds']:.1f} s")
+        log("phase 13: quantized serving (int8 weights; W8A8 convs on the "
+            "int8 tensor cores), EDSRNet, DRFNet and DUFNet")
+        t0 = time.perf_counter()
+        quant = phase_quantized(Path(tmp), card, dev)
+        quant["seconds"] = time.perf_counter() - t0
+        log(f"  phase 13 took {quant['seconds']:.1f} s")
         results = {"card": smi, "build_seconds": build_s,
                    "kernel": {"concat_conv1x1": k1,
                               "concat_conv1x1_backward": k1_bwd,
@@ -3610,7 +4131,7 @@ def main() -> int:
                    "paths": paths, "card_vs_cpu": cpu_ref,
                    "training": training, "slice_training": sliced,
                    "volumes": volumes, "device_epochs": device,
-                   "deployment": deploy}
+                   "deployment": deploy, "quantized": quant}
         if args.profile:
             log("phase 8: torch.profiler traces")
             results["profile"] = phase_profile(dev)
@@ -3630,6 +4151,8 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(results, indent=1))
 
     per_step = k1["per_step"]
+    qedsr, qdrf = quant["pipelines"]["edsr"], quant["pipelines"]["drf"]
+    qmain = quant["main"]
 
     def launches(key):
         return paths[key]["cli"]["runs"]["on"]["launches"]
@@ -3708,6 +4231,10 @@ def main() -> int:
         "prelu_library_ms": per_step["f32_act_library_ms"],
         "bf16_prelu_ms": per_step["bf16_act_ms"],
         "bf16_prelu_library_ms": per_step["bf16_act_library_ms"],
+        # Phase 13: DRFNet --int8 (dequantized weights) and W8A8 (the
+        # squeezes stay full precision), one volume each.
+        "int8_launches": qdrf["f32_int8"]["launches"]["concat_conv1x1"],
+        "w8a8_launches": qdrf["f32_scales"]["launches"]["concat_conv1x1"],
     }, {
         # K1's weight and bias gradient (the JAX package computes them in
         # XLA, inside _bwd, so the line it replaces is no Pallas kernel): one
@@ -3734,6 +4261,9 @@ def main() -> int:
         "source": "vsr_tpu_torch/csrc/duf_filter.cu",
         "replaces": "vsr_tpu/ops/pallas_duf.py:72",
         "launches": launches("duf"),
+        # Phase 13: DUFNet --w8a8 (its 3D convs through w8a8_conv), a volume.
+        "w8a8_launches": quant["pipelines"]["duf"]["f32_w8a8"]["launches"][
+            "duf_dynamic_filter"],
         # DUF under AcdcMISRTrainer: its validation pass (one launch a
         # window, none in the train steps), then main --test on the
         # checkpoint through AcdcMISRPredictor.
@@ -3760,6 +4290,32 @@ def main() -> int:
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
+    }, {
+        # The W8A8 convolution (the JAX package leaves the s8 x s8 -> s32
+        # conv of _w8a8_conv to XLA, so the line it replaces is no Pallas
+        # kernel). Launches: EDSRNet --w8a8 on one volume (the main path),
+        # then its other routes. Times: the most used eligible shape (EDSR's
+        # 64 -> 64 3x3 over a volume's 300 LR frames), float32 in and out,
+        # static scale; library: unfold + torch._int_mm of the int8
+        # operands, the yardstick cuDNN's bf16 conv of the same shape.
+        "name": "w8a8_conv", "route": "cuda",
+        "source": "vsr_tpu_torch/csrc/w8a8_conv.cu",
+        "replaces": "vsr_tpu/quantize.py:272",
+        "launches": qedsr["f32_w8a8"]["launches"]["w8a8_conv"],
+        "scales_launches": qedsr["f32_scales"]["launches"]["w8a8_conv"],
+        "bf16_launches": qedsr["bf16_w8a8"]["launches"]["w8a8_conv"],
+        "drf_launches": qdrf["f32_scales"]["launches"]["w8a8_conv"],
+        "duf_launches": quant["pipelines"]["duf"]["f32_w8a8"]["launches"][
+            "w8a8_conv"],
+        "export_launches": quant["deployment"]["w8a8"]["launches"],
+        "serve_launches": quant["deployment"]["daemon"]["launches"],
+        "shapes_checked": len(quant["shapes"]),
+        "max_abs_err": max(r["max_abs_err"] for r in quant["shapes"]),
+        "ms": qmain["ms"], "plain_ms": qmain["plain_ms"],
+        "bound_ms": qmain["bound_ms"], "bound_by": qmain["bound_by"],
+        "library_ms": qmain["library_ms"],
+        "bf16_ms": qmain["bf16_ms"], "bf16_bound_ms": qmain["bf16_bound_ms"],
+        "cudnn_bf16_ms": qmain["cudnn_bf16_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

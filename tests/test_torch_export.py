@@ -3,8 +3,8 @@ tiny DRFNet (fused squeeze, K1's op), DUFNet (filter op, K2), MoE-EDSR
 (rank op, K3) and EDSR programs saved, loaded and run, bit-equal to
 ``infer.make_pipeline``'s output on the same input; the graph holds each
 kernel's custom op node (not ``torch.cat`` + conv); the refusals (a JAX
-``.vsrx``, ``--int8``, ``--w8a8``, ``--calib``, ``--platforms``, a device
-other than the traced one); the CLI's export and ``--run``; and an
+``.vsrx``, ``--w8a8`` without scales, ``--w8a8-kernels`` without W8A8,
+``--platforms``, a device other than the traced one); the CLI's export and ``--run``; and an
 artifact's SR against ``vsr_tpu.export.ExportedServing``'s on the same
 weights (>= 99.9 % exact grey, <= 1 grey)."""
 
@@ -122,10 +122,11 @@ def _case_refusals(tmp_path, rng):
     with pytest.raises(ValueError, match="JAX .vsrx"):
         export.ExportedServing(vsrx, device="cpu")
 
-    for flags in (["--int8"], ["--w8a8"], ["--calib", "x"],
+    for flags in (["--w8a8"], ["--w8a8-kernels", "3"],
                   ["--platforms", "tpu"]):
         with pytest.raises(SystemExit, match=flags[0]):
-            export.main(["--net", "EDSRNet", "--device", "cpu", *flags,
+            export.main(["--net", "EDSRNet", "--net-kwargs",
+                         json.dumps(EDSR_KW), "--device", "cpu", *flags,
                          "--out", str(tmp_path / "x.zip")])
 
 

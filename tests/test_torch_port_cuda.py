@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels on the card, each against its plain twin:
 the fused squeeze (K1, with its backward: dx through the same kernel, dW / db
-through their own), the DUF dynamic filter (K2), the pairwise rank (K3).
+through their own), the DUF dynamic filter (K2), the pairwise rank (K3),
+the W8A8 convolution (``ops/w8a8_conv.py``) and the quantized serving
+routes.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false (decided in the fixture, never at import). On a machine with an H100:
@@ -110,10 +112,7 @@ def _k1_run(xs, w, b, alpha, dtype):
     return got, want
 
 
-@pytest.mark.parametrize("epilogue", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", sorted(K1_CASES))
-def test_kernel_cases(rng, dev, case, dtype, epilogue):
+def _k1_case(rng, dev, case, dtype, epilogue):
     channels, f, n, h, w = K1_CASES[case]
     xs, wt, b = _operands(rng, dev, channels, f, n, h, w)
     alpha = torch.tensor([0.2], device=dev) if epilogue else None
@@ -125,6 +124,17 @@ def test_kernel_cases(rng, dev, case, dtype, epilogue):
             plain = fs.concat_conv1x1([x.to(dtype) for x in xs], wt, b)
             want_act = torch.nn.functional.prelu(plain, alpha.to(dtype))
         assert torch.equal(got, want_act)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_kernel_cases(rng, dev, case, dtype):
+    """Without and with the PReLU epilogue, each run and each failure
+    named (the two were separate items; ROADMAP.md, queue 3)."""
+    run_cases([(f"epilogue={epilogue}",
+                lambda epilogue=epilogue: _k1_case(rng, dev, case, dtype,
+                                                   epilogue))
+               for epilogue in (False, True)])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -865,3 +875,153 @@ def test_serving_routes_launch_their_kernels_on_the_card(rng, dev, tmp_path):
                     _case_daemon_round_trip_on_the_card)],
         ("_case_stream_on_the_card_launches_k1",
          lambda: _case_stream_on_the_card_launches_k1(rng, dev))])
+
+
+# ------------------------------------------------------------ W8A8 conv
+
+# name -> x shape, weight shape, stride, padding, groups: the zoo's eligible
+# geometries (EDSR 3x3, DRF's k6 s2 and 1x1 squeeze, DUF's and the volumes'
+# 3D convs) and shapes off the kernel's 64 x 64 tile and 32-deep K step.
+W8A8_CASES = {
+    "k3_64": ((2, 64, 20, 24), (64, 64, 3, 3), (1, 1), (1, 1), 1),
+    "k6s2": ((3, 64, 24, 24), (64, 64, 6, 6), (2, 2), (2, 2), 1),
+    "k1": ((2, 96, 9, 13), (64, 96, 1, 1), (1, 1), (0, 0), 1),
+    "k5_ragged": ((5, 70, 13, 17), (130, 70, 5, 5), (1, 1), (2, 2), 1),
+    "groups4": ((2, 16, 12, 12), (32, 4, 3, 3), (1, 1), (1, 1), 4),
+    "conv3d": ((2, 16, 4, 8, 8), (32, 16, 3, 3, 3), (1, 1, 1), (1, 1, 1), 1),
+    "conv3d_133": ((2, 64, 7, 20, 20), (48, 64, 1, 3, 3), (1, 1, 1),
+                   (0, 1, 1), 1),
+}
+
+
+def _w8a8_case(rng, dev, case, dtype, scale):
+    from vsr_tpu_torch.ops import w8a8_conv as wc
+
+    xshape, wshape, stride, padding, groups = W8A8_CASES[case]
+    x = torch.from_numpy(rng.standard_normal(xshape).astype(np.float32)
+                         ).to(dev).to(dtype)
+    w = torch.from_numpy((0.1 * rng.standard_normal(wshape)).astype(
+        np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal(wshape[0]).astype(np.float32)
+                         ).to(dev)
+    args = (x, w, b, scale, stride, padding, groups)
+    before = wc.w8a8_conv.launches
+    with torch.inference_mode():
+        acc = wc.w8a8_conv(*args, out_dtype=torch.int32)
+        out = wc.w8a8_conv(*args, out_dtype=dtype)
+        # The twin on the same card tensors: its float64 conv is exact.
+        want_acc = wc.w8a8_conv_reference(*args, out_dtype=torch.int32)
+        want = wc.w8a8_conv_reference(*args, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert wc.w8a8_conv.launches == before + 2
+    assert torch.equal(acc, want_acc)
+    assert out.dtype == dtype and torch.equal(out, want)
+
+
+def test_w8a8_kernel_matches_twin_on_the_card(rng, dev):
+    """The int32 accumulators and the dequantized outputs bit-equal to the
+    twin, float32 and bf16, static and dynamic scale, on every geometry."""
+    run_cases([(f"{case}_{str(dtype)[6:]}_{scale}",
+                lambda c=case, d=dtype, s=scale: _w8a8_case(rng, dev, c, d, s))
+               for case in W8A8_CASES
+               for dtype in (torch.float32, torch.bfloat16)
+               for scale in (None, 0.0173)])
+
+
+def _case_w8a8_refuses_grad(rng, dev):
+    from vsr_tpu_torch.ops import w8a8_conv as wc
+
+    x = torch.zeros(1, 16, 8, 8, device=dev, requires_grad=True)
+    w = torch.zeros(16, 16, 3, 3, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        wc.w8a8_conv(x, w, None, None, (1, 1), (1, 1))
+
+
+_EDSR_KW = dict(in_channels=1, out_channels=1, num_resblocks=1,
+                num_features=16, upscale_factor=2)
+
+
+def _serving_net(name, kw, dev):
+    from vsr_tpu_torch.infer import build_serving_net
+
+    return build_serving_net(name, kw, device=dev)
+
+
+def _grey_bar(got, want):
+    diff = (got.float().cpu() - want.float().cpu()).abs()
+    assert (diff == 0).float().mean().item() >= 0.999
+    assert diff.max().item() <= 1.0
+
+
+def _case_w8a8_pipelines_launch_the_kernel(rng, dev):
+    """EDSR dynamic: one launch per eligible conv and call; DRF with
+    callback scales: the k6 s2 convs through the kernel, K1 unchanged on
+    the squeezes. Each against the same pipeline on the CPU (the twin)."""
+    from vsr_tpu_torch import quantize
+    from vsr_tpu_torch.infer import make_pipeline, make_prep
+    from vsr_tpu_torch.ops import w8a8_conv as wc
+
+    frames = torch.from_numpy(
+        np.round(rng.random((6, 48, 48)) * 255).astype(np.float32))
+    before = wc.w8a8_conv.launches
+    got = make_pipeline(_serving_net("EDSRNet", _EDSR_KW, dev), 2, "acdc",
+                        w8a8="dynamic")(frames.to(dev))[1]
+    torch.cuda.synchronize()
+    assert wc.w8a8_conv.launches - before == 4
+    want = make_pipeline(_serving_net("EDSRNet", _EDSR_KW, "cpu"), 2, "acdc",
+                         w8a8="dynamic")(frames)[1]
+    _grey_bar(got, want)
+
+    net = _serving_net("DRFNet", _DRF_KW, "cpu")
+    _, z = make_prep(2, "acdc", video_t=3)(frames)
+    scales = quantize.calibrate_w8a8(net, [z], method="callback")
+    plain = make_pipeline(_serving_net("DRFNet", _DRF_KW, dev), 2, "acdc",
+                          video_t=3)
+    k1 = fs.concat_conv1x1.launches
+    plain(frames.to(dev))
+    k1_plain = fs.concat_conv1x1.launches - k1
+    k1, before = fs.concat_conv1x1.launches, wc.w8a8_conv.launches
+    got = make_pipeline(_serving_net("DRFNet", _DRF_KW, dev), 2, "acdc",
+                        video_t=3, w8a8=scales)(frames.to(dev))[1]
+    torch.cuda.synchronize()
+    assert fs.concat_conv1x1.launches - k1 == k1_plain == 3 * 4
+    assert wc.w8a8_conv.launches - before > 0
+    want = make_pipeline(net, 2, "acdc", video_t=3, w8a8=scales)(frames)[1]
+    _grey_bar(got, want)
+
+
+def _case_int8_and_w8a8_artifacts_on_the_card(rng, dev, tmp_path):
+    from vsr_tpu_torch import export, quantize
+    from vsr_tpu_torch.infer import make_pipeline, make_prep
+    from vsr_tpu_torch.ops import w8a8_conv as wc
+
+    frames = np.round(rng.random((6, 48, 48)) * 255).astype(np.float32)
+    _, z = make_prep(2, "acdc")(torch.from_numpy(frames))
+    scales = quantize.calibrate_w8a8(_serving_net("EDSRNet", _EDSR_KW, "cpu"),
+                                     [z])
+    for name, kw in (("w8a8", dict(w8a8=scales)), ("int8", dict(int8=True))):
+        program, meta = export.export_serving(
+            _serving_net("EDSRNet", _EDSR_KW, dev), frames.shape, 2, **kw)
+        path = tmp_path / f"{name}.pt2.zip"
+        export.save_artifact(path, program, {**meta, "net": "EDSRNet"})
+        served = export.ExportedServing(path, device=dev)
+        before = wc.w8a8_conv.launches
+        got = served(frames)[1]
+        torch.cuda.synchronize()
+        assert wc.w8a8_conv.launches - before == (4 if name == "w8a8" else 0)
+        want = make_pipeline(_serving_net("EDSRNet", _EDSR_KW, dev), 2,
+                             "acdc", **kw)(torch.from_numpy(frames).to(dev))[1]
+        _grey_bar(got, want)
+
+
+def test_quantized_serving_on_the_card(rng, dev, tmp_path):
+    """The W8A8 kernel refuses gradients; the W8A8 pipelines launch it once
+    per eligible conv and call (K1 unchanged on DRF's squeezes) and agree
+    with the CPU twin's; int8 and W8A8 artifacts traced on the card."""
+    run_cases([
+        ("_case_w8a8_refuses_grad", lambda: _case_w8a8_refuses_grad(rng, dev)),
+        ("_case_w8a8_pipelines_launch_the_kernel",
+         lambda: _case_w8a8_pipelines_launch_the_kernel(rng, dev)),
+        ("_case_int8_and_w8a8_artifacts_on_the_card",
+         lambda: _case_int8_and_w8a8_artifacts_on_the_card(
+             rng, dev, subdir(tmp_path, "artifacts")))])

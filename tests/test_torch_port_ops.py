@@ -136,12 +136,12 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
 
     assert [p.name for p in _build.sources()] == [
         "duf_filter.cu", "fused_squeeze.cu", "fused_squeeze_dw.cu",
-        "pairwise_rank.cu"]
+        "pairwise_rank.cu", "w8a8_conv.cu"]
     # Every C entry point the wrappers call is declared, and defined in csrc.
     text = "".join(p.read_text() for p in _build.sources())
     assert sorted(_build.SIGNATURES) == [
         "vsr_concat_conv1x1", "vsr_concat_dw", "vsr_duf_filter",
-        "vsr_pairwise_rank"]
+        "vsr_pairwise_rank", "vsr_w8a8_conv"]
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in text
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)

@@ -285,8 +285,8 @@ def test_pipeline_refuses_bad_mode_combinations(kw, match):
 
 @pytest.mark.parametrize("flag,match", [
     (["--checkpoint", "m.ckpt"], "--checkpoint: no such file"),
-    (["--int8"], "not yet ported"),
-    (["--w8a8"], "not yet ported"),
+    (["--preset", "fast"], "not yet ported"),
+    (["--mesh", "data=4,spatial=2"], "not yet ported"),
     (["--mesh", "data=2"], "not yet ported"),
     (["--windows", "5"], "mutually exclusive"),
     (["--chunk", "4"], "already sequence-batched"),

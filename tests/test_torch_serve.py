@@ -734,9 +734,8 @@ def _case_live_pipeline_and_checkpoint_over_http(tmp_path):
 def _case_cli_refuses_unported_flags():
     from vsr_tpu_torch import serve
 
-    for flags in (["--mesh", "data=4"], ["--int8"],
-                  ["--w8a8-scales", "s.json"], ["--w8a8-kernels", "6"],
-                  ["--preset", "tuned"], ["--preset-file", "p.json"]):
+    for flags in (["--mesh", "data=4"], ["--preset", "tuned"],
+                  ["--preset-file", "p.json"]):
         with pytest.raises(SystemExit, match=flags[0]):
             serve.main(["--device", "cpu", *flags])
 

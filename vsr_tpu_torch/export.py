@@ -18,9 +18,16 @@ become constants of the program, so an artifact serves on the device type
 it was traced on and is refused on any other: export one per device, as one
 per serving geometry.
 
+Quantized artifacts: ``--int8`` keeps the int8 kernels and their scales in
+the program (dequantized at each call); ``--w8a8`` bakes static activation
+scales (``--w8a8-scales <json>``, or ``--calib <nifti dir>`` to calibrate
+here) and the program calls ``torch.ops.vsr_tpu_torch.w8a8_conv``, the
+kernel of ``ops/w8a8_conv.py``.
+
 CLI:
   python -m vsr_tpu_torch.export --net EDSRNet --checkpoint model.ckpt \\
-      --shape 300,192,192 --factor 2 --out edsr_x2.pt2.zip [--device cuda]
+      --shape 300,192,192 --factor 2 --out edsr_x2.pt2.zip [--device cuda] \\
+      [--int8 | --w8a8-scales scales.json | --w8a8 --calib <nifti dir>]
   python -m vsr_tpu_torch.export --run edsr_x2.pt2.zip in_dir out_dir
 """
 
@@ -45,15 +52,23 @@ FORMAT_VERSION = 1
 
 def make_serving_fn(net: nn.Module, factor: int, dataset: str,
                     video_t: int = 0, window=None, chunk: int = 0,
-                    volume=None):
+                    volume=None, int8: bool = False, w8a8=False):
     """The fused HR-frames -> (lr, sr) serving program: exactly
     ``infer.make_pipeline``'s, so the artifact is the program the CLI
     serves (frame, whole-sequence ``video_t``, circular window ``window =
-    (nf, seq_t, order)`` and ``volume`` modes, ``chunk``)."""
+    (nf, seq_t, order)`` and ``volume`` modes, ``chunk``, ``int8``, and
+    ``w8a8`` as a ``{path: scale}`` dict: lazy first-batch calibration
+    (``w8a8=True``) cannot be serialized and is refused)."""
     from vsr_tpu_torch.infer import make_pipeline
 
+    if w8a8 is True:
+        raise ValueError(
+            "export needs static W8A8 activation scales (a {path: scale} "
+            "dict from vsr_tpu_torch.quantize.calibrate_w8a8) — lazy "
+            "first-batch calibration cannot be serialized")
     return make_pipeline(net, factor, dataset, video_t=video_t or 0,
-                         window=window, volume=volume, chunk=chunk)
+                         window=window, volume=volume, chunk=chunk, int8=int8,
+                         w8a8=w8a8)
 
 
 class _Program(nn.Module):
@@ -71,7 +86,7 @@ class _Program(nn.Module):
 
 def export_serving(net: nn.Module, frames_shape: Sequence[int], factor: int,
                    dataset: str = "acdc", video_t: int = 0, window=None,
-                   chunk: int = 0, volume=None
+                   chunk: int = 0, volume=None, int8: bool = False, w8a8=False
                    ) -> tuple[torch.export.ExportedProgram, dict]:
     """Trace the serving program at ``frames_shape`` on the net's device.
     Returns ``(program, meta)``."""
@@ -79,10 +94,10 @@ def export_serving(net: nn.Module, frames_shape: Sequence[int], factor: int,
 
     device = net_device(net)
     fn = make_serving_fn(net, factor, dataset, video_t=video_t, window=window,
-                         chunk=chunk, volume=volume)
+                         chunk=chunk, volume=volume, int8=int8, w8a8=w8a8)
     example = torch.zeros(tuple(frames_shape), dtype=torch.float32,
                           device=device)
-    program = torch.export.export(_Program(net, fn), (example,))
+    program = torch.export.export(_Program(fn.module, fn), (example,))
     meta = {
         "format": FORMAT,
         "format_version": FORMAT_VERSION,
@@ -93,8 +108,8 @@ def export_serving(net: nn.Module, frames_shape: Sequence[int], factor: int,
         "window": list(window) if window else None,
         "volume": list(volume) if volume else None,
         "chunk": chunk,
-        "int8": False,
-        "w8a8_convs": 0,
+        "int8": bool(int8),
+        "w8a8_convs": len(w8a8) if isinstance(w8a8, dict) else 0,
         "platforms": [device.type],  # the JAX key; ``device`` is checked
         "device": device.type,
         "torch": torch.__version__,
@@ -158,8 +173,35 @@ class ExportedServing:
 
 
 # JAX CLI flags this port does not export: dest -> flag.
-_NOT_PORTED = {"int8": "--int8", "w8a8": "--w8a8", "calib": "--calib",
-               "platforms": "--platforms"}
+_NOT_PORTED = {"platforms": "--platforms"}
+
+
+def _calibrate_from_volumes(net: nn.Module, calib_dir: Path, want, factor,
+                            dataset, video_t, window, method: str,
+                            max_volumes: int = 4, volume=None) -> dict:
+    """Export-time W8A8 calibration: net inputs from sample NIfTI volumes of
+    the artifact's geometry, through the prep stage the artifact runs
+    (``infer.make_prep``), then static activation scales
+    (``vsr_tpu.export._calibrate_from_volumes``)."""
+    from vsr_tpu_torch.infer import load_hr_frames, make_prep, net_device
+    from vsr_tpu_torch.quantize import calibrate_w8a8
+
+    prep = make_prep(factor, dataset, video_t or 0, window, volume)
+    device = net_device(net)
+    zs = []
+    for path in sorted(Path(calib_dir).glob("**/*.nii*")):
+        frames, _ = load_hr_frames(path)
+        if frames.shape == tuple(want):
+            with torch.inference_mode():
+                zs.append(prep(torch.from_numpy(
+                    frames.astype(np.float32)).to(device))[1])
+        if len(zs) >= max_volumes:
+            break
+    if not zs:
+        raise SystemExit(
+            f"--calib: no NIfTI volume under {calib_dir} matches the "
+            f"artifact geometry {tuple(want)}")
+    return calibrate_w8a8(net, zs, method=method)
 
 
 def _cmd_export(args) -> None:
@@ -187,6 +229,10 @@ def _cmd_export(args) -> None:
                             windows=args.windows, seq_t=args.seq_t,
                             chunk=args.chunk, n_frames=shape[0],
                             exc=SystemExit)
+    if volume and (args.w8a8 or args.w8a8_scales):
+        raise SystemExit("W8A8 quantizes wide 2D nn.Conv layers; the "
+                         "volumetric nets' 3D convs have no quantizable "
+                         "path — drop --w8a8/--w8a8-scales")
     window = None
     if args.windows:
         if not args.seq_t:
@@ -198,9 +244,39 @@ def _cmd_export(args) -> None:
                                 device=args.device)
     except ValueError as err:
         raise SystemExit(f"--checkpoint: {err}") from err
+    w8a8: dict | bool = False
+    if args.w8a8_scales:
+        with open(args.w8a8_scales) as f:
+            w8a8 = {k: float(v) for k, v in json.load(f).items()}
+    elif args.w8a8:
+        if not args.calib:
+            raise SystemExit(
+                "--w8a8 export needs static activation scales: pass "
+                "--w8a8-scales <json> (vsr_tpu_torch.quantize.calibrate_w8a8"
+                " or vsr_tpu's) or --calib <nifti dir> to calibrate from "
+                "sample volumes here")
+        w8a8 = _calibrate_from_volumes(
+            net, Path(args.calib), shape, args.factor, args.dataset,
+            args.video_t, window, args.calib_method, volume=volume)
+        logging.info(f"Calibrated {len(w8a8)} conv activation scales "
+                     f"from {args.calib} (method={args.calib_method})")
+    if w8a8 and args.int8:
+        raise SystemExit("--int8 (weight-only) and --w8a8 (int8 tensor-core "
+                         "compute) are separate paths; pick one")
+    if args.w8a8_kernels:
+        if not isinstance(w8a8, dict):
+            raise SystemExit("--w8a8-kernels needs W8A8 scales "
+                             "(--w8a8-scales or --w8a8 with --calib)")
+        from vsr_tpu_torch.quantize import filter_scales_by_kernel
+
+        sizes = {int(s) for s in args.w8a8_kernels.split(",")}
+        w8a8 = filter_scales_by_kernel(net, w8a8, sizes)
+        logging.info(f"--w8a8-kernels {sorted(sizes)}: "
+                     f"{len(w8a8)} convs stay quantized")
     program, meta = export_serving(
         net, shape, args.factor, dataset=args.dataset,
-        video_t=args.video_t, window=window, chunk=args.chunk, volume=volume)
+        video_t=args.video_t, window=window, chunk=args.chunk, volume=volume,
+        int8=args.int8, w8a8=w8a8)
     meta.update({"net": args.net, "net_kwargs": net_kwargs if not args.bf16
                  else {**net_kwargs, "dtype": "bfloat16"}})
     save_artifact(args.out, program, meta)
@@ -272,9 +348,27 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="device to trace on and serve on (cuda, cpu)")
     p.add_argument("--out", default="model.pt2.zip")
-    p.add_argument("--int8", action="store_true", help="not yet ported")
-    p.add_argument("--w8a8", action="store_true", help="not yet ported")
-    p.add_argument("--calib", default="", help="not yet ported")
+    p.add_argument("--int8", action="store_true",
+                   help="keep the kernels in int8 in the artifact "
+                        "(dequantized at each call)")
+    p.add_argument("--w8a8", action="store_true",
+                   help="bake W8A8 convs (int8 x int8 -> int32 on the "
+                        "tensor cores) into the artifact; needs "
+                        "--w8a8-scales or --calib")
+    p.add_argument("--w8a8-scales", dest="w8a8_scales", default="",
+                   help="JSON file of precomputed {module_path: scale} "
+                        "activation scales; implies --w8a8")
+    p.add_argument("--w8a8-kernels", dest="w8a8_kernels", default="",
+                   help="comma-separated spatial kernel sizes to quantize "
+                        "(e.g. '6'); other convs stay full precision")
+    p.add_argument("--calib", default="",
+                   help="with --w8a8: directory of sample NIfTI volumes of "
+                        "the artifact geometry to calibrate activation "
+                        "scales from at export time")
+    p.add_argument("--calib-method", dest="calib_method",
+                   choices=["outputs", "callback"], default="outputs",
+                   help="'callback' also calibrates the recurrent nets' "
+                        "scan-body convs")
     p.add_argument("--platforms", default="",
                    help="not ported: an artifact serves on the device type "
                         "it was traced on (--device)")

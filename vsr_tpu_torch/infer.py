@@ -28,6 +28,15 @@ Usage:
   python -m vsr_tpu_torch.infer <input_dir> <output_dir> --fused-tail \
       --net Volume4DSRNet --net-kwargs '{"in_channels":1,"out_channels":1,
       "num_features":32,"num_resblocks":4,"upscale_factor":2}'
+  python -m vsr_tpu_torch.infer <input_dir> <output_dir> --net EDSRNet \
+      --net-kwargs '{...}' [--int8 | --w8a8 | --w8a8-scales scales.json] \
+      [--w8a8-kernels 3,6]
+
+``--int8`` serves the kernels held in int8 (``quantize.py``); ``--w8a8``
+serves the wide convs as int8 x int8 -> int32 on the card's tensor cores,
+with activation scales calibrated on the first batch, ``--w8a8-scales`` with
+precomputed ones (a JSON of ``vsr_tpu`` or of the port), ``--w8a8-kernels``
+only the convs of these kernel sizes.
 
 Weights come from ``--checkpoint`` (a checkpoint of the port's own trainer,
 ``vsr_tpu_torch/utils/checkpoint.py``, or a flax msgpack checkpoint of
@@ -58,8 +67,7 @@ from vsr_tpu_torch.utils.checkpoint import load_net_weights
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
 
 # JAX CLI flags this port does not serve yet: dest -> flag.
-_NOT_PORTED = {"int8": "--int8", "w8a8": "--w8a8", "mesh": "--mesh",
-               "preset": "--preset"}
+_NOT_PORTED = {"mesh": "--mesh", "preset": "--preset"}
 # A net class's ``serving_mode`` -> the flag that selects the mode.
 _MODE_FLAGS = {"frame": "neither --video nor --windows", "video": "--video",
                "window": "--windows N"}
@@ -170,11 +178,73 @@ def make_prep(factor: int, dataset: str, video_t: int = 0,
     return prep
 
 
+def _check_scales_match(net: torch.nn.Module, scales: dict,
+                       w8a8_kernels=None) -> dict:
+    """Apply the optional kernel-size filter and refuse a scales dict that
+    quantizes no conv of ``net`` (calibrated for another net, stale paths,
+    or filtered to nothing): it would serve full precision under the name
+    of W8A8. Entries that match no conv are logged and ignored
+    (``vsr_tpu.infer._check_scales_match``)."""
+    from vsr_tpu_torch.quantize import filter_scales_by_kernel, kernel_shapes
+
+    if w8a8_kernels is not None:
+        scales = filter_scales_by_kernel(net, scales, w8a8_kernels)
+        if not scales:
+            raise ValueError(
+                f"w8a8_kernels={sorted(w8a8_kernels)} filtered every "
+                "calibrated conv out — no conv of these kernel sizes is "
+                "calibrated for this net")
+    matched = set(scales) & set(kernel_shapes(net))
+    if not matched:
+        raise ValueError(
+            "W8A8 scales match no conv in this net (calibrated for a "
+            "different net/config, or stale paths?) — serving would "
+            "silently be full precision. Sample scale paths: "
+            f"{sorted(scales)[:3]}")
+    if len(matched) < len(scales):
+        logging.warning(
+            f"W8A8: {len(scales) - len(matched)} of {len(scales)} scale "
+            "entries match no conv in this net and are ignored")
+    return scales
+
+
+def _quantized_apply(net: torch.nn.Module, int8: bool, w8a8, w8a8_kernels):
+    """The net's apply for ``make_pipeline``: the net itself, its int8 twin
+    (a net already wrapped by ``make_quantized_apply`` is taken as it is),
+    a W8A8 apply, or ``None`` for W8A8 calibrated at the first call."""
+    if int8 and w8a8:
+        raise ValueError("int8 (weight-only) and w8a8 (int8 tensor-core "
+                         "compute) are separate paths; pick one")
+    if w8a8_kernels is not None and (not w8a8 or w8a8 == "dynamic"):
+        raise ValueError("w8a8_kernels filters static activation scales — "
+                         "it needs w8a8=True (lazy calibration) or a "
+                         "non-empty precomputed {path: scale} dict, not "
+                         f"w8a8={w8a8!r}")
+    if isinstance(w8a8, dict) and not w8a8:
+        raise ValueError("w8a8={} is an empty scales dict — it would "
+                         "silently serve full precision; pass False to "
+                         "disable W8A8 explicitly")
+    from vsr_tpu_torch import quantize
+
+    if isinstance(w8a8, dict):
+        return quantize.make_w8a8_apply(
+            net, _check_scales_match(net, w8a8, w8a8_kernels))
+    if w8a8 == "dynamic":
+        return quantize.make_w8a8_apply(net, "dynamic")
+    if w8a8:
+        return None
+    if int8 and not isinstance(net, quantize.QuantizedApply):
+        return quantize.make_quantized_apply(net,
+                                             *quantize.quantize_params(net))
+    return net
+
+
 def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
                   video_t: int = 0,
                   window: tuple[int, int, str] | None = None,
                   volume: tuple[str, int] | None = None,
-                  chunk: int = 0):
+                  chunk: int = 0, int8: bool = False, w8a8=False,
+                  w8a8_kernels=None):
     """HR float frames (N, H, W) -> (lr_frames, sr_frames), float32 tensors
     holding uint8 values, on the frames' device.
 
@@ -195,6 +265,17 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
     Bounds the live activation memory; the last chunk is padded by
     edge-repeat and sliced back (exact: the items are independent).
 
+    ``int8``: serve the kernels held in int8 (``quantize.QuantizedApply``;
+    the net's dense kernels are freed). ``w8a8``: the eligible convs as
+    int8 x int8 -> int32 (``quantize.make_w8a8_apply``): ``True`` calibrates
+    static activation scales on the first batch served (its first ``chunk``
+    items when chunked), a ``{flax module path: scale}`` dict gives them,
+    ``"dynamic"`` takes per-call scales. ``w8a8_kernels``: quantize only the
+    convs of these spatial kernel sizes (static scales only). The returned
+    pipeline's ``module`` is the module that holds the served state; a lazy
+    W8A8 pipeline's ``act_scales`` are the scales it calibrated (after its
+    first call).
+
     Turns TF32 off for cuDNN convs and cuBLAS matmuls (process-wide): the
     k-space chain and the f32 net must run in full float32."""
     if chunk < 0:
@@ -214,15 +295,17 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
     if window and window[2] not in ("middle", "last"):
         raise ValueError(f"window order must be 'middle' or 'last', got "
                          f"{window[2]!r}")
+    net_apply = _quantized_apply(net, int8, w8a8, w8a8_kernels)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     prep = make_prep(factor, dataset, video_t, window, volume)
     net.eval()
+    state = {"apply": net_apply}
 
     def apply(zb: torch.Tensor) -> torch.Tensor:
         """net -> (items, C, H, W), one frame-shaped output per item (a
         volumetric net's output as it comes)."""
-        out = net(zb)
+        out = state["apply"](zb)
         if volume:
             return out
         if video_t:  # (D, T, C, H, W): flatten the frames back out
@@ -236,9 +319,36 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
                 "vsr_tpu_torch")
         return out
 
+    def calibrate(z: torch.Tensor):
+        """w8a8=True: static scales from the first batch's net inputs (its
+        first chunk when chunked), then the W8A8 apply for every batch. The
+        convs of a scan body are not calibrated and serve full precision."""
+        from vsr_tpu_torch.quantize import (calibrate_w8a8,
+                                            filter_scales_by_kernel,
+                                            make_w8a8_apply)
+
+        act_scales = calibrate_w8a8(net, [z[:chunk] if chunk else z])
+        if w8a8_kernels is not None:
+            act_scales = filter_scales_by_kernel(net, act_scales,
+                                                 w8a8_kernels)
+        if not act_scales:
+            raise ValueError(
+                "lazy W8A8 calibration found no quantizable conv "
+                + (f"of kernel sizes {sorted(w8a8_kernels)} "
+                   if w8a8_kernels is not None else "")
+                + "— the whole net would silently serve full precision. "
+                "Eligible = non-recurrent Conv with min(C_in, C_out) >= 16; "
+                "thinner nets cannot benefit (drop --w8a8), and scan-body "
+                "(recurrent) convs need precomputed scales from "
+                "calibrate_w8a8(method='callback') / --w8a8-scales")
+        state["apply"] = make_w8a8_apply(net, act_scales)
+        pipeline.act_scales = act_scales
+
     @torch.inference_mode()
     def pipeline(hr_frames: torch.Tensor):
         lr, z = prep(hr_frames)
+        if state["apply"] is None:
+            calibrate(z)
         if chunk:
             outs = []
             for start in range(0, len(z), chunk):
@@ -259,6 +369,8 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
                                                    *sr.shape[3:])
         return lr, denormalize(sr, dataset)
 
+    pipeline.module = net_apply if isinstance(net_apply,
+                                              torch.nn.Module) else net
     return pipeline
 
 
@@ -294,6 +406,15 @@ def run(args) -> dict:
                          "--video path is already sequence-batched")
     if args.checkpoint and not Path(args.checkpoint).is_file():
         raise SystemExit(f"--checkpoint: no such file: {args.checkpoint}")
+    w8a8 = args.w8a8
+    if args.w8a8_scales:  # precomputed static scales imply --w8a8
+        with open(args.w8a8_scales) as f:
+            w8a8 = {k: float(v) for k, v in json.load(f).items()}
+    w8a8_kernels = None
+    if args.w8a8_kernels:
+        if not w8a8:
+            raise SystemExit("--w8a8-kernels needs --w8a8 or --w8a8-scales")
+        w8a8_kernels = {int(s) for s in args.w8a8_kernels.split(",")}
     mode = "video" if args.video else "window" if args.windows else "frame"
     net_mode = getattr(get_class("net", args.net), "serving_mode", mode)
     if net_mode == "volume":
@@ -312,6 +433,11 @@ def run(args) -> dict:
                                 device=device)
     except ValueError as err:  # a file that is no checkpoint of either kind
         raise SystemExit(f"--checkpoint: {err}") from err
+    if args.int8 and not w8a8:  # quantized once, for every pipeline
+        from vsr_tpu_torch import quantize
+
+        net = quantize.make_quantized_apply(net,
+                                            *quantize.quantize_params(net))
 
     paths = sorted(Path(args.input_dir).glob("**/*.nii*"))
     if not paths:
@@ -334,7 +460,8 @@ def run(args) -> dict:
                 video_t=t if mode == "video" else 0,
                 window=((args.windows, t, args.window_order)
                         if mode == "window" else None),
-                volume=volume, chunk=args.chunk)
+                volume=volume, chunk=args.chunk, int8=args.int8, w8a8=w8a8,
+                w8a8_kernels=w8a8_kernels)
         t0 = time.perf_counter()
         lr, sr = pipelines[key](torch.from_numpy(frames).to(device))
         sr_np = sr.cpu().numpy()  # waits for the device
@@ -400,8 +527,24 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         help="a checkpoint written by the port's trainer "
                              "(model_N.ckpt, model_best.ckpt) or by "
                              "vsr_tpu's (a flax msgpack file)")
-    parser.add_argument("--int8", action="store_true", help="not yet ported")
-    parser.add_argument("--w8a8", action="store_true", help="not yet ported")
+    parser.add_argument("--int8", action="store_true",
+                        help="serve the kernels held in int8 (per-channel "
+                             "scales, dequantized at each call)")
+    parser.add_argument("--w8a8", action="store_true",
+                        help="serve the wide convs as int8 x int8 -> int32 "
+                             "on the tensor cores (narrow head / tail convs "
+                             "stay full precision); static activation "
+                             "scales are calibrated on the first batch")
+    parser.add_argument("--w8a8-scales", dest="w8a8_scales", default="",
+                        help="JSON file of precomputed {module_path: scale} "
+                             "activation scales (quantize.calibrate_w8a8 of "
+                             "vsr_tpu or of this port; needed for the "
+                             "recurrent nets' scan-body convs); implies "
+                             "--w8a8")
+    parser.add_argument("--w8a8-kernels", dest="w8a8_kernels", default="",
+                        help="comma-separated spatial kernel sizes to "
+                             "quantize (e.g. '6' or '3,6'); other convs "
+                             "serve full precision")
     parser.add_argument("--mesh", default="", help="not yet ported")
     parser.add_argument("--windows", type=int, default=0,
                         help="MISR net (DUF): serve every frame from one "

@@ -33,10 +33,16 @@ volumetric nets' tails continue the ``Conv3D_k`` numbering of their parent
 lays a flax-shaped tree of numpy arrays (gradients, or updated parameters)
 onto the port's parameter names, in the port's layouts, so tests can hold
 ``param.grad`` and trained parameters against ``jax.grad`` and optax.
+
+``kernel_leaves(net)`` reads it for quantization (``quantize.py``): every
+kernel leaf with its flax module path, the port module that owns it, its
+flax shape and the port axis that holds flax's output-channel axis;
+``SCAN_BODIES`` names the module paths that flax runs inside a scan.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Callable, Iterator, Mapping
 
 import numpy as np
@@ -357,6 +363,48 @@ def module_slots(module: nn.Module) -> Iterator[Slot]:
         yield ("params", "alpha"), module.weight, _same
     else:
         raise TypeError(f"no flax mapping for {type(module).__name__}")
+
+
+# Kernel layouts: the port axis of flax's last (output-channel) axis, and the
+# flax shape of a port kernel.
+_KERNEL_LAYOUTS: dict[Callable, tuple[int, Callable[[tuple], tuple]]] = {
+    _conv_kernel: (0, lambda s: (*s[2:], s[1], s[0])),
+    _conv3d_kernel: (0, lambda s: (*s[2:], s[1], s[0])),
+    _squeeze_kernel: (0, lambda s: (1, 1, s[1], s[0])),
+    _deconv_kernel: (1, lambda s: (*s[2:], s[0], s[1])),
+}
+
+# Module paths under a flax ``nn.scan`` body, by net: the frame / feedback
+# step of DRFNet (``vsr_tpu/models/drf.py:237``), SRFBNet (``srfbn.py:109``),
+# FRVSRNet (``frvsr.py:208``) and Volume4DSRNet (``vol4d.py:160``).
+SCAN_BODIES: dict[type, str] = {DRFNet: "step/", SRFBNet: "Scan_SRFBStep_0/",
+                                FRVSRNet: "step/", Volume4DSRNet: "step/"}
+
+
+@dataclass(frozen=True)
+class KernelLeaf:
+    """One ``kernel`` / ``weight`` leaf of rank >= 2 of the flax tree."""
+
+    path: str             # flax module path, e.g. "InBlock_0/Conv_1/Conv_0"
+    module: nn.Module     # the port module whose ``weight`` it is
+    name: str             # the port parameter name
+    tensor: torch.Tensor  # the port parameter
+    out_axis: int         # the port axis of flax's output-channel axis
+    flax_shape: tuple
+
+
+def kernel_leaves(net: nn.Module) -> Iterator[KernelLeaf]:
+    """Every kernel leaf of ``net``'s flax counterpart, in slot order."""
+    names = {id(p): name for name, p in net.named_parameters()}
+    owners = {id(m.weight): m for m in net.modules()
+              if isinstance(getattr(m, "weight", None), torch.Tensor)}
+    for path, tensor, transform in module_slots(net):
+        if (path[0] == "params" and path[-1] in ("kernel", "weight")
+                and tensor.dim() >= 2):
+            axis, shape = _KERNEL_LAYOUTS[transform]
+            yield KernelLeaf("/".join(path[1:-1]), owners[id(tensor)],
+                             names[id(tensor)], tensor, axis,
+                             shape(tuple(tensor.shape)))
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> dict[tuple[str, ...], Any]:

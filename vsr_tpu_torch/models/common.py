@@ -14,11 +14,20 @@ step of the optimizer moves them by what flax's does. ``out_dtype``
 (``Conv``, ``Conv3D``) is ``make_accum_conv``: the conv of the compute-dtype
 operands accumulated in ``out_dtype`` and not rounded back, with the plain
 compute-dtype conv backward (``accum_conv``).
+
+Interception (flax's ``nn.intercept_methods``): ``Conv``, ``Conv3D``,
+``ConvTranspose`` and ``PlainConv2d`` consult :func:`intercept_convs`'s
+interceptor, which only a quantized apply or a calibration of
+``vsr_tpu_torch/quantize.py`` sets, for the length of its call; without one
+each forward is the plain forward below.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -98,6 +107,31 @@ def accum_conv(x: torch.Tensor, weight: torch.Tensor,
         -1, *[1] * (x.dim() - 2))
 
 
+# ``interceptor(module, x, plain) -> output`` while one is active, where
+# ``plain(x)`` is the module's own forward (a context variable: another
+# thread's calls are not intercepted).
+_INTERCEPTOR: contextvars.ContextVar[Callable | None] = contextvars.ContextVar(
+    "conv_interceptor", default=None)
+
+
+@contextlib.contextmanager
+def intercept_convs(interceptor: Callable):
+    """Route every forward of a ``Conv``, ``Conv3D``, ``ConvTranspose`` and
+    ``PlainConv2d`` through ``interceptor(module, x, plain)`` inside the
+    block."""
+    token = _INTERCEPTOR.set(interceptor)
+    try:
+        yield
+    finally:
+        _INTERCEPTOR.reset(token)
+
+
+def _intercepted(module: nn.Module, x: torch.Tensor,
+                 plain: Callable) -> torch.Tensor:
+    interceptor = _INTERCEPTOR.get()
+    return plain(x) if interceptor is None else interceptor(module, x, plain)
+
+
 def torch_default_init_(weight: torch.Tensor, bias: torch.Tensor | None,
                         fan_in: int,
                         generator: torch.Generator | None) -> None:
@@ -127,6 +161,9 @@ class Conv(nn.Conv2d):
                             kernel_size * kernel_size * in_channels, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _intercepted(self, x, self._plain)
+
+    def _plain(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(self.dtype, x, self.weight)
         x, w, b = x.to(dt), self.weight.to(dt), _cast(self.bias, dt)
         if self.out_dtype is not None:
@@ -186,6 +223,9 @@ class Conv3D(nn.Conv3d):
                             math.prod(kernel_size) * in_channels, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _intercepted(self, x, self._plain)
+
+    def _plain(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(self.dtype, x, self.weight)
         x, w, b = x.to(dt), self.weight.to(dt), _cast(self.bias, dt)
         if self.out_dtype is not None:
@@ -224,11 +264,23 @@ class ConvTranspose(nn.ConvTranspose2d):
                             kernel_size * kernel_size * in_channels, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _intercepted(self, x, self._plain)
+
+    def _plain(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(self.dtype, x, self.weight)
         return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
                                   _cast(self.bias, dt), self.stride,
                                   self.padding, self.output_padding,
                                   self.groups, self.dilation)
+
+
+class PlainConv2d(nn.Conv2d):
+    """``nn.Conv2d`` as it is (its init and its forward) where the JAX net
+    uses a flax ``nn.Conv`` directly (EDVR's residual blocks, FRVSR), with
+    the interception point of the module docstring."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _intercepted(self, x, super().forward)
 
 
 class BatchNorm(nn.Module):

@@ -29,8 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vsr_tpu_torch.models.common import (Conv, FoldableConv, resolve_dtype,
-                                         torch_default_init_)
+from vsr_tpu_torch.models.common import (Conv, FoldableConv, PlainConv2d,
+                                         resolve_dtype, torch_default_init_)
 from vsr_tpu_torch.models.toflow import crop, pad_to_multiple
 from vsr_tpu_torch.ops.deform_conv import deform_conv2d
 from vsr_tpu_torch.ops.upsample import upsample_bilinear
@@ -48,7 +48,7 @@ class ResidualBlockNoBN(nn.Module):
     def __init__(self, nf: int = 64, *,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.convs = nn.ModuleList(nn.Conv2d(nf, nf, 3, padding=1)
+        self.convs = nn.ModuleList(PlainConv2d(nf, nf, 3, padding=1)
                                    for _ in range(2))
         std = math.sqrt(2.0 / (9 * nf)) * 0.1
         with torch.no_grad():

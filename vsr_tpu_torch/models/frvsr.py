@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vsr_tpu_torch.models.common import resolve_dtype
+from vsr_tpu_torch.models.common import PlainConv2d, resolve_dtype
 from vsr_tpu_torch.models.toflow import crop, pad_to_multiple
 from vsr_tpu_torch.ops.upsample import upsample_bilinear
 from vsr_tpu_torch.ops.warp import grid_sample_bilinear, linspace
@@ -40,7 +40,7 @@ def _xavier_(module: nn.Module,
 
 def _conv(in_channels: int, out_channels: int,
           generator: torch.Generator | None) -> nn.Conv2d:
-    return _xavier_(nn.Conv2d(in_channels, out_channels, 3, padding=1),
+    return _xavier_(PlainConv2d(in_channels, out_channels, 3, padding=1),
                     generator)
 
 

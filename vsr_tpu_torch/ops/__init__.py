@@ -5,4 +5,5 @@ Importing the package registers the kernels' custom ops
 (``torch.ops.vsr_tpu_torch.*``), which a saved ``torch.export`` program
 names: load such a program after this import."""
 
-from vsr_tpu_torch.ops import duf_filter, fused_squeeze, rank  # noqa: F401
+from vsr_tpu_torch.ops import (duf_filter, fused_squeeze,  # noqa: F401
+                               rank, w8a8_conv)

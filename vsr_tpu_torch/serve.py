@@ -39,8 +39,10 @@ Serving semantics:
 
 Differences from the JAX daemon: ``/debug/profile`` records with
 ``torch.profiler``; ``--device`` (default ``cuda``) names the card; the
-mesh-sharded live mode and the int8 / W8A8 / preset flags are not ported
-and are refused by name.
+mesh-sharded live mode and the preset flags are not ported and are refused
+by name. The live backend serves ``--int8`` and ``--w8a8-scales`` (with
+``--w8a8-kernels``); a quantized artifact carries its kernels in its
+program.
 
 CLI:
   python -m vsr_tpu_torch.serve --artifact drf_x2.pt2.zip [--artifact ...] \
@@ -140,7 +142,8 @@ class LivePipeline:
     def __init__(self, *, net_name: str, net_kwargs: dict, checkpoint: str,
                  frames_shape, factor: int, dataset: str = "acdc",
                  video_t=None, window=None, volume=None, chunk: int = 0,
-                 w8a8=False, device: torch.device | str = "cuda"):
+                 int8: bool = False, w8a8=False, w8a8_kernels=None,
+                 device: torch.device | str = "cuda"):
         from vsr_tpu_torch.infer import build_serving_net, make_pipeline
 
         if w8a8 is True:
@@ -149,14 +152,13 @@ class LivePipeline:
                 "first-batch W8A8 calibration would bake degenerate "
                 "scales; pass precomputed static scales (a {path: scale} "
                 "dict / --w8a8-scales)")
-        if w8a8:
-            raise ValueError("W8A8 serving is not yet ported to "
-                             "vsr_tpu_torch")
         self.device = torch.device(device)
         net = build_serving_net(net_name, net_kwargs, checkpoint,
                                 device=self.device)
         self._pipe = make_pipeline(net, factor, dataset, video_t=video_t or 0,
-                                   window=window, volume=volume, chunk=chunk)
+                                   window=window, volume=volume, chunk=chunk,
+                                   int8=int8, w8a8=w8a8,
+                                   w8a8_kernels=w8a8_kernels)
         self.meta = {
             "frames_shape": list(frames_shape),
             "factor": factor,
@@ -166,8 +168,8 @@ class LivePipeline:
             "window": list(window) if window else None,
             "volume": list(volume) if volume else None,
             "chunk": chunk,
-            "int8": False,
-            "w8a8_convs": 0,
+            "int8": int8,
+            "w8a8_convs": len(w8a8) if isinstance(w8a8, dict) else 0,
             "mesh": None,
             "device": self.device.type,
             "live": True,
@@ -932,6 +934,12 @@ def live_from_args(args) -> list:
         if not args.seq_t:
             raise SystemExit("--windows needs --seq-t")
         window = (args.windows, args.seq_t, args.window_order)
+    w8a8: dict | bool = False
+    if args.w8a8_scales:
+        with open(args.w8a8_scales) as f:
+            w8a8 = {k: float(v) for k, v in json.load(f).items()}
+    w8a8_kernels = ({int(s) for s in args.w8a8_kernels.split(",")}
+                    if args.w8a8_kernels else None)
     live = []
     for spec in args.frames_shape:
         shape = tuple(int(s) for s in spec.split(","))
@@ -946,14 +954,14 @@ def live_from_args(args) -> list:
             checkpoint=args.checkpoint, frames_shape=shape,
             factor=args.factor, dataset=args.dataset,
             video_t=args.video_t or None, window=window, volume=volume,
-            chunk=args.chunk, device=args.device))
+            chunk=args.chunk, int8=args.int8, w8a8=w8a8,
+            w8a8_kernels=w8a8_kernels, device=args.device))
     return live
 
 
 # JAX daemon flags this port does not serve: dest -> flag.
-_NOT_PORTED = {"mesh": "--mesh", "int8": "--int8",
-               "w8a8_scales": "--w8a8-scales", "w8a8_kernels": "--w8a8-kernels",
-               "preset": "--preset", "preset_file": "--preset-file"}
+_NOT_PORTED = {"mesh": "--mesh", "preset": "--preset",
+               "preset_file": "--preset-file"}
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -1022,11 +1030,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "(0 = immediate; queued requests still coalesce "
                         "while the card is busy)")
     p.add_argument("--mesh", default="", help="not yet ported")
-    p.add_argument("--int8", action="store_true", help="not yet ported")
+    p.add_argument("--int8", action="store_true",
+                   help="live pipelines serve the kernels held in int8")
     p.add_argument("--w8a8-scales", dest="w8a8_scales", default="",
-                   help="not yet ported")
+                   help="live pipelines serve W8A8 convs with these "
+                        "precomputed {module_path: scale} activation scales "
+                        "(JSON)")
     p.add_argument("--w8a8-kernels", dest="w8a8_kernels", default="",
-                   help="not yet ported")
+                   help="with --w8a8-scales: quantize only convs of these "
+                        "spatial kernel sizes (e.g. '6')")
     p.add_argument("--preset", choices=["tuned", "fast"], default="",
                    help="not yet ported")
     p.add_argument("--preset-file", dest="preset_file", default="",
