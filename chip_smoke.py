@@ -188,7 +188,10 @@ Phases; any failure exits non-zero and prints no result:
    (float32) or one bf16 ulp, float32 and bf16, dynamic and static scale, on
    the first 2 items of each batch; at the full shape the kernel's median
    time against its bound (bytes at 3.35 TB/s, int8 operations at 1,979
-   TOPS), cuDNN's bf16 conv and unfold + ``torch._int_mm`` (its accumulators
+   TOPS) and the share of it reached, the kernel and tiles the shape takes
+   (``kernel_plan``), the per-tap kernel's time at the shape
+   (``PER_TAP_W8A8_MS``),
+   cuDNN's bf16 conv and unfold + ``torch._int_mm`` (its accumulators
    equal the kernel's); (b) the pipelines on a 192 x 192 x 10 x 30 volume of
    phase 7's low-passed sequences with the trained checkpoints of phases 7
    and 9: EDSRNet f32 and bf16 unquantized, ``--int8``, ``--w8a8`` (lazy)
@@ -225,6 +228,7 @@ Usage: python3 chip_smoke.py [--out details.json] [--profile | --latency N |
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import statistics
@@ -3547,6 +3551,54 @@ LIBRARY_MAX_BYTES = 4e9  # im2col matrices larger than this are not timed
 # tests/test_torch_quantize.py's bars for the kernel against the twin:
 # float32 within 1e-6 of the largest output entry, bf16 within one ulp.
 W8A8_F32_SHARE = 1e-6
+# The per-tap kernel (the earlier implicit GEMM that re-quantized each
+# activation per tap) at each eligible shape: (float32, bf16) ms, keyed by
+# (x, weight, stride, padding); measured on one NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md section 6). Printed beside the patch kernel's times.
+PER_TAP_W8A8_MS = {
+    ((300, 64, 96, 96), (64, 64, 3, 3), (1, 1), (1, 1)):
+        (5.846, 5.767),
+    ((300, 64, 96, 96), (256, 64, 3, 3), (1, 1), (1, 1)):
+        (22.46, 21.914),
+    ((300, 256, 96, 96), (64, 256, 1, 1), (1, 1), (0, 0)):
+        (4.277, 4.12),
+    ((10, 64, 192, 192), (64, 64, 6, 6), (2, 2), (2, 2)):
+        (0.879, 0.866),
+    ((10, 64, 96, 96), (256, 64, 3, 3), (1, 1), (1, 1)):
+        (0.896, 0.851),
+    ((100, 64, 7, 96, 96), (64, 64, 1, 1, 1), (1, 1, 1), (0, 0, 0)):
+        (3.016, 2.945),
+    ((100, 64, 7, 96, 96), (32, 64, 3, 3, 3), (1, 1, 1), (1, 1, 1)):
+        (34.192, 34.419),
+    ((100, 96, 7, 96, 96), (96, 96, 1, 1, 1), (1, 1, 1), (0, 0, 0)):
+        (8.162, 7.747),
+    ((100, 96, 7, 96, 96), (32, 96, 3, 3, 3), (1, 1, 1), (1, 1, 1)):
+        (51.194, 51.217),
+    ((100, 128, 7, 96, 96), (128, 128, 1, 1, 1), (1, 1, 1), (0, 0, 0)):
+        (10.551, 10.015),
+    ((100, 128, 7, 96, 96), (32, 128, 3, 3, 3), (1, 1, 1), (1, 1, 1)):
+        (68.06, 68.053),
+    ((100, 160, 7, 96, 96), (160, 160, 1, 1, 1), (1, 1, 1), (0, 0, 0)):
+        (18.903, 18.063),
+    ((100, 160, 7, 96, 96), (32, 160, 3, 3, 3), (1, 1, 1), (0, 1, 1)):
+        (63.442, 63.297),
+    ((100, 192, 5, 96, 96), (192, 192, 1, 1, 1), (1, 1, 1), (0, 0, 0)):
+        (16.09, 15.415),
+    ((100, 192, 5, 96, 96), (32, 192, 3, 3, 3), (1, 1, 1), (0, 1, 1)):
+        (46.318, 46.072),
+    ((100, 224, 3, 96, 96), (224, 224, 1, 1, 1), (1, 1, 1), (0, 0, 0)):
+        (14.796, 14.219),
+    ((100, 224, 3, 96, 96), (32, 224, 3, 3, 3), (1, 1, 1), (0, 1, 1)):
+        (18.76, 18.861),
+    ((100, 256, 1, 96, 96), (256, 256, 1, 3, 3), (1, 1, 1), (0, 1, 1)):
+        (28.88, 28.623),
+    ((100, 256, 1, 96, 96), (512, 256, 1, 1, 1), (1, 1, 1), (0, 0, 0)):
+        (11.304, 10.853),
+    ((100, 512, 1, 96, 96), (100, 512, 1, 1, 1), (1, 1, 1), (0, 0, 0)):
+        (5.382, 5.284),
+    ((100, 256, 1, 96, 96), (256, 256, 1, 1, 1), (1, 1, 1), (0, 0, 0)):
+        (5.711, 5.454),
+}
 
 
 def w8a8_bytes_and_ops(x_shape, weight_shape, out_shape, x_itemsize: int,
@@ -3621,7 +3673,10 @@ def w8a8_shape(key, dev, gen, where: set) -> dict:
     b = torch.randn(wshape[0], device=dev, generator=gen)
     res = {"x": list(xshape), "weight": list(wshape), "stride": list(stride),
            "padding": list(padding), "groups": groups,
-           "convs": sorted(where), "max_abs_err": 0.0}
+           "convs": sorted(where), "max_abs_err": 0.0,
+           "plan": wc.kernel_plan(xshape, wshape, stride, padding, groups),
+           "per_tap_ms": PER_TAP_W8A8_MS.get(
+               (xshape, wshape, stride, padding))}
     cut = x[:W8A8_CHECK_ITEMS]
     static = 1.25 * float(wc.dynamic_scale(cut))
     with torch.inference_mode():
@@ -3683,7 +3738,19 @@ def w8a8_shape(key, dev, gen, where: set) -> dict:
             n_bytes, ops, PEAK_INT8)
     res["bytes"], res["ops"] = w8a8_bytes_and_ops(xshape, wshape, out_shape,
                                                   4, 4)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["bf16_bound_share"] = res["bf16_bound_ms"] / res["bf16_ms"]
     return res
+
+
+def plan_text(plan: dict) -> str:
+    """``kernel_plan``'s choice in a few words: the kernel, its N tile,
+    output tile and weights' residence."""
+    if plan["kernel"] != "patch":
+        return plan["kernel"]
+    return (f"patch N{plan['bn']} tile {'x'.join(map(str, plan['tile']))} "
+            f"{plan['stages']} stages, weights "
+            + ("resident" if plan["resident"] else "streamed"))
 
 
 # The serving runs of 13b: (path key, net, its config's kwargs, the
@@ -3969,14 +4036,29 @@ def phase_quantized(tmp: Path, card: str, dev) -> dict:
         row = w8a8_shape(key, dev, gen, where)
         res["shapes"].append(row)
         torch.cuda.empty_cache()
+        per_tap = row["per_tap_ms"]
         log(f"  x {row['x']} weight {row['weight']} s{row['stride']} "
-            f"p{row['padding']} ({len(where)} convs): err "
-            f"{row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms (bf16 "
+            f"p{row['padding']} ({len(where)} convs), {plan_text(row['plan'])}"
+            f": err {row['max_abs_err']:.3g}; kernel {row['ms']:.3f} ms (bf16 "
             f"{row['bf16_ms']:.3f}), bound {row['bound_ms']:.3f} by "
-            f"{row['bound_by']}; cuDNN bf16 {row['cudnn_bf16_ms']:.3f}; unfold"
+            f"{row['bound_by']} (bf16 {row['bf16_bound_ms']:.3f}), share "
+            f"{row['bound_share']:.3f} (bf16 {row['bf16_bound_share']:.3f}); "
+            + (f"the per-tap kernel {per_tap[0]:.3f} "
+               f"(bf16 {per_tap[1]:.3f}); "
+               if per_tap else "the per-tap kernel not timed; ")
+            + f"cuDNN bf16 {row['cudnn_bf16_ms']:.3f}; unfold"
             f" + _int_mm " + (f"{row['library_ms']:.3f}"
                               if row["library_ms"] is not None
                               else "not timed") + f" [{card}]")
+    timed = [r for r in res["shapes"] if r["per_tap_ms"]]
+    faster = sum(r["ms"] < r["per_tap_ms"][0]
+                 and r["bf16_ms"] < r["per_tap_ms"][1] for r in timed)
+    res["faster_than_per_tap"] = [faster, len(timed)]
+    log(f"  faster than the per-tap kernel (f32 and bf16) at {faster} of "
+        f"{len(timed)} shapes it timed; kernels taken: " + ", ".join(
+            f"{k} {n}" for k, n in sorted(collections.Counter(
+                r["plan"]["kernel"] for r in res["shapes"]).items()))
+        + f" [{card}]")
     main = max(res["shapes"], key=lambda r: (len(r["convs"]), r["ops"]))
     with torch.inference_mode():
         from vsr_tpu_torch.ops import w8a8_conv as wc

@@ -4,7 +4,9 @@ tiny DRFNet (fused squeeze, K1's op), DUFNet (filter op, K2), MoE-EDSR
 ``infer.make_pipeline``'s output on the same input; the graph holds each
 kernel's custom op node (not ``torch.cat`` + conv); the refusals (a JAX
 ``.vsrx``, ``--w8a8`` without scales, ``--w8a8-kernels`` without W8A8,
-``--platforms``, a device other than the traced one); the CLI's export and ``--run``; and an
+``--platforms``, a device other than the traced one); the CLI's export and ``--run``; the
+JAX CLI flags that ``infer`` and ``export`` refuse by name, and ``infer``'s
+default net (``EDSRNet``, as ``vsr_tpu.infer``'s); and an
 artifact's SR against ``vsr_tpu.export.ExportedServing``'s on the same
 weights (>= 99.9 % exact grey, <= 1 grey)."""
 
@@ -20,7 +22,7 @@ import vsr_tpu.export as jexport
 import vsr_tpu.models as jmodels
 from tests._torch_cases import run_cases, subdir
 from tests._torch_parity import init, randomize
-from vsr_tpu_torch import export
+from vsr_tpu_torch import export, infer
 from vsr_tpu_torch.infer import build_serving_net, make_pipeline
 from vsr_tpu_torch.interop import load_jax_params
 from vsr_tpu_torch.io import nifti
@@ -154,6 +156,44 @@ def _case_cli_export_and_run(tmp_path, rng):
                      "--device", "cpu"])
 
 
+# The JAX package's CLI flags the port refuses by name: (module, flags,
+# what the message says).
+_REFUSED_FLAGS = [
+    (infer, ["--ema"], "--ema is not yet ported.*track no parameter EMA"),
+    (infer, ["--gif"], "--gif is not yet ported.*no GIF"),
+    (infer, ["--bucket-t", "8"],
+     "--bucket-t is refused by vsr_tpu_torch.*runs eagerly"),
+    (infer, ["--preset-file", "tuned.json"],
+     "--preset-file is not yet ported.*not measured on this card"),
+    (export, ["--preset", "fast"],
+     "--preset is not yet ported.*W8A8, is no faster here"),
+    (export, ["--preset-file", "tuned.json"],
+     "--preset-file is not yet ported.*not measured on this card"),
+]
+
+
+def _case_cli_refuses_jax_flags_by_name(tmp_path, rng):
+    """Each flag parses, then stops the CLI with its reason: a message
+    exit (status 1), not argparse's usage error (status 2)."""
+    for module, flags, match in _REFUSED_FLAGS:
+        argv = ([str(tmp_path), str(tmp_path / "o"), "--device", "cpu"]
+                if module is infer else
+                ["--net", "EDSRNet", "--net-kwargs", json.dumps(EDSR_KW),
+                 "--device", "cpu", "--out", str(tmp_path / "x.zip")])
+        with pytest.raises(SystemExit, match=match) as err:
+            module.main([*argv, *flags])
+        assert isinstance(err.value.code, str), (flags, err.value.code)
+    assert not (tmp_path / "x.zip").exists()
+
+
+def _case_cli_defaults_to_edsr(tmp_path, rng):
+    """``python -m vsr_tpu_torch.infer in out`` builds EDSRNet, as
+    ``vsr_tpu.infer`` does (``vsr_tpu/infer.py:718``); so does export."""
+    assert infer.parse_args([str(tmp_path), str(tmp_path / "o")]).net == \
+        "EDSRNet"
+    assert export.parse_args([]).net == "EDSRNet"
+
+
 def _case_artifact_matches_vsr_tpu_artifact(tmp_path, rng):
     """The same DRFNet weights through both packages' artifacts."""
     kw = dict(DRF_KW)
@@ -194,4 +234,6 @@ def test_artifacts_hold_their_ops_and_match_pipelines(tmp_path, rng):
 
 def test_refusals_and_cli(tmp_path, rng):
     run_cases([(c.__name__, lambda c=c: c(subdir(tmp_path, c.__name__), rng))
-               for c in (_case_refusals, _case_cli_export_and_run)])
+               for c in (_case_refusals, _case_cli_export_and_run,
+                         _case_cli_refuses_jax_flags_by_name,
+                         _case_cli_defaults_to_edsr)])

@@ -16,6 +16,7 @@ import torch
 # Imported by its own name (pytest puts tests/ on sys.path): an installed
 # ``tests`` package would shadow ``tests._torch_cases``.
 from _torch_cases import run_cases, subdir
+from _torch_w8a8 import W8A8_CASES
 from vsr_tpu_torch.ops import duf_filter as df
 from vsr_tpu_torch.ops import fused_squeeze as fs
 from vsr_tpu_torch.ops import rank as rk
@@ -879,21 +880,7 @@ def test_serving_routes_launch_their_kernels_on_the_card(rng, dev, tmp_path):
 
 # ------------------------------------------------------------ W8A8 conv
 
-# name -> x shape, weight shape, stride, padding, groups: the zoo's eligible
-# geometries (EDSR 3x3, DRF's k6 s2 and 1x1 squeeze, DUF's and the volumes'
-# 3D convs) and shapes off the kernel's 64 x 64 tile and 32-deep K step.
-W8A8_CASES = {
-    "k3_64": ((2, 64, 20, 24), (64, 64, 3, 3), (1, 1), (1, 1), 1),
-    "k6s2": ((3, 64, 24, 24), (64, 64, 6, 6), (2, 2), (2, 2), 1),
-    "k1": ((2, 96, 9, 13), (64, 96, 1, 1), (1, 1), (0, 0), 1),
-    "k5_ragged": ((5, 70, 13, 17), (130, 70, 5, 5), (1, 1), (2, 2), 1),
-    "groups4": ((2, 16, 12, 12), (32, 4, 3, 3), (1, 1), (1, 1), 4),
-    "conv3d": ((2, 16, 4, 8, 8), (32, 16, 3, 3, 3), (1, 1, 1), (1, 1, 1), 1),
-    "conv3d_133": ((2, 64, 7, 20, 20), (48, 64, 1, 3, 3), (1, 1, 1),
-                   (0, 1, 1), 1),
-}
-
-
+# The geometries of the W8A8 cases: tests/_torch_w8a8.py.
 def _w8a8_case(rng, dev, case, dtype, scale):
     from vsr_tpu_torch.ops import w8a8_conv as wc
 
@@ -918,14 +905,51 @@ def _w8a8_case(rng, dev, case, dtype, scale):
     assert out.dtype == dtype and torch.equal(out, want)
 
 
+def _w8a8_quantize_edges(rng, dev, dtype):
+    """The kernel's quantization of every element, seen through a 1x1
+    identity conv (its accumulators are 127 x the int8 activations): values
+    on, and a few ulps off, every half-integer multiple of the scale up to
+    +-130 of it, random ones, and huge and denormal ones."""
+    from vsr_tpu_torch.ops import w8a8_conv as wc
+
+    xs = np.float32(0.0173)
+    k = np.arange(-131, 131, dtype=np.float64) + 0.5
+    on = (k * np.float64(xs)).astype(np.float32)
+    vals = [on]
+    for steps in (1, 2, 3):
+        for direction in (np.inf, -np.inf):
+            off = on
+            for _ in range(steps):
+                off = np.nextafter(off, np.float32(direction))
+            vals.append(off)
+    vals += [(rng.standard_normal(200_000) * 40 * xs).astype(np.float32),
+             np.float32([1e30, -1e30, 3e38, -3e38, 1e-40, -1e-40, 0.0])]
+    flat = np.concatenate(vals)
+    c = 32
+    flat = np.concatenate([flat, np.zeros(-flat.size % (c * 64), np.float32)])
+    x = torch.from_numpy(flat.reshape(1, c, -1, 64)).to(dev).to(dtype)
+    w = torch.eye(c, device=dev).reshape(c, c, 1, 1)
+    for scale in (float(xs), None):
+        args = (x, w, None, scale, (1, 1), (0, 0))
+        with torch.inference_mode():
+            got = wc.w8a8_conv(*args, out_dtype=torch.int32)
+            want = wc.w8a8_conv_reference(*args, out_dtype=torch.int32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (scale, (got != want).sum().item())
+
+
 def test_w8a8_kernel_matches_twin_on_the_card(rng, dev):
     """The int32 accumulators and the dequantized outputs bit-equal to the
-    twin, float32 and bf16, static and dynamic scale, on every geometry."""
+    twin, float32 and bf16, static and dynamic scale, on every geometry;
+    and the quantization of each element at the rounding edges."""
     run_cases([(f"{case}_{str(dtype)[6:]}_{scale}",
                 lambda c=case, d=dtype, s=scale: _w8a8_case(rng, dev, c, d, s))
                for case in W8A8_CASES
                for dtype in (torch.float32, torch.bfloat16)
-               for scale in (None, 0.0173)])
+               for scale in (None, 0.0173)]
+              + [(f"quantize_edges_{str(dtype)[6:]}",
+                  lambda d=dtype: _w8a8_quantize_edges(rng, dev, d))
+                 for dtype in (torch.float32, torch.bfloat16)])
 
 
 def _case_w8a8_refuses_grad(rng, dev):

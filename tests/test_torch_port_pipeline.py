@@ -301,7 +301,7 @@ def test_cli_requires_video(tmp_path):
     # ... for a sequence net: each net is served in its own mode.
     with pytest.raises(SystemExit, match="--video"):
         infer.run(infer.parse_args([str(tmp_path), str(tmp_path / "o"),
-                                    "--device", "cpu"]))
+                                    "--device", "cpu", "--net", "DRFNet"]))
 
 
 @pytest.mark.parametrize("args,match", [

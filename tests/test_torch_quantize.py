@@ -13,7 +13,12 @@ from ``tests/_torch_parity.init``, JAX under ``jit``):
 - the W8A8 twin against ``make_w8a8_apply`` on each geometry of
   ``tests/test_quantize.py`` plus k6 s2 and a 3D conv: the int32
   accumulators exact, the outputs within 1e-6 of the output's largest entry
-  in float32 and within one bf16 ulp in bf16;
+  in float32 and within one bf16 ulp in bf16; and the CUDA kernels' weight
+  layout on every geometry of the card test (``tests/_torch_w8a8.py``): the
+  int8 activations unfolded in the kernels' ``(kz, ky, kx, c)`` order times
+  ``repack_weight``'s rows, in float64, equal the twin's int32
+  accumulators, and ``kernel_plan`` gives the patch kernel wherever its
+  shared memory fits;
 - the pipelines (``--int8``, ``--w8a8`` dynamic, static and lazy) of
   EDSRNet, DRFNet, MoEEDSRNet and Volume3DSRNet against JAX's at the grey
   bar (>= 99.9 % exact, <= 1 grey), and a DRF ``carry_f32`` bf16 conv's
@@ -25,6 +30,7 @@ queue 3, says why the count of tests matters)."""
 from __future__ import annotations
 
 import functools
+import math
 
 import flax.linen as nn
 import jax
@@ -37,6 +43,7 @@ import vsr_tpu.infer as jinfer
 import vsr_tpu.models as jm
 import vsr_tpu.quantize as jq
 from tests._torch_cases import run_cases
+from tests._torch_w8a8 import W8A8_CASES
 from tests._torch_parity import FORWARD_TOL, first, init, randomize, window
 from vsr_tpu.models.common import Conv as JaxConv
 from vsr_tpu.models.common import Conv3D as JaxConv3D
@@ -312,11 +319,69 @@ def _case_twin(geom_name, dtype, static, rng):
         assert (np.abs(got - want_out) <= ulp).all()
 
 
+def _case_kernel_layout(case, rng):
+    """The kernels' K order on the CPU, where they cannot run: activations
+    unfolded as ``(kz, ky, kx, c)`` with the channels padded like the
+    repacked weights, times those rows in float64, against the twin's
+    int32 accumulators; and the plan each geometry takes."""
+    xshape, wshape, stride, padding, groups = W8A8_CASES[case]
+    rank = len(wshape) - 2
+    x = torch.from_numpy(rng.standard_normal(xshape).astype(np.float32))
+    w = torch.from_numpy((0.1 * rng.standard_normal(wshape)).astype(
+        np.float32))
+    xs = wc.dynamic_scale(x)
+    wq, _ = wc.quantize_weight(w)
+    packed = wc.repack_weight(wq)
+    f, cg, kernel = wshape[0], wshape[1], wshape[2:]
+    cpad = packed.shape[-1]
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert packed.shape == (f, *kernel, cpad) and cpad % 32 == 0 and cpad >= cg
+    assert not packed[..., cg:].any()
+    xq = wc.quantize_activations(x, xs).double()
+    if rank == 2:  # as 3D of depth 1
+        xq, packed = xq[:, :, None], packed[:, None]
+        kernel, stride, padding = (1, *kernel), (1, *stride), (0, *padding)
+    fg = f // groups
+    accs = []
+    for g in range(groups):
+        cols = torch.nn.functional.pad(
+            xq[:, g * cg:(g + 1) * cg],
+            (padding[2], padding[2], padding[1], padding[1], padding[0],
+             padding[0]))
+        cols = torch.nn.functional.pad(cols, (0, 0) * 3 + (0, cpad - cg))
+        for d in range(3):
+            cols = cols.unfold(2 + d, kernel[d], stride[d])
+        # (N, cpad, od, oh, ow, kd, kh, kw) -> rows x (kd, kh, kw, c)
+        out = cols.shape[2:5]
+        rows = cols.permute(0, 2, 3, 4, 5, 6, 7, 1).reshape(
+            -1, math.prod(kernel) * cpad)
+        wrows = packed[g * fg:(g + 1) * fg].reshape(fg, -1).double()
+        accs.append((rows @ wrows.T).reshape(xshape[0], *out, fg))
+    got = torch.cat(accs, dim=-1).permute(0, 4, 1, 2, 3)
+    want = wc.w8a8_conv_reference(x, w, None, None, W8A8_CASES[case][2],
+                                  W8A8_CASES[case][3], groups,
+                                  out_dtype=torch.int32)
+    got = got.reshape(want.shape)
+    assert torch.equal(got, want.double())
+    plan = wc.kernel_plan(xshape, wshape, W8A8_CASES[case][2],
+                          W8A8_CASES[case][3], groups)
+    if case in ("k5_ragged", "gather_k16s8"):
+        assert plan == {"kernel": "gather"}
+    else:
+        assert plan["kernel"] == "patch" and plan["smem"] <= wc.SMEM_LIMIT
+        assert math.prod(plan["tile"]) == wc.TILE_M
+        assert plan["bn"] == (32 if fg <= 32 else 64 if fg <= 64 else 128)
+        assert plan["resident"] != case.startswith("stream")
+
+
 def test_w8a8_twin_matches_jax_on_each_geometry(rng):
     run_cases([(f"{g}_{str(d).split('.')[1]}_{'static' if s else 'dynamic'}",
                 functools.partial(_case_twin, g, d, s, rng))
                for g in GEOMETRIES for d in (torch.float32, torch.bfloat16)
-               for s in (True, False)])
+               for s in (True, False)]
+              + [(f"kernel_layout_{case}",
+                  functools.partial(_case_kernel_layout, case, rng))
+                 for case in W8A8_CASES])
 
 
 # ------------------------------------------------------ the pipelines

@@ -1,6 +1,7 @@
 """Training slice: every ported loss and metric against its JAX twin on the
 same numpy-seeded inputs (the port is channels-first, the JAX package
-channels-last), and the ``HuberLoss`` lookup trap."""
+channels-last), the JAX package's eleven ``torch.nn``-named losses (both
+channels-last) and the ``HuberLoss`` lookup trap."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +12,7 @@ from vsr_tpu import losses as jlosses
 from vsr_tpu import metrics as jmetrics
 from vsr_tpu_torch import losses, metrics
 from vsr_tpu_torch.registry import build, get_class
+from tests._torch_cases import run_cases
 
 
 @pytest.fixture(autouse=True)
@@ -60,8 +62,9 @@ def test_loss_gradient_matches_jax(rng, name, kwargs):
 
 def test_huber_loss_lookup_trap():
     """``torch.nn.HuberLoss`` exists and is another function; the project's
-    own delta-split flavor (delta required) wins the lookup, while a name
-    the port does not define still resolves to ``torch.nn``."""
+    own delta-split flavor (delta required) wins the lookup. A ``torch.nn``
+    name resolves to the port's own class where the JAX package defines
+    one, and raises where it does not (no fallback to ``torch.nn``)."""
     assert get_class("loss", "HuberLoss") is losses.HuberLoss
     assert get_class("loss", "HuberLoss") is not torch.nn.HuberLoss
     with pytest.raises(TypeError):
@@ -69,12 +72,80 @@ def test_huber_loss_lookup_trap():
     e, d = torch.tensor([3.0]), 0.5
     ours = float(losses.HuberLoss(d)(e, torch.zeros(1)))
     assert ours == pytest.approx(0.5 * d * d + d * (3.0 - d))
-    assert get_class("loss", "BCEWithLogitsLoss") is torch.nn.BCEWithLogitsLoss
+    assert get_class("loss", "BCEWithLogitsLoss") is losses.BCEWithLogitsLoss
     assert get_class("loss", "L1Loss") is losses.L1Loss
     with pytest.raises(KeyError):
         get_class("loss", "NoSuchLoss")
     with pytest.raises(KeyError):
         get_class("loss", "Conv2d")  # torch.nn, but not a *Loss
+    with pytest.raises(KeyError):
+        get_class("loss", "TripletMarginLoss")  # torch.nn's, not vsr_tpu's
+
+
+def _jax_losses_cases(rng):
+    """``(name, kwargs, output, target)`` of the eleven losses, each on the
+    inputs its convention takes (numpy, float32 scores)."""
+    def normal(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def log_softmax(x):
+        x = x - x.max(axis=-1, keepdims=True)
+        return (x - np.log(np.exp(x).sum(axis=-1, keepdims=True))).astype(
+            np.float32)
+
+    probs = rng.uniform(0.02, 0.98, (3, 7, 5)).astype(np.float32)
+    probs[0, 0, :2] = (0.0, 1.0)  # torch's -100 log clamp
+    binary = (rng.random((3, 7, 5)) > 0.5).astype(np.float32)
+    dist = rng.random((4, 6)).astype(np.float32)
+    dist[:, :2] = 0.0  # target 0 contributes nothing
+    dist /= dist.sum(axis=-1, keepdims=True)
+    signs = np.where(rng.random((3, 7, 5)) > 0.5, 1.0, -1.0).astype(
+        np.float32)
+    labels = rng.integers(0, 5, (4, 6)).astype(np.int32)
+    multi = rng.integers(0, 6, (5, 6)).astype(np.int32)
+    multi[:, 3] = -1  # the prefix ends at the first -1
+    multi[0, 0] = -1  # an empty prefix
+    cases = [
+        ("BCELoss", {}, probs, binary),
+        ("BCEWithLogitsLoss", {}, normal(3, 7, 5, scale=3.0), binary),
+        ("KLDivLoss", {}, log_softmax(normal(4, 6)), dist),
+        ("PoissonNLLLoss", {}, normal(3, 7, 5), np.abs(normal(3, 7, 5))),
+        ("PoissonNLLLoss", {"log_input": False},
+         np.abs(normal(3, 7, 5)) + 0.1, np.abs(normal(3, 7, 5))),
+        ("SoftMarginLoss", {}, normal(3, 7, 5, scale=3.0), signs),
+        # Channels-last scores (4, 6, 5): the class axis is the last.
+        ("NLLLoss", {}, log_softmax(normal(4, 6, 5)), labels),
+        ("CrossEntropyLoss", {}, normal(4, 6, 5, scale=2.0), labels),
+        ("CrossEntropyLoss", {}, normal(6, 5), labels[0]),
+        ("MultiMarginLoss", {}, normal(6, 5), labels[0]),
+        ("MultiMarginLoss", {"p": 2, "margin": 0.5}, normal(6, 5),
+         labels[1]),
+        ("MultiLabelMarginLoss", {}, normal(5, 6), multi),
+        ("MultiLabelSoftMarginLoss", {}, normal(5, 6, scale=2.0),
+         (rng.random((5, 6)) > 0.5).astype(np.float32)),
+        ("HingeEmbeddingLoss", {"margin": 0.7}, normal(3, 7, 5), signs),
+    ]
+    return cases
+
+
+def test_jax_package_losses_match_jax(rng):
+    """The JAX package's eleven ``torch.nn``-named losses
+    (``vsr_tpu/losses.py:94-251``) against the port's, both in the JAX
+    convention (no layout change), float32 at rtol 1e-6 / atol 1e-6."""
+    def case(name, kwargs, out, tgt):
+        want = float(getattr(jlosses, name)(**kwargs)(jnp.asarray(out),
+                                                      jnp.asarray(tgt)))
+        fn = build("loss", {"name": name, "kwargs": kwargs})
+        assert type(fn).__module__ == losses.__name__
+        got = float(fn(torch.from_numpy(out), torch.from_numpy(tgt)))
+        assert np.isfinite(want)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+    cases = _jax_losses_cases(rng)
+    assert len({name for name, *_ in cases}) == 11
+    run_cases([(f"{name}{kwargs or ''}{out.shape}",
+                lambda args=(name, kwargs, out, tgt): case(*args))
+               for name, kwargs, out, tgt in cases])
 
 
 @pytest.mark.parametrize("size_average", [True, False])

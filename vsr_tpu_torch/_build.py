@@ -41,9 +41,9 @@ SIGNATURES = {
     "vsr_duf_filter": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # af, out, rows, gs, stream
     "vsr_pairwise_rank": [_P, _P, ctypes.c_longlong, _I, _P],
-    # x, x_kind, wq, ws, bias, xs, out, out_kind, dims[20], stream
+    # x, x_kind, wq, ws, bias, xs, out, out_kind, dims[20], plan[7], stream
     "vsr_w8a8_conv": [_P, _I, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_I),
-                      _P],
+                      ctypes.POINTER(_I), _P],
 }
 
 

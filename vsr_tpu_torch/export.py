@@ -172,8 +172,15 @@ class ExportedServing:
             return self._fn(frames.to(self.device))
 
 
-# JAX CLI flags this port does not export: dest -> flag.
-_NOT_PORTED = {"platforms": "--platforms"}
+# JAX CLI flags this port does not export: dest -> (flag, why).
+_NOT_PORTED = {
+    "platforms": ("--platforms", "an artifact serves on the device type "
+                  "it was traced on (--device)"),
+    "preset": ("--preset", "the presets' table is not measured on this "
+               "card, and its fast level, W8A8, is no faster here"),
+    "preset_file": ("--preset-file", "it names a preset table, which is "
+                    "not measured on this card"),
+}
 
 
 def _calibrate_from_volumes(net: nn.Module, calib_dir: Path, want, factor,
@@ -207,10 +214,11 @@ def _calibrate_from_volumes(net: nn.Module, calib_dir: Path, want, factor,
 def _cmd_export(args) -> None:
     from vsr_tpu_torch.infer import build_serving_net, resolve_volume
 
-    for dest, flag in _NOT_PORTED.items():
+    for dest, (flag, why) in _NOT_PORTED.items():
         if getattr(args, dest):
-            raise SystemExit(f"{flag} is not yet ported to vsr_tpu_torch "
-                             "(export it with python -m vsr_tpu.export)")
+            raise SystemExit(f"{flag} is not yet ported to vsr_tpu_torch: "
+                             f"{why} (export it with python -m "
+                             "vsr_tpu.export)")
     net_kwargs = json.loads(args.net_kwargs) if args.net_kwargs else {}
     if args.bf16:
         net_kwargs["dtype"] = torch.bfloat16
@@ -372,6 +380,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--platforms", default="",
                    help="not ported: an artifact serves on the device type "
                         "it was traced on (--device)")
+    p.add_argument("--preset", choices=["tuned", "fast"], default="",
+                   help="not yet ported")
+    p.add_argument("--preset-file", dest="preset_file", default="",
+                   help="not yet ported")
     return p.parse_args(argv)
 
 

@@ -66,8 +66,22 @@ from vsr_tpu_torch.registry import build, get_class
 from vsr_tpu_torch.utils.checkpoint import load_net_weights
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
 
-# JAX CLI flags this port does not serve yet: dest -> flag.
-_NOT_PORTED = {"mesh": "--mesh", "preset": "--preset"}
+# JAX CLI flags this port refuses by name: dest -> (flag, why).
+_NOT_PORTED = {
+    "mesh": ("--mesh", "it serves on one card"),
+    "preset": ("--preset", "the presets' table is not measured on this "
+               "card, and its fast level, W8A8, is no faster here"),
+    "preset_file": ("--preset-file", "it names a preset table, which is "
+                    "not measured on this card"),
+    "ema": ("--ema", "its trainers track no parameter EMA"),
+    "gif": ("--gif", "infer writes no GIF yet; main --test does"),
+}
+# ... and the ones it will never take: dest -> (flag, why).
+_NEVER_PORTED = {
+    "bucket_t": ("--bucket-t", "it rounds T up so that variable-T volumes "
+                 "share compiled programs, and the port runs eagerly: it "
+                 "compiles no program per shape"),
+}
 # A net class's ``serving_mode`` -> the flag that selects the mode.
 _MODE_FLAGS = {"frame": "neither --video nor --windows", "video": "--video",
                "window": "--windows N"}
@@ -390,10 +404,13 @@ def load_hr_frames(path: Path) -> tuple[np.ndarray, tuple[int, int, int, int]]:
 
 
 def run(args) -> dict:
-    for dest, flag in _NOT_PORTED.items():
+    for dest, (flag, why) in _NOT_PORTED.items():
         if getattr(args, dest, None):
-            raise SystemExit(f"{flag} is not yet ported to vsr_tpu_torch "
-                             "(serve it with python -m vsr_tpu.infer)")
+            raise SystemExit(f"{flag} is not yet ported to vsr_tpu_torch: "
+                             f"{why} (serve it with python -m vsr_tpu.infer)")
+    for dest, (flag, why) in _NEVER_PORTED.items():
+        if getattr(args, dest, None):
+            raise SystemExit(f"{flag} is refused by vsr_tpu_torch: {why}")
     if args.windows and args.video:
         raise SystemExit("--windows (MISR) and --video (VSR) are mutually "
                          "exclusive")
@@ -506,7 +523,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         description="SR inference over a volume tree (PyTorch port).")
     parser.add_argument("input_dir", type=Path)
     parser.add_argument("output_dir", type=Path)
-    parser.add_argument("--net", default="DRFNet")
+    parser.add_argument("--net", default="EDSRNet")
     parser.add_argument("--net-kwargs", default="")
     parser.add_argument("--factor", type=int, default=2)
     parser.add_argument("--dataset", choices=["acdc", "dsb15"], default="acdc")
@@ -558,6 +575,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                              "modes; bounds live memory)")
     parser.add_argument("--preset", choices=["tuned", "fast"], default="",
                         help="not yet ported")
+    parser.add_argument("--preset-file", dest="preset_file", default="",
+                        help="not yet ported")
+    parser.add_argument("--ema", action="store_true", help="not yet ported")
+    parser.add_argument("--gif", action="store_true", help="not yet ported")
+    parser.add_argument("--bucket-t", dest="bucket_t", type=int, default=0,
+                        help="refused: the port compiles no program per "
+                             "sequence length")
     return parser.parse_args(argv)
 
 

@@ -16,10 +16,16 @@ weights and computes, as the JAX function does:
 - ``out = float32(acc) * (ws * xs)``, ``+ bias``, cast to ``out_dtype``.
 
 On a CUDA tensor the activation quantization, the product and the epilogue
-are one launch of the hand-written kernel of ``csrc/w8a8_conv.cu`` (an
-implicit GEMM on the int8 tensor cores); the wrapper computes the weight
-quantization and a dynamic scale with PyTorch on the card and hands the
-kernel the scale as a device pointer (no host sync). On a CPU tensor it runs
+are one launch of a hand-written kernel of ``csrc/w8a8_conv.cu`` on the
+int8 tensor cores; the wrapper computes the weight quantization, repacks
+the weights tap-major (:func:`repack_weight`), computes a dynamic scale
+with PyTorch on the card, hands the kernel the scale as a device pointer
+(no host sync), and chooses the kernel and its tiles from the geometry
+(:func:`kernel_plan`): the patch kernel (producer warps quantize each
+activation once into a ring of shared-memory stages, consumer warps run
+the reduction tap by tap and write the outputs) wherever its stages fit in
+shared memory, which every conv of the zoo does, else the gather kernel
+(the general path). Both count in ``w8a8_conv.launches``. On a CPU tensor it runs
 the plain twin ``w8a8_conv_reference``: the same arithmetic with the integer
 product taken as a float64 convolution, which is exact (the sums stay below
 2^53). There is no fallback: a CUDA call that the kernel cannot take raises.
@@ -39,16 +45,30 @@ wrapper.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
-# csrc/w8a8_conv.cu: the K tile of the kernel (the weights' rows are padded
-# to a multiple of it) and its output kinds.
-K_TILE = 32
+# csrc/w8a8_conv.cu: the K step (32 channels of one tap: the repacked
+# weights' channels are padded to a multiple of it) and the output kinds.
+CHANNEL_STEP = 32
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _X_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+# The patch kernel's shared memory (one block an SM): its stages'
+# mbarriers, the accumulators' staging area (64 channels x 132 int32) and
+# the N tile's scales and biases (2 x 128 float32), a ring of 2-4 stages
+# (an int8 patch of 32 bytes a pixel, and the chunk's weights where they
+# are streamed), the resident weights. SMEM_LIMIT is the H100's opt-in
+# maximum per block (the kernel checks it against the card's).
+TILE_M = 128
+FIXED_BYTES = 128 + 64 * 132 * 4 + 2 * 128 * 4
+SMEM_LIMIT = 232448
+# Output tiles (tz, ty, tx) of 128 pixels, tx first so that ties go to the
+# longer rows along x.
+TILES = tuple((tz, TILE_M // (tz * tx), tx) for tx in (32, 16, 8)
+              for tz in (1, 2, 4, 8) if TILE_M // (tz * tx) >= 1)
 
 
 def _geometry(x: torch.Tensor, weight: torch.Tensor, stride: Sequence[int],
@@ -105,6 +125,74 @@ def quantize_weight(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     wq = torch.clamp(torch.round(kf / ws.reshape(-1, *[1] * (kf.dim() - 1))),
                      -127, 127).to(torch.int8)
     return wq, ws
+
+
+def repack_weight(wq: torch.Tensor) -> torch.Tensor:
+    """``(F, C / g, *kernel)`` -> ``(F, *kernel, cpad)``, contiguous: each
+    output channel's weights tap-major, channels innermost, padded with
+    zeros to ``cpad``, a multiple of :data:`CHANNEL_STEP` (the kernels' K
+    order ``(kz, ky, kx, c)``)."""
+    f, cg = wq.shape[:2]
+    taps = wq[0, 0].numel()
+    cpad = -(-cg // CHANNEL_STEP) * CHANNEL_STEP
+    rows = torch.zeros((f, taps, cpad), dtype=wq.dtype, device=wq.device)
+    rows[:, :, :cg] = wq.reshape(f, cg, taps).transpose(1, 2)
+    return rows.reshape(f, *wq.shape[2:], cpad)
+
+
+def kernel_plan(x_shape: Sequence[int], weight_shape: Sequence[int],
+                stride: Sequence[int], padding: Sequence[int],
+                groups: int) -> dict:
+    """The kernel and tiles a CUDA call takes, from the geometry alone:
+
+    - ``kernel``: ``"patch"`` where its shared memory fits and its (N
+      tile, group) pairs fit a grid's 65535 rows, else ``"gather"`` (then
+      nothing else is set);
+    - ``bn``: the N tile, 32, 64 or 128 output channels of a group;
+    - ``tile``: ``(tz, ty, tx)``, the output box of 128 pixels whose input
+      patch costs the least: tiles x (5 x patch pixels + 2 x taps x bn),
+      the fill of each patch pixel (a load and a quantization a channel)
+      against the products of each output pixel, in SM cycles a chunk;
+    - ``resident``: the N tile's weights stay in shared memory for all its
+      tiles, else each stage brings its chunk's;
+    - ``stages``: the ring's stages, 4, 3 or 2, as many as fit (resident
+      weights first at 4 and 3 stages);
+    - ``smem``: its bytes of dynamic shared memory."""
+    rank = len(weight_shape) - 2
+    kernel = [1] * (3 - rank) + list(weight_shape[2:])
+    strides = [1] * (3 - rank) + list(stride)
+    spatial = [1] * (3 - rank) + list(x_shape[2:])
+    pads = [0] * (3 - rank) + list(padding)
+    out = [(size + 2 * p - k) // st + 1 for size, p, k, st in
+           zip(spatial, pads, kernel, strides)]
+    fg = weight_shape[0] // groups
+    cg = weight_shape[1]
+    taps = kernel[0] * kernel[1] * kernel[2]
+    nq = -(-cg // CHANNEL_STEP)
+    bn = 32 if fg <= 32 else 64 if fg <= 64 else 128
+    if -(-fg // bn) * groups > 65535:
+        return {"kernel": "gather"}
+    chunk_w = taps * bn * 32
+    best = None
+    for tile in TILES:
+        patch = [(t - 1) * st + k for t, st, k in zip(tile, strides, kernel)]
+        p = patch[0] * patch[1] * patch[2]
+        plan = None
+        for resident, stages in ((True, 4), (True, 3), (False, 4),
+                                 (False, 3), (True, 2), (False, 2)):
+            stage = -(-(p * 32 + (0 if resident else chunk_w)) // 128) * 128
+            smem = (FIXED_BYTES + stages * stage
+                    + (nq * chunk_w if resident else 0))
+            if smem <= SMEM_LIMIT:
+                plan = dict(resident=resident, stages=stages, smem=smem)
+                break
+        if plan is None:
+            continue
+        tiles = x_shape[0] * math.prod(-(-o // t) for o, t in zip(out, tile))
+        cost = tiles * (5 * p + 2 * taps * bn)
+        if best is None or cost < best[0]:
+            best = (cost, dict(kernel="patch", bn=bn, tile=tile, **plan))
+    return best[1] if best else {"kernel": "gather"}
 
 
 def quantize_activations(x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -204,13 +292,10 @@ def _w8a8_conv_cuda(x, weight, bias, act_scale, stride, padding, groups,
         raise ValueError(f"w8a8_conv takes at most 65535 tiles of 64 output "
                          f"channels and 65535 groups; got F={f}, "
                          f"groups={groups}")
-    # The weights quantized here, their rows (C/g * kernel) padded with
-    # zeros to the kernel's K tile.
+    plan = kernel_plan(x.shape, weight.shape, stride, padding, groups)
+    # The weights quantized here and repacked tap-major, channels padded.
     wq, ws = quantize_weight(weight)
-    k = wq[0].numel()
-    k_pad = -(-k // K_TILE) * K_TILE
-    wq_rows = torch.zeros((f, k_pad), dtype=torch.int8, device=x.device)
-    wq_rows[:, :k] = wq.reshape(f, k)
+    packed = repack_weight(wq)
     xs = activation_scale(x, act_scale).reshape(1)
     b = None if bias is None else bias.detach().float().contiguous()
     out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
@@ -221,14 +306,19 @@ def _w8a8_conv_cuda(x, weight, bias, act_scale, stride, padding, groups,
 
     lib = _build.load()
     dims = (ctypes.c_int * 20)(n, c, *spatial, f, groups, *kernel, *strides,
-                               *pads, *outs, k_pad)
+                               *pads, *outs, packed.shape[-1])
+    if plan["kernel"] == "patch":
+        plan_args = (ctypes.c_int * 7)(0, plan["bn"], *plan["tile"],
+                                       int(plan["resident"]), plan["stages"])
+    else:
+        plan_args = (ctypes.c_int * 7)(1, 0, 0, 0, 0, 0, 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.vsr_w8a8_conv(
-            x.data_ptr(), _X_KINDS[x.dtype], wq_rows.data_ptr(),
+            x.data_ptr(), _X_KINDS[x.dtype], packed.data_ptr(),
             ws.data_ptr(), None if b is None else b.data_ptr(),
             xs.data_ptr(), out.data_ptr(), _OUT_KINDS[out_dtype], dims,
-            stream)
+            plan_args, stream)
     if rc != 0:
         raise RuntimeError(f"w8a8_conv kernel launch failed: cudaError_t {rc}")
     w8a8_conv.launches += 1

@@ -32,8 +32,6 @@ _MODULES = {
                 "vsr_tpu_torch.runner.device_trainer"),
     "predictor": "vsr_tpu_torch.runner.predictors",
 }
-# category -> a resolver of names the category's modules did not register.
-_FALLBACKS: dict[str, Callable[[str], type | None]] = {}
 
 
 def register(category: str, name: str | None = None) -> Callable[[type], type]:
@@ -51,22 +49,11 @@ def register(category: str, name: str | None = None) -> Callable[[type], type]:
     return deco
 
 
-def register_fallback(category: str,
-                      resolver: Callable[[str], type | None]) -> None:
-    """``resolver(name)`` is asked for a name that nothing registered; it
-    returns the class or None."""
-    _FALLBACKS[category] = resolver
-
-
 def get_class(category: str, name: str) -> type:
     modules = _MODULES.get(category, ())
     for module in (modules,) if isinstance(modules, str) else modules:
         importlib.import_module(module)  # importing it registers the members
     bucket = _REGISTRIES.get(category, {})
-    if name not in bucket and category in _FALLBACKS:
-        found = _FALLBACKS[category](name)
-        if found is not None:
-            return found
     if name not in bucket:
         raise KeyError(f"No {category!r} named {name!r} is registered in the "
                        f"port. Available: {sorted(bucket)}")
