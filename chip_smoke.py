@@ -49,7 +49,12 @@ config for its net, with random seeded weights:
   (``vsr_tpu_torch.export``), served by the HTTP daemon
   (``vsr_tpu_torch.serve``) and as online streams
   (``vsr_tpu_torch.stream``), and phase 7's checkpoint through the daemon's
-  live backend.
+  live backend;
+- quantized serving (int8 weights, W8A8 convs through ``w8a8_conv``);
+- the training knobs: ``grad_accumulation``, ``grad_clip`` and
+  ``ema_decay`` in the host-loop DRF trainer (K1 forward and backward) and
+  inside the device trainers' captured graphs, ``qat``, ``infer --ema
+  --gif``, and a QAT-trained EDSRNet served W8A8.
 
 Phases; any failure exits non-zero and prints no result:
 
@@ -204,7 +209,29 @@ Phases; any failure exits non-zero and prints no result:
    int8 artifacts of the EDSR net exported, loaded and run against the live
    pipelines, and the daemon's live backend with ``--w8a8-scales``
    answering 2 requests;
-14. prints the kernels' JSON line, then the final JSON line.
+14. the training knobs, on phase 7's tree: (a) DRFNet F=64 G=6
+   (``configs/train/acdc_vsr_drf_x2.yaml``, ``fused_squeeze`` on) with
+   ``grad_accumulation: 2``, ``grad_clip: 1.0``, ``ema_decay: 0.999``
+   through ``run_train`` for one epoch (8 micro-steps, 4 updates): K1's 60
+   forward, 60 dx and 60 dW / db launches a micro-step, the EMA equal to
+   the recursion over the updates' parameters, a run preempted after 3
+   micro-steps (an accumulation in progress) and resumed against the
+   straight run (1e-3 of each tensor's largest entry), 8 batches of 4 on
+   the card against the CPU (first loss 1e-4 relative, parameters and EMA
+   1e-3 of each tensor's largest entry); (b) ``infer --ema --gif`` on its
+   checkpoint, a 192 x 192 x 10 x 30 volume: 360 K1 launches, 10 GIFs of 30
+   frames decoded to the SR's truncated frames, the output against a net
+   given the checkpoint's EMA by hand (<= 1 grey); (c) the EDSR device
+   config with the knobs and ``qat: true``: two captured graphs against
+   the eager epoch (per-step losses 1e-5 relative), the replayed step; the
+   DRF bf16 K1 device config with accumulation (K1 captured in both
+   graphs); SGD with momentum and Adagrad replayed; (d) EDSRNet 16 x 64
+   trained one epoch with ``qat: true``, served ``--w8a8`` on one slice of
+   that volume (34 launches a volume); the fake-quant forward against the W8A8 one at
+   ``tests/test_qat.py``'s bar (2e-3): conv by conv on the trained net's
+   W8A8 inputs, and whole at that test's geometry (its 2 x 16 net, 8 LR
+   patches of 8 x 8); both unlike the unquantized forward (> 1e-4);
+15. prints the kernels' JSON line, then the final JSON line.
 
 ``--profile`` adds one ``torch.profiler`` trace of a full volume per serving
 path (f32, and bf16 for DRFNet; the two volume nets) and of 6 train steps
@@ -214,7 +241,8 @@ backward) to the details, and whether the DRF f32 pipeline repeats its bits
 with ``cudnn.deterministic`` off and on, at what cost a volume.
 
 ``--quantized`` runs only the build and phase 13 (seeded weights where no
-trained checkpoint exists) and prints a summary line.
+trained checkpoint exists) and prints a summary line. ``--knobs`` runs only
+the build, phase 7's tree and phase 14, and prints a summary line.
 
 ``--latency N`` runs only the build, phase 12a and phase 12b with N
 requests per client (8 N a daemon; a p99 is printed from 100 on), then
@@ -222,7 +250,7 @@ traces one volume through the DRF artifact and through ``make_pipeline``
 (device kernels and host operators, and where their totals differ).
 
 Usage: python3 chip_smoke.py [--out details.json] [--profile | --latency N |
-                             --quantized]
+                             --quantized | --knobs]
 """
 
 from __future__ import annotations
@@ -2777,11 +2805,12 @@ def replay_profile(what: str, trainer, card: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     eng = trainer.engine
+    (graph,) = eng.graphs.values()  # the config's step: one graph
 
     def replays(n):
         eng.counter.zero_()
         for _ in range(n):
-            eng.graph.replay()
+            graph.replay()
         torch.cuda.synchronize()
 
     replays(3)
@@ -2898,7 +2927,7 @@ def phase_device_epochs(tmp: Path, card: str, dev) -> dict:
         step_losses[graph] = trainer.engine.log[:, 0].clone()
         if graph and trainer.engine.replays != GRAPH_STEPS - WARMUP_STEPS:
             raise SystemExit("graph vs eager: the graph epoch did not replay")
-        if not graph and trainer.engine.graph is not None:
+        if not graph and trainer.engine.graphs:
             raise SystemExit("graph vs eager: the eager epoch captured")
     diff = ((step_losses[True] - step_losses[False]).abs()
             / step_losses[False].abs()).max().item()
@@ -4087,6 +4116,539 @@ def phase_quantized(tmp: Path, card: str, dev) -> dict:
     return res
 
 
+# ====================================================== the training knobs
+
+# The knobs of configs/train/example_config.yaml:81-94 on phase 7's tree.
+KNOBS = dict(grad_accumulation=2, grad_clip=1.0, ema_decay=0.999)
+KNOB_MICRO_STEPS = 8     # epoch 1 of the DRF config: 120 windows, batch 16
+KNOB_UPDATES = KNOB_MICRO_STEPS // KNOBS["grad_accumulation"]
+KNOB_RESUME_AFTER = 3    # a preemption in the middle of an accumulation
+KNOB_CPU_SAMPLES = 4     # card vs CPU: batches of 4, the first 8 of epoch 1
+KNOB_SHARE = 1e-3        # of each tensor's largest entry: a path of K1
+QAT_W8A8_TOL = 2e-3      # tests/test_qat.py: fake quant vs W8A8, normalized
+QAT_FRAMES = T_FRAMES    # LR frames of the forward-agreement check
+QAT_TEST_KWARGS = dict(in_channels=1, out_channels=1, num_resblocks=2,
+                       num_features=16, upscale_factor=FACTOR)
+EDSR_W8A8_CONVS = 34     # EDSRNet 16 x 64's calibrated convs: a volume's launches
+
+
+def knob_config(name: str, tmp: Path, saved: str, net_kwargs: dict,
+                **trainer_kwargs):
+    """``training_config`` for one epoch with ``trainer_kwargs`` (the
+    knobs) added to the config's trainer kwargs; a checkpoint each epoch."""
+    cfg = training_config(name, tmp / "tree", tmp / saved, net_kwargs, tmp)
+    cfg.trainer.kwargs.update(num_epochs=1, **trainer_kwargs)
+    cfg.monitor.kwargs.saved_freq = 1
+    return cfg
+
+
+class UpdateProbe:
+    """Snapshots the parameters a gradient chain holds before its first step
+    and after every update it applies."""
+
+    def __enter__(self):
+        from vsr_tpu_torch.optim import GradientChain
+
+        self._cls, self._saved = GradientChain, GradientChain.step
+        self.initial, self.snapshots = None, []
+        saved, probe = self._saved, self
+
+        def step(chain):
+            if probe.initial is None:
+                probe.initial = [p.detach().clone() for p in chain.params]
+            saved(chain)
+            if chain.mini_step == 0:
+                probe.snapshots.append([p.detach().clone()
+                                        for p in chain.params])
+
+        GradientChain.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.step = self._saved
+
+
+def share_diff(got: dict, want: dict) -> tuple[float, str]:
+    """The largest ``|got - want|`` over ``want``'s tensors, each over its own
+    largest entry, and the tensor it is at."""
+    share = {k: ((got[k].float().cpu() - v.float().cpu()).abs().max()
+                 / v.float().abs().max().clamp_min(1e-12)).item()
+             for k, v in want.items()}
+    worst = max(share, key=share.get)
+    return share[worst], worst
+
+
+def gif_frames(path: Path) -> list[np.ndarray]:
+    """Decode a GIF89a (a global palette, full-size LZW frames: what
+    ``utils/gif.py`` writes) to its frames' palette values, as uint8."""
+    data = path.read_bytes()
+    if data[:6] != b"GIF89a":
+        raise SystemExit(f"{path.name}: not a GIF89a")
+    w, h, packed = int.from_bytes(data[6:8], "little"), int.from_bytes(
+        data[8:10], "little"), data[10]
+    pos = 13
+    palette = np.arange(256, dtype=np.uint8)
+    if packed & 0x80:
+        size = 3 * (2 << (packed & 7))
+        palette = np.frombuffer(data[pos:pos + size], np.uint8)[::3].copy()
+        pos += size
+    frames = []
+    while pos < len(data) and data[pos] != 0x3B:
+        kind = data[pos]
+        if kind == 0x21:  # an extension: label, then sub-blocks
+            pos += 2
+            while data[pos]:
+                pos += data[pos] + 1
+            pos += 1
+            continue
+        if kind != 0x2C or data[pos + 9] & 0x80:
+            raise SystemExit(f"{path.name}: unexpected block {kind:#x}")
+        fw, fh = (int.from_bytes(data[pos + 5:pos + 7], "little"),
+                  int.from_bytes(data[pos + 7:pos + 9], "little"))
+        min_size, pos = data[pos + 10], pos + 11
+        chunks = []
+        while data[pos]:
+            chunks.append(data[pos + 1:pos + 1 + data[pos]])
+            pos += data[pos] + 1
+        pos += 1
+        idx = np.frombuffer(lzw_decode(b"".join(chunks), min_size), np.uint8)
+        if (fw, fh) != (w, h) or idx.size != w * h:
+            raise SystemExit(f"{path.name}: a frame of {idx.size} pixels")
+        frames.append(palette[idx].reshape(h, w))
+    return frames
+
+
+def lzw_decode(data: bytes, min_size: int) -> bytes:
+    """GIF's variable-width LZW, codes least significant bit first."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    table = [bytes([i]) for i in range(clear)] + [b"", b""]
+    size, acc, bits, prev, out = min_size + 1, 0, 0, None, bytearray()
+    for byte in data:
+        acc |= byte << bits
+        bits += 8
+        while bits >= size:
+            code, acc, bits = acc & ((1 << size) - 1), acc >> size, bits - size
+            if code == clear:
+                del table[end + 1:]
+                size, prev = min_size + 1, None
+                continue
+            if code == end:
+                return bytes(out)
+            if code < len(table):
+                entry = table[code]
+                if prev is not None:
+                    table.append(prev + entry[:1])
+            else:
+                entry = prev + prev[:1]
+                table.append(entry)
+            out += entry
+            prev = entry
+            if len(table) == 1 << size and size < 12:
+                size += 1
+    return bytes(out)
+
+
+def knob_volume(tmp: Path, slices: int) -> Path:
+    """The first ``slices`` slices of phase 13's 192 x 192 x 10 x 30 volume
+    of phase 7's low-passed sequences, as an uncompressed NIfTI file (H, W,
+    D, T) in a directory of its own (gzip-9 would take ~40 s)."""
+    from vsr_tpu_torch.io.nifti import save_nifti
+
+    rng = np.random.default_rng(11)
+    seqs = [smooth_sequence(rng) for _ in range(6)]
+    vol = np.concatenate([seqs[i % len(seqs)] for i in range(slices)],
+                         axis=2).astype(np.float32)
+    path = (tmp / f"knobs_in_{slices}" / "patient001"
+            / "patient001_4d.nii")
+    save_nifti(vol, path)
+    return path
+
+
+def knobs_host_loop(tmp: Path, card: str, dev) -> dict:
+    """14a: the DRF config at full width with every knob, K1 on: one epoch
+    (8 micro-steps, 4 updates) through ``run_train``; the EMA against the
+    recursion over the updates' parameters; a run preempted after 3
+    micro-steps and resumed against the straight one; 8 batches of 4 on
+    the card against the CPU."""
+    from vsr_tpu_torch.main import run_train
+
+    net_kwargs = {"fused_squeeze": True}
+    res = {}
+    cfg = knob_config("acdc_vsr_drf_x2", tmp, "knobs_drf", net_kwargs, **KNOBS)
+    with UpdateProbe() as probe:
+        run = train_run("knobs drf", cfg, card, TRAIN_T, True)
+    trainer, s = run["trainer"], run["stats"]
+    chain = trainer.chain
+    if (s["steps"], len(probe.snapshots), chain.mini_step) != (
+            KNOB_MICRO_STEPS, KNOB_UPDATES, 0):
+        raise SystemExit(f"knobs drf: {s['steps']} micro-steps, "
+                         f"{len(probe.snapshots)} updates, micro-step "
+                         f"{chain.mini_step} left")
+    per_step = s["backward_launches"] // s["steps"]
+    if per_step != SQUEEZES_PER_STEP * TRAIN_T:
+        raise SystemExit(f"knobs drf: {per_step} K1 launches a micro-step")
+    ema = [e.clone() for e in probe.initial]
+    d = chain.decay
+    for snap in probe.snapshots:
+        ema = [e * d + p * (1.0 - d) for e, p in zip(ema, snap)]
+    recursion_diff = max((a - b).abs().max().item()
+                         for a, b in zip(ema, chain.ema))
+    moved = max((a - b).abs().max().item()
+                for a, b in zip(probe.snapshots[-1], probe.initial))
+    log(f"  knobs drf: {s['steps']} micro-steps, {KNOB_UPDATES} updates, K1 "
+        f"{per_step} forward, dx and dW/db launches a micro-step; EMA against "
+        f"the recursion over the updates' parameters: max diff "
+        f"{recursion_diff:g}; parameters moved by up to {moved:.3g}; median "
+        f"micro-step {s['median_step_ms']:.2f} ms [{card}]")
+    if recursion_diff != 0 or not moved > 0:
+        raise SystemExit("knobs drf: the EMA is not the recursion over the "
+                         "applied updates, or nothing moved")
+    res["straight"] = dict(s, k1_launches_per_micro_step=per_step,
+                           ema_recursion_max_diff=recursion_diff)
+
+    # Preempted after 3 micro-steps (one gradient accumulated), resumed.
+    cfg = knob_config("acdc_vsr_drf_x2", tmp, "knobs_drf_resumed", net_kwargs,
+                      **KNOBS)
+    cfg.main.auto_resume = True
+    cut = train_run("knobs drf preempted", cfg, card, TRAIN_T, True,
+                    sigterm_after=KNOB_RESUME_AFTER)
+    preempt = tmp / "knobs_drf_resumed" / "checkpoints" / "model_preempt.ckpt"
+    from vsr_tpu_torch.utils.checkpoint import load_checkpoint
+
+    state, _ = load_checkpoint(preempt)
+    if state["chain"]["mini_step"] != KNOB_RESUME_AFTER % 2:
+        raise SystemExit("knobs drf: the preemption checkpoint holds no "
+                         "accumulation in progress")
+    resumed = train_run("knobs drf resumed", cfg, card, TRAIN_T, True)
+    steps = cut["stats"]["steps"] + resumed["stats"]["steps"]
+    p_share, p_at = share_diff(resumed["params"], run["params"])
+    e_share, e_at = share_diff(resumed["trainer"].chain.ema_state(),
+                               chain.ema_state())
+    log(f"  preempted after {KNOB_RESUME_AFTER} micro-steps (micro-step "
+        f"{state['chain']['mini_step']} of 2 saved), resumed for "
+        f"{resumed['stats']['steps']}: against the straight run, parameters "
+        f"within {p_share:.3g} ({p_at}) and EMA within {e_share:.3g} ({e_at})"
+        f" of each tensor's largest entry (bar {KNOB_SHARE:g}; cuDNN's "
+        f"dgrad is not deterministic)")
+    if steps != KNOB_MICRO_STEPS or max(p_share, e_share) > KNOB_SHARE:
+        raise SystemExit("knobs drf: the resumed run is not the straight one")
+    res["resume"] = {"steps_before": cut["stats"]["steps"],
+                     "steps_after": resumed["stats"]["steps"],
+                     "params_share": p_share, "ema_share": e_share}
+    del cut, resumed
+
+    # Card vs CPU: batches of 4 from one build, the first 8 of epoch 1.
+    t0 = time.perf_counter()
+    trainers = {}
+    for where in ("cuda", "cpu"):
+        cfg = knob_config("acdc_vsr_drf_x2", tmp, f"knobs_drf_{where}",
+                          net_kwargs, **KNOBS)
+        cfg.dataloader.kwargs.train_batch_size = KNOB_CPU_SAMPLES
+        cfg.trainer.kwargs.num_epochs = 0  # built, not trained
+        trainers[where] = run_train(cfg, device=where)
+    card_t, cpu_t = trainers["cuda"], trainers["cpu"]
+    init_share, _ = share_diff(dict(card_t.net.named_parameters()),
+                               dict(cpu_t.net.named_parameters()))
+    batches = [b for _, b in zip(range(KNOB_MICRO_STEPS),
+                                 card_t.train_dataloader.epoch(
+                                     card_t.rng_tree, 1))]
+    first = {}
+    for where, tr in trainers.items():
+        reset_launches()
+        for batch in batches:
+            scalars, _ = tr._train_step(*tr._get_inputs_targets(batch))
+            first.setdefault(where, scalars[0].item())
+        launched = kernel_counters()["concat_conv1x1"].launches
+        if (launched > 0) != (where == "cuda"):
+            raise SystemExit(f"knobs drf on {where}: K1 launched {launched}")
+    loss_rel = abs(first["cuda"] - first["cpu"]) / abs(first["cpu"])
+    p_share, p_at = share_diff(dict(card_t.net.named_parameters()),
+                               dict(cpu_t.net.named_parameters()))
+    e_share, e_at = share_diff(card_t.chain.ema_state(),
+                               cpu_t.chain.ema_state())
+    log(f"  card vs CPU, {KNOB_MICRO_STEPS} micro-steps of "
+        f"{KNOB_CPU_SAMPLES} samples ({KNOB_UPDATES} updates): first loss "
+        f"{first['cuda']:.6f} vs {first['cpu']:.6f} (relative {loss_rel:.2g});"
+        f" parameters within {p_share:.3g} ({p_at}), EMA within {e_share:.3g}"
+        f" ({e_at}) of each tensor's largest entry (bar {KNOB_SHARE:g}), in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if init_share != 0 or loss_rel > 1e-4 or max(p_share, e_share) > KNOB_SHARE:
+        raise SystemExit("knobs drf: the card and the CPU disagree")
+    res["card_vs_cpu"] = {"first_loss_relative_diff": loss_rel,
+                          "params_share": p_share, "ema_share": e_share}
+    res["checkpoint"] = str(tmp / "knobs_drf" / "checkpoints"
+                            / "model_1.ckpt")
+    return res
+
+
+def knobs_infer_ema(tmp: Path, ckpt: str, vol_path: Path, card: str,
+                    dev) -> dict:
+    """14b: ``infer --ema --gif`` on 14a's checkpoint: K1's launches, the
+    GIFs decoded against the SR volume's truncated frames, and the output
+    against a net given the checkpoint's EMA by hand."""
+    from vsr_tpu_torch import infer
+    from vsr_tpu_torch.io.nifti import load_nifti
+    from vsr_tpu_torch.registry import build
+
+    net_kwargs = dict(DRF_KWARGS, fused_squeeze=True)
+    out = tmp / "knobs_ema_out"
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = infer.main([str(vol_path.parent.parent), str(out), "--video",
+                        "--net", "DRFNet", "--net-kwargs",
+                        json.dumps(net_kwargs), "--checkpoint", ckpt,
+                        "--ema", "--gif"])
+    seconds = time.perf_counter() - t0
+    launched = check_launches("infer --ema", "concat_conv1x1",
+                              SQUEEZES_PER_STEP * T_FRAMES)
+    sr = load_nifti(out / "patient001" / "patient001_4d_sr.nii.gz")
+    check_sr("infer --ema", sr, (HR, HR, FULL_SLICES, T_FRAMES))
+    gifs = sorted((out / "patient001").glob("*.gif"))
+    names = [f"patient001_4d_slice{d + 1:02d}.gif" for d in range(FULL_SLICES)]
+    if [g.name for g in gifs] != names:
+        raise SystemExit(f"infer --gif wrote {[g.name for g in gifs]}")
+    t1 = time.perf_counter()
+    for d, path in enumerate(gifs):
+        frames = gif_frames(path)
+        want = [sr[:, :, d, t].astype(np.uint8) for t in range(T_FRAMES)]
+        if len(frames) != T_FRAMES or not all(
+                np.array_equal(a, b) for a, b in zip(frames, want)):
+            raise SystemExit(f"{path.name} does not decode to the SR "
+                             "volume's truncated frames")
+    decode_s = time.perf_counter() - t1
+    # The EMA by hand: the checkpoint's parameters replaced by its chain's.
+    state = torch.load(ckpt, map_location=dev, weights_only=True)
+    net = build("net", {"name": "DRFNet", "kwargs": net_kwargs}, device=dev)
+    net.load_state_dict({**state["net"], **state["chain"]["ema"]})
+    frames, _ = infer.load_hr_frames(vol_path)
+    pipe = infer.make_pipeline(net.eval(), FACTOR, "acdc", video_t=T_FRAMES)
+    by_hand = pipe(torch.from_numpy(frames).to(dev))[1].cpu().numpy()
+    exact, worst = agreement(as_frames(sr), by_hand)
+    log(f"  infer --ema --gif: {FULL_SLICES} x {T_FRAMES} frames of "
+        f"{HR}x{HR} in {seconds:.1f} s ({stats['frames_per_sec']:.1f} frames/s"
+        f" with the GIFs), K1 {launched} launches; {len(gifs)} GIFs of "
+        f"{T_FRAMES} frames decode to the SR's truncated frames (decoded in "
+        f"{decode_s:.1f} s); against a net given the EMA by hand: "
+        f"{exact * 100:.3f}% exact, max {worst:g} grey [{card}]")
+    if worst > 1:
+        raise SystemExit("infer --ema does not serve the checkpoint's EMA")
+    return {"launches": launched, "seconds": seconds, "gifs": len(gifs),
+            "exact_fraction": exact, "max_grey_diff": worst}
+
+
+def knobs_device(tmp: Path, card: str, dev) -> dict:
+    """14c: the device trainers with the knobs inside the captured steps:
+    the EDSR device config with every knob and QAT (two graphs) against its
+    eager epoch, and its replayed step; the DRF bf16 K1 config with
+    accumulation (K1 inside both graphs); SGD and Adagrad replayed."""
+    from vsr_tpu_torch.main import run_train
+    from vsr_tpu_torch.optim import CapturableAdagrad, CapturableSGD
+    from vsr_tpu_torch.runner.device_trainer import WARMUP_STEPS
+
+    def built(what, name, net_kwargs=None, optimizer=None, steps=GRAPH_STEPS,
+              **knobs):
+        cfg = device_config(name, tmp / "tree", tmp / f"knobs_dev_{what}",
+                            tmp, net_kwargs, steps_per_epoch=steps, **knobs)
+        cfg.trainer.kwargs.num_epochs = 0  # built, not trained
+        if optimizer:
+            cfg.optimizer = optimizer
+        trainer = run_train(cfg)
+        trainer._ensure_buffers()
+        return trainer
+
+    res = {}
+    losses = {}
+    for graph in (True, False):
+        tr = built(f"edsr_{graph}", "acdc_sisr_edsr_x2_device", qat=True,
+                   **KNOBS)
+        tr.engine.use_graph = graph
+        tr._run_epoch("training", 1)
+        losses[graph] = tr.engine.log[:, 0].clone()
+        eng = tr.engine
+        if graph:
+            if (eng.eager_steps, eng.captures, eng.replays) != (
+                    WARMUP_STEPS, 2, GRAPH_STEPS - WARMUP_STEPS):
+                raise SystemExit(f"knobs device edsr: {eng.eager_steps} eager"
+                                 f" steps, {eng.captures} captures, "
+                                 f"{eng.replays} replays")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr._run_epoch("training", 2)  # all replays
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / GRAPH_STEPS
+            ema_ok = all(torch.isfinite(e).all() for e in tr.chain.ema)
+        elif eng.graphs:
+            raise SystemExit("knobs device edsr: the eager epoch captured")
+    diff = ((losses[True] - losses[False]).abs()
+            / losses[False].abs()).max().item()
+    log(f"  device EDSR 16 x 64 bf16 with {KNOBS} and qat: 2 graphs captured "
+        f"(accumulate; accumulate and apply), {GRAPH_STEPS} steps through "
+        f"them against eager: per-step losses within {diff:.3g} relative "
+        f"(bar {GRAPH_TOL:g}); replayed micro-step {step_ms:.2f} ms [{card}]")
+    if diff > GRAPH_TOL or not ema_ok:
+        raise SystemExit("knobs device edsr: graph and eager disagree, or "
+                         "the EMA is not finite")
+    res["edsr"] = {"graphs": 2, "graph_vs_eager": diff,
+                   "replay_step_ms": step_ms}
+
+    # DRF bf16 through K1 with accumulation: K1 inside both graphs.
+    name, _, frames = DEVICE_RUNS["vsr"]
+    tr = built("drf", name, K1_DEVICE,
+               grad_accumulation=KNOBS["grad_accumulation"])
+    eng, in_graph = tr.engine, {}
+    capture = eng._capture
+
+    def counted_capture():
+        key, before = eng.graph_key(), k1_calls()
+        graph = capture()
+        in_graph[key] = [a - b for a, b in zip(k1_calls(), before)]
+        return graph
+
+    eng._capture = counted_capture
+    reset_launches()
+    tr._run_epoch("training", 1)
+    want = [SQUEEZES_PER_STEP * frames] * 3
+    log(f"  device DRF bf16 (K1) with grad_accumulation 2: K1 calls (forward,"
+        f" dx, dW/db) captured in the accumulate graph {in_graph.get(False)}, "
+        f"in the apply graph {in_graph.get(True)}; {eng.replays} replays")
+    if in_graph != {False: want, True: want}:
+        raise SystemExit("knobs device drf: K1 is not inside both graphs")
+    res["drf"] = {"k1_calls_per_graph": in_graph[True],
+                  "replays": eng.replays}
+
+    # SGD with momentum and Adagrad through their capturable steps.
+    for label, optimizer, cls in (
+            ("sgd", {"name": "SGD", "kwargs": {"lr": 1e-3, "momentum": 0.9}},
+             CapturableSGD),
+            ("adagrad", {"name": "Adagrad", "kwargs": {"lr": 1e-3}},
+             CapturableAdagrad)):
+        tr = built(label, "acdc_sisr_edsr_x2_device", optimizer=optimizer,
+                   steps=WARMUP_STEPS + 3)
+        before = {k: v.clone() for k, v in tr.net.state_dict().items()}
+        tr._run_epoch("training", 1)
+        eng, log_ = tr.engine, tr.engine.log[:, 0]
+        moved = max((v - before[k]).abs().max().item()
+                    for k, v in tr.net.state_dict().items())
+        log(f"  device EDSR with {optimizer['name']}: {type(tr.optimizer).__name__}"
+            f", {eng.captures} capture, {eng.replays} replays, losses "
+            f"{[round(v, 4) for v in log_.tolist()]}, parameters moved by up "
+            f"to {moved:.3g}")
+        if (type(tr.optimizer) is not cls or eng.replays != 3
+                or not torch.isfinite(log_).all() or not moved > 0):
+            raise SystemExit(f"knobs device {label}: did not train through "
+                             "its captured step")
+        res[label] = {"replays": eng.replays, "losses": log_.tolist()}
+    return res
+
+
+def knobs_qat(tmp: Path, vol_path: Path, card: str, dev) -> dict:
+    """14d: EDSRNet 16 x 64 trained one epoch with ``qat: true`` through
+    ``run_train``, served with ``--w8a8`` on a one-slice volume (34
+    launches a volume); the
+    fake-quant forward on the card against the W8A8 one, conv by conv on
+    the trained net and whole on ``tests/test_qat.py``'s net, and unlike
+    the unquantized forward."""
+    from vsr_tpu_torch import infer, quantize
+    from vsr_tpu_torch.infer import build_serving_net
+    from vsr_tpu_torch.models.common import intercept_convs
+
+    cfg = knob_config("acdc_sisr_edsr_x2", tmp, "knobs_qat", {}, qat=True)
+    stats = train_run("qat edsr", cfg, card, 1, None)["stats"]
+    ckpt = str(tmp / "knobs_qat" / "checkpoints" / "model_1.ckpt")
+    reset_launches()
+    served = infer.main([str(vol_path.parent.parent), str(tmp / "knobs_w8a8"),
+                         "--net", "EDSRNet", "--net-kwargs",
+                         json.dumps(EDSR_KWARGS), "--checkpoint", ckpt,
+                         "--w8a8", "--psnr"])
+    launched = check_launches("qat --w8a8", "w8a8_conv", EDSR_W8A8_CONVS)
+    frames, _ = infer.load_hr_frames(vol_path)
+    z = infer.make_prep(FACTOR, "acdc")(
+        torch.from_numpy(frames[:QAT_FRAMES]).to(dev))[1]
+
+    def forwards(net, z):
+        """Static scales of ``z``; each eligible conv's fake-quant output
+        against its W8A8 output on the same input (the largest
+        difference); the fake-quant, W8A8 and unquantized forwards."""
+        scales = quantize.calibrate_w8a8(net, [z])
+        diffs = []
+
+        def both(mod, x, scale, out_axis):
+            w8a8 = quantize._w8a8_conv(mod, x, scale)
+            diffs.append((quantize.fake_quant_conv(mod, x, scale, out_axis)
+                          - w8a8).abs().max())
+            return w8a8
+
+        with torch.inference_mode():
+            with intercept_convs(quantize._conv_interceptor(
+                    net, both, scales, 16, None, False)):
+                net(z)
+            outs = (quantize.make_fake_quant_apply(net, scales)(z),
+                    quantize.make_w8a8_apply(net, scales)(z), net(z))
+        return len(scales), torch.stack(diffs).max().item(), outs
+
+    # The trained net at full width: per conv, and the whole forward, whose
+    # 34 quantized convs turn the float32 rounding of the fake-quant
+    # products into int8 rounding flips of the next conv's input (the more
+    # pixels, the more flips: not gated).
+    n, per_conv, (fake, w8a8, plain) = forwards(build_serving_net(
+        "EDSRNet", EDSR_KWARGS, ckpt, device=dev), z)
+    whole = (fake - w8a8).abs().max().item()
+    vs_plain = (plain - w8a8).abs().max().item()
+    # tests/test_qat.py's geometry: its net (2 resblocks of 16) on 8 LR
+    # patches of 8 x 8, here cut from the same frames.
+    small = build_serving_net("EDSRNet", QAT_TEST_KWARGS, device=dev)
+    n_small, _, (fake, w8a8, plain) = forwards(small, z[:8, :, 44:52, 44:52])
+    small_diff = (fake - w8a8).abs().max().item()
+    small_plain = (plain - w8a8).abs().max().item()
+    log(f"  qat edsr: {stats['steps']} steps, loss {stats['first_loss']:.4f} "
+        f"-> {stats['last_loss']:.4f}, median step "
+        f"{stats['median_step_ms']:.2f} ms; served --w8a8: w8a8_conv "
+        f"{launched} launches a volume, PSNR {served['psnr_mean']:.3f} dB, "
+        f"{served['pipeline_frames_per_sec']:.1f} frames/s [{card}]")
+    log(f"  fake quant vs W8A8 on {QAT_FRAMES} frames (bar {QAT_W8A8_TOL:g}):"
+        f" each of the trained net's {n} convs on its W8A8 input within "
+        f"{per_conv:.3g}, its whole forward {whole:.3g} (not gated), W8A8 vs"
+        f" unquantized {vs_plain:.3g}; tests/test_qat.py's net ({n_small} "
+        f"convs) on 8 LR patches of 8 x 8: {small_diff:.3g}, vs unquantized "
+        f"{small_plain:.3g} (both must exceed 1e-4)")
+    if (n != EDSR_W8A8_CONVS or max(per_conv, small_diff) > QAT_W8A8_TOL
+            or not min(vs_plain, small_plain) > 1e-4):
+        raise SystemExit("qat: the fake-quant forward is not the W8A8 one")
+    return {"train": stats, "launches": launched,
+            "psnr": served["psnr_mean"], "per_conv_fake_vs_w8a8": per_conv,
+            "fake_vs_w8a8": whole, "w8a8_vs_plain": vs_plain,
+            "test_net_fake_vs_w8a8": small_diff}
+
+
+def phase_knobs(tmp: Path, card: str, dev) -> dict:
+    """Phase 14: the training knobs on phase 7's tree (14a-14d)."""
+    res, seconds = {}, {}
+    vol_path = knob_volume(tmp, FULL_SLICES)
+    # 14d serves one slice: its launches are per volume, and the CLI's
+    # gzip-9 NIfTI write of ten slices would take most of the step.
+    slice_path = knob_volume(tmp, 1)
+    for key, label, run in (
+            ("host_loop", "14a: DRFNet F=64 G=6 with grad_accumulation 2, "
+             "grad_clip 1.0, ema_decay 0.999 (K1 forward and backward)",
+             lambda: knobs_host_loop(tmp, card, dev)),
+            ("ema_infer", "14b: infer --ema --gif on 14a's checkpoint",
+             lambda: knobs_infer_ema(tmp, res["host_loop"]["checkpoint"],
+                                     vol_path, card, dev)),
+            ("device", "14c: the device trainers: knobs and QAT inside the "
+             "captured steps, SGD and Adagrad",
+             lambda: knobs_device(tmp, card, dev)),
+            ("qat", "14d: QAT, then W8A8 serving",
+             lambda: knobs_qat(tmp, slice_path, card, dev))):
+        log(f"phase {label}")
+        t0 = time.perf_counter()
+        res[key] = run()
+        seconds[key] = time.perf_counter() - t0
+        log(f"  phase 14{'abcd'[len(seconds) - 1]} took {seconds[key]:.1f} s "
+            f"[{card}]")
+    res["seconds_by_step"] = seconds
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="",
@@ -4103,6 +4665,9 @@ def main() -> int:
     parser.add_argument("--quantized", action="store_true",
                         help="only build and run phase 13 (quantized "
                              "serving) on seeded weights")
+    parser.add_argument("--knobs", action="store_true",
+                        help="only build, write phase 7's tree and run phase "
+                             "14 (the training knobs)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4163,6 +4728,25 @@ def main() -> int:
             "x", "weight", "ms", "plain_ms", "bound_ms", "library_ms",
             "cudnn_bf16_ms")}}), flush=True)
         return 0
+    if args.knobs:
+        with tempfile.TemporaryDirectory() as tmp:
+            log("phase 7a: the synthetic processed tree")
+            make_training_tree(Path(tmp) / "tree", dev)
+            results = {"card": smi, "knobs": phase_knobs(Path(tmp), card,
+                                                         dev)}
+        results["seconds"] = time.perf_counter() - started
+        log(f"  chip_smoke --knobs took {results['seconds']:.1f} s [{card}]")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(results, indent=1))
+        knobs = results["knobs"]
+        print(json.dumps({"knobs": {
+            "seconds_by_step": knobs["seconds_by_step"],
+            "k1_launches_per_micro_step": knobs["host_loop"]["straight"][
+                "k1_launches_per_micro_step"],
+            "ema_infer_launches": knobs["ema_infer"]["launches"],
+            "qat_w8a8_launches": knobs["qat"]["launches"]}}), flush=True)
+        return 0
     log("phase 3: kernel vs twin")
     k1 = phase_kernel_squeeze(dev)
     k3 = phase_kernel_rank(dev)
@@ -4206,6 +4790,13 @@ def main() -> int:
         quant = phase_quantized(Path(tmp), card, dev)
         quant["seconds"] = time.perf_counter() - t0
         log(f"  phase 13 took {quant['seconds']:.1f} s")
+        log("phase 14: the training knobs (grad_accumulation, grad_clip, "
+            "ema_decay, qat) in both trainer families, infer --ema / --gif, "
+            "SGD and Adagrad captured, QAT to W8A8")
+        t0 = time.perf_counter()
+        knobs = phase_knobs(Path(tmp), card, dev)
+        knobs["seconds"] = time.perf_counter() - t0
+        log(f"  phase 14 took {knobs['seconds']:.1f} s [{card}]")
         results = {"card": smi, "build_seconds": build_s,
                    "kernel": {"concat_conv1x1": k1,
                               "concat_conv1x1_backward": k1_bwd,
@@ -4213,7 +4804,8 @@ def main() -> int:
                    "paths": paths, "card_vs_cpu": cpu_ref,
                    "training": training, "slice_training": sliced,
                    "volumes": volumes, "device_epochs": device,
-                   "deployment": deploy, "quantized": quant}
+                   "deployment": deploy, "quantized": quant,
+                   "knobs": knobs}
         if args.profile:
             log("phase 8: torch.profiler traces")
             results["profile"] = phase_profile(dev)
@@ -4317,6 +4909,12 @@ def main() -> int:
         # squeezes stay full precision), one volume each.
         "int8_launches": qdrf["f32_int8"]["launches"]["concat_conv1x1"],
         "w8a8_launches": qdrf["f32_scales"]["launches"]["concat_conv1x1"],
+        # Phase 14: DRFNet with grad_accumulation 2, grad_clip and an EMA,
+        # per micro-step (forward; dx in its backward), and infer --ema on
+        # its checkpoint, a volume.
+        "knobs_launches_per_micro_step":
+            knobs["host_loop"]["straight"]["k1_launches_per_micro_step"],
+        "ema_infer_launches": knobs["ema_infer"]["launches"],
     }, {
         # K1's weight and bias gradient (the JAX package computes them in
         # XLA, inside _bwd, so the line it replaces is no Pallas kernel): one
@@ -4328,6 +4926,9 @@ def main() -> int:
         "launches": training["vsr"]["fused"]["backward_launches"],
         "srfb_launches": training["srfb"]["fused"]["backward_launches"],
         "device_launches": device["k1_on"]["k1_launches"]["dw"],
+        # Phase 14's DRFNet with the knobs, per micro-step.
+        "knobs_launches_per_micro_step":
+            knobs["host_loop"]["straight"]["k1_launches_per_micro_step"],
         # Serving has no backward: phase 12 gates these at 0.
         "export_launches": 0, "serve_launches": 0, "stream_launches": 0,
         "max_abs_err": k1_bwd["dw_max_abs_err"],
@@ -4391,6 +4992,8 @@ def main() -> int:
             "w8a8_conv"],
         "export_launches": quant["deployment"]["w8a8"]["launches"],
         "serve_launches": quant["deployment"]["daemon"]["launches"],
+        # Phase 14: the EDSRNet trained with qat served --w8a8, a volume.
+        "qat_launches": knobs["qat"]["launches"],
         "shapes_checked": len(quant["shapes"]),
         "max_abs_err": max(r["max_abs_err"] for r in quant["shapes"]),
         "ms": qmain["ms"], "plain_ms": qmain["plain_ms"],

@@ -365,7 +365,8 @@ def test_the_fourteen_names_resolve():
     (dict(mesh_axes={"data": 2}), "mesh_axes"),
     (dict(mesh_axes={"data": 1, "expert": 2}), "'expert'"),
     (dict(zero_optim=True), "zero_optim"), (dict(fsdp=True), "fsdp"),
-    (dict(qat=True), "qat"), (dict(scan_unroll=2), "scan_unroll=2")])
+    (dict(qat=True, mesh_axes={"pipe": 2}), "qat"),
+    (dict(scan_unroll=2), "scan_unroll=2")])
 def test_mixin_refusals(tree, tmp_path, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         _port_trainer("sisr", tree, tmp_path, **kwargs)
@@ -391,8 +392,8 @@ def test_standalone_refusals(rng):
               metric_fns=[], optimizer=optim.Adam(), lr_data=buf,
               hr_data=np.repeat(np.repeat(buf, 2, -1), 2, -2), batch_size=2,
               patch=4, ratio=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="qat"):
-        dt.DeviceEpochTrainer(**kw, qat=True)
+    with pytest.raises(ValueError, match="unknown qat option"):
+        dt.DeviceEpochTrainer(**kw, qat={"min_channel": 8})
     with pytest.raises(NotImplementedError, match="scan_unroll=4"):
         dt.DeviceEpochTrainer(**kw, scan_unroll=4)
     with pytest.raises(NotImplementedError, match="window=3"):
@@ -400,7 +401,7 @@ def test_standalone_refusals(rng):
     with pytest.raises(ValueError, match="float32 parameters"):
         dt.DeviceEpochTrainer(**{**kw, "net": net.to(torch.bfloat16)})
     with pytest.raises(NotImplementedError, match="capturable"):
-        dt.make_capturable(torch.optim.SGD(net.parameters(), lr=0.1),
+        dt.make_capturable(torch.optim.LBFGS(net.parameters(), lr=0.1),
                            torch.device("cpu"))
 
 

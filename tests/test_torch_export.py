@@ -159,8 +159,7 @@ def _case_cli_export_and_run(tmp_path, rng):
 # The JAX package's CLI flags the port refuses by name: (module, flags,
 # what the message says).
 _REFUSED_FLAGS = [
-    (infer, ["--ema"], "--ema is not yet ported.*track no parameter EMA"),
-    (infer, ["--gif"], "--gif is not yet ported.*no GIF"),
+    (infer, ["--ema"], "--ema needs --checkpoint"),
     (infer, ["--bucket-t", "8"],
      "--bucket-t is refused by vsr_tpu_torch.*runs eagerly"),
     (infer, ["--preset-file", "tuned.json"],

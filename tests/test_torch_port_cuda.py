@@ -1049,3 +1049,142 @@ def test_quantized_serving_on_the_card(rng, dev, tmp_path):
         ("_case_int8_and_w8a8_artifacts_on_the_card",
          lambda: _case_int8_and_w8a8_artifacts_on_the_card(
              rng, dev, subdir(tmp_path, "artifacts")))])
+
+
+# ------------------------------------------------------- the training knobs
+
+
+def _case_two_graph_accumulation_equals_eager(rng, dev, tmp_path):
+    """A device epoch of a small EDSR with every knob and QAT: two graphs
+    (accumulate; accumulate and apply) against the eager epoch."""
+    from vsr_tpu_torch.config import load_config
+    from vsr_tpu_torch.main import run_train
+
+    tree = _write_tree(tmp_path / "tree", rng)
+    logs, emas = {}, {}
+    for graph in (True, False):
+        cfg = load_config("configs/train/acdc_sisr_edsr_x2_device.yaml")
+        cfg.main.saved_dir = str(tmp_path / f"run_{graph}")
+        cfg.dataset.kwargs.data_dir = str(tree / "imgs")
+        cfg.dataloader.kwargs.update(train_batch_size=3, num_workers=0)
+        cfg.net.kwargs.update(num_resblocks=2, num_features=16)
+        cfg.trainer.kwargs.update(
+            num_epochs=0, patch=8, steps_per_epoch=8, grad_accumulation=2,
+            grad_clip=0.5, ema_decay=0.9, qat=True)
+        trainer = run_train(cfg)  # built on the card, not trained
+        trainer._ensure_buffers()
+        trainer.engine.use_graph = graph
+        trainer._run_epoch("training", 1)
+        torch.cuda.synchronize()
+        eng = trainer.engine
+        assert (eng.eager_steps, eng.captures, eng.replays) == (
+            (3, 2, 5) if graph else (8, 0, 0))
+        assert sorted(eng.graphs) == ([False, True] if graph else [])
+        logs[graph] = eng.log[:, 0].cpu()
+        emas[graph] = [e.cpu() for e in trainer.chain.ema]
+        assert trainer.chain.mini_step == 0
+    torch.testing.assert_close(logs[True], logs[False], rtol=1e-5, atol=0)
+    for a, b in zip(emas[True], emas[False]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def _case_clip_and_ema_capture_without_a_host_sync(rng, dev):
+    from vsr_tpu_torch import optim
+    from vsr_tpu_torch.runner.device_trainer import make_capturable
+
+    net = torch.nn.Linear(16, 8).to(dev)
+    twin = torch.nn.Linear(16, 8).to(dev)
+    twin.load_state_dict(net.state_dict())
+    chains = [optim.GradientChain(make_capturable(
+        optim.Adam(lr=1e-2).bind(m.parameters()), dev), m, grad_clip=0.1,
+        ema_decay=0.9) for m in (net, twin)]
+    x = torch.from_numpy(rng.standard_normal((4, 16)).astype(np.float32)).to(
+        dev)
+
+    def step(m, chain):
+        chain.optimizer.zero_grad(set_to_none=True)
+        m(x).square().sum().backward()
+        chain.step()
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # warm-up: the optimizer's state
+        for m, chain in zip((net, twin), chains):
+            step(m, chain)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.set_sync_debug_mode("error")  # a host sync would raise
+    try:
+        step(twin, chains[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step(net, chains[0])
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip((*net.parameters(), *chains[0].ema),
+                    (*twin.parameters(), *chains[1].ema)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def _case_bicubic_exports_and_streams_on_the_card(rng, dev, tmp_path):
+    from vsr_tpu_torch import export
+    from vsr_tpu_torch.infer import build_serving_net, make_pipeline, net_device
+    from vsr_tpu_torch.stream import make_stream
+
+    net = build_serving_net("Bicubic", {"upscale_factor": 2}, device=dev)
+    assert net_device(net).type == "cuda"
+    frames = np.round(rng.random((6, 48, 48)) * 255).astype(np.float32)
+    path = tmp_path / "bicubic.pt2.zip"
+    export.main(["--net", "Bicubic", "--net-kwargs", '{"upscale_factor": 2}',
+                 "--shape", "6,48,48", "--out", str(path)])
+    served = export.ExportedServing(path, device=dev)
+    assert served.meta["device"] == "cuda"
+    _, sr = served(frames)
+    _, want = make_pipeline(net, 2, "acdc")(torch.from_numpy(frames).to(dev))
+    assert sr.device.type == "cuda"
+    torch.testing.assert_close(sr, want, rtol=0, atol=1.0)
+    stream = make_stream(net, factor=2)
+    assert stream.device.type == "cuda"
+    _, out = stream.push(frames)
+    assert out.device.type == "cuda"
+    torch.testing.assert_close(out, want, rtol=0, atol=1.0)
+
+
+def _case_qat_forward_equals_w8a8_on_the_card(rng, dev):
+    """``tests/test_qat.py``'s bar: the fake-quant forward against the W8A8
+    kernel's pipeline with the same scales, 2e-3 on normalized outputs, and
+    unlike the unquantized forward."""
+    from vsr_tpu_torch import models, quantize
+
+    net = models.EDSRNet(in_channels=1, out_channels=1, num_resblocks=2,
+                         num_features=16, upscale_factor=2).to(dev).eval()
+    z = torch.from_numpy(rng.standard_normal((4, 1, 24, 24)).astype(
+        np.float32)).to(dev)
+    scales = quantize.calibrate_w8a8(net, [z])
+    before = quantize.w8a8_conv.launches
+    with torch.inference_mode():
+        fake = quantize.make_fake_quant_apply(net, scales)(z)
+        w8a8 = quantize.make_w8a8_apply(net, scales)(z)
+        plain = net(z)
+    torch.cuda.synchronize()
+    assert quantize.w8a8_conv.launches - before == len(scales) == 6
+    assert (fake - w8a8).abs().max().item() <= 2e-3
+    assert (plain - w8a8).abs().max().item() > 1e-4
+
+
+def test_training_knobs_on_the_card(rng, dev, tmp_path):
+    """The gradient chain and QAT inside two captured graphs against eager;
+    the clip and the EMA captured with no host sync; Bicubic exported and
+    streamed on the card; QAT's forward against W8A8's."""
+    run_cases([
+        ("_case_two_graph_accumulation_equals_eager",
+         lambda: _case_two_graph_accumulation_equals_eager(
+             rng, dev, subdir(tmp_path, "graphs"))),
+        ("_case_clip_and_ema_capture_without_a_host_sync",
+         lambda: _case_clip_and_ema_capture_without_a_host_sync(rng, dev)),
+        ("_case_bicubic_exports_and_streams_on_the_card",
+         lambda: _case_bicubic_exports_and_streams_on_the_card(
+             rng, dev, subdir(tmp_path, "bicubic"))),
+        ("_case_qat_forward_equals_w8a8_on_the_card",
+         lambda: _case_qat_forward_equals_w8a8_on_the_card(rng, dev))])

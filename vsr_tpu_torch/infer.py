@@ -32,6 +32,8 @@ Usage:
       --net-kwargs '{...}' [--int8 | --w8a8 | --w8a8-scales scales.json] \
       [--w8a8-kernels 3,6]
 
+``--ema`` serves the parameter EMA a trainer with ``ema_decay`` kept in the
+checkpoint; ``--gif`` also writes one animated GIF per slice.
 ``--int8`` serves the kernels held in int8 (``quantize.py``); ``--w8a8``
 serves the wide convs as int8 x int8 -> int32 on the card's tensor cores,
 with activation scales calibrated on the first batch, ``--w8a8-scales`` with
@@ -64,6 +66,7 @@ from vsr_tpu_torch.preprocess.intensity import (center_crop_multiple,
 from vsr_tpu_torch.preprocess.kspace import kspace_downscale_torch
 from vsr_tpu_torch.registry import build, get_class
 from vsr_tpu_torch.utils.checkpoint import load_net_weights
+from vsr_tpu_torch.utils.gif import write_gif
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
 
 # JAX CLI flags this port refuses by name: dest -> (flag, why).
@@ -73,8 +76,6 @@ _NOT_PORTED = {
                "card, and its fast level, W8A8, is no faster here"),
     "preset_file": ("--preset-file", "it names a preset table, which is "
                     "not measured on this card"),
-    "ema": ("--ema", "its trainers track no parameter EMA"),
-    "gif": ("--gif", "infer writes no GIF yet; main --test does"),
 }
 # ... and the ones it will never take: dest -> (flag, why).
 _NEVER_PORTED = {
@@ -127,24 +128,29 @@ def build_serving_net(net_name: str, net_kwargs: dict, checkpoint: str = "",
 
     The JAX package passes ``train=False`` to the BatchNorm nets
     (``TRAIN_FLAG_NETS``); here every serving net is in eval mode, which
-    serves BatchNorm from its running statistics. ``ema`` (serving the
-    EMA twin an EMA-tracking trainer keeps) is refused: the port's trainers
-    track no EMA yet."""
-    if ema:
-        raise ValueError("--ema is not yet ported to vsr_tpu_torch (its "
-                         "trainers track no parameter EMA)")
+    serves BatchNorm from its running statistics. ``ema``: serve the
+    parameter EMA that a trainer with ``ema_decay`` kept in the checkpoint
+    (of either kind) in place of the parameters; BatchNorm's statistics
+    stay the checkpoint's."""
+    if ema and not checkpoint:
+        raise ValueError("--ema needs --checkpoint")
     net = build("net", {"name": net_name, "kwargs": dict(net_kwargs)},
                 device=device, generator=torch.Generator().manual_seed(0))
     if checkpoint:
-        load_net_weights(net, checkpoint, map_location=device)
-        logging.info(f'Loaded the weights of "{checkpoint}".')
+        load_net_weights(net, checkpoint, map_location=device, ema=ema)
+        logging.info(f'Loaded the {"EMA " if ema else ""}weights of '
+                     f'"{checkpoint}".')
     return net.eval()
 
 
 def net_device(net: torch.nn.Module) -> torch.device:
-    """Where the net's parameters live (the CPU for a net without any)."""
-    param = next(net.parameters(), None)
-    return param.device if param is not None else torch.device("cpu")
+    """Where the net's tensors live: its parameters, else its buffers (a
+    parameter-free net such as ``Bicubic`` holds one on the device it was
+    built for). A net that holds neither is refused."""
+    for tensor in (*net.parameters(), *net.buffers()):
+        return tensor.device
+    raise ValueError(f"{type(net).__name__} holds no parameter and no "
+                     "buffer: its device is unknown")
 
 
 def denormalize(sr: torch.Tensor, dataset: str) -> torch.Tensor:
@@ -445,10 +451,12 @@ def run(args) -> dict:
         net_kwargs["dtype"] = torch.bfloat16
     if args.fused_tail:
         net_kwargs["fused_tail"] = True
+    if args.ema and not args.checkpoint:
+        raise SystemExit("--ema needs --checkpoint")
     try:
         net = build_serving_net(args.net, net_kwargs, args.checkpoint,
-                                device=device)
-    except ValueError as err:  # a file that is no checkpoint of either kind
+                                device=device, ema=args.ema)
+    except ValueError as err:  # no checkpoint of either kind, or no EMA
         raise SystemExit(f"--checkpoint: {err}") from err
     if args.int8 and not w8a8:  # quantized once, for every pipeline
         from vsr_tpu_torch import quantize
@@ -489,6 +497,11 @@ def run(args) -> dict:
         out_base = Path(args.output_dir) / rel.parent / rel.name.split(".")[0]
         sr_seq = np.moveaxis(sr_np, 0, -1).reshape(h, w, d, t)
         save_nifti(sr_seq.astype(np.float32), Path(str(out_base) + "_sr.nii.gz"))
+        if args.gif:
+            for di in range(d):  # uint8 by truncation, as vsr_tpu's writer
+                write_gif(Path(str(out_base) + f"_slice{di + 1:0>2d}.gif"),
+                          [sr_seq[:, :, di, ti].astype(np.uint8)
+                           for ti in range(t)])
         if args.psnr:
             # The input is the ground truth: it was degraded by --factor and
             # super-resolved back. Reference convention: max 255, 1e-10 eps.
@@ -577,8 +590,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         help="not yet ported")
     parser.add_argument("--preset-file", dest="preset_file", default="",
                         help="not yet ported")
-    parser.add_argument("--ema", action="store_true", help="not yet ported")
-    parser.add_argument("--gif", action="store_true", help="not yet ported")
+    parser.add_argument("--ema", action="store_true",
+                        help="serve the parameter EMA tracked by the trainer "
+                             "(trainer.kwargs.ema_decay) instead of the raw "
+                             "parameters; needs --checkpoint")
+    parser.add_argument("--gif", action="store_true",
+                        help="also write one animated GIF per slice "
+                             "(<name>_sliceNN.gif)")
     parser.add_argument("--bucket-t", dest="bucket_t", type=int, default=0,
                         help="refused: the port compiles no program per "
                              "sequence length")

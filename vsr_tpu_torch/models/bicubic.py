@@ -1,6 +1,8 @@
 """Bicubic upsampling baseline net (port of ``vsr_tpu/models/bicubic.py``):
 ``nn.Upsample(scale_factor, mode='bicubic', align_corners=True)``, a
-parameter-free baseline that never loads a checkpoint."""
+parameter-free baseline that never loads a checkpoint. It holds one empty
+buffer, not saved, on the device it is built for (``device``), so that its
+callers find where it serves (``infer.net_device``)."""
 
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ class Bicubic(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.upscale_factor = upscale_factor
+        self.register_buffer("anchor", torch.empty(0, device=device),
+                             persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return upsample_bicubic(x, scale=self.upscale_factor,

@@ -16,10 +16,15 @@ operands accumulated in ``out_dtype`` and not rounded back, with the plain
 compute-dtype conv backward (``accum_conv``).
 
 Interception (flax's ``nn.intercept_methods``): ``Conv``, ``Conv3D``,
-``ConvTranspose`` and ``PlainConv2d`` consult :func:`intercept_convs`'s
-interceptor, which only a quantized apply or a calibration of
-``vsr_tpu_torch/quantize.py`` sets, for the length of its call; without one
-each forward is the plain forward below.
+``ConvTranspose``, ``PlainConv2d`` and ``PlainConvTranspose2d`` consult
+:func:`intercept_convs`'s interceptor, which only a quantized apply, a
+calibration or a QAT step of ``vsr_tpu_torch/quantize.py`` sets, for the
+length of its call; without one each forward is the plain forward below.
+It is a context variable, read when a forward runs: a CUDA graph captured
+inside the block holds the intercepted kernels, and a
+``torch.utils.checkpoint`` recompute, which runs in the backward (on
+another thread on the card), re-enters it through
+:func:`recompute_contexts`.
 """
 
 from __future__ import annotations
@@ -124,6 +129,15 @@ def intercept_convs(interceptor: Callable):
         yield
     finally:
         _INTERCEPTOR.reset(token)
+
+
+def recompute_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: the recompute runs under
+    the interceptor that the forward ran under."""
+    interceptor = _INTERCEPTOR.get()
+    return contextlib.nullcontext(), (
+        contextlib.nullcontext() if interceptor is None
+        else intercept_convs(interceptor))
 
 
 def _intercepted(module: nn.Module, x: torch.Tensor,
@@ -278,6 +292,14 @@ class PlainConv2d(nn.Conv2d):
     """``nn.Conv2d`` as it is (its init and its forward) where the JAX net
     uses a flax ``nn.Conv`` directly (EDVR's residual blocks, FRVSR), with
     the interception point of the module docstring."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _intercepted(self, x, super().forward)
+
+
+class PlainConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` as it is where the JAX net uses a flax
+    ``nn.ConvTranspose`` directly (FRVSR), with the interception point."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _intercepted(self, x, super().forward)

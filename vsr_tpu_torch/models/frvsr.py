@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vsr_tpu_torch.models.common import PlainConv2d, resolve_dtype
+from vsr_tpu_torch.models.common import (PlainConv2d, PlainConvTranspose2d,
+                                         resolve_dtype)
 from vsr_tpu_torch.models.toflow import crop, pad_to_multiple
 from vsr_tpu_torch.ops.upsample import upsample_bilinear
 from vsr_tpu_torch.ops.warp import grid_sample_bilinear, linspace
@@ -49,8 +50,9 @@ def _deconv(features: int, stride: int,
     """x2: ConvTranspose2d(k=3, s=2, p=1, output_padding=1); x3: (k=3, s=3,
     p=0)."""
     padding, extra = (1, 1) if stride == 2 else (0, 0)
-    return _xavier_(nn.ConvTranspose2d(features, features, 3, stride, padding,
-                                       output_padding=extra), generator)
+    return _xavier_(PlainConvTranspose2d(features, features, 3, stride,
+                                         padding, output_padding=extra),
+                    generator)
 
 
 def stn_warp(img: torch.Tensor, flow_uv: torch.Tensor,

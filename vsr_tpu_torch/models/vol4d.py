@@ -15,7 +15,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from vsr_tpu_torch.models.common import Conv3D, resolve_dtype
+from vsr_tpu_torch.models.common import (Conv3D, recompute_contexts,
+                                         resolve_dtype)
 from vsr_tpu_torch.models.vol3d import VolumeTail, _ResBlock3D
 from vsr_tpu_torch.registry import register
 
@@ -109,7 +110,8 @@ class Volume4DSRNet(nn.Module):
             # No randomness in the step: nothing to save and restore, and
             # no generator state read inside a captured CUDA graph.
             return checkpoint(self.step, *args, use_reentrant=False,
-                              preserve_rng_state=False)
+                              preserve_rng_state=False,
+                              context_fn=recompute_contexts)
         return self.step(*args)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

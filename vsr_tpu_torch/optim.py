@@ -1,13 +1,26 @@
-"""Optimizers and LR schedulers (port of ``vsr_tpu/optim.py``).
+"""Optimizers, the JAX trainer's gradient chain, and LR schedulers (port of
+``vsr_tpu/optim.py``).
 
 Configs say ``Adam`` / ``SGD`` / ``StepLR`` / ``ReduceLROnPlateau`` with torch
 kwargs. An optimizer name resolves to a factory that holds the config's
 arguments; the trainer binds it to the net's parameters
 (``factory.bind(params)`` returns the ``torch.optim`` optimizer). ``lr`` and
 ``learning_rate`` both name the learning rate, and each optimizer keeps the
-JAX package's default for it. ``weight_decay`` is torch's coupled decay,
-which is what the JAX package emulates. Param EMA (``with_param_ema``) is not
-ported.
+JAX package's default for it. An argument that the JAX function's signature
+lacks is refused (``TypeError``, as calling the JAX function raises), and so
+is ``Adam``'s ``amsgrad=True``, which the JAX function takes and ignores.
+``weight_decay`` is torch's coupled decay, which is what the JAX package
+emulates: torch adds it inside the update rule, after the gradient chain's
+clip, where the JAX chain's ``_maybe_l2`` sits.
+
+:class:`GradientChain` is the trainers' optax chain around the bound
+optimizer, ``MultiSteps(chain(clip_by_global_norm(grad_clip),
+with_param_ema(optimizer, ema_decay)), every_k=grad_accumulation)``, each
+wrapper present only when its knob is set, as plain tensor code with no
+host sync (a captured CUDA graph runs it). :class:`CapturableSGD` and
+:class:`CapturableAdagrad` are the steps of ``SGD`` and ``Adagrad`` with the
+learning rate a device tensor: ``torch.optim`` gives neither a capturable
+mode, and the device trainers capture the step.
 
 The schedulers are copies of the JAX package's pure-Python classes, not
 ``torch.optim.lr_scheduler`` lookups, so both packages follow the same LR
@@ -30,6 +43,21 @@ from vsr_tpu_torch.registry import register
 _OPTIMIZERS = {"Adam": 1e-3, "AdamW": 1e-3, "SGD": 1e-2, "RMSprop": 1e-2,
                "Adagrad": 1e-2, "Adadelta": 1.0, "Adamax": 2e-3,
                "NAdam": 2e-3, "RAdam": 1e-3, "ASGD": 1e-2, "Rprop": 1e-2}
+# name -> the JAX function's other keyword arguments (``vsr_tpu/optim.py``).
+_SIGNATURES = {
+    "Adam": ("betas", "eps", "weight_decay", "amsgrad"),
+    "AdamW": ("betas", "eps", "weight_decay"),
+    "SGD": ("momentum", "weight_decay", "nesterov"),
+    "RMSprop": ("alpha", "eps", "weight_decay", "momentum"),
+    "Adagrad": ("eps", "weight_decay", "initial_accumulator_value"),
+    "Adadelta": ("rho", "eps", "weight_decay"),
+    "Adamax": ("betas", "eps", "weight_decay"),
+    "NAdam": ("betas", "eps", "weight_decay", "momentum_decay"),
+    "RAdam": ("betas", "eps", "weight_decay"),
+    "ASGD": ("lambd", "alpha", "t0", "weight_decay"),
+    "Rprop": ("etas", "step_sizes"),
+}
+_PAIRS = ("betas", "etas", "step_sizes")  # YAML lists -> torch's tuples
 
 
 class OptimizerFactory:
@@ -40,15 +68,25 @@ class OptimizerFactory:
 
     def __init__(self, learning_rate: float | None = None,
                  lr: float | None = None, **kwargs: Any):
+        unknown = sorted(set(kwargs) - set(_SIGNATURES[self.torch_name]))
+        if unknown:
+            raise TypeError(
+                f"{self.torch_name}() got unexpected keyword arguments "
+                f"{unknown}: the JAX package's {self.torch_name} takes "
+                f"{list(_SIGNATURES[self.torch_name])} besides the learning "
+                "rate")
+        if kwargs.get("amsgrad"):
+            raise TypeError(
+                "Adam(amsgrad=True): the JAX package's Adam takes amsgrad "
+                "and ignores it, so the two would train differently")
         if lr is None:
             lr = self.default_lr if learning_rate is None else learning_rate
         self.lr = float(lr)
         self.kwargs = kwargs
 
     def bind(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-        kwargs = dict(self.kwargs)
-        if "betas" in kwargs:
-            kwargs["betas"] = tuple(kwargs["betas"])
+        kwargs = {k: tuple(v) if k in _PAIRS else v
+                  for k, v in self.kwargs.items()}
         return getattr(torch.optim, self.torch_name)(params, lr=self.lr, **kwargs)
 
 
@@ -56,6 +94,221 @@ for _name, _lr in _OPTIMIZERS.items():
     # Also module attributes (``optim.Adam(lr=1e-4)``), as in the JAX package.
     globals()[_name] = register("optimizer", _name)(type(
         _name, (OptimizerFactory,), {"torch_name": _name, "default_lr": _lr}))
+
+
+class CapturableSGD(torch.optim.SGD):
+    """``SGD`` (with and without momentum and ``nesterov``) as the JAX chain
+    computes it, ``p + (-lr) * u`` with ``u`` the (decayed, traced) gradient,
+    for a learning rate held as a device tensor: no host sync, so a CUDA
+    graph captures it. State and groups are ``torch.optim.SGD``'s (a
+    ``momentum_buffer`` per parameter), so its state dict loads into either.
+    The first step with momentum makes the buffers: run it before a
+    capture."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            neg_lr = -group["lr"]
+            wd, mom = group["weight_decay"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad if not wd else p.grad.add(p, alpha=wd)
+                if mom:
+                    state = self.state[p]
+                    buf = state.get("momentum_buffer")
+                    if buf is None:
+                        buf = state["momentum_buffer"] = g.clone()
+                    else:
+                        buf.mul_(mom).add_(g)
+                    g = g.add(buf, alpha=mom) if group["nesterov"] else buf
+                p.add_(g * neg_lr)
+
+
+class CapturableAdagrad(torch.optim.Adagrad):
+    """``Adagrad`` as the JAX chain computes it (``_scale_by_torch_adagrad``:
+    ``acc += g * g``, ``p + (-lr) * g / (sqrt(acc) + eps)``) for a learning
+    rate held as a device tensor. State and groups are
+    ``torch.optim.Adagrad``'s (``sum`` and ``step`` per parameter; ``step``
+    kept on the parameter's device)."""
+
+    def __init__(self, params, **kwargs: Any):
+        super().__init__(params, **kwargs)
+        # torch fills the sums from the constructor's argument, not from
+        # each group's (which a rebuilt optimizer carries).
+        for group in self.param_groups:
+            for p in group["params"]:
+                state = self.state[p]
+                state["sum"].fill_(group["initial_accumulator_value"])
+                state["step"] = state["step"].to(p.device, torch.float32)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            neg_lr, wd, eps = -group["lr"], group["weight_decay"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad if not wd else p.grad.add(p, alpha=wd)
+                state = self.state[p]
+                state["sum"].addcmul_(g, g)
+                state["step"].add_(1)
+                p.add_(g / (state["sum"].sqrt() + eps) * neg_lr)
+
+
+# The torch.optim classes without a capturable mode -> the port's step.
+CAPTURABLE = {torch.optim.SGD: CapturableSGD,
+              torch.optim.Adagrad: CapturableAdagrad}
+
+
+class GradientChain:
+    """The JAX trainer's optax chain (``vsr_tpu/runner/trainers.py:135-159``)
+    around ``optimizer``, whose groups hold ``net``'s parameters; ``step()``
+    runs after the backward, on the parameters' ``.grad``.
+
+    - ``grad_accumulation = k > 1`` (``optax.MultiSteps``): a running mean
+      of the micro-gradients, ``acc + (g - acc) / (n + 1)``; the inner chain
+      runs on every k-th micro-step only, on the mean, and the other
+      micro-steps leave the parameters and the inner state as they are. The
+      micro-step counter is the host's :attr:`mini_step` (deterministic, so
+      a captured step is chosen by it, :meth:`graph_key`) mirrored on the
+      device; it and the accumulator carry across epochs and are saved.
+    - ``grad_clip`` (``optax.clip_by_global_norm``): ``g`` where the global
+      norm is below ``grad_clip``, else ``(g / norm) * grad_clip``, on the
+      accumulated gradient, computed on the device.
+    - ``ema_decay = d`` (``with_param_ema``): ``ema <- d * ema + (1 - d) *
+      new_params`` after each applied update, starting from a copy of the
+      parameters when the chain is built, no bias correction; the trainable
+      parameters only (no buffers), keyed by their names.
+
+    ``param_groups`` are the optimizer's, so ``get_learning_rate`` /
+    ``set_learning_rate`` and the schedulers work through the chain."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 net: torch.nn.Module, grad_accumulation: int = 1,
+                 grad_clip: float = 0.0, ema_decay: float | None = None):
+        self.optimizer = optimizer
+        named = dict(net.named_parameters())
+        in_groups = {id(p) for g in optimizer.param_groups for p in g["params"]}
+        self.names = [n for n, p in named.items() if id(p) in in_groups]
+        self.params = [named[n] for n in self.names]
+        self.every_k = max(int(grad_accumulation), 1)
+        self.max_norm = float(grad_clip or 0.0)
+        self.decay = None
+        if ema_decay:
+            self.decay = float(ema_decay)
+            if not 0.0 < self.decay < 1.0:
+                raise ValueError(f"ema decay must be in (0, 1), got {ema_decay}")
+        self.mini_step = 0
+        self.acc = self.count = self.ema = None
+        with torch.no_grad():
+            if self.every_k > 1:
+                self.acc = [torch.zeros_like(p) for p in self.params]
+                self.count = torch.zeros((), device=self.params[0].device)
+            if self.decay is not None:
+                self.ema = [p.detach().clone() for p in self.params]
+
+    @property
+    def param_groups(self) -> list:
+        return self.optimizer.param_groups
+
+    def graph_key(self) -> bool:
+        """Whether the next micro-step applies the update: the captured
+        step a device epoch replays next."""
+        return self.mini_step == self.every_k - 1
+
+    def advance(self) -> None:
+        """The host's micro-step counter after one micro-step (what a
+        replayed step does not move)."""
+        self.mini_step = (self.mini_step + 1) % self.every_k
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [p.grad for p in self.params]
+        if self.acc is not None or self.max_norm:
+            # A parameter the loss does not reach has a gradient of zeros
+            # in JAX: it counts in the mean and the norm.
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(self.params, grads)]
+        if self.acc is not None:
+            for a, g in zip(self.acc, grads):
+                a.add_((g - a) / (self.count + 1))
+            if not self.graph_key():
+                self.count.add_(1)
+                self.advance()
+                return
+            grads = self.acc
+        if self.max_norm:
+            norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+            keep = norm < self.max_norm
+            for g in grads:
+                g.copy_(torch.where(keep, g, (g / norm) * self.max_norm))
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.optimizer.step()
+        if self.ema is not None:
+            for e, p in zip(self.ema, self.params):
+                e.copy_(e * self.decay + p * (1.0 - self.decay))
+        if self.acc is not None:
+            for a in self.acc:
+                a.zero_()
+            self.count.zero_()
+        self.advance()
+
+    def ema_state(self) -> dict[str, torch.Tensor]:
+        """``{parameter name: EMA tensor}`` (``get_ema_params``)."""
+        if self.ema is None:
+            raise ValueError("Optimizer state carries no param EMA — train "
+                             "with trainer.kwargs.ema_decay to track one")
+        return dict(zip(self.names, self.ema))
+
+    def state_dict(self) -> dict | None:
+        """The chain's own state (``None`` without any knob): the
+        accumulator and micro-step, the EMA, keyed by parameter name."""
+        if self.acc is None and self.ema is None:
+            return None
+        return {"every_k": self.every_k, "mini_step": self.mini_step,
+                "acc": (None if self.acc is None
+                        else dict(zip(self.names, self.acc))),
+                "ema": None if self.ema is None else self.ema_state()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict | None) -> None:
+        """Restore :meth:`state_dict`'s output into the chain's tensors, in
+        place (a captured step reads them by address). A checkpoint of
+        another chain (accumulation, EMA) is refused, as restoring an optax
+        state of another structure is."""
+        state = state or {"every_k": 1, "acc": None, "ema": None}
+        has = (self.every_k, self.ema is not None)
+        got = (int(state["every_k"]), state["ema"] is not None)
+        if has != got:
+            raise ValueError(
+                f"the checkpoint's gradient chain (grad_accumulation "
+                f"{got[0]}, EMA {got[1]}) is not this trainer's (grad_"
+                f"accumulation {has[0]}, EMA {has[1]})")
+        if self.acc is not None:
+            for name, a in zip(self.names, self.acc):
+                a.copy_(state["acc"][name])
+            self.mini_step = int(state["mini_step"])
+            self.count.fill_(self.mini_step)
+        if self.ema is not None:
+            for name, e in zip(self.names, self.ema):
+                e.copy_(state["ema"][name])
+
+
+def find_ema(opt_state) -> dict | None:
+    """The ``ema`` tree of a flax checkpoint's ``opt_state``: the dict of
+    exactly ``{inner_opt_state, ema}`` (``ParamEmaState``) under any nesting
+    of ``MultiSteps`` and ``optax.chain`` (``{'0': ..., '1': ...}``)."""
+    if not isinstance(opt_state, dict):
+        return None
+    if set(opt_state) == {"inner_opt_state", "ema"}:
+        return opt_state["ema"]
+    for value in opt_state.values():
+        found = find_ema(value)
+        if found is not None:
+            return found
+    return None
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

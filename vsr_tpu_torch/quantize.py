@@ -1,5 +1,5 @@
-"""int8 serving: weight-only int8 and W8A8 convolutions (port of
-``vsr_tpu/quantize.py``, its serving half).
+"""int8 serving, W8A8 convolutions and quantization-aware training (port of
+``vsr_tpu/quantize.py``).
 
 Weight-only int8: every kernel leaf of the net's flax counterpart (flax
 ``kernel`` / DCN ``weight`` of rank >= 2, ``interop.kernel_leaves``) becomes
@@ -23,19 +23,36 @@ min_channels`` at call time. Activation scales are dynamic (per call) or a
 ``{flax module path: scale}`` dict from :func:`calibrate_w8a8`; a JSON file
 of either package serves the other.
 
-Not ported, refused by name: quantization-aware training and
-``quantize_deconvs=True``.
+QAT (``make_qat_interceptor``, ``resolve_qat``, the trainers' ``qat``):
+the same eligible convs run :func:`fake_quant_conv`, the differentiable
+twin of the W8A8 body: the same scales (the activation's dynamic or
+static, each output channel's weight scale, both without a gradient), a
+float32 conv over the fake-quantized operands, the bias, a cast to the
+module's dtype. :func:`fake_quant` passes the gradient straight through
+``round`` and masks it where ``clip`` clips, with the JAX package's 0.5 on
+a value that lands exactly on the clip bound (``jnp.clip``'s subgradient).
+It is plain PyTorch (an elementwise pass and a cuDNN float32 conv): the
+JAX package computes it in XLA, outside any Pallas kernel. With
+``quantize_deconvs`` QAT also takes the transposed convs that stand for a
+flax ``nn.ConvTranspose`` (``ConvTranspose``, ``PlainConvTranspose2d``).
+
+Not ported, refused by name: ``quantize_deconvs=True`` in W8A8 serving.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Callable, Iterable, Mapping
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vsr_tpu_torch.interop import SCAN_BODIES, kernel_leaves, module_slots
-from vsr_tpu_torch.models.common import (Conv, Conv3D, PlainConv2d,
+from vsr_tpu_torch.models.common import (Conv, Conv3D, ConvTranspose,
+                                         PlainConv2d, PlainConvTranspose2d,
                                          compute_dtype, intercept_convs)
 from vsr_tpu_torch.ops.w8a8_conv import w8a8_conv
 
@@ -50,10 +67,7 @@ def quantize_params(net: nn.Module) -> tuple[dict, dict]:
     with torch.no_grad():
         for leaf in kernel_leaves(net):
             w = leaf.tensor.detach().float()
-            dims = tuple(d for d in range(w.dim()) if d != leaf.out_axis)
-            amax = w.abs().amax(dim=dims, keepdim=True)
-            scale = torch.where(amax > 0, amax / 127.0,
-                                torch.ones_like(amax))
+            scale = channel_scale(w, leaf.out_axis)
             qparams[leaf.name] = torch.clamp(torch.round(w / scale), -127,
                                              127).to(torch.int8)
             scales[leaf.name] = scale
@@ -142,20 +156,26 @@ def kernel_size_filter(sizes: Iterable[int]) -> Callable[[nn.Module], bool]:
 def _refuse_deconvs(quantize_deconvs: bool) -> None:
     if quantize_deconvs:
         raise NotImplementedError(
-            "quantize_deconvs=True is not yet ported to vsr_tpu_torch (the "
-            "transposed convs serve full precision)")
+            "quantize_deconvs=True is not yet ported to vsr_tpu_torch's W8A8 "
+            "serving (the transposed convs serve full precision)")
+
+
+_DECONVS = (ConvTranspose, PlainConvTranspose2d)
 
 
 def _conv_eligible(mod: nn.Module, x: torch.Tensor, min_channels: int,
-                   conv_filter: Callable | None = None) -> bool:
-    """The JAX predicate: the exact type of a flax ``nn.Conv``, a floating
+                   conv_filter: Callable | None = None,
+                   quantize_deconvs: bool = False) -> bool:
+    """The JAX predicate: the exact type of a flax ``nn.Conv`` (or, with
+    ``quantize_deconvs``, of a flax ``nn.ConvTranspose``), a floating
     batched input of the conv's rank, ``min(C_in, C_out) >= min_channels``
     and ``conv_filter``."""
     kind = type(mod)
     if kind is Conv3D:
         if mod.fold_shuffle2d:
             return False
-    elif kind not in (Conv, PlainConv2d):
+    elif kind not in (Conv, PlainConv2d) and not (quantize_deconvs
+                                                  and kind in _DECONVS):
         return False
     if x.dim() != len(mod.kernel_size) + 2 or not x.is_floating_point():
         return False
@@ -175,6 +195,109 @@ def _w8a8_conv(mod: nn.Module, x: torch.Tensor,
                      mod.padding, mod.groups, out_dtype)
 
 
+class _FakeQuant(torch.autograd.Function):
+    """``s * (clip(x / s) + stop_grad(round(clip(x / s)) - clip(x / s)))``
+    and its JAX gradient ``((g * s) * mask) / s``: ``mask`` is 1 inside the
+    bounds, 0 outside and 0.5 exactly on one (``jnp.clip`` is ``minimum(
+    maximum(x, lo), hi)``, whose tie takes half). ``s`` takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale, qmax):
+        xs = x / scale
+        clipped = torch.clamp(xs, -qmax, qmax)
+        ctx.save_for_backward(xs, scale)
+        ctx.qmax = qmax
+        return scale * (clipped + (torch.round(clipped) - clipped))
+
+    @staticmethod
+    def backward(ctx, grad):
+        xs, scale = ctx.saved_tensors
+        mag = xs.abs()
+        mask = torch.where(mag < ctx.qmax, 1.0,
+                           torch.where(mag == ctx.qmax, 0.5, 0.0))
+        return (grad * scale * mask) / scale, None, None
+
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor,
+               qmax: float = 127.0) -> torch.Tensor:
+    """``round(clip(x / s, +-qmax)) * s`` with straight-through gradients
+    (``vsr_tpu.quantize.fake_quant``): 1 where ``|x / s| < qmax``, 0.5 where
+    it equals ``qmax``, 0 where clipped. ``round`` is half to even."""
+    return _FakeQuant.apply(x, torch.as_tensor(scale, dtype=x.dtype,
+                                               device=x.device), float(qmax))
+
+
+# QAT's scales are the jitted JAX step's: XLA computes ``amax / 127.0`` as
+# ``amax * float32(1 / 127)``, which puts a channel's largest weight on
+# either side of 127 where the division puts it on 127 (the tie's 0.5).
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def channel_scale(w: torch.Tensor, out_axis: int,
+                  jitted: bool = False) -> torch.Tensor:
+    """Per output channel ``where(amax > 0, amax / 127, 1)`` of ``|w|``
+    (``jitted``: ``amax * float32(1 / 127)``), broadcastable against ``w``;
+    no gradient."""
+    w = w.detach().float()
+    dims = tuple(d for d in range(w.dim()) if d != out_axis)
+    amax = w.abs().amax(dim=dims, keepdim=True)
+    return torch.where(amax > 0, amax * _INV_127 if jitted else amax / 127.0,
+                       torch.ones_like(amax))
+
+
+def fake_quant_conv(mod: nn.Module, x: torch.Tensor,
+                    act_scale: float | None, out_axis: int) -> torch.Tensor:
+    """The differentiable twin of the W8A8 body (``_fake_quant_conv``): the
+    activation scale (``max(amax, 1e-8) / 127`` over the whole input, or the
+    static ``act_scale``) and the weight's per-channel scale, both without
+    a gradient and both as the jitted JAX step computes them (``_INV_127``);
+    the module's conv in float32 over the fake-quantized operands, then the
+    bias, then a cast to the module's dtype."""
+    out_dtype = compute_dtype(getattr(mod, "dtype", None), x, mod.weight)
+    x = x.float()
+    if act_scale is None:
+        xs = torch.clamp_min(x.detach().abs().amax(), 1e-8) * _INV_127
+    else:
+        xs = torch.tensor(act_scale, dtype=torch.float32, device=x.device)
+    w = mod.weight.float()
+    xq = fake_quant(x, xs)
+    wq = fake_quant(w, channel_scale(w, out_axis, jitted=True))
+    if isinstance(mod, _DECONVS):
+        out = F.conv_transpose2d(xq, wq, None, mod.stride, mod.padding,
+                                 mod.output_padding, mod.groups,
+                                 mod.dilation)
+    else:
+        out = mod._conv_forward(xq, wq, None)
+    if mod.bias is not None:
+        out = out + mod.bias.float().reshape(-1, *[1] * (out.dim() - 2))
+    return out.to(out_dtype)
+
+
+def _conv_interceptor(net: nn.Module, body: Callable, act_scales,
+                      min_channels: int, conv_filter: Callable | None,
+                      quantize_deconvs: bool) -> Callable:
+    """``interceptor(mod, x, plain)`` sending the eligible convs of ``net``
+    to ``body(mod, x, act_scale, out_axis)`` (``out_axis``: the weight's
+    output-channel axis); under static scales a conv without one runs its
+    plain forward (the JAX interceptors' fallback)."""
+    leaves = {id(leaf.module): leaf for leaf in kernel_leaves(net)}
+    static = None if act_scales == "dynamic" else dict(act_scales)
+
+    def interceptor(mod, x, plain):
+        leaf = leaves.get(id(mod))
+        if leaf is None or not _conv_eligible(mod, x, min_channels,
+                                              conv_filter, quantize_deconvs):
+            return plain(x)
+        scale = None
+        if static is not None:
+            scale = static.get(leaf.path)
+            if scale is None:
+                return plain(x)
+        return body(mod, x, scale, leaf.out_axis)
+
+    return interceptor
+
+
 def _conv_paths(net: nn.Module) -> dict[int, str]:
     return {id(leaf.module): leaf.path for leaf in kernel_leaves(net)}
 
@@ -187,26 +310,69 @@ def make_w8a8_apply(net: nn.Module, act_scales="dynamic",
     ``act_scales``: ``"dynamic"`` or ``{flax module path: scale}`` (a conv
     without a scale serves full precision)."""
     _refuse_deconvs(quantize_deconvs)
-    paths = _conv_paths(net)
-    static = None if act_scales == "dynamic" else dict(act_scales)
-
-    def interceptor(mod, x, plain):
-        path = paths.get(id(mod))
-        if path is None or not _conv_eligible(mod, x, min_channels,
-                                              conv_filter):
-            return plain(x)
-        scale = None
-        if static is not None:
-            scale = static.get(path)
-            if scale is None:
-                return plain(x)
-        return _w8a8_conv(mod, x, scale)
+    interceptor = _conv_interceptor(
+        net, lambda mod, x, scale, _: _w8a8_conv(mod, x, scale), act_scales,
+        min_channels, conv_filter, False)
 
     def apply(x, **kwargs):
         with intercept_convs(interceptor):
             return net(x, **kwargs)
 
     return apply
+
+
+def make_qat_interceptor(net: nn.Module, act_scales="dynamic",
+                         min_channels: int = 16,
+                         conv_filter: Callable | None = None,
+                         quantize_deconvs: bool = False) -> Callable:
+    """The interceptor (``models/common.intercept_convs``) that runs the
+    eligible convs of ``net`` as :func:`fake_quant_conv`; the knobs are
+    :func:`make_w8a8_apply`'s, and under static scales a conv without a
+    scale runs full precision, as it serves. The net is an argument here,
+    where flax's interceptor reads each module's path from the module."""
+    return _conv_interceptor(
+        net, lambda *args: fake_quant_conv(*args), act_scales, min_channels,
+        conv_filter, quantize_deconvs)
+
+
+def make_fake_quant_apply(net: nn.Module, act_scales="dynamic",
+                          min_channels: int = 16,
+                          conv_filter: Callable | None = None,
+                          quantize_deconvs: bool = False) -> Callable:
+    """``apply(x)`` running the fake-quant forward: the differentiable
+    stand-in for :func:`make_w8a8_apply`."""
+    interceptor = make_qat_interceptor(net, act_scales, min_channels,
+                                       conv_filter, quantize_deconvs)
+
+    def apply(x, **kwargs):
+        with intercept_convs(interceptor):
+            return net(x, **kwargs)
+
+    return apply
+
+
+def resolve_qat(qat, net: nn.Module) -> Callable:
+    """A trainer's ``qat`` option as the interceptor for ``net``: ``True``
+    (dynamic scales, the defaults) or a dict of ``act_scales``
+    (``"dynamic"``, ``{flax module path: scale}`` or the path of such a
+    JSON file), ``min_channels``, ``kernels`` (spatial sizes, as
+    ``--w8a8-kernels``) and ``quantize_deconvs``. An unknown key raises."""
+    qat = {} if qat is True else dict(qat)
+    scales = qat.pop("act_scales", "dynamic")
+    if isinstance(scales, str) and scales != "dynamic":
+        scales = {k: float(v)
+                  for k, v in json.loads(Path(scales).read_text()).items()}
+    kernels = qat.pop("kernels", None)
+    interceptor = make_qat_interceptor(
+        net, act_scales=scales,
+        min_channels=int(qat.pop("min_channels", 16)),
+        conv_filter=kernel_size_filter(kernels) if kernels else None,
+        quantize_deconvs=bool(qat.pop("quantize_deconvs", False)))
+    if qat:
+        raise ValueError(f"unknown qat option(s): {sorted(qat)} — valid "
+                         "keys: act_scales, min_channels, kernels, "
+                         "quantize_deconvs")
+    return interceptor
 
 
 def calibrate_w8a8(net: nn.Module, sample_inputs: Iterable[torch.Tensor],

@@ -18,13 +18,16 @@ buffers. The host reads the epoch's per-step scalars once, at the end of
 the epoch. On the CPU the same step runs eagerly. A capture that fails
 raises: there is no eager fallback on the card.
 
-Capturing the optimizer step needs an optimizer with a ``capturable`` mode
-(Adam and its kin): on the card the trainer rebuilds it with
-``capturable=True`` and the learning rate as a device tensor, which
-``optim.set_learning_rate`` fills in place, so a scheduler's change reaches
-the replayed step. Checkpoints are written in the host-loop trainers'
-optimizer format (float learning rate, host step counts) and read from it,
-so they interchange with those trainers both ways.
+Capturing the optimizer step needs a capturable step: on the card the
+trainer rebuilds the optimizer with the learning rate as a device tensor,
+which ``optim.set_learning_rate`` fills in place, so a scheduler's change
+reaches the replayed step (``capturable=True`` where ``torch.optim`` has
+the mode; ``optim.CapturableSGD`` and ``CapturableAdagrad`` for ``SGD`` and
+``Adagrad``). The gradient chain (accumulation, clip, EMA) and QAT's
+fake-quant convs run inside the captured step. Checkpoints are written in
+the host-loop trainers' optimizer format (float learning rate, host step
+counts) and read from it, so they interchange with those trainers both
+ways.
 
 The draws come from a ``torch.Generator`` on the trainer's device, seeded
 from the ``RngTree`` under ``("device-epoch", epoch)``: a run is
@@ -46,7 +49,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from vsr_tpu_torch.optim import OptimizerFactory
+from vsr_tpu_torch.optim import (CAPTURABLE, GradientChain,
+                                 OptimizerFactory)
 from vsr_tpu_torch.registry import register
 from vsr_tpu_torch.runner import trainers
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
@@ -198,27 +202,34 @@ def check_scan_unroll(scan_unroll) -> None:
 
 def make_capturable(optimizer: torch.optim.Optimizer,
                     device: torch.device) -> torch.optim.Optimizer:
-    """The same optimizer rebuilt with ``capturable=True`` and each group's
-    learning rate a tensor on ``device``, so that its step can be captured
-    in a CUDA graph and a new learning rate still reaches the replays."""
-    if "capturable" not in optimizer.defaults:
+    """The same optimizer rebuilt for a captured step, with each group's
+    learning rate a tensor on ``device``, so that a new learning rate still
+    reaches the replays: ``capturable=True`` where ``torch.optim`` has the
+    mode, the port's ``optim.CapturableSGD`` / ``CapturableAdagrad`` for
+    ``SGD`` and ``Adagrad``, which have none."""
+    cls = CAPTURABLE.get(type(optimizer), type(optimizer))
+    capturable = "capturable" in optimizer.defaults
+    if cls is type(optimizer) and not capturable:
         raise NotImplementedError(
             f"{type(optimizer).__name__} has no capturable mode: a device "
-            "epoch on the card replays a captured optimizer step (use Adam, "
-            "AdamW or another optimizer with capturable=True)")
-    if optimizer.state:
+            "epoch on the card replays a captured optimizer step (use one "
+            "of the optimizers of vsr_tpu_torch.optim)")
+    if any(float(st["step"]) > 0 if "step" in st else bool(st)
+           for st in optimizer.state.values()):
         raise ValueError("make_capturable takes an optimizer that has not "
                          "stepped yet")
     groups = [{**g, "lr": torch.tensor(float(g["lr"]), device=device),
-               "capturable": True} for g in optimizer.param_groups]
-    return type(optimizer)(groups)
+               **({"capturable": True} if capturable else {})}
+              for g in optimizer.param_groups]
+    return cls(groups)
 
 
 def host_optimizer_state(state: dict) -> dict:
     """An optimizer state dict in the host-loop trainers' format: float
     learning rates, ``capturable`` off, step counts as host float32."""
-    groups = [{**g, "lr": float(g["lr"]), "capturable": False}
-              if "capturable" in g else g for g in state["param_groups"]]
+    groups = [{**g, "lr": float(g["lr"]),
+               **({"capturable": False} if "capturable" in g else {})}
+              for g in state["param_groups"]]
     per_param = {k: {**v, "step": v["step"].detach().to("cpu", torch.float32)}
                  if torch.is_tensor(v.get("step")) else v
                  for k, v in state["state"].items()}
@@ -231,9 +242,11 @@ def load_capturable_state(optimizer: torch.optim.Optimizer,
     optimizer, keeping its learning-rate tensors (filled with the loaded
     values) and moving step counts to the parameters' device."""
     lrs = [g["lr"] for g in optimizer.param_groups]
+    capturable = ({"capturable": True} if "capturable" in optimizer.defaults
+                  else {})
     optimizer.load_state_dict({
         "state": state["state"],
-        "param_groups": [{**g, "capturable": True}
+        "param_groups": [{**g, **capturable}
                          for g in state["param_groups"]]})
     for group, lr in zip(optimizer.param_groups, lrs):
         lr.fill_(float(group["lr"]))
@@ -246,26 +259,42 @@ def load_capturable_state(optimizer: torch.optim.Optimizer,
 class EpochEngine:
     """Runs epochs of ``step(inputs, hr) -> scalars`` over resident buffers,
     the batches cut by ``apply_draws``. On a CUDA device the step is
-    captured once, after ``WARMUP_STEPS`` eager steps (on a side stream, as
-    capture asks), and replayed; ``eager_steps``, ``captures`` and
-    ``replays`` count what ran. ``log`` holds the last epoch's per-step
-    scalars ``(steps, n)`` on the device. ``use_graph`` is not a setting of
-    the trainers: a test clears it to hold the graph against eager steps."""
+    captured after ``warmup`` eager steps (on a side stream, as capture
+    asks; at least ``WARMUP_STEPS``) and replayed. A step that takes one of
+    several courses, decided on the host, gives one graph per course:
+    ``graph_key()`` names the course of the next step, and ``after_replay()``
+    moves the host state that the step's Python moves and a replay does not
+    (the gradient chain's micro-step: an accumulate-only step and an
+    accumulate-then-apply step, ``optim.GradientChain``). ``eager_steps``,
+    ``captures`` and ``replays`` count what ran. ``log`` holds the last
+    epoch's per-step scalars ``(steps, n)`` on the device. ``use_graph`` is
+    not a setting of the trainers: a test clears it to hold the graphs
+    against eager steps."""
 
     def __init__(self, step, lr_buf: torch.Tensor, hr_buf: torch.Tensor,
                  patch: int, ratio: int, stats: tuple[float, float],
-                 steps: int, n_scalars: int, window: int | None = None):
+                 steps: int, n_scalars: int, window: int | None = None,
+                 graph_key=lambda: None, after_replay=lambda: None,
+                 warmup: int = WARMUP_STEPS):
         self.step = step
         self.lr_buf, self.hr_buf = lr_buf, hr_buf
         self.patch, self.ratio, self.stats = patch, ratio, stats
         self.steps, self.window = steps, window
+        self.graph_key, self.after_replay = graph_key, after_replay
+        self.warmup = max(int(warmup), WARMUP_STEPS)
         self.device = lr_buf.device
         self.use_graph = self.device.type == "cuda"
         self.counter = torch.zeros(1, dtype=torch.long, device=self.device)
         self.log = torch.zeros(steps, n_scalars, device=self.device)
         self.draws: list[torch.Tensor] | None = None
-        self.graph = None
+        self.graphs: dict = {}
         self.eager_steps = self.captures = self.replays = 0
+
+    def reset(self) -> None:
+        """Drop the captured graphs (the state they read was replaced):
+        the next steps warm up and capture again."""
+        self.graphs = {}
+        self.eager_steps = 0
 
     def _one_step(self) -> None:
         step_draws = [d.index_select(0, self.counter)[0] for d in self.draws]
@@ -289,12 +318,14 @@ class EpochEngine:
             self._one_step()
         self.eager_steps += 1
 
-    def _capture(self) -> None:
+    def _capture(self) -> torch.cuda.CUDAGraph:
+        """Capture the next step; its Python runs once, moving the host
+        state as an eager step does."""
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self._one_step()
-        self.graph = graph
         self.captures += 1
+        return graph
 
     def run(self, draws: Sequence[torch.Tensor]) -> torch.Tensor:
         """One epoch from ``draws`` (``(steps, batch)`` tensors: idx, y0,
@@ -307,13 +338,17 @@ class EpochEngine:
                 static.copy_(d)
         self.counter.zero_()
         for _ in range(self.steps):
-            if not self.use_graph or (self.graph is None and
-                                      self.eager_steps < WARMUP_STEPS):
+            if not self.use_graph or (not self.graphs and
+                                      self.eager_steps < self.warmup):
                 self._eager_step()
                 continue
-            if self.graph is None:
-                self._capture()
-            self.graph.replay()
+            key = self.graph_key()
+            graph = self.graphs.get(key)
+            if graph is None:
+                graph = self.graphs[key] = self._capture()
+            else:
+                self.after_replay()
+            graph.replay()
             self.replays += 1
         return self.log
 
@@ -336,9 +371,10 @@ class DeviceEpochTrainer(trainers.TrainStep):
         batch_size, patch, ratio: the sampler (patch = LR crop size).
         window: with whole-sequence buffers ``(M, T_full, C, h, w)``, each
             sample is ``window`` frames from a random start, wrapping.
-        scan_unroll: "auto", 0 or 1 (``check_scan_unroll``); ``qat`` is
-            refused. ``device``: ``cuda`` unless the caller asks for
-            ``cpu``.
+        scan_unroll: "auto", 0 or 1 (``check_scan_unroll``).
+        qat: ``True`` or a dict of ``quantize.resolve_qat``: the step's
+            forward runs the fake-quant convs. ``device``: ``cuda`` unless
+            the caller asks for ``cpu``.
     """
 
     def __init__(self, net, loss_fns: Sequence, loss_weights: Sequence[float],
@@ -349,13 +385,11 @@ class DeviceEpochTrainer(trainers.TrainStep):
                  window: int | None = None, scan_unroll: int | str = "auto",
                  qat: dict | bool | None = None,
                  device: str | torch.device = "cuda"):
-        if qat:
-            raise NotImplementedError(
-                "DeviceEpochTrainer qat is not yet ported to vsr_tpu_torch")
         check_scan_unroll(scan_unroll)
         self.device = torch.device(device)
         trainers.training_precision(net)
         self.net = net.to(self.device)
+        self._qat_interceptor = trainers.qat_interceptor(qat, self.net)
         self.loss_fns = list(loss_fns)
         self.loss_weights = [float(w) for w in loss_weights]
         self.metric_fns = list(metric_fns)
@@ -363,6 +397,7 @@ class DeviceEpochTrainer(trainers.TrainStep):
             optimizer = optimizer.bind(self.net.parameters())
         self.optimizer = (make_capturable(optimizer, self.device)
                           if self.device.type == "cuda" else optimizer)
+        self.chain = GradientChain(self.optimizer, self.net)
         self.lr_buf = torch.as_tensor(np.asarray(lr_data, np.float32)).to(
             self.device)
         self.hr_buf = torch.as_tensor(np.asarray(hr_data, np.float32)).to(
@@ -435,21 +470,26 @@ class DeviceTrainerMixin:
     ``buffer_limit`` (the most samples made resident), ``scan_unroll``
     ("auto", 0 or 1). The dataset config's ``augments`` are ignored in the training epoch: it
     always draws the crop and both flips; normalization uses the dataset's
-    canonical statistics. Refused by name: the parallel trainer knobs
-    (``mesh_axes`` with any axis, the ``'expert'`` axis among them,
-    ``zero_optim``, ``fsdp``, a multi-process run), ``qat``, and resuming a
-    host-loop trainer's mid-epoch preemption checkpoint."""
+    canonical statistics. The host-loop trainer's ``qat``,
+    ``grad_accumulation``, ``grad_clip`` and ``ema_decay`` run inside the
+    captured step: with ``grad_accumulation > 1`` two graphs are captured,
+    an accumulate-only micro-step and an accumulate-then-apply one, and the
+    host's micro-step counter picks the one to replay. Refused by name: the
+    parallel trainer knobs (``mesh_axes`` with any axis, the ``'expert'``
+    axis among them, ``zero_optim``, ``fsdp``, a multi-process run), and
+    resuming a host-loop trainer's mid-epoch preemption checkpoint."""
 
     def __init__(self, *args, patch: int, ratio: int,
                  steps_per_epoch: int | None = None,
                  buffer_limit: int | None = None,
                  scan_unroll: int | str = "auto", **kwargs):
         mesh_axes = kwargs.get("mesh_axes") or {}
+        trainers.refuse_qat_with_pipe(kwargs.get("qat"), mesh_axes)
         if "expert" in mesh_axes:
             raise NotImplementedError(
                 "device trainers: the 'expert' mesh axis is not yet ported "
                 "to vsr_tpu_torch")
-        for name in ("mesh_axes", "zero_optim", "fsdp", "qat"):
+        for name in ("mesh_axes", "zero_optim", "fsdp"):
             if kwargs.get(name):
                 raise NotImplementedError(
                     f"device trainers: {name} is not yet ported to "
@@ -467,6 +507,7 @@ class DeviceTrainerMixin:
         self.buffer_limit = buffer_limit
         if self.device.type == "cuda":
             self.optimizer = make_capturable(self.optimizer, self.device)
+            self.chain.optimizer = self.optimizer
         self.lr_buf = self.hr_buf = None
         self.engine = None
 
@@ -478,9 +519,8 @@ class DeviceTrainerMixin:
         if self.device.type != "cuda":
             return super()._load_optimizer_state(state)
         load_capturable_state(self.optimizer, state)
-        if self.engine is not None:  # the captured step read the old state
-            self.engine.graph = None
-            self.engine.eager_steps = 0
+        if self.engine is not None:  # the captured steps read the old state
+            self.engine.reset()
 
     # ------------------------------------------------------------ buffers
     def _buffer_layout(self, lr: np.ndarray, hr: np.ndarray):
@@ -506,7 +546,9 @@ class DeviceTrainerMixin:
         self.engine = EpochEngine(
             self._engine_step, self.lr_buf, self.hr_buf, self.patch,
             self.ratio, DATASET_STATS[self.dataset_stats],
-            self.steps_per_epoch, len(self._scalar_names))
+            self.steps_per_epoch, len(self._scalar_names),
+            graph_key=self.chain.graph_key, after_replay=self.chain.advance,
+            warmup=self.chain.every_k)
 
     def _pack_device_targets(self, hr, inputs):
         """The task trainer's target structure (``inputs``: the sampled LR

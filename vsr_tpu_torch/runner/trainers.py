@@ -28,10 +28,19 @@ parameters of another dtype is refused. The JAX trainer pads validation
 sequences to T buckets only to bound its recompiles; there is no compile
 step here, so sequences run at their own length and ``t_bucket`` is not a
 parameter. Knobs of the JAX trainer that are not ported raise when passed.
+
+The JAX trainer's optax chain runs as ``optim.GradientChain`` after the
+backward: ``grad_accumulation`` (a running mean of the micro-gradients,
+applied every k-th micro-step), ``grad_clip`` (optax's global-norm clip of
+the accumulated gradient) and ``ema_decay`` (an EMA of the parameters after
+each applied update, saved in the checkpoint for ``infer --ema``). ``qat``
+runs every forward of the train and validation steps under the fake-quant
+interceptor of ``quantize.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import signal
 from pathlib import Path
@@ -41,7 +50,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from vsr_tpu_torch.optim import (OptimizerFactory, Scheduler,
+from vsr_tpu_torch.models.common import intercept_convs
+from vsr_tpu_torch.optim import (GradientChain, OptimizerFactory, Scheduler,
                                  get_learning_rate, set_learning_rate)
 from vsr_tpu_torch.registry import register
 from vsr_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -71,13 +81,40 @@ def training_precision(net: nn.Module) -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def qat_interceptor(qat, net: nn.Module):
+    """The fake-quant interceptor of a trainer's ``qat`` option (``True`` or
+    a dict, ``quantize.resolve_qat``), or ``None`` without it."""
+    if not qat:
+        return None
+    from vsr_tpu_torch.quantize import resolve_qat
+
+    return resolve_qat(qat, net)
+
+
+def refuse_qat_with_pipe(qat, mesh_axes: dict | None) -> None:
+    """QAT with a ``pipe`` mesh axis is refused, as in the JAX trainer (its
+    pipelined apply would bypass the interceptor)."""
+    if qat and "pipe" in (mesh_axes or {}):
+        raise NotImplementedError(
+            "qat does not compose with a 'pipe' mesh axis")
+
+
 class TrainStep:
     """The train step of the host-loop and the device-epoch trainers. A
-    subclass holds ``net``, ``optimizer``, ``loss_weights`` and
-    ``dataset_stats`` and gives the ``_compute_losses`` /
+    subclass holds ``net``, ``optimizer``, its ``chain``
+    (``optim.GradientChain``), ``loss_weights``, ``dataset_stats`` and
+    ``_qat_interceptor`` and gives the ``_compute_losses`` /
     ``_compute_metrics`` hooks."""
 
     dataset_stats = "acdc"
+    _qat_interceptor = None
+
+    def _forward(self, inputs):
+        """The net's forward, under the QAT interceptor when there is one."""
+        ctx = (contextlib.nullcontext() if self._qat_interceptor is None
+               else intercept_convs(self._qat_interceptor))
+        with ctx:
+            return self.net(inputs)
 
     def _compute_losses(self, outputs, targets) -> list:
         raise NotImplementedError
@@ -101,12 +138,12 @@ class TrainStep:
     def _train_step(self, inputs, targets):
         """One step. Returns (the scalars vector, the outputs, detached)."""
         self.net.train()
-        outputs = self.net(inputs)
+        outputs = self._forward(inputs)
         losses = self._compute_losses(outputs, targets)
         total = self._weighted_total(losses)
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
-        self.optimizer.step()
+        self.chain.step()
         outputs = _detached(outputs)
         with torch.no_grad():
             metrics = self._compute_metrics(outputs, targets)
@@ -147,12 +184,11 @@ class BaseTrainer(TrainStep):
         async_ckpt: bool = False,
         sharded_ckpt: bool = False,
     ):
+        refuse_qat_with_pipe(qat, mesh_axes)
         for name, value in (("mesh_axes", mesh_axes),
                             ("pipe_microbatches", pipe_microbatches),
                             ("zero_optim", zero_optim), ("fsdp", fsdp),
-                            ("qat", qat), ("profile_dir", profile_dir),
-                            ("grad_accumulation > 1", grad_accumulation > 1),
-                            ("grad_clip", grad_clip), ("ema_decay", ema_decay),
+                            ("profile_dir", profile_dir),
                             ("async_ckpt", async_ckpt),
                             ("sharded_ckpt", sharded_ckpt)):
             if value:
@@ -164,12 +200,15 @@ class BaseTrainer(TrainStep):
         self.train_dataloader = train_dataloader
         self.valid_dataloader = valid_dataloader
         self.net = net.to(self.device)
+        self._qat_interceptor = qat_interceptor(qat, self.net)
         self.loss_fns = list(loss_fns)
         self.loss_weights = [float(w) for w in loss_weights]
         self.metric_fns = list(metric_fns)
         if isinstance(optimizer, OptimizerFactory):
             optimizer = optimizer.bind(self.net.parameters())
         self.optimizer = optimizer
+        self.chain = GradientChain(optimizer, self.net, grad_accumulation,
+                                   grad_clip, ema_decay)
         self.lr_scheduler = lr_scheduler
         if lr_scheduler is not None:
             lr_scheduler.bind(get_learning_rate(optimizer))
@@ -222,7 +261,7 @@ class BaseTrainer(TrainStep):
     @torch.no_grad()
     def _eval_step(self, inputs, targets):
         self.net.eval()
-        outputs = self.net(inputs)
+        outputs = self._forward(inputs)
         losses = self._compute_losses(outputs, targets)
         metrics = self._compute_metrics(outputs, targets)
         return self._scalars(self._weighted_total(losses), losses,
@@ -424,7 +463,8 @@ class BaseTrainer(TrainStep):
             **(extra_aux or {}),
         }
         save_checkpoint(path, {"net": self.net.state_dict(),
-                               "optimizer": self._optimizer_state()}, aux)
+                               "optimizer": self._optimizer_state(),
+                               "chain": self.chain.state_dict()}, aux)
 
     def _optimizer_state(self) -> dict:
         return self.optimizer.state_dict()
@@ -436,6 +476,7 @@ class BaseTrainer(TrainStep):
         state, aux = load_checkpoint(path, map_location=self.device)
         self.net.load_state_dict(state["net"], strict=True)
         self._load_optimizer_state(state["optimizer"])
+        self.chain.load_state_dict(state.get("chain"))
         self.epoch = aux["epoch"] + 1
         if aux.get("mid_epoch"):
             # Step-granular preemption checkpoint: aux epoch is the last

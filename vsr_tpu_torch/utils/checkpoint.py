@@ -1,7 +1,10 @@
 """Checkpoints of the port: ``torch.save`` of plain dicts.
 
 A file holds ``{"format": "vsr_tpu_torch-v1", "net": state_dict,
-"optimizer": state_dict, "aux": {...}}``: tensors, numbers, strings, lists
+"optimizer": state_dict, "aux": {...}}`` and, when the trainer ran a
+gradient chain with a knob set, ``"chain"``: the accumulator and its
+micro-step, and the parameter EMA keyed by parameter name
+(``optim.GradientChain.state_dict``). Tensors, numbers, strings, lists
 and dicts only, so it loads with ``weights_only=True``. It is written to a
 ``.tmp`` beside the target and renamed, so a reader never sees half a file.
 The trainer's ``aux`` carries ``epoch``, ``monitor``, ``lr_scheduler``,
@@ -14,7 +17,10 @@ variables, "opt_state": ...}, "aux": {...}}``) is read by
 :func:`load_flax_checkpoint`. Serving and testing take either kind through
 :func:`load_net_weights`, which tells them apart by their first bytes.
 Resuming training reads the port's own format only: optax's state tree is
-not the port's optimizer state.
+not the port's optimizer state. Either kind serves its parameter EMA
+(``load_net_weights(..., ema=True)``, ``infer --ema``): the port's from
+``"chain"``, a flax one from the ``{inner_opt_state, ema}`` tree of its
+``opt_state`` (``optim.find_ema``).
 """
 
 from __future__ import annotations
@@ -36,11 +42,14 @@ _ZIP_MAGIC = b"PK\x03\x04"  # torch.save writes a zip archive
 
 def save_checkpoint(path: str | Path, state: Mapping[str, Any],
                     aux: Mapping[str, Any] | None = None) -> None:
-    """``state``: ``{"net": state_dict, "optimizer": state_dict or None}``."""
+    """``state``: ``{"net": state_dict, "optimizer": state_dict or None,
+    "chain": the gradient chain's state or None}``."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     payload = {"format": FORMAT, "net": state["net"],
                "optimizer": state.get("optimizer"), "aux": dict(aux or {})}
+    if state.get("chain") is not None:
+        payload["chain"] = state["chain"]
     tmp = path.with_name(path.name + ".tmp")
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -68,8 +77,8 @@ def load_checkpoint(path: str | Path,
     if not isinstance(payload, dict) or payload.get("format") != FORMAT:
         raise ValueError(f"{path} is a torch file but not a {FORMAT} "
                          "checkpoint")
-    return ({"net": payload["net"], "optimizer": payload["optimizer"]},
-            payload["aux"])
+    return ({"net": payload["net"], "optimizer": payload["optimizer"],
+             "chain": payload.get("chain")}, payload["aux"])
 
 
 def is_port_checkpoint(path: str | Path) -> bool:
@@ -105,17 +114,34 @@ def load_flax_checkpoint(path: str | Path) -> tuple[dict[str, Any],
 
 
 def load_net_weights(net: nn.Module, path: str | Path,
-                     map_location: torch.device | str = "cpu"
-                     ) -> dict[str, Any]:
+                     map_location: torch.device | str = "cpu",
+                     ema: bool = False) -> dict[str, Any]:
     """Fill ``net`` from a checkpoint of either kind (strict) and return its
     ``aux``: the port's own through ``load_state_dict``, a flax one through
-    ``interop.load_jax_params``."""
+    ``interop.load_jax_params``. ``ema``: the parameters are the EMA the
+    trainer tracked (the buffers, BatchNorm's statistics, are the
+    checkpoint's); a checkpoint without one raises."""
+    from vsr_tpu_torch.optim import find_ema
+
+    missing = (f"--ema: {path} carries no EMA params — train with "
+               "trainer.kwargs.ema_decay to track one")
     if is_port_checkpoint(path):
         state, aux = load_checkpoint(path, map_location=map_location)
-        net.load_state_dict(state["net"], strict=True)
+        weights = dict(state["net"])
+        if ema:
+            if not (state["chain"] or {}).get("ema"):
+                raise ValueError(missing)
+            weights.update(state["chain"]["ema"])
+        net.load_state_dict(weights, strict=True)
         return aux
     from vsr_tpu_torch.interop import load_jax_params
 
     state, aux = load_flax_checkpoint(path)
-    load_jax_params(net, state["params"])
+    variables = state["params"]
+    if ema:
+        tree = find_ema(state.get("opt_state"))
+        if tree is None:
+            raise ValueError(missing)
+        variables = {**variables, "params": tree}
+    load_jax_params(net, variables)
     return aux
