@@ -54,7 +54,12 @@ config for its net, with random seeded weights:
 - the training knobs: ``grad_accumulation``, ``grad_clip`` and
   ``ema_decay`` in the host-loop DRF trainer (K1 forward and backward) and
   inside the device trainers' captured graphs, ``qat``, ``infer --ema
-  --gif``, and a QAT-trained EDSRNet served W8A8.
+  --gif``, and a QAT-trained EDSRNet served W8A8;
+- the rest of the feedback family and the MoE routers: DRFSISRNet (K1)
+  trained, tested and served, DRFNet with experts, sub-pixel deconvs and
+  ``remat``, MoEEDSRNet's ``sort`` / ``radix`` routers and ``dense_nhwc``
+  dispatch (K3 with ``rank_pallas``), the step-stacked nets through an
+  artifact, the daemon and a frame stream.
 
 Phases; any failure exits non-zero and prints no result:
 
@@ -142,17 +147,19 @@ Phases; any failure exits non-zero and prints no result:
    the trained checkpoint served by the infer CLI in volume mode (= the
    trainer's validation output to <= 1 grey), ``main --test`` (a row per
    frame, the NIfTI shapes, mean PSNR within 0.01 dB of the trainer's
-   validation PSNR), 3 full 192 x 192 x 10 x 30 volumes through
+   validation PSNR), 2 full 192 x 192 x 10 x 30 volumes through
    ``make_pipeline`` with ``fused_tail`` on and off (>= 99.9 % exact grey,
    <= 1 grey; frames/s, ms a volume, peak memory); every kernel's launch
    count reads 0 throughout;
 11. the device-epoch trainers: the four ``configs/train/*_device.yaml``
    (EDSRNet 16 x 64 bf16, DRFNet F=64 G=6 bf16 ``carry_f32``, Volume3DSRNet
    8 x 32 bf16, Volume4DSRNet 4 x 32 f32 ``remat``) trained through
-   ``run_train`` at their widths, batches, patches and steps per epoch for 2
-   epochs (the train split resident on the card, each trainer's step
-   captured once as a CUDA graph after 3 eager steps and replayed; no
-   parameter NaN, all float32); the DRF config also with ``carry_f32``
+   ``run_train`` at their widths, batches, patches and steps per epoch for
+   one epoch (the train split resident on the card, each trainer's step
+   captured once as a CUDA graph after 3 eager steps and replayed, the
+   replayed step timed as the window of CUDA events from the first replay
+   to the last over the replays; no parameter NaN, all float32); the DRF
+   config also with ``carry_f32``
    removed and ``fused_squeeze`` on and off (K1 forward, dx and dW / db in
    bf16 training under the graph: 12 launches of each per frame step of
    every train step, counted as the calls per step that the counters read
@@ -172,11 +179,11 @@ Phases; any failure exits non-zero and prints no result:
    with ``fused_squeeze: false``) at >= 99.9 % exact grey, <= 1 grey, with
    360 K1 / 8 K3 / 3 K2 launches a volume; (b) one HTTP daemon
    (``serve.make_server`` on 127.0.0.1, a thread) per artifact, each taking
-   16 .npy volumes from 8 closed-loop clients, DRF also a NIfTI volume and
+   8 .npy volumes from 8 closed-loop clients, DRF also a NIfTI volume and
    two half volumes that share one program call; every response against
    the artifact called directly (the same bar; how many are bit-equal is
    printed), ``/metrics`` counting the requests, the launches = per volume
-   x program calls; the p50 and the largest of the 16 request latencies
+   x program calls; the p50 and the largest of the 8 request latencies
    and volumes/s through HTTP beside the direct call's; (c) the streams: DRF
    ``RecurrentStream`` (12 K1 a push), MoE ``FrameStream`` (8 K3 a push),
    DUF ``WindowStream`` (one K2 an emitted output, boundary frames by
@@ -219,9 +226,9 @@ Phases; any failure exits non-zero and prints no result:
    straight run (1e-3 of each tensor's largest entry), 8 batches of 4 on
    the card against the CPU (first loss 1e-4 relative, parameters and EMA
    1e-3 of each tensor's largest entry); (b) ``infer --ema --gif`` on its
-   checkpoint, a 192 x 192 x 10 x 30 volume: 360 K1 launches, 10 GIFs of 30
-   frames decoded to the SR's truncated frames, the output against a net
-   given the checkpoint's EMA by hand (<= 1 grey); (c) the EDSR device
+   checkpoint, 2 slices of a 192 x 192 x 10 x 30 volume: 360 K1 launches,
+   a GIF of 30 frames a slice decoded to the SR's truncated frames, the
+   output against a net given the checkpoint's EMA by hand (<= 1 grey); (c) the EDSR device
    config with the knobs and ``qat: true``: two captured graphs against
    the eager epoch (per-step losses 1e-5 relative), the replayed step; the
    DRF bf16 K1 device config with accumulation (K1 captured in both
@@ -231,7 +238,34 @@ Phases; any failure exits non-zero and prints no result:
    ``tests/test_qat.py``'s bar (2e-3): conv by conv on the trained net's
    W8A8 inputs, and whole at that test's geometry (its 2 x 16 net, 8 LR
    patches of 8 x 8); both unlike the unquantized forward (> 1e-4);
-15. prints the kernels' JSON line, then the final JSON line.
+15. the feedback family and the MoE routers, on phase 7's tree: (a)
+   ``configs/train/acdc_sisr_srfb_x2.yaml`` with its net swapped for
+   DRFSISRNet at the same width (F=64, G=6, 4 steps, ``fused_squeeze``),
+   one epoch through ``run_train`` (K1 48 forward, 48 dx and 48 dW / db a
+   train step, 48 forward a validation frame; the loss falls), one batch
+   on the card against the CPU, ``main --test`` on the checkpoint (48 a
+   frame, PSNR within 0.01 dB), the infer CLI on the checkpoint against the
+   trainer's validation output (<= 1 grey) and a 192 x 192 x 10 x 30
+   volume served in frame mode on it (the last step); (b) DRFNet F=64 G=6:
+   4 experts served a volume (K1 360, K3 none), sub-pixel deconvs on and
+   off on the same weights (f32 at the grey bar, bf16 printed, frames/s of
+   both), ``remat`` on and off for 2 SGD steps with cuDNN's deterministic
+   algorithms (gradients 1e-3 of each
+   gradient's largest entry, peak memory, the recompute's K1 launches); (c)
+   MoEEDSRNet (``configs/test/acdc_sisr_moe_x2.yaml``) under ``rank_pallas``
+   with each dispatch, ``sort`` / ``sparse`` and ``radix`` / ``dense`` at
+   1, 4 and 8 bits: the masks first (on every layer's affinities of one
+   volume, bit-equal to the rank kernel's), each output against the rank
+   kernel's with the same dispatch (identical) or, for ``dense_nhwc``,
+   with ``dense`` (phase 4b's 99.5 % exact), K3 8 a volume with
+   ``rank_pallas`` and none with the others, frames/s; (d) SRFBNet and
+   DRFSISRNet through an artifact, the daemon (2 requests) and a frame
+   stream (30 pushes), each against ``make_pipeline``'s last step at the
+   grey bar, K1 counted on each route; (e) small nets on the card against
+   the CPU: SRFBNet with sub-pixel deconvs (f32) and bf16 ``carry_f32``
+   (within twice the CPU's own bf16 error), RBPNet with sub-pixel deconvs,
+   FRVSRNet with ``remat`` (and remat on against off);
+16. prints the kernels' JSON line, then the final JSON line.
 
 ``--profile`` adds one ``torch.profiler`` trace of a full volume per serving
 path (f32, and bf16 for DRFNet; the two volume nets) and of 6 train steps
@@ -242,7 +276,8 @@ with ``cudnn.deterministic`` off and on, at what cost a volume.
 
 ``--quantized`` runs only the build and phase 13 (seeded weights where no
 trained checkpoint exists) and prints a summary line. ``--knobs`` runs only
-the build, phase 7's tree and phase 14, and prints a summary line.
+the build, phase 7's tree and phase 14, and ``--feedback`` the build, phase
+7's tree and phase 15; each prints a summary line.
 
 ``--latency N`` runs only the build, phase 12a and phase 12b with N
 requests per client (8 N a daemon; a p99 is printed from 100 on), then
@@ -250,7 +285,7 @@ traces one volume through the DRF artifact and through ``make_pipeline``
 (device kernels and host operators, and where their totals differ).
 
 Usage: python3 chip_smoke.py [--out details.json] [--profile | --latency N |
-                             --quantized | --knobs]
+                             --quantized | --knobs | --feedback]
 """
 
 from __future__ import annotations
@@ -272,8 +307,8 @@ import torch
 
 FACTOR, HR, T_FRAMES = 2, 192, 30
 LR = HR // FACTOR
-FULL_SLICES, FULL_VOLUMES = 10, 3   # volumes through make_pipeline, no I/O
-CLI_SLICES, CLI_VOLUMES = 1, 2      # volumes through the infer CLI
+FULL_SLICES, FULL_VOLUMES = 10, 2   # volumes through make_pipeline, no I/O
+CLI_SLICES, CLI_VOLUMES = 1, 1      # volumes through the infer CLI
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 # bytes/s, float32 FLOP/s outside the tensor cores, dense bf16 FLOP/s.
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -1005,7 +1040,7 @@ TRAIN_HR = TRAIN_LR * FACTOR
 # Squeezes of one DRFNet frame step at the training patch size.
 TRAIN_SQUEEZES = {(k, TRAIN_LR if side == LR else TRAIN_HR): count
                   for (k, side), count in STEP_SQUEEZES.items()}
-TRAIN_EPOCHS = 3
+TRAIN_EPOCHS = 2  # the loss must fall from the first epoch to the last
 # configs/train/acdc_vsr_drf_x2_device.yaml: batches of 8 patches of
 # TRAIN_LR x TRAIN_LR, the shapes K1 gets in device-epoch training.
 DEVICE_N = 8
@@ -1574,13 +1609,15 @@ def data_sub(config_name: str) -> str:
 
 
 def training_config(name: str, tree: Path, saved: Path, net_kwargs: dict,
-                    tmp: Path, **main_kwargs):
-    """``configs/train/<name>.yaml`` pointed at the temporary tree, written
-    to a file and read back as a user's config would be."""
+                    tmp: Path, net_name: str = "", **main_kwargs):
+    """``configs/train/<name>.yaml`` pointed at the temporary tree (and, with
+    ``net_name``, at another net of the same width), written to a file and
+    read back as a user's config would be."""
     from vsr_tpu_torch.config import load_config, save_config
 
     root = Path(__file__).resolve().parent
     cfg = load_config(root / "configs" / "train" / f"{name}.yaml")
+    cfg.net.name = net_name or cfg.net.name
     cfg.main.saved_dir = str(saved)
     cfg.main.update(main_kwargs)
     cfg.dataset.kwargs.data_dir = str(tree / data_sub(name))
@@ -1674,14 +1711,17 @@ def check_loss_fell(what: str, stats: dict) -> None:
 
 
 def testing_config(name: str, tree: Path, run: Path, net_kwargs: dict,
-                   tmp: Path, exported: bool | None = None):
+                   tmp: Path, exported: bool | None = None,
+                   net_name: str = ""):
     """``configs/test/<name>.yaml`` pointed at the temporary tree and at the
-    best checkpoint of the training run ``run``, written to a file as a
-    user's config would be; returns the file's path."""
+    best checkpoint of the training run ``run`` (with ``net_name``, of
+    another net), written to a file as a user's config would be; returns the
+    file's path."""
     from vsr_tpu_torch.config import load_config, save_config
 
     root = Path(__file__).resolve().parent
     cfg = load_config(root / "configs" / "test" / f"{name}.yaml")
+    cfg.net.name = net_name or cfg.net.name
     out = run / "predictions"
     cfg.main.saved_dir = str(out)
     cfg.main.loaded_path = str(run / "checkpoints" / "model_best.ckpt")
@@ -1701,7 +1741,8 @@ def testing_config(name: str, tree: Path, run: Path, net_kwargs: dict,
 def test_run(what: str, name: str, tree: Path, run: Path, net_kwargs: dict,
              tmp: Path, train_stats: dict, want_launches: int,
              card: str, kernel: str = "concat_conv1x1",
-             psnr_tol: float | None = TEST_PSNR_TOL) -> dict:
+             psnr_tol: float | None = TEST_PSNR_TOL,
+             net_name: str = "") -> dict:
     """``python -m vsr_tpu_torch.main <test config> --test`` (its ``main``)
     on the best checkpoint of a training run: the launch counts, a row of
     ``results.csv``, a PNG per frame and a GIF per sequence, and the mean
@@ -1711,7 +1752,8 @@ def test_run(what: str, name: str, tree: Path, run: Path, net_kwargs: dict,
 
     from vsr_tpu_torch import main as port_main
 
-    path = testing_config(name, tree, run, net_kwargs, tmp)
+    path = testing_config(name, tree, run, net_kwargs, tmp,
+                          net_name=net_name)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2113,7 +2155,7 @@ def moe_card_vs_cpu(trainer, dev, failed: list) -> dict:
 def served_vs_validation(what: str, tree: dict, tmp: Path, ckpt: Path,
                          net: str, net_kwargs: dict, flags: list,
                          valid_outputs: list, want_launches: int,
-                         kernel: str) -> dict:
+                         kernel: str, last_step: bool = False) -> dict:
     """The infer CLI serves validation sequence 1 from the HR volume (it
     makes the LR itself, by the k-space chain the tree was made with) with
     the trained checkpoint; its output must be the trainer's own validation
@@ -2133,8 +2175,10 @@ def served_vs_validation(what: str, tree: dict, tmp: Path, ckpt: Path,
     served = load_nifti(tmp / f"{what}_served" / "patient001"
                         / "patient001_4d_sr.nii.gz")[:, :, 0]  # (H, W, T)
     mean, std = DATASET_STATS["acdc"]
-    # The first T_FRAMES validation windows are sequence 1's frames, batch 1.
-    own = torch.cat([o.reshape(-1, HR, HR) for o in valid_outputs[:T_FRAMES]])
+    # The first T_FRAMES validation windows are sequence 1's frames, batch 1
+    # (a feedback net's: its steps stacked first, the last one served).
+    own = torch.cat([(o[-1] if last_step else o).reshape(-1, HR, HR)
+                     for o in valid_outputs[:T_FRAMES]])
     own = torch.clamp(torch.round(own * std + mean), 0.0, 255.0)
     exact, worst = agreement(served, np.moveaxis(own.cpu().numpy(), 0, -1))
     log(f"  {what} served by the infer CLI with the trained checkpoint: PSNR "
@@ -2652,7 +2696,7 @@ DEVICE_RUNS = {"sisr": ("acdc_sisr_edsr_x2_device", "tree", 1),
                "vsr": ("acdc_vsr_drf_x2_device", "tree", TRAIN_T),
                "3d": ("acdc_3d_vol_x2_device", "volume_tree", 1),
                "4d": ("acdc_4d_vol_x2_device", "volume_tree", 5)}
-DEVICE_EPOCHS = 2
+DEVICE_EPOCHS = 1  # a second epoch only repeats the first's replays
 # The DRF device config through K1: carry_f32 does not compose with
 # fused_squeeze (the JAX package refuses the pair too), so it is removed.
 K1_DEVICE = {"carry_f32": False, "fused_squeeze": True}
@@ -2677,16 +2721,26 @@ def k1_calls() -> tuple[int, int, int]:
 
 class EpochClock:
     """Times the device trainers' training passes (synchronized on both
-    sides), keeps each epoch's per-step scalars, and sums what K1's
-    counters (``k1_calls``) read over the training passes alone."""
+    sides) and every graph replay (a CUDA-event pair each), keeps each
+    epoch's per-step scalars, and sums what K1's counters (``k1_calls``)
+    read over the training passes alone."""
 
     def __enter__(self):
         from vsr_tpu_torch.runner.device_trainer import DeviceTrainerMixin
 
         self._cls, self.seconds, self.logs = DeviceTrainerMixin, [], []
-        self.k1_train_calls = [0, 0, 0]
+        self.k1_train_calls, self.replay_events = [0, 0, 0], []
         self._saved = saved = DeviceTrainerMixin._run_epoch
+        self._replay = replay = torch.cuda.CUDAGraph.replay
         clock = self
+
+        def timed_replay(graph):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            replay(graph)
+            end.record()
+            clock.replay_events.append((start, end))
 
         def timed(trainer, mode, epoch):
             if mode != "training":
@@ -2703,10 +2757,20 @@ class EpochClock:
             return out
 
         DeviceTrainerMixin._run_epoch = timed
+        torch.cuda.CUDAGraph.replay = timed_replay
         return self
 
     def __exit__(self, *exc):
         self._cls._run_epoch = self._saved
+        torch.cuda.CUDAGraph.replay = self._replay
+
+    def replay_ms(self) -> float:
+        """One replayed step: the window from the first replay's start to
+        the last one's end over the replays, the host's gaps between
+        replays included (the eager steps and the capture are not)."""
+        torch.cuda.synchronize()
+        start, end = self.replay_events[0][0], self.replay_events[-1][1]
+        return start.elapsed_time(end) / len(self.replay_events)
 
 
 def device_config(name: str, tree: Path, saved: Path, tmp: Path,
@@ -2723,8 +2787,8 @@ def device_run(what: str, cfg, card: str, frames: int, k1: bool) -> dict:
     eager steps, K1's launch counts (each counts its Python calls: the
     captured step once, its replays not at all; the launches on the card
     are the calls per step times the eager steps and replays), finite
-    parameters, the per-step losses, the step time of the all-replay last
-    epoch."""
+    parameters, the per-step losses, the replayed step's time
+    (``EpochClock.replay_ms``)."""
     from vsr_tpu_torch.main import run_train
     from vsr_tpu_torch.runner.device_trainer import WARMUP_STEPS
 
@@ -2737,8 +2801,9 @@ def device_run(what: str, cfg, card: str, frames: int, k1: bool) -> dict:
     peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
     eng, per_epoch = trainer.engine, trainer.steps_per_epoch
     steps = per_epoch * DEVICE_EPOCHS
-    if (eng.eager_steps, eng.captures, eng.replays) != (
-            WARMUP_STEPS, 1, steps - WARMUP_STEPS):
+    if (eng.eager_steps, eng.captures, eng.replays,
+            len(clock.replay_events)) != (
+            WARMUP_STEPS, 1, steps - WARMUP_STEPS, steps - WARMUP_STEPS):
         raise SystemExit(f"{what}: {eng.eager_steps} eager steps, "
                          f"{eng.captures} captures, {eng.replays} replays "
                          f"for {steps} steps")
@@ -2770,7 +2835,7 @@ def device_run(what: str, cfg, card: str, frames: int, k1: bool) -> dict:
         raise SystemExit(f"{what}: {len(epochs)} epochs logged, or no "
                          "model_best.ckpt")
     losses = torch.cat([log_[:, 0] for log_ in clock.logs]).tolist()
-    step_ms = clock.seconds[-1] * 1e3 / per_epoch
+    step_ms = clock.replay_ms()
     batch = trainer.batch_size
     res = {"steps": steps, "steps_per_epoch": per_epoch, "batch": batch,
            "eager_steps": eng.eager_steps, "replays": eng.replays,
@@ -2797,11 +2862,11 @@ def device_run(what: str, cfg, card: str, frames: int, k1: bool) -> dict:
     return {"stats": res, "trainer": trainer, "logs": clock.logs}
 
 
-def replay_profile(what: str, trainer, card: str) -> dict:
+def replay_profile(what: str, trainer, card: str, traces: int = 1) -> dict:
     """``PROFILE_REPLAYS`` replays of the captured step, timed, then traced:
     device time by kernel and the idle share; and the K1 kernels' launches
-    a replay as ``TRACE_TRIES`` traces of ``TRACE_REPLAYS`` replays count
-    them (the most of each)."""
+    a replay as ``traces`` traces of ``TRACE_REPLAYS`` replays count them
+    (the most of each)."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = trainer.engine
@@ -2825,7 +2890,7 @@ def replay_profile(what: str, trainer, card: str) -> dict:
     words = (("k1", "concat_conv1x1_kernel"), ("k1_dw", "concat_dw_kernel"),
              ("k1_dw_reduce", "concat_dw_reduce_kernel"))
     tries = []
-    for _ in range(TRACE_TRIES):
+    for _ in range(traces):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as short:
             replays(TRACE_REPLAYS)
@@ -2885,7 +2950,7 @@ def phase_device_epochs(tmp: Path, card: str, dev) -> dict:
     res, runs = {}, {}
     for key, (name, tree, frames) in DEVICE_RUNS.items():
         log(f"phase 11{'abcd'[list(DEVICE_RUNS).index(key)]}: {name}, "
-            f"{DEVICE_EPOCHS} device epochs")
+            f"device epochs: {DEVICE_EPOCHS}")
         cfg = device_config(name, tmp / tree, tmp / f"dev_{key}", tmp)
         runs[key] = device_run(f"device {key}", cfg, card, frames, k1=False)
         res[key] = runs[key]["stats"]
@@ -2996,7 +3061,12 @@ def phase_device_epochs(tmp: Path, card: str, dev) -> dict:
 
     log("phase 11i: traces of the replayed steps")
     for key in (*DEVICE_RUNS, "k1_on", "k1_off"):
-        res[key]["profile"] = replay_profile(key, runs[key]["trainer"], card)
+        # A dropped record only lowers a count: one trace shows K1 absent,
+        # the launch count held to what is expected takes the most of
+        # TRACE_TRIES.
+        res[key]["profile"] = replay_profile(
+            key, runs[key]["trainer"], card,
+            TRACE_TRIES if key == "k1_on" else 1)
     counts = res["k1_on"]["profile"]["trace_launches_per_step"]
     per_step = res["k1_on"]["k1_launches_per_step"]
     # The kernel's forward and dx launches, the dW / db kernel with its
@@ -3104,7 +3174,7 @@ def phase_profile_determinism(dev, card: str) -> dict:
 
 # configs/train/acdc_4d_vol_x2.yaml's net, served as a stream (no kernel).
 VOL4D_CONFIG = "acdc_4d_vol_x2"
-CLIENTS, REQUESTS_PER_CLIENT = 8, 2   # phase 12b's traffic, every daemon
+CLIENTS, REQUESTS_PER_CLIENT = 8, 1   # phase 12b's traffic, every daemon
 P99_MIN_REQUESTS = 100  # fewer: report the largest latency, not a p99
 BATCH_WAIT_MS = 50.0  # lets two half volumes share one program call
 HALF_SLICES = FULL_SLICES // 2
@@ -4125,6 +4195,7 @@ KNOB_UPDATES = KNOB_MICRO_STEPS // KNOBS["grad_accumulation"]
 KNOB_RESUME_AFTER = 3    # a preemption in the middle of an accumulation
 KNOB_CPU_SAMPLES = 4     # card vs CPU: batches of 4, the first 8 of epoch 1
 KNOB_SHARE = 1e-3        # of each tensor's largest entry: a path of K1
+EMA_SLICES = 2           # slices of the volume infer --ema --gif serves
 QAT_W8A8_TOL = 2e-3      # tests/test_qat.py: fake quant vs W8A8, normalized
 QAT_FRAMES = T_FRAMES    # LR frames of the forward-agreement check
 QAT_TEST_KWARGS = dict(in_channels=1, out_channels=1, num_resblocks=2,
@@ -4402,9 +4473,10 @@ def knobs_infer_ema(tmp: Path, ckpt: str, vol_path: Path, card: str,
     launched = check_launches("infer --ema", "concat_conv1x1",
                               SQUEEZES_PER_STEP * T_FRAMES)
     sr = load_nifti(out / "patient001" / "patient001_4d_sr.nii.gz")
-    check_sr("infer --ema", sr, (HR, HR, FULL_SLICES, T_FRAMES))
+    slices = sr.shape[2]
+    check_sr("infer --ema", sr, (HR, HR, EMA_SLICES, T_FRAMES))
     gifs = sorted((out / "patient001").glob("*.gif"))
-    names = [f"patient001_4d_slice{d + 1:02d}.gif" for d in range(FULL_SLICES)]
+    names = [f"patient001_4d_slice{d + 1:02d}.gif" for d in range(slices)]
     if [g.name for g in gifs] != names:
         raise SystemExit(f"infer --gif wrote {[g.name for g in gifs]}")
     t1 = time.perf_counter()
@@ -4424,7 +4496,7 @@ def knobs_infer_ema(tmp: Path, ckpt: str, vol_path: Path, card: str,
     pipe = infer.make_pipeline(net.eval(), FACTOR, "acdc", video_t=T_FRAMES)
     by_hand = pipe(torch.from_numpy(frames).to(dev))[1].cpu().numpy()
     exact, worst = agreement(as_frames(sr), by_hand)
-    log(f"  infer --ema --gif: {FULL_SLICES} x {T_FRAMES} frames of "
+    log(f"  infer --ema --gif: {slices} x {T_FRAMES} frames of "
         f"{HR}x{HR} in {seconds:.1f} s ({stats['frames_per_sec']:.1f} frames/s"
         f" with the GIFs), K1 {launched} launches; {len(gifs)} GIFs of "
         f"{T_FRAMES} frames decode to the SR's truncated frames (decoded in "
@@ -4623,9 +4695,10 @@ def knobs_qat(tmp: Path, vol_path: Path, card: str, dev) -> dict:
 def phase_knobs(tmp: Path, card: str, dev) -> dict:
     """Phase 14: the training knobs on phase 7's tree (14a-14d)."""
     res, seconds = {}, {}
-    vol_path = knob_volume(tmp, FULL_SLICES)
-    # 14d serves one slice: its launches are per volume, and the CLI's
-    # gzip-9 NIfTI write of ten slices would take most of the step.
+    # 14b serves EMA_SLICES slices, 14d one: their launches are per volume
+    # (the slices go through the net together), and the CLI's gzip-9 NIfTI
+    # write of ten slices and the GIF writer would take most of the step.
+    vol_path = knob_volume(tmp, EMA_SLICES)
     slice_path = knob_volume(tmp, 1)
     for key, label, run in (
             ("host_loop", "14a: DRFNet F=64 G=6 with grad_accumulation 2, "
@@ -4649,6 +4722,503 @@ def phase_knobs(tmp: Path, card: str, dev) -> dict:
     return res
 
 
+# ==================================== the feedback family and the routers
+
+# 15a: configs/train/acdc_sisr_srfb_x2.yaml with its net swapped for
+# DRFSISRNet at the same width (F=64, G=6, 4 steps; 12 squeezes a step).
+DRFSISR_KWARGS = dict(SRFB_KWARGS, fused_squeeze=True)
+# 15b: DRFNet's experts at acdc_vsr_drf_x2.yaml's width, with the module's
+# default router (the plain rank) and dispatch (sparse).
+DRF_EXPERTS = dict(num_experts=4, expert_group_size=256)
+REMAT_STEPS = 2
+# 15a: frames a call of the volume's frame pipeline (3 calls a volume).
+FEEDBACK_CHUNK = 100
+FEEDBACK_CALLS = -(-FULL_SLICES * T_FRAMES // FEEDBACK_CHUNK)
+SISR_SQUEEZES = SQUEEZES_PER_STEP * SRFB_STEPS  # 48 a forward call
+# 15c: MoEEDSRNet's routers and dispatches (acdc_sisr_moe_x2.yaml's net),
+# each against the rank kernel with the same dispatch.
+MOE_ROUTES = {
+    "rank_pallas/sparse": dict(router_impl="rank_pallas"),
+    "rank_pallas/dense": dict(router_impl="rank_pallas",
+                              dispatch_impl="dense"),
+    "rank_pallas/dense_nhwc": dict(router_impl="rank_pallas",
+                                   dispatch_impl="dense_nhwc"),
+    "sort/sparse": dict(router_impl="sort"),
+    **{f"radix{b}/dense": dict(router_impl="radix", dispatch_impl="dense",
+                               radix_bits=b) for b in (1, 4, 8)}}
+DAEMON_REQUESTS = 2  # 15d: one request from each of two clients
+
+
+def feedback_drfsisr(tmp: Path, tree: dict, card: str, dev) -> dict:
+    """15a: DRFSISRNet trained one epoch through ``run_train`` (K1 forward,
+    dx and dW / db: 48 each a train step, 48 forward a validation frame),
+    one batch on the card against the CPU, ``main --test`` on the
+    checkpoint, the infer CLI on the checkpoint against the trainer's own
+    validation output, and a 192 x 192 x 10 x 30 volume served in frame
+    mode (the last step) on the checkpoint."""
+    from vsr_tpu_torch.infer import build_serving_net, make_pipeline
+
+    cfg = training_config("acdc_sisr_srfb_x2", tmp / "tree", tmp / "drfsisr",
+                          {"fused_squeeze": True}, tmp,
+                          net_name="DRFSISRNet")
+    cfg.trainer.kwargs.num_epochs = cfg.monitor.kwargs.saved_freq = 1
+    run = train_run("drfsisr", cfg, card, 1, True,
+                    frame_steps=(SRFB_STEPS, SRFB_STEPS))
+    stats = run["stats"]
+    ckpt = tmp / "drfsisr" / "checkpoints" / "model_best.ckpt"
+    if not stats["last_loss"] < stats["first_loss"] or not ckpt.is_file():
+        raise SystemExit("drfsisr: the loss did not fall, or no "
+                         "model_best.ckpt")
+    per_step = stats["backward_launches"] // stats["steps"]
+    if per_step != SISR_SQUEEZES:
+        raise SystemExit(f"drfsisr: {per_step} K1 launches a train step")
+    failed = []
+    res = {"train": stats, "card_vs_cpu": card_vs_cpu(
+        "drfsisr", run["trainer"], dev, kernel="concat_conv1x1")}
+    gate_card_vs_cpu("drfsisr", res["card_vs_cpu"], failed)
+    if failed:
+        raise SystemExit(failed[0])
+    res["test"] = test_run("test drfsisr", "acdc_sisr_srfb_x2", tmp / "tree",
+                           tmp / "drfsisr", {"fused_squeeze": True}, tmp,
+                           stats, SISR_SQUEEZES * TEST_FRAMES, card,
+                           net_name="DRFSISRNet")
+    res["serve"] = served_vs_validation(
+        "drfsisr", tree, tmp, ckpt, "DRFSISRNet", DRFSISR_KWARGS, [],
+        run["valid_outputs"], SISR_SQUEEZES, "concat_conv1x1",
+        last_step=True)
+    # The volume: infer's serving net and pipeline, without its NIfTI I/O.
+    net = build_serving_net("DRFSISRNet", DRFSISR_KWARGS, str(ckpt),
+                            device=dev)
+    pipe = make_pipeline(net, FACTOR, "acdc", chunk=FEEDBACK_CHUNK)
+    hr = quality_volume()
+    pipe(torch.from_numpy(hr).to(dev))  # library handles
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sr = pipe(torch.from_numpy(hr).to(dev))[1].cpu().numpy()
+    fps = len(hr) / (time.perf_counter() - t0)
+    launches = check_launches("drfsisr volume", "concat_conv1x1",
+                              SISR_SQUEEZES * FEEDBACK_CALLS)
+    check_sr("drfsisr volume", sr, hr.shape)
+    res["volume"] = {"frames_per_sec": fps, "launches": launches,
+                     "psnr": psnr(sr, hr)}
+    log(f"  drfsisr volume ({FULL_SLICES}x{T_FRAMES} frames of {HR}x{HR}, "
+        f"--chunk {FEEDBACK_CHUNK}, the trained checkpoint): {fps:.1f} "
+        f"frames/s, PSNR {res['volume']['psnr']:.3f} dB, K1 launches "
+        f"{launches} [{card}]")
+    return res
+
+
+def feedback_drf(card: str, dev) -> dict:
+    """15b: DRFNet at full width (i) with 4 experts (K1 360 a volume, K3
+    none: the experts rank with the plain compare), (ii) with sub-pixel
+    deconvs on and off on the same weights, f32 (gated) and bf16 (printed),
+    (iii) ``remat`` on and off for REMAT_STEPS train steps."""
+    from vsr_tpu_torch.models import DRFNet
+
+    drf = PATHS[0]
+    frames = [as_frames(make_volume(50, FULL_SLICES))]
+    warm = [as_frames(make_volume(99, FULL_SLICES))]
+    res = {}
+    runs, srs = phase_path_full(drf, {
+        "f32_experts": (dict(drf.on, **DRF_EXPERTS), False, True),
+        "f32_subpixel": (dict(drf.on, subpixel_deconv=True), False, True),
+        "f32_plain": (drf.on, False, True),
+        "bf16_subpixel": (dict(drf.on, subpixel_deconv=True), True, True),
+        "bf16_plain": (drf.on, True, True)}, frames, warm, card, dev)
+    res["pipelines"] = runs
+    f32 = gate_agreement("drf sub-pixel vs transposed deconvs, f32",
+                         srs["f32_subpixel"][0], srs["f32_plain"][0])
+    exact, worst = agreement(srs["bf16_subpixel"][0], srs["bf16_plain"][0])
+    res["subpixel"] = {"f32": f32, "bf16": {"exact_fraction": exact,
+                                            "max_grey_diff": worst}}
+    log(f"  drf sub-pixel deconvs on vs off: f32 "
+        f"{f32['exact_fraction'] * 100:.4f}% exact, max "
+        f"{f32['max_grey_diff']:g} grey, "
+        f"{runs['f32_subpixel']['pipeline_frames_per_sec']:.1f} vs "
+        f"{runs['f32_plain']['pipeline_frames_per_sec']:.1f} frames/s; bf16 "
+        f"{exact * 100:.4f}% exact, max {worst:g} grey (not gated), "
+        f"{runs['bf16_subpixel']['pipeline_frames_per_sec']:.1f} vs "
+        f"{runs['bf16_plain']['pipeline_frames_per_sec']:.1f} frames/s "
+        f"[{card}]")
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(TRAIN_N, TRAIN_T, 1, TRAIN_LR, TRAIN_LR,
+                    generator=gen).to(dev)
+    y = torch.randn(TRAIN_N, TRAIN_T, 1, TRAIN_HR, TRAIN_HR,
+                    generator=gen).to(dev)
+    grads, peak, counts = {}, {}, {}
+    # cuDNN's deterministic algorithms: its default f32 dgrad alone moves
+    # the PReLU weights' gradients (largest entries ~4e-8) of two plain runs
+    # by up to 8e-4 of themselves, which is not what remat is held to.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for remat in (False, True):
+        net = DRFNet(**DRF_KWARGS, fused_squeeze=True, remat=remat,
+                     device=dev, generator=torch.Generator().manual_seed(0))
+        # SGD: Adam would turn the nondeterministic dgrad's last bits in
+        # near-zero gradients into +-lr steps before the second step.
+        opt = torch.optim.SGD(net.parameters(), lr=1e-3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_launches()
+        grads[remat] = []
+        for _ in range(REMAT_STEPS):
+            opt.zero_grad(set_to_none=True)
+            (net(x) - y).abs().mean().backward()
+            grads[remat].append({k: p.grad.clone()
+                                 for k, p in net.named_parameters()})
+            opt.step()
+        torch.cuda.synchronize()
+        peak[remat] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        # The recompute runs every frame step's forward again.
+        per_step = SQUEEZES_PER_STEP * TRAIN_T
+        k1 = kernel_counters()
+        counts[remat] = {
+            "forward": check_launches(
+                f"drf remat {remat}", "concat_conv1x1",
+                per_step * REMAT_STEPS * (2 if remat else 1),
+                per_step * REMAT_STEPS),
+            "backward": k1["concat_conv1x1"].backward_launches,
+            "dw": k1["concat_conv1x1_dw"].launches}
+    torch.backends.cudnn.deterministic = deterministic
+    shares = [max((g_on[k] - g).abs().max().item()
+                  / max(g.abs().max().item(), 1e-12)
+                  for k, g in g_off.items())
+              for g_off, g_on in zip(grads[False], grads[True])]
+    share = max(shares)
+    res["remat"] = {"steps": REMAT_STEPS, "gradient_share_by_step": shares,
+                    "peak_memory_gb_remat": peak[True],
+                    "peak_memory_gb_no_remat": peak[False],
+                    "launches": counts,
+                    "recompute_launches": counts[True]["forward"]
+                    - counts[False]["forward"],
+                    "dw_launches": counts[True]["dw"]}
+    log(f"  drf remat on vs off (cuDNN deterministic), {REMAT_STEPS} SGD "
+        f"steps of {TRAIN_N} x "
+        f"{TRAIN_T} x {TRAIN_LR}x{TRAIN_LR}: gradients within "
+        f"{[float(f'{v:.3g}') for v in shares]} of each gradient's largest "
+        f"entry by step (bar {GRAD_SHARE:g}); peak memory "
+        f"{peak[True]:.2f} GB with remat, {peak[False]:.2f} GB without; the "
+        f"recompute's K1 forward launches "
+        f"{res['remat']['recompute_launches']} ({counts[True]['forward']} "
+        f"with remat, {counts[False]['forward']} without), dW/db "
+        f"{res['remat']['dw_launches']} [{card}]")
+    if share > GRAD_SHARE:
+        raise SystemExit("drf: the gradients with remat on and off differ")
+    return res
+
+
+def feedback_moe(card: str, dev) -> dict:
+    """15c: MoEEDSRNet at full width under every router and dispatch, one
+    volume each: the masks first (on one set of every layer's affinities,
+    the radix and sort selections against the rank kernel's, bit for bit),
+    then each output against the rank kernel's with the same dispatch
+    (identical), dense_nhwc against dense (phase 4b's sparse-vs-dense bar);
+    K3 8 a volume for rank_pallas, none for the others."""
+    from vsr_tpu_torch.infer import make_pipeline
+    from vsr_tpu_torch.models.moe import ExpertChoiceMoE
+    from vsr_tpu_torch.ops.rank import pairwise_rank
+
+    moe = PATHS[1]
+    frames = [as_frames(make_volume(51, FULL_SLICES))]
+    warm = [as_frames(make_volume(99, FULL_SLICES))]
+    variants = {name: (dict(MOE_KWARGS, **kw), False,
+                       kw["router_impl"] == "rank_pallas")
+                for name, kw in MOE_ROUTES.items()}
+    # The masks first: every layer's affinities on this volume.
+    net = build_net(moe, variants["rank_pallas/dense"][0], dev)
+    afs = []
+    hooks = [layer.register_forward_pre_hook(
+        lambda m, args: afs.append(m.affinities(args[0])))
+        for layer in net.moes.values()]
+    make_pipeline(net, FACTOR, "acdc")(torch.from_numpy(frames[0]).to(dev))
+    for h in hooks:
+        h.remove()
+    layer = next(iter(net.moes.values()))
+    # The routers' own selections: a layer each, whose weights go unused
+    # (the affinities are given).
+    routers = {name: ExpertChoiceMoE(
+        *layer.router.shape, router_impl=router, dispatch_impl=dispatch,
+        radix_bits=bits)
+        for name, router, dispatch, bits in (
+            ("radix1", "radix", "dense", 1), ("radix4", "radix", "dense", 4),
+            ("radix8", "radix", "dense", 8), ("sort", "sort", "sparse", 4))}
+    masks = dict.fromkeys(routers, 0)
+    with torch.inference_mode():
+        for af, gs in afs:
+            cap = layer.capacity(gs)
+            rank = pairwise_rank(af) < cap
+            for name, router in routers.items():
+                masks[name] += int((router.selection(af, cap)
+                                    != rank).sum())
+    log(f"  moe masks on {len(afs)} layers' affinities ({afs[0][0].shape[0]}"
+        f" groups x {afs[0][0].shape[1]} experts x {afs[0][1]}): selections "
+        f"differing from the rank kernel's {masks}")
+    if any(masks.values()):
+        raise SystemExit("moe: a router's selection is not the rank's")
+    del afs, net
+    runs, srs = phase_path_full(moe, variants, frames, warm, card, dev)
+    res = {"masks_differing": masks, "pipelines": runs, "outputs": {}}
+    for name, ref in (("sort/sparse", "rank_pallas/sparse"),
+                      ("radix1/dense", "rank_pallas/dense"),
+                      ("radix4/dense", "rank_pallas/dense"),
+                      ("radix8/dense", "rank_pallas/dense"),
+                      ("rank_pallas/dense_nhwc", "rank_pallas/dense")):
+        exact, worst = agreement(srs[name][0], srs[ref][0])
+        res["outputs"][name] = {"against": ref, "exact_fraction": exact,
+                                "max_grey_diff": worst}
+        log(f"  moe {name} vs {ref}: {exact * 100:.4f}% exact, max "
+            f"{worst:g} grey; {runs[name]['pipeline_frames_per_sec']:.1f} vs "
+            f"{runs[ref]['pipeline_frames_per_sec']:.1f} frames/s [{card}]")
+        # One dispatch: the same selections, the same arithmetic. Two: the
+        # expert FFNs' products differ in the last bits and a later router
+        # may flip a token at a capacity boundary (phase 4b's bar).
+        same = name.split("/")[1] == ref.split("/")[1]
+        if (worst != 0) if same else (exact < 0.995):
+            raise SystemExit(f"moe: {name} and {ref} outputs disagree")
+    return res
+
+
+def feedback_routes(tmp: Path, card: str, dev) -> dict:
+    """15d: SRFBNet and DRFSISRNet (F=64, G=6, 4 steps, fused_squeeze) in
+    frame mode through an artifact (exported at the full frames shape,
+    saved, loaded), the daemon (DAEMON_REQUESTS .npy volumes) and a frame
+    stream (30 pushes of 10 slices), each against ``make_pipeline``'s last
+    step at the grey bar, K1 counted on each route."""
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vsr_tpu_torch import export, serve
+    from vsr_tpu_torch.infer import make_pipeline
+    from vsr_tpu_torch.registry import build
+    from vsr_tpu_torch.stream import make_stream
+
+    frames = as_frames(make_volume(52, FULL_SLICES))
+    x = torch.from_numpy(frames).to(dev)
+    res = {}
+    for net_name in ("SRFBNet", "DRFSISRNet"):
+        kwargs = dict(SRFB_KWARGS, fused_squeeze=True)
+        net = build("net", {"name": net_name, "kwargs": kwargs}, device=dev,
+                    generator=torch.Generator().manual_seed(0))
+        pipe = make_pipeline(net, FACTOR, "acdc")  # one call a volume
+        reset_launches()
+        want = pipe(x)[1].cpu().numpy()
+        per_volume = check_launches(f"{net_name} pipeline", "concat_conv1x1",
+                                    SISR_SQUEEZES)
+        check_sr(f"{net_name} pipeline", want, frames.shape)
+        entry = {"pipeline_launches": per_volume}
+        t0 = time.perf_counter()
+        program, meta = export.export_serving(net, frames.shape, FACTOR)
+        file = tmp / f"{net_name}.pt2.zip"
+        export.save_artifact(file, program, {**meta, "net": net_name})
+        del program
+        served = export.ExportedServing(file, device=dev)
+        entry["export_save_load_s"] = time.perf_counter() - t0
+        reset_launches()
+        got = served(frames)[1].cpu().numpy()
+        entry["artifact_launches"] = check_launches(
+            f"{net_name} artifact", "concat_conv1x1", per_volume)
+        entry["artifact"] = gate_agreement(
+            f"{net_name} artifact vs make_pipeline", got, want)
+
+        reset_launches()
+        srv = serve.make_server([served], port=0, warmup=True, device=dev)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            body = npy_bytes(frames)
+            with ThreadPoolExecutor(DAEMON_REQUESTS) as ex:
+                outs = list(ex.map(lambda _: post(
+                    f"{url}/v1/sr", body, "application/x-npy"),
+                    range(DAEMON_REQUESTS)))
+            with urllib.request.urlopen(f"{url}/metrics") as resp:
+                text = resp.read().decode()
+            calls = srv.metrics.batch_calls + 1  # + the warm-up call
+            line = (f'vsr_requests_total{{endpoint="/v1/sr",status="200"}} '
+                    f'{DAEMON_REQUESTS}')
+            if line not in text:
+                raise SystemExit(f"{net_name} daemon: /metrics does not "
+                                 f"count the {DAEMON_REQUESTS} requests")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        entry["daemon"] = [gate_agreement(f"{net_name} daemon response",
+                                          from_npy(out), want)
+                           for out, _, _ in outs]
+        entry["daemon_launches"] = check_launches(
+            f"{net_name} daemon", "concat_conv1x1", per_volume * calls)
+        entry["daemon_latency_ms"] = [1e3 * sec for _, sec, _ in outs]
+
+        stream = make_stream(net, FACTOR)
+        seq = frames.reshape(FULL_SLICES, T_FRAMES, HR, HR)
+        reset_launches()
+        pushed, lat = push_all(stream, seq)
+        entry["stream_launches"] = check_launches(
+            f"{net_name} stream", "concat_conv1x1", SISR_SQUEEZES * T_FRAMES)
+        got = np.stack([pushed[t] for t in range(T_FRAMES)], axis=1)
+        entry["stream"] = gate_agreement(
+            f"{net_name} {type(stream).__name__} vs make_pipeline", got,
+            want.reshape(seq.shape))
+        entry["median_push_ms"] = statistics.median(lat)
+        res[net_name] = entry
+        log(f"  {net_name} (frame mode, the last of {SRFB_STEPS} steps): "
+            f"artifact at {frames.shape} (export, save, load "
+            f"{entry['export_save_load_s']:.1f} s) "
+            f"{entry['artifact']['exact_fraction'] * 100:.4f}% exact, K1 "
+            f"{entry['artifact_launches']} a volume; daemon "
+            f"{DAEMON_REQUESTS} requests, {calls} program calls, K1 "
+            f"{entry['daemon_launches']}, latency "
+            f"{[round(v) for v in entry['daemon_latency_ms']]} ms; "
+            f"{type(stream).__name__} {T_FRAMES} pushes, median "
+            f"{entry['median_push_ms']:.2f} ms, K1 "
+            f"{entry['stream_launches']}, "
+            f"{entry['stream']['exact_fraction'] * 100:.4f}% exact [{card}]")
+    return res
+
+
+def card_and_cpu(make, x: torch.Tensor, dev, dtype=None) -> tuple:
+    """A train-mode forward and squared-error backward of the seeded net
+    ``make(device)`` on the card and on the CPU: (outputs, gradients) of
+    each, on the CPU. ``dtype``: the nets' compute dtype."""
+    out = []
+    for device in (dev, torch.device("cpu")):
+        net = make(device, dtype).train()
+        y = net(x.to(device))
+        y = y[0] if isinstance(y, tuple) else y
+        y.float().square().mean().backward()
+        out.append((y.detach().float().cpu(), {
+            k: p.grad.cpu() for k, p in net.named_parameters()}))
+    return out
+
+
+def feedback_small_nets(card: str, dev) -> dict:
+    """15e: small nets on the card against the CPU: SRFBNet with sub-pixel
+    deconvs (f32: outputs 1e-4, gradients GRAD_SHARE of the net's largest
+    entry; bf16 ``carry_f32``: within twice the CPU's own bf16 error), RBPNet
+    with sub-pixel deconvs, FRVSRNet with ``remat`` (and remat on against
+    off on the card); no kernel of the port runs."""
+    from vsr_tpu_torch.models import FRVSRNet, RBPNet, SRFBNet
+
+    rng = np.random.default_rng(5)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def srfb(device, dtype):
+        return SRFBNet(1, 1, 2, 16, 3, 2, subpixel_deconv=True, dtype=dtype,
+                       carry_f32=dtype is not None, device=device,
+                       generator=torch.Generator().manual_seed(1))
+
+    def rbpn(device, dtype):
+        return RBPNet(1, 1, 8, 16, 3, 1, 3, 2, subpixel_deconv=True,
+                      device=device,
+                      generator=torch.Generator().manual_seed(2))
+
+    def frvsr(remat):
+        return lambda device, dtype: FRVSRNet(
+            1, 1, 2, num_resblocks=2, remat=remat, device=device,
+            generator=torch.Generator().manual_seed(3))
+
+    def held(what, runs, bar_of=None):
+        (y_card, g_card), (y_cpu, g_cpu) = runs
+        net_max = max(g.abs().max().item() for g in g_cpu.values())
+        share = max((g_card[k] - g).abs().max().item() / net_max
+                    for k, g in g_cpu.items())
+        out = (y_card - y_cpu).abs().max().item()
+        log(f"  {what}, card vs CPU: outputs within {out:.3g}, gradients "
+            f"within {share:.3g} of the net's largest entry [{card}]")
+        if out > 1e-4 or share > GRAD_SHARE:
+            raise SystemExit(f"{what}: card and CPU disagree")
+        return {"output_max_diff": out, "gradient_share": share}
+
+    reset_launches()
+    res = {"srfb_subpixel": held("srfb sub-pixel f32", card_and_cpu(
+        srfb, tensor(2, 1, 12, 12), dev))}
+    x = tensor(2, 1, 12, 12)
+    (y16, g16), (c16, h16) = card_and_cpu(srfb, x, dev, torch.bfloat16)
+    (_, _), (c32, h32) = card_and_cpu(srfb, x, dev)
+    env_y = (c16 - c32).abs().max().item()
+    env_g = max((h16[k] - g).abs().max().item() for k, g in h32.items())
+    got_y = (y16 - c16).abs().max().item()
+    got_g = max((g16[k] - g).abs().max().item() for k, g in h16.items())
+    res["srfb_carry_f32_bf16"] = {"output": [got_y, env_y],
+                                  "gradient": [got_g, env_g]}
+    log(f"  srfb bf16 carry_f32, card vs CPU: outputs {got_y:.3g} (twice the "
+        f"CPU's bf16 error: {2 * env_y:.3g}), gradients {got_g:.3g} "
+        f"({2 * env_g:.3g}) [{card}]")
+    if got_y > 2 * env_y or got_g > 2 * env_g:
+        raise SystemExit("srfb bf16 carry_f32: the card's bf16 error exceeds "
+                         "twice the CPU's")
+    res["rbpn_subpixel"] = held("rbpn sub-pixel", card_and_cpu(
+        rbpn, tensor(2, 3, 1, 12, 12), dev))
+    x = tensor(2, 3, 1, 16, 16)
+    res["frvsr_remat"] = held("frvsr remat", card_and_cpu(frvsr(True), x,
+                                                          dev))
+    (_, g_on), _ = card_and_cpu(frvsr(True), x, dev)
+    (_, g_off), _ = card_and_cpu(frvsr(False), x, dev)
+    share = max((g_on[k] - g).abs().max().item()
+                / max(g.abs().max().item(), 1e-12) for k, g in g_off.items())
+    res["frvsr_remat"]["on_vs_off_share"] = share
+    log(f"  frvsr remat on vs off on the card: gradients within {share:.3g} "
+        f"of each gradient's largest entry (bar {GRAD_SHARE:g})")
+    if share > GRAD_SHARE:
+        raise SystemExit("frvsr: the gradients with remat on and off differ")
+    check_launches("the small nets", "concat_conv1x1", 0)
+    return res
+
+
+def phase_feedback(tmp: Path, tree: dict, card: str, dev) -> dict:
+    """Phase 15: the rest of the feedback family and the MoE routers on
+    phase 7's tree (15a-15e)."""
+    res, seconds = {}, {}
+    for key, label, run in (
+            ("drfsisr", "15a: DRFSISRNet F=64 G=6, 4 steps, trained, tested "
+             "and served (K1 forward and backward)",
+             lambda: feedback_drfsisr(tmp, tree, card, dev)),
+            ("drf", "15b: DRFNet F=64 G=6 with experts, sub-pixel deconvs, "
+             "remat (K1)", lambda: feedback_drf(card, dev)),
+            ("moe", "15c: MoEEDSRNet's routers and dispatches (K3 with "
+             "rank_pallas)", lambda: feedback_moe(card, dev)),
+            ("routes", "15d: SRFBNet and DRFSISRNet through an artifact, the "
+             "daemon and a frame stream (K1)",
+             lambda: feedback_routes(tmp, card, dev)),
+            ("small", "15e: small nets on the card against the CPU",
+             lambda: feedback_small_nets(card, dev))):
+        log(f"phase {label}")
+        t0 = time.perf_counter()
+        res[key] = run()
+        seconds[key] = time.perf_counter() - t0
+        log(f"  phase 15{'abcde'[len(seconds) - 1]} took "
+            f"{seconds[key]:.1f} s [{card}]")
+    res["seconds_by_step"] = seconds
+    return res
+
+
+def feedback_summary(fb: dict) -> dict:
+    """Phase 15's launches by kernel, for the kernels' line."""
+    routes = {f"{net}_{route}": fb["routes"][net][f"{route}_launches"]
+              for net in ("SRFBNet", "DRFSISRNet")
+              for route in ("artifact", "daemon", "stream")}
+    return {"concat_conv1x1": {
+        "drfsisr_train": fb["drfsisr"]["train"]["launches"],
+        "drfsisr_backward": fb["drfsisr"]["train"]["backward_launches"],
+        "drfsisr_test": fb["drfsisr"]["test"]["launches"],
+        "drfsisr_volume": fb["drfsisr"]["volume"]["launches"],
+        "drf_experts_volume": fb["drf"]["pipelines"]["f32_experts"][
+            "launches"],
+        "drf_subpixel_volume": fb["drf"]["pipelines"]["f32_subpixel"][
+            "launches"],
+        "drf_remat_recompute": fb["drf"]["remat"]["recompute_launches"],
+        **routes},
+        "pairwise_rank": {name: run["launches"] for name, run in
+                          fb["moe"]["pipelines"].items()},
+        "seconds_by_step": fb["seconds_by_step"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="",
@@ -4668,6 +5238,9 @@ def main() -> int:
     parser.add_argument("--knobs", action="store_true",
                         help="only build, write phase 7's tree and run phase "
                              "14 (the training knobs)")
+    parser.add_argument("--feedback", action="store_true",
+                        help="only build, write phase 7's tree and run phase "
+                             "15 (the feedback family and the MoE routers)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4747,6 +5320,21 @@ def main() -> int:
             "ema_infer_launches": knobs["ema_infer"]["launches"],
             "qat_w8a8_launches": knobs["qat"]["launches"]}}), flush=True)
         return 0
+    if args.feedback:
+        with tempfile.TemporaryDirectory() as tmp:
+            log("phase 7a: the synthetic processed tree")
+            tree = make_training_tree(Path(tmp) / "tree", dev)
+            results = {"card": smi, "feedback": phase_feedback(
+                Path(tmp), tree, card, dev)}
+        results["seconds"] = time.perf_counter() - started
+        log(f"  chip_smoke --feedback took {results['seconds']:.1f} s "
+            f"[{card}]")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(results, indent=1))
+        print(json.dumps({"feedback": feedback_summary(
+            results["feedback"])}), flush=True)
+        return 0
     log("phase 3: kernel vs twin")
     k1 = phase_kernel_squeeze(dev)
     k3 = phase_kernel_rank(dev)
@@ -4797,6 +5385,13 @@ def main() -> int:
         knobs = phase_knobs(Path(tmp), card, dev)
         knobs["seconds"] = time.perf_counter() - t0
         log(f"  phase 14 took {knobs['seconds']:.1f} s [{card}]")
+        log("phase 15: the feedback family (DRFSISRNet, sub-pixel deconvs, "
+            "DRFNet's experts and remat) and the MoE routers (sort, radix, "
+            "dense_nhwc), K1 and K3")
+        t0 = time.perf_counter()
+        feedback = phase_feedback(Path(tmp), tree, card, dev)
+        feedback["seconds"] = time.perf_counter() - t0
+        log(f"  phase 15 took {feedback['seconds']:.1f} s [{card}]")
         results = {"card": smi, "build_seconds": build_s,
                    "kernel": {"concat_conv1x1": k1,
                               "concat_conv1x1_backward": k1_bwd,
@@ -4805,7 +5400,7 @@ def main() -> int:
                    "training": training, "slice_training": sliced,
                    "volumes": volumes, "device_epochs": device,
                    "deployment": deploy, "quantized": quant,
-                   "knobs": knobs}
+                   "knobs": knobs, "feedback": feedback}
         if args.profile:
             log("phase 8: torch.profiler traces")
             results["profile"] = phase_profile(dev)
@@ -4915,6 +5510,9 @@ def main() -> int:
         "knobs_launches_per_micro_step":
             knobs["host_loop"]["straight"]["k1_launches_per_micro_step"],
         "ema_infer_launches": knobs["ema_infer"]["launches"],
+        # Phase 15: the feedback family's launches (per train step, per
+        # validation pass and per volume on each route).
+        "feedback_launches": feedback_summary(feedback)["concat_conv1x1"],
     }, {
         # K1's weight and bias gradient (the JAX package computes them in
         # XLA, inside _bwd, so the line it replaces is no Pallas kernel): one
@@ -4929,6 +5527,9 @@ def main() -> int:
         # Phase 14's DRFNet with the knobs, per micro-step.
         "knobs_launches_per_micro_step":
             knobs["host_loop"]["straight"]["k1_launches_per_micro_step"],
+        # Phase 15: DRFSISRNet's training run, DRFNet's remat steps.
+        "drfsisr_launches": feedback["drfsisr"]["train"]["backward_launches"],
+        "drf_remat_launches": feedback["drf"]["remat"]["dw_launches"],
         # Serving has no backward: phase 12 gates these at 0.
         "export_launches": 0, "serve_launches": 0, "stream_launches": 0,
         "max_abs_err": k1_bwd["dw_max_abs_err"],
@@ -4969,6 +5570,9 @@ def main() -> int:
         "train_launches_per_step":
             sliced["moe"]["rank_pallas"]["launches_per_train_step"],
         **routes("moe"),
+        # Phase 15c: a volume under each router and dispatch (the sort and
+        # radix routers replace the rank: 0).
+        "feedback_launches": feedback_summary(feedback)["pairwise_rank"],
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],

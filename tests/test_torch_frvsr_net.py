@@ -75,7 +75,7 @@ def test_frvsr_x3_tail_matches_jax(rng):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(remat=True), "remat"), (dict(unroll=2), "unroll"),
+    (dict(unroll=2), "unroll"),
     (dict(carry_f32=True), "carry_f32")])
 def test_frvsr_refuses_tpu_knobs_by_name(kw, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -117,8 +117,6 @@ def test_dbpnet_matches_jax(rng):
 def test_rbpn_refusals():
     kw = dict(in_channels=1, out_channels=1, base_filter=8, feat=8,
               num_stages=3, num_resblocks=1, num_frames=3, upscale_factor=2)
-    with pytest.raises(NotImplementedError, match="subpixel_deconv"):
-        RBPNet(**kw, subpixel_deconv=True)
     with pytest.raises(ValueError, match="upscale factor"):
         RBPNet(**dict(kw, upscale_factor=5))
     with pytest.raises(ValueError, match="windows of 3"):

@@ -1188,3 +1188,132 @@ def test_training_knobs_on_the_card(rng, dev, tmp_path):
              rng, dev, subdir(tmp_path, "bicubic"))),
         ("_case_qat_forward_equals_w8a8_on_the_card",
          lambda: _case_qat_forward_equals_w8a8_on_the_card(rng, dev))])
+
+
+# --------------------------------------- the feedback family and the routers
+
+
+def _card_and_cpu(make, dev):
+    """The same seeded net on the CPU and on the card."""
+    cpu = make(torch.device("cpu"))
+    card = make(dev)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _case_feedback_nets_on_the_card(rng, dev):
+    """DRFSISRNet (experts, sub-pixel deconvs) and DRFNet (experts) through
+    K1 on the card against the CPU: outputs at the forward bar, 2 G fused
+    squeezes a step, no K3 (the DRF experts run the plain rank)."""
+    from vsr_tpu_torch.models import DRFNet, DRFSISRNet
+
+    kw = dict(in_channels=1, out_channels=1, num_features=8, num_groups=2,
+              upscale_factor=2, fused_squeeze=True, num_experts=2,
+              expert_group_size=16)
+    for make, shape, steps in (
+            (lambda d: DRFSISRNet(num_steps=3, subpixel_deconv=True,
+                                  device=d, **kw), (2, 1, 6, 6), 3),
+            (lambda d: DRFNet(device=d, **kw), (2, 3, 1, 6, 6), 3)):
+        cpu, card = _card_and_cpu(make, dev)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        before = _kernel_launches()
+        with torch.no_grad():
+            got = card(x.to(dev)).cpu()
+            want = cpu(x)
+        after = _kernel_launches()
+        assert after[0] - before[0] == 2 * 2 * steps and after[3] == before[3]
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _case_drfnet_remat_recomputes_through_k1(rng, dev):
+    """remat on the card, with cuDNN's deterministic algorithms (its
+    default f32 dgrad alone moves tiny gradients of two plain runs):
+    gradients within 1e-3 of each gradient's largest entry of the plain
+    run's, the recompute's K1 forward launches counted."""
+    from vsr_tpu_torch.models import DRFNet
+
+    x = torch.from_numpy(rng.standard_normal((2, 3, 1, 8, 8)).astype(
+        np.float32)).to(dev)
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            net = DRFNet(1, 1, 8, 2, 2, fused_squeeze=True, remat=remat,
+                         device=dev,
+                         generator=torch.Generator().manual_seed(1))
+            before = _kernel_launches()
+            net(x).square().mean().backward()
+            torch.cuda.synchronize()
+            after = _kernel_launches()
+            runs.append(([a - b for a, b in zip(after, before)],
+                         {k: p.grad for k, p in net.named_parameters()}))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # 4 squeezes a frame step, 3 frames: K1's forward (twice under remat)
+    # and its dW / db kernel.
+    assert runs[0][0] == [12, 12, 0, 0] and runs[1][0] == [24, 12, 0, 0]
+    for name, g in runs[0][1].items():
+        scale = g.abs().max().item()
+        assert (runs[1][1][name] - g).abs().max().item() <= 1e-3 * scale
+
+
+def _case_moe_routers_on_the_card(rng, dev):
+    """rank_pallas + dense_nhwc launches K3 once a layer; sort / sparse and
+    radix / dense launch none; every mask equals the kernel's rank's."""
+    from vsr_tpu_torch.models import moe
+
+    x = torch.from_numpy(rng.standard_normal((2, 8, 12, 12)).astype(
+        np.float32)).to(dev)
+    outs = {}
+    for router, dispatch in (("rank_pallas", "dense_nhwc"),
+                             ("sort", "sparse"), ("radix", "dense")):
+        torch.manual_seed(2)
+        layer = moe.ExpertChoiceMoE(8, 4, group_size=64, router_impl=router,
+                                    dispatch_impl=dispatch).to(dev)
+        before = _kernel_launches()
+        with torch.no_grad():
+            outs[router] = layer(x)
+            af, gs = layer.affinities(x)
+        torch.cuda.synchronize()
+        assert _kernel_launches()[3] - before[3] == (
+            1 if router == "rank_pallas" else 0)
+        cap = layer.capacity(gs)
+        if router != "rank_pallas":
+            assert torch.equal(layer.selection(af, cap),
+                               moe.route(af, "rank_pallas") < cap)
+    for router in ("sort", "radix"):
+        torch.testing.assert_close(outs[router], outs["rank_pallas"],
+                                   rtol=1e-4, atol=1e-4)
+
+
+def _case_feedback_frame_serving_on_the_card(rng, dev):
+    """SRFBNet served in frame mode on the card: the last step, K1 2 G a
+    step of each chunk's call, at the grey bar of the CPU pipeline."""
+    from vsr_tpu_torch.infer import make_pipeline
+    from vsr_tpu_torch.models import SRFBNet
+
+    cpu, card = _card_and_cpu(lambda d: SRFBNet(
+        1, 1, 2, 8, 2, 2, fused_squeeze=True, subpixel_deconv=True, device=d,
+        generator=torch.Generator().manual_seed(3)), dev)
+    frames = torch.from_numpy(np.round(rng.random((6, 24, 24)) * 255).astype(
+        np.float32))
+    before = _kernel_launches()
+    got = make_pipeline(card, 2, "acdc", chunk=4)(frames.to(dev))[1].cpu()
+    assert _kernel_launches()[0] - before[0] == 2 * 2 * 2 * 2  # 2 calls
+    want = make_pipeline(cpu, 2, "acdc")(frames)[1]
+    _grey_bar(got, want)
+
+
+def test_feedback_family_and_routers_on_the_card(rng, dev):
+    """The slice of the rest of the feedback family and the MoE routers:
+    K1 and K3 launch where they should and nowhere else, card = CPU."""
+    run_cases([
+        ("_case_feedback_nets_on_the_card",
+         lambda: _case_feedback_nets_on_the_card(rng, dev)),
+        ("_case_drfnet_remat_recomputes_through_k1",
+         lambda: _case_drfnet_remat_recomputes_through_k1(rng, dev)),
+        ("_case_moe_routers_on_the_card",
+         lambda: _case_moe_routers_on_the_card(rng, dev)),
+        ("_case_feedback_frame_serving_on_the_card",
+         lambda: _case_feedback_frame_serving_on_the_card(rng, dev))])

@@ -150,13 +150,11 @@ def test_load_jax_params_is_strict(rng):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(remat=True), "remat"),
-    (dict(subpixel_deconv=True), "subpixel_deconv"),
-    (dict(num_experts=2), "num_experts"),
     # carry_f32 is ported (tests/test_torch_precision.py); with the MoE
     # blocks it is refused, as in the JAX net.
     (dict(carry_f32=True, num_experts=2, dtype="bfloat16"), "carry_f32"),
-    (dict(carry_f32=True, fused_squeeze=True), "does not compose"),
+    (dict(carry_f32=True, fused_squeeze=True, dtype="bfloat16"),
+     "does not compose"),
     (dict(unroll=1), "unroll"),
     (dict(split_transpose=False), "split_transpose"),
 ])

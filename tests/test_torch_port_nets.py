@@ -223,20 +223,12 @@ def test_moe_params_join_the_activation_dtype(rng):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(router_impl="radix"), NotImplementedError, "radix"),
-    (dict(router_impl="sort"), NotImplementedError, "sort"),
-    (dict(dispatch_impl="dense_nhwc"), NotImplementedError, "dense_nhwc"),
     (dict(router_impl="rnak"), ValueError, "Unknown router_impl"),
     (dict(dispatch_impl="sparce"), ValueError, "Unknown dispatch_impl"),
 ])
 def test_moe_refuses_unported_and_unknown_impls(kw, exc, match):
     with pytest.raises(exc, match=match):
         moe.ExpertChoiceMoE(8, 4, **kw)
-
-
-def test_moe_net_refuses_radix_bits():
-    with pytest.raises(NotImplementedError, match="radix_bits"):
-        MoEEDSRNet(1, 1, 2, 8, 2, radix_bits=4)
 
 
 # -------------------------------------------------------------- whole nets

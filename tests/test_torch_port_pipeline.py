@@ -255,23 +255,6 @@ def test_window_gather_matches_jax(rng, nf, order):
     assert torch.equal(z_t[:, slot], z_f)
 
 
-class _StepStackNet(torch.nn.Module):
-    """A net whose output carries a leading feedback-step axis."""
-
-    def forward(self, x):
-        return torch.stack([x, x])
-
-
-def test_pipeline_refuses_frame_mode():
-    # ... of a net whose output is not one frame per item (tuple outputs and
-    # stacked feedback steps are not handled yet).
-    frames = torch.zeros(2, 24, 24)
-    with pytest.raises(NotImplementedError, match="feedback-step"):
-        infer.make_pipeline(_StepStackNet(), 2, "acdc")(frames)
-    with pytest.raises(NotImplementedError, match="feedback-step"):
-        infer.make_pipeline(_StepStackNet(), 2, "acdc", chunk=1)(frames)
-
-
 @pytest.mark.parametrize("kw,match", [
     (dict(video_t=3, chunk=2), "already sequence-batched"),
     (dict(chunk=-1), "chunk must be >= 0"),

@@ -159,8 +159,8 @@ def test_srfbnet_slots_cover_the_scanned_steps_one_parameter_set(rng):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(unroll=2), "unroll"), (dict(carry_f32=True), "carry_f32"),
-    (dict(subpixel_deconv=True), "subpixel_deconv"),
+    (dict(unroll=2), "unroll"),
+    (dict(carry_f32=True, fused_squeeze=True, dtype="bfloat16"), "carry_f32"),
     (dict(upscale_factor=5), "upscale factor")])
 def test_srfbnet_refuses_unported_knobs_by_name(kw, match):
     with pytest.raises((NotImplementedError, ValueError), match=match):

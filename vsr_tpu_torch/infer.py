@@ -324,19 +324,17 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
 
     def apply(zb: torch.Tensor) -> torch.Tensor:
         """net -> (items, C, H, W), one frame-shaped output per item (a
-        volumetric net's output as it comes)."""
+        volumetric net's output as it comes): a tuple's first element
+        (FRVSR's SR frames), a feedback net's last step."""
         out = state["apply"](zb)
+        if isinstance(out, tuple):
+            out = out[0]
         if volume:
             return out
         if video_t:  # (D, T, C, H, W): flatten the frames back out
-            if isinstance(out, tuple):  # FRVSR's (sr, warped_lr)
-                out = out[0]
             return out.reshape(-1, *out.shape[2:])
-        if isinstance(out, tuple) or out.dim() != 4:
-            raise NotImplementedError(
-                "frame/window serving of a net whose output is a tuple or "
-                "carries a leading feedback-step axis is not yet ported to "
-                "vsr_tpu_torch")
+        if out.dim() == 5:  # feedback nets stack their steps on axis 0
+            out = out[-1]
         return out
 
     def calibrate(z: torch.Tensor):

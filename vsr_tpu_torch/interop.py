@@ -51,7 +51,7 @@ from torch import nn
 
 from vsr_tpu_torch.models.common import (Conv, Conv3D, ConvTranspose,
                                          FusedSqueezeConv, ShuffleConv)
-from vsr_tpu_torch.models.drf import DRFNet, _OutBlock
+from vsr_tpu_torch.models.drf import DRFNet, DRFSISRNet, _DRFStep, _OutBlock
 from vsr_tpu_torch.models.duf import DUFNet, _DenseBackbone, _DenseBlock
 from vsr_tpu_torch.models.edsr import EDSRNet, _ResBlock, _UpBlock
 from vsr_tpu_torch.models.edvr import (DeformConvPack, EDVRNet, PCDAlign,
@@ -164,6 +164,15 @@ def _out_block_slots(prefix: tuple[str, ...], block: _OutBlock) -> Iterator[Slot
     yield from _numbered_slots(prefix, block)
     yield from _conv_slots(prefix + ("ShuffleConv_0", "FoldableConv_0"),
                            block.tail.conv)
+
+
+def _drf_step_slots(prefix: tuple[str, ...], step: _DRFStep) -> Iterator[Slot]:
+    """A DRF step: ``FBlock_0``, ``ExpertChoiceMoE_0`` (with experts),
+    ``_OutBlock_0``."""
+    yield from _numbered_slots(prefix + ("FBlock_0",), step.fblock)
+    if step.moe is not None:
+        yield from _moe_slots(prefix + ("ExpertChoiceMoE_0",), step.moe)
+    yield from _out_block_slots(prefix + ("_OutBlock_0",), step.out_block)
 
 
 def _plain_slots(path: tuple[str, ...], conv: nn.Module,
@@ -308,11 +317,15 @@ def module_slots(module: nn.Module) -> Iterator[Slot]:
         yield from _backbone_slots((), module)
     elif isinstance(module, ExpertChoiceMoE):
         yield from _moe_slots((), module)
-    elif isinstance(module, DRFNet):
+    elif isinstance(module, (DRFNet, DRFSISRNet)):
+        # The scanned step's parameters are broadcast over the frames /
+        # feedback steps: DRFNet names its scan "step", DRFSISRNet's is
+        # flax's default name for a scan of _DRFStep.
         yield from _numbered_slots(("InBlock_0",), module.in_block)
-        yield from _numbered_slots(("step", "FBlock_0"), module.step.fblock)
-        yield from _out_block_slots(("step", "_OutBlock_0"),
-                                    module.step.out_block)
+        yield from _drf_step_slots((SCAN_BODIES[type(module)].rstrip("/"),),
+                                   module.step)
+    elif isinstance(module, _DRFStep):
+        yield from _drf_step_slots((), module)
     elif isinstance(module, SRFBNet):
         # flax names the scanned step after its class; its parameters are
         # broadcast over the steps, so there is one set.
@@ -375,9 +388,12 @@ _KERNEL_LAYOUTS: dict[Callable, tuple[int, Callable[[tuple], tuple]]] = {
 }
 
 # Module paths under a flax ``nn.scan`` body, by net: the frame / feedback
-# step of DRFNet (``vsr_tpu/models/drf.py:237``), SRFBNet (``srfbn.py:109``),
-# FRVSRNet (``frvsr.py:208``) and Volume4DSRNet (``vol4d.py:160``).
-SCAN_BODIES: dict[type, str] = {DRFNet: "step/", SRFBNet: "Scan_SRFBStep_0/",
+# step of DRFNet (``vsr_tpu/models/drf.py:237``), DRFSISRNet (``drf.py:160``),
+# SRFBNet (``srfbn.py:109``), FRVSRNet (``frvsr.py:208``) and Volume4DSRNet
+# (``vol4d.py:160``).
+SCAN_BODIES: dict[type, str] = {DRFNet: "step/",
+                                DRFSISRNet: "Scan_DRFStep_0/",
+                                SRFBNet: "Scan_SRFBStep_0/",
                                 FRVSRNet: "step/", Volume4DSRNet: "step/"}
 
 

@@ -24,7 +24,7 @@ It is a context variable, read when a forward runs: a CUDA graph captured
 inside the block holds the intercepted kernels, and a
 ``torch.utils.checkpoint`` recompute, which runs in the backward (on
 another thread on the card), re-enters it through
-:func:`recompute_contexts`.
+:func:`recompute_contexts` (:func:`remat_step` passes it).
 """
 
 from __future__ import annotations
@@ -37,10 +37,12 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vsr_tpu_torch.ops.fused_squeeze import concat_conv1x1
 from vsr_tpu_torch.ops.fused_tail import (fuse_conv3d_through_shuffle2d,
                                           fuse_conv_through_shuffle)
+from vsr_tpu_torch.ops.subpixel import conv_transpose_subpixel, phase_geometry
 
 
 def resolve_dtype(dtype: torch.dtype | str | None) -> torch.dtype:
@@ -138,6 +140,19 @@ def recompute_contexts():
     return contextlib.nullcontext(), (
         contextlib.nullcontext() if interceptor is None
         else intercept_convs(interceptor))
+
+
+def remat_step(remat: bool, step: Callable, *args):
+    """A recurrent net's step, under ``torch.utils.checkpoint`` when
+    ``remat`` is set and a gradient is recorded: its activations are
+    recomputed in the backward, under the forward's interceptor. The steps
+    draw no random numbers: no generator state is saved and restored (nor
+    read inside a captured CUDA graph)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(step, *args, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=recompute_contexts)
+    return step(*args)
 
 
 def _intercepted(module: nn.Module, x: torch.Tensor,
@@ -265,15 +280,23 @@ def pixel_shuffle_2d_in_3d(x: torch.Tensor, r: int) -> torch.Tensor:
 
 class ConvTranspose(nn.ConvTranspose2d):
     """torch.nn.ConvTranspose2d geometry: out = (in-1)*stride - 2*padding +
-    kernel (x2 projection: k6 s2 p2). Weight (C_in, C_out, k, k)."""
+    kernel (x2 projection: k6 s2 p2). Weight (C_in, C_out, k, k).
+
+    ``subpixel=True`` computes the same map as one stride-1 phase conv +
+    ``F.pixel_shuffle`` (``ops/subpixel.py``), with the same parameters, so
+    checkpoints interchange; it needs ``kernel - 2 * padding == stride``."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 4, stride: int = 2, padding: int = 1,
                  bias: bool = True, *, dtype: torch.dtype | str | None = None,
+                 subpixel: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding, bias=bias)
+        if subpixel:
+            phase_geometry(kernel_size, stride, padding)  # refuses early
         self.dtype = _as_dtype(dtype)
+        self.subpixel = subpixel
         torch_default_init_(self.weight, self.bias,
                             kernel_size * kernel_size * in_channels, generator)
 
@@ -282,6 +305,10 @@ class ConvTranspose(nn.ConvTranspose2d):
 
     def _plain(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(self.dtype, x, self.weight)
+        if self.subpixel:
+            return conv_transpose_subpixel(
+                x.to(dt), self.weight.to(dt), _cast(self.bias, dt),
+                self.stride[0], self.padding[0])
         return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
                                   _cast(self.bias, dt), self.stride,
                                   self.padding, self.output_padding,

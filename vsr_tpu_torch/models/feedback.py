@@ -20,6 +20,8 @@ float32 and returns float32 features (the skip the recurrence adds every
 step's hidden state to); ``FBlock(carry_f32)`` consumes the float32 carry in
 a float32 input squeeze, casts down once after its PReLU, and accumulates
 its output squeeze in float32, so the hidden state it returns is float32.
+``subpixel_deconv`` runs the ladder's transposed convs as sub-pixel phase
+convs (``ops/subpixel.py``; the same parameters and map).
 """
 
 from __future__ import annotations
@@ -36,6 +38,14 @@ PROJECTION_PARAMS = {2: (6, 2, 2), 3: (7, 3, 2), 4: (8, 4, 2), 8: (12, 8, 2)}
 def check_upscale_factor(factor: int) -> None:
     if factor not in PROJECTION_PARAMS:
         raise ValueError(f"The upscale factor should be 2, 3, 4 or 8. Got {factor}.")
+
+
+def check_fused_carry(carry_f32: bool, fused_squeeze: bool) -> None:
+    """The float32 carry cannot go through the fused squeeze."""
+    if carry_f32 and fused_squeeze:
+        raise NotImplementedError(
+            "carry_f32 does not compose with fused_squeeze (the fused "
+            "concat-matmul kernel emits the compute dtype)")
 
 
 class PReLU(nn.PReLU):
@@ -80,13 +90,11 @@ class FBlock(nn.Module):
     def __init__(self, num_features: int, num_groups: int,
                  upscale_factor: int, fused_squeeze: bool = False, *,
                  dtype: torch.dtype | None = None, carry_f32: bool = False,
+                 subpixel_deconv: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         check_upscale_factor(upscale_factor)
-        if carry_f32 and fused_squeeze:
-            raise NotImplementedError(
-                "carry_f32 does not compose with fused_squeeze (the fused "
-                "concat-matmul kernel emits the compute dtype)")
+        check_fused_carry(carry_f32, fused_squeeze)
         f = num_features
         k, s, p = PROJECTION_PARAMS[upscale_factor]
         self.num_groups = num_groups
@@ -107,6 +115,7 @@ class FBlock(nn.Module):
             if i:
                 convs.append(squeeze(i + 1))  # LR ladder
             deconvs.append(ConvTranspose(f, f, k, s, p, dtype=dtype,
+                                         subpixel=subpixel_deconv,
                                          generator=generator))
             if i:
                 convs.append(squeeze(i + 1))  # HR ladder

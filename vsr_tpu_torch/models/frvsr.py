@@ -12,9 +12,11 @@ with ``is_prediction``. Convs are Xavier-uniform with zero bias, like the
 reference; the SRNet tail follows the upscale factor (one x2 deconv, one x3,
 or two x2) as in the JAX net.
 
-The JAX net's ``remat`` (rematerialization per frame), ``unroll`` (its scan's
-unroll) and ``carry_f32`` (a bf16 training mode) are not ported and raise
-when set.
+``remat`` runs each frame step under ``torch.utils.checkpoint`` while a
+gradient is recorded (its activations are recomputed in the backward). The
+JAX net's ``unroll`` (its scan's unroll) and ``carry_f32`` (a bf16 training
+mode, which waits for this net's move onto the bf16 policy of
+``models/common.py``) are not ported and raise when set.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vsr_tpu_torch.models.common import (PlainConv2d, PlainConvTranspose2d,
-                                         resolve_dtype)
+                                         remat_step, resolve_dtype)
 from vsr_tpu_torch.models.toflow import crop, pad_to_multiple
 from vsr_tpu_torch.ops.upsample import upsample_bilinear
 from vsr_tpu_torch.ops.warp import grid_sample_bilinear, linspace
@@ -174,11 +176,16 @@ class FRVSRNet(nn.Module):
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        for name, value in (("remat", remat), ("unroll", unroll != 1),
-                            ("carry_f32", carry_f32)):
-            if value:
-                raise NotImplementedError(
-                    f"FRVSRNet {name} is not yet ported to vsr_tpu_torch")
+        if unroll != 1:
+            raise NotImplementedError(
+                "FRVSRNet unroll is a TPU lax.scan knob; the port's frame "
+                "loop is a Python loop and has no such setting")
+        if carry_f32:
+            raise NotImplementedError(
+                "FRVSRNet carry_f32 is not yet ported to vsr_tpu_torch: it "
+                "is a bf16 mode, and this net still converts its parameters "
+                "to a bf16 dtype instead of computing in it")
+        self.remat = remat
         self.dtype = resolve_dtype(dtype)
         self.upscale_factor = upscale_factor
         self.is_prediction = is_prediction
@@ -194,7 +201,8 @@ class FRVSRNet(nn.Module):
         sr_last = x.new_zeros(n, c, h * f, w * f)
         srs, warped = [], []
         for i in range(t):
-            sr_last, warped_lr = self.step(lr_last, sr_last, x[:, i])
+            sr_last, warped_lr = remat_step(self.remat, self.step, lr_last,
+                                            sr_last, x[:, i])
             lr_last = x[:, i]
             srs.append(sr_last)
             warped.append(warped_lr)

@@ -7,14 +7,23 @@ applies its 2-layer FFN to them; selected tokens receive the
 affinity-weighted expert output as a residual update. Groups never span
 images, so an image's output does not depend on its batch mates.
 
-Ported: ``router_impl`` ``"rank"`` (the plain pairwise compare-and-sum, any
-device) and ``"rank_pallas"`` (the name the configs use is kept; here it
-means ``ops.rank.pairwise_rank``, the hand-written CUDA kernel on a CUDA
-tensor), and ``dispatch_impl`` ``"sparse"`` (one-hot dispatch/combine
-einsums over capacity slots) and ``"dense"`` (every expert on every token,
-combined through the gated selection mask). ``"radix"``, ``"sort"`` and
-``"dense_nhwc"`` are refused, as is the ``'expert'`` mesh axis (there is no
-mesh here).
+Routers (``router_impl``), each reproducing ``lax.top_k``'s selection
+(value descending, the earlier index first on ties):
+
+- ``"rank"``: the plain pairwise compare-and-sum rank, any device;
+- ``"rank_pallas"`` (the configs' name is kept): the same rank from
+  ``ops.rank.pairwise_rank``, the hand-written CUDA kernel on a CUDA tensor;
+- ``"radix"``: the selection mask alone, by ``ops.select.topk_mask``'s
+  radix threshold search (``radix_bits`` a pass); mask dispatches only;
+- ``"sort"``: ``torch.sort(stable=True)``'s top-``capacity`` values and
+  indices as the capacity slots; the ``sparse`` dispatch only.
+
+Dispatches (``dispatch_impl``): ``"sparse"`` (one-hot dispatch / combine
+einsums over capacity slots), ``"dense"`` (every expert on every token of
+its group, combined through the gated selection mask) and ``"dense_nhwc"``
+(the same in image layout: a 1x1 conv to every expert's hidden channels and
+a feature-grouped 1x1 conv back, one group an expert). The ``'expert'``
+mesh axis is refused (there is no mesh here).
 """
 
 from __future__ import annotations
@@ -26,11 +35,11 @@ from torch import nn
 from vsr_tpu_torch.models.common import Conv, ShuffleConv, resolve_dtype
 from vsr_tpu_torch.models.edsr import _ResBlock, _UpBlock
 from vsr_tpu_torch.ops.rank import pairwise_rank, pairwise_rank_reference
+from vsr_tpu_torch.ops.select import topk_mask
 from vsr_tpu_torch.registry import register
 
-_ROUTERS = ("rank", "rank_pallas")
-_DISPATCHES = ("sparse", "dense")
-_NOT_PORTED = {"router": ("radix", "sort"), "dispatch": ("dense_nhwc",)}
+_ROUTERS = ("rank", "rank_pallas", "radix", "sort")
+_DISPATCHES = ("sparse", "dense", "dense_nhwc")
 
 
 def _trunc_normal_(weight: torch.Tensor, fan_in: int,
@@ -45,14 +54,16 @@ def _trunc_normal_(weight: torch.Tensor, fan_in: int,
 
 def route(af: torch.Tensor, router_impl: str) -> torch.Tensor:
     """(G, e, gs) float32 affinities -> int32 rank of every token within its
-    (group, expert) row, descending, stable ties. The rank carries no
-    gradient, so the affinities are detached."""
+    (group, expert) row, descending, stable ties (the ``rank`` and
+    ``rank_pallas`` routers). The rank carries no gradient, so the
+    affinities are detached."""
     af = af.detach()
     if router_impl == "rank_pallas":
         return pairwise_rank(af.contiguous())
     if router_impl == "rank":
         return pairwise_rank_reference(af)
-    raise ValueError(f"Unknown router_impl {router_impl!r}; legal: {_ROUTERS}")
+    raise ValueError(f"router_impl {router_impl!r} computes no rank; the "
+                     f"rank routers are {_ROUTERS[:2]}")
 
 
 class ExpertChoiceMoE(nn.Module):
@@ -62,31 +73,48 @@ class ExpertChoiceMoE(nn.Module):
     ``(h, w)`` order, as in the JAX layer, so the same pixels share a group.
     Token counts that do not divide ``group_size`` are padded with
     zero-affinity tokens: real tokens always win the top-``capacity``, and a
-    padded token that is picked anyway contributes with gate 0.
+    padded token that is picked anyway contributes with gate 0. The
+    router / dispatch pairs the JAX layer refuses raise its ``ValueError``
+    here, at construction.
     """
 
     def __init__(self, num_features: int, num_experts: int,
                  capacity_factor: float = 1.25, hidden_mult: int = 2,
                  group_size: int = 256, router_impl: str = "rank",
-                 dispatch_impl: str = "sparse", *,
+                 dispatch_impl: str = "sparse", radix_bits: int = 4, *,
                  generator: torch.Generator | None = None):
         super().__init__()
         for knob, value, legal in (("router", router_impl, _ROUTERS),
                                    ("dispatch", dispatch_impl, _DISPATCHES)):
-            if value in _NOT_PORTED[knob]:
-                raise NotImplementedError(
-                    f"{knob}_impl {value!r} is not yet ported to "
-                    f"vsr_tpu_torch (ported: {legal})")
             if value not in legal:
                 raise ValueError(
                     f"Unknown {knob}_impl {value!r}; legal: {legal} "
                     "(typos must fail here, not silently fall back)")
+        if router_impl == "radix" and dispatch_impl == "sparse":
+            raise ValueError(
+                "router_impl='radix' produces a selection mask only (no "
+                "rank, no capacity slots) — it requires "
+                "dispatch_impl='dense'/'dense_nhwc'")
+        if dispatch_impl == "dense_nhwc" and router_impl == "sort":
+            raise ValueError(
+                "dispatch_impl='dense_nhwc' routes by selection mask and "
+                "needs router_impl='rank'/'rank_pallas'/'radix' (the sort "
+                "router produces capacity slots, not per-token masks)")
+        if dispatch_impl == "dense" and router_impl == "sort":
+            raise ValueError(
+                "dispatch_impl='dense' routes by selection mask and "
+                "needs router_impl='rank'/'rank_pallas'/'radix' (the "
+                "sort router produces capacity slots, not per-token "
+                "ranks)")
+        if router_impl == "radix" and not 1 <= radix_bits <= 8:
+            raise ValueError(f"radix_bits={radix_bits} must be in [1, 8]")
         d, e, hid = num_features, num_experts, hidden_mult * num_features
         self.num_experts = e
         self.capacity_factor = capacity_factor
         self.group_size = group_size
         self.router_impl = router_impl
         self.dispatch_impl = dispatch_impl
+        self.radix_bits = radix_bits
         self.router = nn.Parameter(torch.empty(d, e))
         self.expert_wi = nn.Parameter(torch.empty(e, d, hid))
         self.expert_bi = nn.Parameter(torch.zeros(e, hid))
@@ -115,36 +143,85 @@ class ExpertChoiceMoE(nn.Module):
         af = aff.reshape(n * (t + pad) // gs, gs, self.num_experts)
         return af.transpose(1, 2).contiguous(), gs
 
+    @staticmethod
+    def slots(af: torch.Tensor,
+              cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The ``sort`` router's ``cap`` slots of every (G, e, gs) row: the
+        values and token indices, ``lax.top_k``'s order (value descending,
+        the earlier index first on ties: a stable sort, as ``torch.topk``
+        promises no tie order). The gradient flows through the values."""
+        vals, idx = torch.sort(af, dim=-1, descending=True, stable=True)
+        return vals[..., :cap], idx[..., :cap]
+
+    def selection(self, af: torch.Tensor, cap: int) -> torch.Tensor:
+        """(G, e, gs) affinities -> the bool top-``cap`` mask of every row:
+        the mask routers' (``rank``, ``rank_pallas``, ``radix``), or the
+        tokens of the ``sort`` router's slots."""
+        if self.router_impl == "radix":
+            return topk_mask(af.detach(), cap, radix_bits=self.radix_bits)
+        if self.router_impl == "sort":
+            idx = self.slots(af.detach(), cap)[1]
+            return torch.zeros(af.shape, dtype=torch.bool,
+                               device=af.device).scatter_(-1, idx, True)
+        return route(af, self.router_impl) < cap
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, d, h, w = x.shape
         t = h * w
         af, gs = self.affinities(x)  # (G, e, gs)
         pad = (-t) % gs
         cap = self.capacity(gs)
-        rank = route(af, self.router_impl)  # (G, e, gs) int32
 
         # Params joined to the ACTIVATION dtype at use (a restored f32 leaf
         # must not promote a bf16 net's expert FFN).
         cd = x.dtype
         wi, bi, wo, bo = (p.to(cd) for p in (self.expert_wi, self.expert_bi,
                                              self.expert_wo, self.expert_bo))
+        e, hid = wi.shape[0], wi.shape[2]
+        if self.dispatch_impl == "dense_nhwc":
+            # Image layout: the heavy tensors stay conv-shaped; only the
+            # e-channel affinity crosses into groups for the mask.
+            def pixels(a):  # (G, e, gs) -> (n, e, h, w), padding dropped
+                a = a.transpose(1, 2).reshape(n, t + pad, e)[:, :t]
+                return a.reshape(n, h, w, e).permute(0, 3, 1, 2)
+
+            gate = torch.where(pixels(self.selection(af, cap)), pixels(af),
+                               0.0).to(cd)
+            # Channel g*hid + i contracts wi[g, :, i]; the grouped conv
+            # maps hidden block g through wo[g] (channel g*d + j).
+            k_in = wi.permute(0, 2, 1).reshape(e * hid, d, 1, 1)
+            hdn = F.relu(F.conv2d(x, k_in, bi.reshape(e * hid)))
+            k_out = wo.permute(0, 2, 1).reshape(e * d, hid, 1, 1)
+            out = F.conv2d(hdn, k_out, bo.reshape(e * d), groups=e)
+            combined = torch.einsum("nedhw,nehw->ndhw",
+                                    out.reshape(n, e, d, h, w), gate)
+            return x + combined.to(cd)
+
         tokens = x.permute(0, 2, 3, 1).reshape(n, t, d)
         if pad:
             tokens = torch.cat([tokens, tokens.new_zeros(n, pad, d)], dim=1)
         tokens = tokens.reshape(n * (t + pad) // gs, gs, d)  # (G, gs, d)
 
         if self.dispatch_impl == "dense":
-            gate_t = torch.where(rank < cap, af, 0.0).to(cd)  # (G, e, gs)
+            gate_t = torch.where(self.selection(af, cap), af,
+                                 0.0).to(cd)  # (G, e, gs)
             hdn = torch.einsum("gtd,edh->geth", tokens, wi) + bi[:, None, :]
             out = (torch.einsum("geth,ehd->getd", F.relu(hdn), wo)
                    + bo[:, None, :])
             combined = torch.einsum("getd,get->gtd", out, gate_t)
         else:
-            # One-hot of the rank over the capacity slots: rank >= cap
-            # (unselected) gives an all-zero row.
-            slots = torch.arange(cap, device=rank.device)
-            dispatch = (rank[..., None] == slots).to(cd)  # (G, e, gs, cap)
-            gate = torch.einsum("getc,get->gec", dispatch, af.to(cd))
+            if self.router_impl == "sort":
+                vals, idx = self.slots(af, cap)
+                gate = vals.to(cd)  # (G, e, cap)
+                dispatch = F.one_hot(idx, gs).transpose(
+                    -1, -2).to(cd)  # (G, e, gs, cap)
+            else:
+                # One-hot of the rank over the capacity slots: rank >= cap
+                # (unselected) gives an all-zero row.
+                rank = route(af, self.router_impl)  # (G, e, gs) int32
+                slots = torch.arange(cap, device=rank.device)
+                dispatch = (rank[..., None] == slots).to(cd)
+                gate = torch.einsum("getc,get->gec", dispatch, af.to(cd))
             xin = torch.einsum("getc,gtd->gecd", dispatch, tokens)
             hdn = torch.einsum("gecd,edh->gech", xin, wi) + bi[None, :, None, :]
             out = (torch.einsum("gech,ehd->gecd", F.relu(hdn), wo)
@@ -159,9 +236,8 @@ class ExpertChoiceMoE(nn.Module):
 class MoEEDSRNet(nn.Module):
     """EDSR trunk with an :class:`ExpertChoiceMoE` block after every
     ``moe_every``-th residual block: ``(N, C, h, w) -> (N, C_out, H, W)``.
-    Arguments as the JAX net; ``radix_bits`` belongs to the ``radix`` router
-    and is refused with it. ``dtype``, ``device``, ``generator``: as
-    ``DRFNet``."""
+    Arguments as the JAX net (``radix_bits``: the ``radix`` router's bits a
+    pass). ``dtype``, ``device``, ``generator``: as ``DRFNet``."""
 
     serving_mode = "frame"
 
@@ -170,16 +246,12 @@ class MoEEDSRNet(nn.Module):
                  num_experts: int = 4, capacity_factor: float = 1.25,
                  hidden_mult: int = 2, group_size: int = 256,
                  moe_every: int = 2, router_impl: str = "rank",
-                 dispatch_impl: str = "sparse", radix_bits: int | None = None,
+                 dispatch_impl: str = "sparse", radix_bits: int = 4,
                  fused_tail: bool = False,
                  dtype: torch.dtype | str | None = None, *,
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if radix_bits is not None:
-            raise NotImplementedError(
-                "radix_bits belongs to router_impl='radix', which is not yet "
-                "ported to vsr_tpu_torch")
         self.dtype = resolve_dtype(dtype)
         f = num_features
         self.head = Conv(in_channels, f, 3, padding=1, generator=generator)
@@ -190,7 +262,8 @@ class MoEEDSRNet(nn.Module):
             if (i + 1) % moe_every == 0:
                 self.moes[str(i)] = ExpertChoiceMoE(
                     f, num_experts, capacity_factor, hidden_mult, group_size,
-                    router_impl, dispatch_impl, generator=generator)
+                    router_impl, dispatch_impl, radix_bits,
+                    generator=generator)
         self.body_end = Conv(f, f, 3, padding=1, generator=generator)
         self.up = _UpBlock(f, upscale_factor, generator=generator)
         self.tail = ShuffleConv(f, out_channels, 3,

@@ -10,8 +10,9 @@ state; every ``h`` concats into a reconstruction conv. PReLUs start at 0.25
 its activation sites, as the reference does, so the two sites share one
 alpha. Submodules keep flax's creation order (``interop.py`` relies on it).
 
-``subpixel_deconv`` (the JAX deconvs' phase-conv form) is not ported and is
-refused by name.
+``subpixel_deconv`` runs every transposed conv (the DBPN projections' and
+the MISR path's) as a sub-pixel phase conv (``ops/subpixel.py``): the same
+parameters and map.
 """
 
 from __future__ import annotations
@@ -46,11 +47,11 @@ class _DeconvP(nn.Module):
     """Transposed conv (torch geometry) + PReLU."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
-                 stride: int, pad: int, *,
+                 stride: int, pad: int, *, subpixel: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.conv = ConvTranspose(in_channels, out_channels, kernel, stride,
-                                  pad, generator=generator)
+                                  pad, subpixel=subpixel, generator=generator)
         self.act = PReLU(0.25)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -75,10 +76,12 @@ class _ResnetBlock(nn.Module):
 
 class _UpBlock(nn.Module):
     def __init__(self, features: int, k: int, s: int, p: int, *,
+                 subpixel: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.deconvs = nn.ModuleList(
-            _DeconvP(features, features, k, s, p, generator=generator)
+            _DeconvP(features, features, k, s, p, subpixel=subpixel,
+                     generator=generator)
             for _ in range(2))
         self.conv = _ConvP(features, features, k, s, p, generator=generator)
 
@@ -89,12 +92,13 @@ class _UpBlock(nn.Module):
 
 class _DownBlock(nn.Module):
     def __init__(self, features: int, k: int, s: int, p: int, *,
+                 subpixel: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.convs = nn.ModuleList(
             _ConvP(features, features, k, s, p, generator=generator)
             for _ in range(2))
-        self.deconv = _DeconvP(features, features, k, s, p,
+        self.deconv = _DeconvP(features, features, k, s, p, subpixel=subpixel,
                                generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -108,15 +112,16 @@ class DBPNet(nn.Module):
     three stages whatever it says)."""
 
     def __init__(self, base_filter: int, feat: int, num_stages: int,
-                 upscale_factor: int, *,
+                 upscale_factor: int, *, subpixel_deconv: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         k, s, p = PROJECTION_PARAMS[upscale_factor]
         g = dict(generator=generator)
+        sp = dict(subpixel=subpixel_deconv, **g)
         self.head = _ConvP(base_filter, feat, 1, 1, 0, **g)
-        self.ups = nn.ModuleList(_UpBlock(feat, k, s, p, **g)
+        self.ups = nn.ModuleList(_UpBlock(feat, k, s, p, **sp)
                                  for _ in range(3))
-        self.downs = nn.ModuleList(_DownBlock(feat, k, s, p, **g)
+        self.downs = nn.ModuleList(_DownBlock(feat, k, s, p, **sp)
                                    for _ in range(2))
         self.tail = _ConvP(3 * feat, feat, 1, 1, 0, act=False, **g)
 
@@ -149,9 +154,6 @@ class RBPNet(nn.Module):
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if subpixel_deconv:
-            raise NotImplementedError(
-                "RBPNet subpixel_deconv is not yet ported to vsr_tpu_torch")
         check_upscale_factor(upscale_factor)
         k, s, p = PROJECTION_PARAMS[upscale_factor]
         self.dtype = resolve_dtype(dtype)
@@ -162,9 +164,11 @@ class RBPNet(nn.Module):
         # _DeconvP_0, _ResChain_1, _ConvP_2, _ResChain_2, _ConvP_3, _ConvP_4.
         self.feat0 = _ConvP(in_channels, bf, 3, 1, 1, **g)
         self.feat1 = _ConvP(2 * in_channels, bf, 3, 1, 1, **g)
-        self.dbpn = DBPNet(bf, feat, num_stages, upscale_factor, **g)
+        self.dbpn = DBPNet(bf, feat, num_stages, upscale_factor,
+                           subpixel_deconv=subpixel_deconv, **g)
         self.res1_chain = _ResChain(bf, num_resblocks, **g)
-        self.res1_up = _DeconvP(bf, feat, k, s, p, **g)
+        self.res1_up = _DeconvP(bf, feat, k, s, p, subpixel=subpixel_deconv,
+                                **g)
         self.res2_chain = _ResChain(feat, num_resblocks, **g)
         self.res2_conv = _ConvP(feat, feat, 3, 1, 1, **g)
         self.res3_chain = _ResChain(feat, num_resblocks, **g)

@@ -7,7 +7,10 @@ across steps; each step emits a bilinear-upsampled global residual output;
 all step outputs are returned, stacked ``(num_steps, N, C, H, W)``. The JAX
 ``nn.scan`` becomes a Python loop with one shared parameter set. With
 ``fused_squeeze`` the feedback block's squeezes run the fused concat + 1x1
-kernel (``ops/fused_squeeze.py``), forward and backward.
+kernel (``ops/fused_squeeze.py``), forward and backward. ``subpixel_deconv``
+runs every transposed conv (the ladder's and the reconstruction's) as a
+sub-pixel phase conv (``ops/subpixel.py``); ``carry_f32`` is the hybrid
+precision of ``models/feedback.py`` under a bf16 ``dtype``.
 """
 
 from __future__ import annotations
@@ -16,8 +19,10 @@ import torch
 from torch import nn
 
 from vsr_tpu_torch.models.common import Conv, ConvTranspose, resolve_dtype
+from vsr_tpu_torch.models.drf import check_carry_f32
 from vsr_tpu_torch.models.feedback import (FBlock, InBlock, PROJECTION_PARAMS,
-                                           PReLU, check_upscale_factor)
+                                           PReLU, check_fused_carry,
+                                           check_upscale_factor)
 from vsr_tpu_torch.ops.upsample import upsample_bilinear
 from vsr_tpu_torch.registry import register
 
@@ -27,12 +32,13 @@ class _RBlock(nn.Module):
 
     def __init__(self, num_features: int, out_channels: int,
                  upscale_factor: int, *, dtype: torch.dtype | None = None,
+                 subpixel_deconv: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         k, s, p = PROJECTION_PARAMS[upscale_factor]
         self.deconvs = nn.ModuleList([ConvTranspose(
             num_features, num_features, k, s, p, dtype=dtype,
-            generator=generator)])
+            subpixel=subpixel_deconv, generator=generator)])
         self.prelus = nn.ModuleList([PReLU()])
         self.convs = nn.ModuleList([Conv(num_features, out_channels, 3,
                                          padding=1, dtype=dtype,
@@ -48,13 +54,17 @@ class _SRFBStep(nn.Module):
 
     def __init__(self, num_features: int, num_groups: int, out_channels: int,
                  upscale_factor: int, fused_squeeze: bool = False, *,
-                 dtype: torch.dtype | None = None,
+                 dtype: torch.dtype | None = None, carry_f32: bool = False,
+                 subpixel_deconv: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.fblock = FBlock(num_features, num_groups, upscale_factor,
-                             fused_squeeze, dtype=dtype, generator=generator)
+                             fused_squeeze, dtype=dtype, carry_f32=carry_f32,
+                             subpixel_deconv=subpixel_deconv,
+                             generator=generator)
         self.rblock = _RBlock(num_features, out_channels, upscale_factor,
-                              dtype=dtype, generator=generator)
+                              dtype=dtype, subpixel_deconv=subpixel_deconv,
+                              generator=generator)
 
     def forward(self, hidden: torch.Tensor, feat: torch.Tensor,
                 upscaled_input: torch.Tensor):
@@ -69,10 +79,11 @@ class SRFBNet(nn.Module):
     ``dtype`` (the compute dtype; the parameters stay float32), ``device``,
     ``generator`` as for the other nets. The bilinear upsampling of the
     input, and so the global residual add, stay in the input's dtype, as in
-    the JAX net (a float32 input gives float32 outputs). Knobs of the
-    JAX net that the port has not carried (``subpixel_deconv``,
-    ``carry_f32``) raise ``NotImplementedError``, and so does the TPU
-    ``lax.scan`` knob ``unroll`` at any value but 1.
+    the JAX net (a float32 input gives float32 outputs).
+    ``subpixel_deconv`` and ``carry_f32`` as the module docstring says;
+    ``carry_f32`` under a low-precision ``dtype`` with ``fused_squeeze``
+    raises ``NotImplementedError`` (in float32 the pair is a no-op), and so
+    does the TPU ``lax.scan`` knob ``unroll`` at any value but 1.
     """
 
     serving_mode = "frame"
@@ -86,11 +97,6 @@ class SRFBNet(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         check_upscale_factor(upscale_factor)
-        for name, value in (("subpixel_deconv", subpixel_deconv),
-                            ("carry_f32", carry_f32)):
-            if value:
-                raise NotImplementedError(
-                    f"SRFBNet {name} is not yet ported to vsr_tpu_torch")
         if unroll != 1:
             raise NotImplementedError(
                 "SRFBNet unroll is a TPU lax.scan knob; the port's feedback "
@@ -98,10 +104,14 @@ class SRFBNet(nn.Module):
         self.dtype = resolve_dtype(dtype)
         self.num_steps = num_steps
         self.upscale_factor = upscale_factor
+        self.carry_f32 = check_carry_f32(carry_f32, self.dtype)
+        check_fused_carry(self.carry_f32, fused_squeeze)
         self.in_block = InBlock(in_channels, num_features, dtype=self.dtype,
-                                generator=generator)
+                                out_f32=self.carry_f32, generator=generator)
         self.step = _SRFBStep(num_features, num_groups, out_channels,
                               upscale_factor, fused_squeeze, dtype=self.dtype,
+                              carry_f32=self.carry_f32,
+                              subpixel_deconv=subpixel_deconv,
                               generator=generator)
         self.to(device=device)
 

@@ -13,10 +13,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from vsr_tpu_torch.models.common import (Conv3D, recompute_contexts,
-                                         resolve_dtype)
+from vsr_tpu_torch.models.common import Conv3D, remat_step, resolve_dtype
 from vsr_tpu_torch.models.vol3d import VolumeTail, _ResBlock3D
 from vsr_tpu_torch.registry import register
 
@@ -105,15 +103,6 @@ class Volume4DSRNet(nn.Module):
                                generator=generator)
         self.to(device=device)
 
-    def _step(self, *args):
-        if self.remat and torch.is_grad_enabled():
-            # No randomness in the step: nothing to save and restore, and
-            # no generator state read inside a captured CUDA graph.
-            return checkpoint(self.step, *args, use_reentrant=False,
-                              preserve_rng_state=False,
-                              context_fn=recompute_contexts)
-        return self.step(*args)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, c, d, h, w = x.shape
         feats = self.head(x.reshape(n * t, c, d, h, w))
@@ -122,11 +111,13 @@ class Volume4DSRNet(nn.Module):
         mode = "recur" if self.hoist_tail else "full"
         outs = []
         for feat in feats:
-            hidden, out = self._step(hidden, feat, mode)
+            hidden, out = remat_step(self.remat, self.step, hidden, feat,
+                                     mode)
             outs.append(out)
         out = torch.stack(outs, dim=1)
         if not self.hoist_tail:
             return out
         # (N, T, F, D, h, w) skip-added features -> one tail over N*T.
-        out = self._step(out.reshape(n * t, *out.shape[2:]), None, "tail")
+        out = remat_step(self.remat, self.step,
+                         out.reshape(n * t, *out.shape[2:]), None, "tail")
         return out.reshape(n, t, *out.shape[1:])

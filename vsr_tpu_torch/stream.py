@@ -20,7 +20,8 @@ The stream families:
   outputs come ``nf - 1 - shift`` pushes after their frame; the boundary
   outputs, whose windows wrap around the sequence, come from
   :meth:`WindowStream.flush` once the sequence has ended;
-- **per-frame** (EDSR, MoE-EDSR and the other SISR nets) and
+- **per-frame** (EDSR, MoE-EDSR and the other SISR nets, the feedback
+  nets SRFBNet and DRFSISRNet through their last step) and
   **volumetric** (Volume3DSRNet: one push is one (D, H, W) volume, served
   as one 3D sample): stateless, through the batch pipeline itself.
 
@@ -243,11 +244,10 @@ class WindowStream(_StreamBase):
     def _apply(self, zs: list[torch.Tensor]) -> torch.Tensor:
         """nf prepped (N, 1, h, w) frames -> SR (N, H, W)."""
         out = self.net(torch.stack(zs, dim=1))
-        if isinstance(out, tuple) or out.dim() != 4:
-            raise NotImplementedError(
-                "window serving of a net whose output is a tuple or carries "
-                "a leading feedback-step axis is not yet ported to "
-                "vsr_tpu_torch")
+        if isinstance(out, tuple):
+            out = out[0]
+        if out.dim() == 5:  # a feedback net's steps: the last one
+            out = out[-1]
         return denormalize(out, self.dataset)
 
     @torch.inference_mode()
