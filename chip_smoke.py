@@ -169,7 +169,8 @@ Phases; any failure exits non-zero and prints no result:
    from the same draws (per-step losses within 1e-5 relative); the DRF
    device checkpoint resumed by the host-loop ``AcdcVSRTrainer`` for one
    epoch; ``main --test`` on the four ``configs/test/*_device.yaml`` (mean
-   PSNR within 0.01 dB of the trainer's validation PSNR); a trace of 20
+   PSNR within 0.01 dB of the trainer's validation PSNR; the volume twins
+   write no files: phase 10 gates their predictors' NIfTI); a trace of 20
    replayed steps of each run (device time, idle share, and K1's kernels
    counted per replay against the launch count);
 12. the serving deployment: (a) the DRF (K1), MoE (K3) and DUF (K2)
@@ -265,7 +266,34 @@ Phases; any failure exits non-zero and prints no result:
    the CPU: SRFBNet with sub-pixel deconvs (f32) and bf16 ``carry_f32``
    (within twice the CPU's own bf16 error), RBPNet with sub-pixel deconvs,
    FRVSRNet with ``remat`` (and remat on against off);
-16. prints the kernels' JSON line, then the final JSON line.
+16. W8A8 deconvs, the serving presets, the tuner and bf16 training of the
+   nets moved onto the precision policy: (a) the W8A8 kernel on the
+   sub-pixel banks of the k6 s2 p2 (64 -> 256, LR 96) and k8 s4 p2 (64 ->
+   1024, LR 48) transposed convs (``quantize_deconvs``): int32 bit-equal
+   to its twin and to the unfused int8 transposed conv, outputs at phase
+   13a's bars, its median ms against its byte bound and cuDNN's float32
+   and bf16 transposed convs; (b) ``infer --preset tuned`` and ``--preset
+   fast`` against no preset on one low-passed 192 x 192 x 10 x 30 volume
+   for EDSRNet, DUFNet (K2), DRFNet (K1) and MoEEDSRNet (K3) at the test
+   configs' widths: frames/s, launches a volume gated (each kernel per net
+   call, W8A8 where the preset sets it: phase 13's convs a net call),
+   the pipeline built by ``infer.serving_pipelines``, tuned at the grey
+   bar of no
+   preset (where it changes the MoE dispatch, phase 4b's bar for the two
+   dispatches: >= 99.5 % exact), fast's PSNR within 0.5 dB; EDSR
+   ``export --preset fast``
+   (``--calib``) and ``serve --preset fast`` against the fast pipeline at
+   the grey bar; (c) ``python -m vsr_tpu_torch.tune`` on EDSRNet at (300,
+   192, 192) with chunks 0 / 100, its file through ``infer --preset-file``
+   (the same knobs); (d) ``tune --train`` on MoEEDSRNet and Volume4DSRNet,
+   4 steps a row, no row an error; (e) one bf16 train step of MoEEDSRNet,
+   DUFNet, EDVRNet, FRVSRNet (``carry_f32``), RBPNet, TOFlowNet and
+   Volume4DSRNet (``carry_f32``) at their test configs' widths, a batch
+   of 2, through ``DeviceEpochTrainer`` (L1, Adam), on the card against
+   the CPU: losses within the larger of 1e-4 relative and twice the CPU's
+   own bf16 error of the loss, outputs within twice the CPU's own bf16
+   error, parameters float32;
+17. prints the kernels' JSON line, then the final JSON line.
 
 ``--profile`` adds one ``torch.profiler`` trace of a full volume per serving
 path (f32, and bf16 for DRFNet; the two volume nets) and of 6 train steps
@@ -277,7 +305,13 @@ with ``cudnn.deterministic`` off and on, at what cost a volume.
 ``--quantized`` runs only the build and phase 13 (seeded weights where no
 trained checkpoint exists) and prints a summary line. ``--knobs`` runs only
 the build, phase 7's tree and phase 14, and ``--feedback`` the build, phase
-7's tree and phase 15; each prints a summary line.
+7's tree and phase 15, ``--presets`` the build and phase 16; each prints
+a summary line. ``--preset-table [NET ...]`` runs only the build and the
+sweep behind ``vsr_tpu_torch/presets.py``'s table: ``python -m
+vsr_tpu_torch.tune`` on each net at (300, 192, 192) in its serving mode,
+then W8A8 on and off at the winning knobs (first-batch calibration, or
+callback scales for the nets whose convs run in their frame or step
+loops), frames/s and PSNR on a low-passed volume.
 
 ``--latency N`` runs only the build, phase 12a and phase 12b with N
 requests per client (8 N a daemon; a p99 is printed from 100 on), then
@@ -285,7 +319,8 @@ traces one volume through the DRF artifact and through ``make_pipeline``
 (device kernels and host operators, and where their totals differ).
 
 Usage: python3 chip_smoke.py [--out details.json] [--profile | --latency N |
-                             --quantized | --knobs | --feedback]
+                             --quantized | --knobs | --feedback |
+                             --presets | --preset-table [NET ...]]
 """
 
 from __future__ import annotations
@@ -3046,14 +3081,18 @@ def phase_device_epochs(tmp: Path, card: str, dev) -> dict:
         same = dtypes[0] == dtypes[1]
         what, run = f"device test {key}", tmp / f"dev_{key}"
         tol = TEST_PSNR_TOL if same else None
-        if tree == "tree":
-            res[key]["test"] = test_run(what, name, tmp / tree, run, {}, tmp,
-                                        res[key], 0, card, psnr_tol=tol)
-        else:
-            res[key]["test"] = volume_test_run(what, name, tmp / tree, run,
-                                               tmp, res[key], card,
-                                               per_frame=key == "3d",
-                                               psnr_tol=tol)
+        if tree != "tree":
+            # Depth cut: the volume twins write no NIfTI here (about a
+            # minute of gzip each); phase 10 gates the same predictors'
+            # rows and files. Held to the trainer's validation PSNR in the
+            # training dtype, as below.
+            res[key]["test_in_training_dtype"] = test_in_dtype(
+                f"{what} in {dtypes[0] or 'float32'}", name, tmp / tree, run,
+                tmp, res[key], {"dtype": dtypes[0]} if dtypes[0] else {},
+                card)
+            continue
+        res[key]["test"] = test_run(what, name, tmp / tree, run, {}, tmp,
+                                    res[key], 0, card, psnr_tol=tol)
         if not same:
             res[key]["test_in_training_dtype"] = test_in_dtype(
                 f"{what} in {dtypes[0]}", name, tmp / tree, run, tmp,
@@ -5219,6 +5258,666 @@ def feedback_summary(fb: dict) -> dict:
         "seconds_by_step": fb["seconds_by_step"]}
 
 
+# ======================================== presets, tune, bf16 nets (phase 16)
+
+# 16a: the transposed convs W8A8 serves with quantize_deconvs, as sub-pixel
+# banks through w8a8_conv: DRF's k6 s2 p2 projection (the feedback family
+# and RBPN x2) at LR 96, and the x4 DBPN geometry, k8 s4 p2, at LR 48;
+# 10 slices, 64 -> 64 channels.
+DECONV_SHAPES = {"k6s2p2": (6, 2, 2, LR), "k8s4p2": (8, 4, 2, HR // 4)}
+# 16b: the nets whose kernels the presets' runs carry: key -> (net, the
+# test config's kwargs with the path's kernel, infer's mode flags, kernel,
+# its launches per net call, the W8A8 convs of a net call under lazy
+# calibration, as phase 13 counts them: EDSR's 34, DUF's 16, MoE's 34;
+# DRF's preset takes a scales file, so fast serves it without W8A8).
+PRESET_RUNS = {
+    "edsr": ("EDSRNet", EDSR_KWARGS, [], None, 0, EDSR_W8A8_CONVS),
+    "duf": ("DUFNet", dict(DUF_KWARGS, use_pallas_filter=True),
+            ["--windows", str(DUF_KWARGS["num_frames"])],
+            "duf_dynamic_filter", 1, 16),
+    "drf": ("DRFNet", dict(DRF_KWARGS, fused_squeeze=True), ["--video"],
+            "concat_conv1x1", SQUEEZES_PER_STEP * T_FRAMES, 0),
+    "moe": ("MoEEDSRNet", dict(MOE_KWARGS, router_impl="rank_pallas"), [],
+            "pairwise_rank", MOE_LAYERS, 34),
+}
+PRESET_PSNR_BAR = W8A8_PSNR_BAR  # dB: fast against the run without a preset
+# The test configs' nets the tuner runs at full width (16d, --preset-table).
+RBPN_KWARGS = dict(in_channels=1, out_channels=1, base_filter=64, feat=64,
+                   num_stages=3, num_resblocks=5, num_frames=5,
+                   upscale_factor=FACTOR)
+EDVR_KWARGS = dict(in_channels=1, out_channels=1, nf=64, nframes=5,
+                   groups=8, front_RBs=5, back_RBs=10, fused_tail=True)
+VOL4D_KWARGS = dict(in_channels=1, out_channels=1, num_features=32,
+                    num_resblocks=4, upscale_factor=FACTOR, remat=True)
+# 16e: one bf16 train step of each net moved onto the precision policy, at
+# its test config's widths, through DeviceEpochTrainer as tune --train
+# builds it (an L1 loss, Adam), a batch of 2 LR crops of 16 x 16 from
+# tune's seeded buffers (a MISR net's HR target the window's middle
+# frame): net -> (kwargs, factor, --train-shape, MISR).
+BF16_NETS = {
+    "MoEEDSRNet": (MOE_KWARGS, FACTOR, (4, 64, 64), False),
+    "DUFNet": (DUF_KWARGS, FACTOR, (4, 7, 64, 64), True),
+    "EDVRNet": (EDVR_KWARGS, 4, (4, 5, 128, 128), True),
+    "FRVSRNet": (dict(in_channels=1, out_channels=1, upscale_factor=4,
+                      num_resblocks=10, carry_f32=True), 4, (4, 3, 128, 128),
+                 False),
+    "RBPNet": (RBPN_KWARGS, FACTOR, (4, 5, 64, 64), True),
+    "TOFlowNet": (dict(in_channels=1, out_channels=1, num_frames=5,
+                       upscale_factor=FACTOR), FACTOR, (4, 5, 64, 64), True),
+    "Volume4DSRNet": (dict(VOL4D_KWARGS, carry_f32=True), FACTOR,
+                      (4, 3, 4, 64, 64), False),
+}
+BF16_BATCH, BF16_PATCH = 2, 16
+# Card vs CPU loss, relative: the larger of 1e-4 and twice the CPU's own
+# bf16 error of the loss (its distance from the CPU's float32 loss). A
+# batch of 2 averages too few outputs for 1e-4 alone at the configs'
+# widths: MoEEDSRNet 16 x 64 moved 1.01e-4 card vs CPU, its own bf16
+# error 2.8e-4.
+BF16_LOSS_BAR = 1e-4
+
+
+def deconv_bank_case(name: str, dev, gen) -> dict:
+    """16a: one transposed conv as W8A8: the kernel on its sub-pixel bank
+    against the twin (int32 accumulators and float32 / bf16 outputs
+    bit-equal) and against the unfused int8 transposed conv of the same
+    quantized operands in int32 (float64 on the card: exact); the kernel's
+    median ms against its bound, cuDNN's float32 and bf16 transposed
+    convs of the shape."""
+    import torch.nn.functional as F
+
+    from vsr_tpu_torch import quantize
+    from vsr_tpu_torch.models.common import ConvTranspose
+    from vsr_tpu_torch.ops import w8a8_conv as wc
+
+    k, s, p, side = DECONV_SHAPES[name]
+    mod = ConvTranspose(64, 64, k, s, p).to(dev)
+    x = torch.randn(FULL_SLICES, 64, side, side, device=dev, generator=gen)
+    bank = quantize.deconv_bank(mod)
+    xs = float(wc.dynamic_scale(x))
+    pad = bank["padding"][0]
+    args = (x, bank["weight"], bank["bias"], xs, (1, 1), (pad, pad), 1)
+    kw = dict(weight_scale=bank["weight_scale"])
+    res = {"x": list(x.shape), "bank": list(bank["weight"].shape),
+           "kernel_stride_padding": [k, s, p],
+           "plan": wc.kernel_plan(x.shape, bank["weight"].shape, (1, 1),
+                                  (pad, pad), 1)}
+    with torch.inference_mode():
+        acc = wc.w8a8_conv(*args, out_dtype=torch.int32, **kw)
+        want = wc.w8a8_conv_reference(*args, out_dtype=torch.int32, **kw)
+        xq = wc.quantize_activations(x, torch.tensor(xs, device=dev))
+        wq, _ = wc.quantize_weight(mod.weight.transpose(0, 1))
+        unfused = F.conv_transpose2d(xq.double(),
+                                     wq.transpose(0, 1).double(), None, s,
+                                     p).to(torch.int32)
+        shuffled = F.pixel_shuffle(acc, s)
+        if not (torch.equal(acc, want) and torch.equal(shuffled, unfused)):
+            raise SystemExit(f"W8A8 deconv {name}: accumulators differ "
+                             f"(twin {torch.equal(acc, want)}, unfused "
+                             f"int8 transposed conv "
+                             f"{torch.equal(shuffled, unfused)})")
+        res["max_abs_err"] = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            got = quantize._w8a8_deconv(mod, x.to(dtype), xs, dtype).float()
+            ref = F.pixel_shuffle(wc.w8a8_conv_reference(
+                x.to(dtype), *args[1:], out_dtype=dtype, **kw), s).float()
+            err = (got - ref).abs()
+            if dtype == torch.float32:  # phase 13a's bars
+                ok = err.max().item() <= W8A8_F32_SHARE * ref.abs().max().item()
+            else:
+                ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(
+                    got.abs(), ref.abs()) + 1e-30)) - 7)
+                ok = bool((err <= ulp).all())
+            if not ok:
+                raise SystemExit(f"W8A8 deconv {name} {dtype}: the kernel's "
+                                 f"output differs from its twin's by "
+                                 f"{err.max().item():.3g}")
+            res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
+        launches = wc.w8a8_conv.launches
+        res["ms"] = median_ms(lambda: wc.w8a8_conv(*args, **kw),
+                              reps=SHAPE_REPS)
+        res["deconv_ms"] = median_ms(
+            lambda: quantize._w8a8_deconv(mod, x, xs), reps=SHAPE_REPS)
+        res["plain_ms"] = median_ms(
+            lambda: wc.w8a8_conv_reference(*args, **kw), reps=SHAPE_REPS)
+        wc.w8a8_conv.launches = launches
+        w, b = mod.weight, mod.bias
+        res["cudnn_f32_ms"] = median_ms(
+            lambda: F.conv_transpose2d(x, w, b, s, p), reps=SHAPE_REPS)
+        xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+        res["cudnn_bf16_ms"] = median_ms(
+            lambda: F.conv_transpose2d(xb, wb, bb, s, p), reps=SHAPE_REPS)
+    out_hr = FULL_SLICES * 64 * (side * s) ** 2
+    # Bytes: x read once, the int8 bank, its scales and biases, the output
+    # written once (float32). Operations: the transposed conv's own
+    # multiply-adds (k / s taps a row and a column per output pixel; the
+    # bank's zero taps are not work the function needs).
+    n_bytes = (x.numel() * 4 + bank["weight"].numel() + 8 * bank[
+        "weight"].shape[0] + out_hr * 4)
+    ops = 2 * out_hr * 64 * (k // s) ** 2
+    res["bytes"], res["ops"] = n_bytes, ops
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, ops, PEAK_INT8)
+    res["int8_ops_ms"] = ops / PEAK_INT8 * 1e3
+    return res
+
+
+def preset_args(key: str, preset: str | None, extra: list) -> tuple:
+    """The infer CLI's namespace for one run of 16b, after its ``main``
+    applied the preset (``presets.apply_cli_preset``), and the notes."""
+    from vsr_tpu_torch import infer
+    from vsr_tpu_torch.presets import apply_cli_preset
+
+    name, kwargs, flags = PRESET_RUNS[key][:3]
+    args = infer.parse_args(["in", "out", "--net", name, "--net-kwargs",
+                             json.dumps(kwargs), *flags, *extra]
+                            + (["--preset", preset] if preset else []))
+    return args, apply_cli_preset(args)
+
+
+def preset_run(key: str, preset: str | None, frames: np.ndarray, dev,
+               card: str, base: dict | None = None) -> dict:
+    """One net through infer's pipeline as ``--preset`` sets it up: a
+    warm-up volume (a lazy W8A8 pipeline calibrates there), then two timed
+    volumes; launches per volume, gated; frames/s; PSNR against the HR
+    input; against the run without a preset."""
+    from vsr_tpu_torch import infer
+
+    args, notes = preset_args(key, preset, [])
+    pipe = infer.serving_pipelines(args)[1](T_FRAMES, len(frames))
+    pipe(torch.from_numpy(frames).to(dev))
+    reset_launches()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        sr = pipe(torch.from_numpy(frames).to(dev))[1].cpu().numpy()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: v // 2 for k, v in quant_launches().items()}
+    check_sr(f"{key} {preset}", sr, frames.shape)
+    kernel, per_call, w8a8_per_call = PRESET_RUNS[key][3:]
+    calls = -(-len(frames) // args.chunk) if args.chunk and not args.video \
+        else 1
+    want = {kernel: per_call * calls} if kernel else {}
+    if args.w8a8:
+        want["w8a8_conv"] = w8a8_per_call * calls
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise SystemExit(f"{key} --preset {preset}: launches {got}, "
+                         f"expected {want}")
+    ms = statistics.median(times)
+    res = {"preset": preset, "notes": notes, "chunk": args.chunk,
+           "net_kwargs": json.loads(args.net_kwargs), "w8a8": bool(args.w8a8),
+           "launches": launches, "volume_ms": ms,
+           "frames_per_s": len(frames) / ms * 1e3, "psnr": psnr(sr, frames),
+           "sr": sr, "scales": getattr(pipe, "act_scales", None)}
+    line = (f"  {key} --preset {preset or 'none'}: {res['frames_per_s']:.1f} "
+            f"frames/s, PSNR {res['psnr']:.3f} dB, chunk {args.chunk}, "
+            f"W8A8 {bool(args.w8a8)}, launches {got}")
+    if base is not None:
+        res["speed_vs_none"] = res["frames_per_s"] / base["frames_per_s"]
+        res["psnr_delta"] = res["psnr"] - base["psnr"]
+        res["vs_none"] = dict(zip(("exact_fraction", "max_grey_diff"),
+                                  agreement(sr, base["sr"])))
+        line += (f"; {res['speed_vs_none']:.3f}x no preset, PSNR "
+                 f"{res['psnr_delta']:+.4f} dB, "
+                 f"{res['vs_none']['exact_fraction'] * 100:.4f}% exact")
+        if preset == "tuned" and "dispatch_impl" in res["net_kwargs"]:
+            # Another MoE dispatch: its expert products differ in the last
+            # bits, so a later layer's router can flip a token at a
+            # capacity boundary: phase 4b's bar for the two dispatches.
+            if res["vs_none"]["exact_fraction"] < 0.995:
+                raise SystemExit(f"{key} --preset tuned (dispatch "
+                                 f"{res['net_kwargs']['dispatch_impl']}) vs "
+                                 "no preset: outputs disagree")
+        elif preset == "tuned":
+            gate_agreement(f"{key} --preset tuned vs no preset", sr,
+                           base["sr"])
+        elif not abs(res["psnr_delta"]) < PRESET_PSNR_BAR:
+            raise SystemExit(f"{key} --preset fast: PSNR moved "
+                             f"{res['psnr_delta']:+.4f} dB (bar "
+                             f"{PRESET_PSNR_BAR} dB)")
+    log(line + f" [{card}]")
+    return res
+
+
+def presets_routes(tmp: Path, frames: np.ndarray, fast: dict, card: str,
+                   dev) -> dict:
+    """16b: ``export --preset fast`` (W8A8 calibrated from ``--calib``: the
+    volume itself, so the scales are the lazy pipeline's) and the daemon's
+    live backend with ``--preset fast`` and those scales, for EDSRNet,
+    each held against the ``--preset fast`` pipeline."""
+    import threading
+
+    from vsr_tpu_torch import export, serve
+    from vsr_tpu_torch.io.nifti import save_nifti
+    from vsr_tpu_torch.presets import apply_cli_preset
+
+    calib = tmp / "preset_calib"
+    vol = np.moveaxis(frames.reshape(FULL_SLICES, T_FRAMES, HR, HR),
+                      (0, 1), (2, 3))
+    save_nifti(vol.astype(np.float32), calib / "p" / "p_4d.nii")
+    name, kwargs = PRESET_RUNS["edsr"][:2]
+    file = tmp / "edsr_fast.pt2.zip"
+    reset_launches()
+    t0 = time.perf_counter()
+    export.main(["--net", name, "--net-kwargs", json.dumps(kwargs),
+                 "--shape", ",".join(map(str, frames.shape)), "--preset",
+                 "fast", "--calib", str(calib), "--out", str(file),
+                 "--device", str(dev)])
+    served = export.ExportedServing(file, device=dev)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    got = served(frames)[1].cpu().numpy()
+    art = dict(gate_agreement("export --preset fast vs the --preset fast "
+                              "pipeline", got, fast["sr"]),
+               launches=quant_launches()["w8a8_conv"],
+               export_save_load_s=setup_s)
+    if art["launches"] != fast["launches"]["w8a8_conv"]:
+        raise SystemExit(f"export --preset fast: {art['launches']} "
+                         "w8a8_conv launches, expected "
+                         f"{fast['launches']['w8a8_conv']}")
+    log(f"  EDSR export --preset fast (--calib): "
+        f"{art['exact_fraction'] * 100:.4f}% exact vs the pipeline, "
+        f"{art['launches']} w8a8_conv launches a volume, export + save + "
+        f"load {setup_s:.1f} s [{card}]")
+    scales = tmp / "edsr_fast_scales.json"
+    scales.write_text(json.dumps(fast["scales"]))
+    args = serve.parse_args(["--net", name, "--net-kwargs",
+                             json.dumps(kwargs), "--frames-shape",
+                             ",".join(map(str, frames.shape)), "--preset",
+                             "fast", "--w8a8-scales", str(scales),
+                             "--device", str(dev)])
+    notes = apply_cli_preset(args)
+    reset_launches()
+    (live,) = serve.live_from_args(args)
+    srv = serve.make_server([], port=0, warmup=True, live=[live], device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body, sec, _ = post(f"http://127.0.0.1:{srv.server_address[1]}/v1/sr",
+                            npy_bytes(frames), "application/x-npy")
+        daemon = dict(gate_agreement("serve --preset fast vs the --preset "
+                                     "fast pipeline", from_npy(body),
+                                     fast["sr"]),
+                      request_ms=sec * 1e3, notes=notes)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    daemon["launches"] = quant_launches()["w8a8_conv"]
+    if daemon["launches"] != 2 * fast["launches"]["w8a8_conv"]:
+        raise SystemExit(f"serve --preset fast: {daemon['launches']} "
+                         "w8a8_conv launches (warm-up + 1 request), expected "
+                         f"{2 * fast['launches']['w8a8_conv']}")
+    log(f"  EDSR serve --preset fast --w8a8-scales: 1 request, "
+        f"{sec * 1e3:.1f} ms, {daemon['exact_fraction'] * 100:.4f}% exact "
+        f"vs the pipeline, {daemon['launches']} w8a8_conv launches (warm-up "
+        f"+ request); notes {notes} [{card}]")
+    return {"export": art, "daemon": daemon}
+
+
+def presets_tune(tmp: Path, card: str, dev) -> dict:
+    """16c / 16d: ``python -m vsr_tpu_torch.tune`` at full geometry on
+    EDSRNet with a two-point chunk grid, its file through ``infer
+    --preset-file``; ``tune --train`` on MoEEDSRNet and Volume4DSRNet, a
+    few steps a row, no bf16 row an error."""
+    from vsr_tpu_torch import infer, tune
+    from vsr_tpu_torch.presets import apply_cli_preset
+
+    file = tmp / "tuned.json"
+    t0 = time.perf_counter()
+    out = tune.main(["--net", "EDSRNet", "--net-kwargs",
+                     json.dumps(EDSR_KWARGS), "--shape",
+                     f"{FULL_SLICES * T_FRAMES},{HR},{HR}", "--chunk-grid",
+                     "0,100", "--repeats", "1", "--out", str(file)])
+    serve_s = time.perf_counter() - t0
+    rows = out["measured"]
+    if len(rows) != 4 or any("error" in r for r in rows):
+        raise SystemExit(f"tune EDSRNet: rows {rows}")
+    entry = out["presets"]["EDSRNet"]
+    args = infer.parse_args(["in", "out", "--net", "EDSRNet", "--net-kwargs",
+                             json.dumps(EDSR_KWARGS), "--preset-file",
+                             str(file)])
+    apply_cli_preset(args)
+    got = {"chunk": args.chunk, "fused_tail": json.loads(
+        args.net_kwargs).get("fused_tail")}
+    want = {"chunk": entry["chunk"],
+            "fused_tail": entry["net_kwargs"]["fused_tail"]}
+    if got != want or args.preset != "tuned":
+        raise SystemExit(f"infer --preset-file {file}: knobs {got}, the "
+                         f"file's {want}")
+    log(f"  tune EDSRNet at ({FULL_SLICES * T_FRAMES}, {HR}, {HR}), chunk "
+        f"0 / 100 x fused_tail: {[r['volumes_per_sec'] for r in rows]} "
+        f"volumes/s, best {entry} ({serve_s:.1f} s); infer --preset-file "
+        f"sets {got} [{card}]")
+    res = {"serving": {"rows": rows, "entry": entry, "seconds": serve_s,
+                       "card": out.get("card"), "backend": out["backend"]}}
+    for net, kwargs, shape, batch, patch in (
+            ("MoEEDSRNet", dict(MOE_KWARGS, router_impl="rank_pallas"),
+             f"32,{HR // 2},{HR // 2}", 16, 32),
+            ("Volume4DSRNet", VOL4D_KWARGS, "8,3,4,64,64", 2, 32)):
+        file = tmp / f"train_{net}.json"
+        t0 = time.perf_counter()
+        out = tune.main(["--train", "--net", net, "--net-kwargs",
+                         json.dumps(kwargs), "--train-shape", shape,
+                         "--batch", str(batch), "--patch", str(patch),
+                         "--steps", "4", "--repeats", "1", "--out",
+                         str(file)])
+        bad = [r for r in out["measured"] if "error" in r]
+        if bad or not any(r["dtype"].startswith("bfloat16")
+                          for r in out["measured"]):
+            raise SystemExit(f"tune --train {net}: rows with an error "
+                             f"{bad}")
+        res[net] = {"rows": out["measured"], "best": out["train_presets"],
+                    "seconds": time.perf_counter() - t0}
+        log(f"  tune --train {net} ({shape}, batch {batch}): "
+            + ", ".join(f"{r['dtype']}/ga{r['grad_accumulation']}"
+                        + (f"/{r['dispatch_impl']}" if "dispatch_impl" in r
+                           else "") + f" {r['steps_per_sec']} steps/s"
+                        for r in out["measured"])
+            + f" ({res[net]['seconds']:.1f} s) [{card}]")
+    return res
+
+
+def bf16_train_step(name: str, kwargs: dict, factor: int, bufs: tuple,
+                    device, dtype, draws) -> tuple:
+    """One step of ``name`` through ``DeviceEpochTrainer`` (one epoch of
+    one step, eager) from seeded float32 parameters: (its loss, its output
+    on the CPU), the parameters float32 and finite before and after."""
+    from vsr_tpu_torch.losses import L1Loss
+    from vsr_tpu_torch.registry import build
+    from vsr_tpu_torch.runner.device_trainer import DeviceEpochTrainer
+
+    kw = dict(kwargs, dtype=dtype) if dtype else dict(kwargs)
+    net = build("net", {"name": name, "kwargs": kw}, device=device,
+                generator=torch.Generator().manual_seed(0))
+    trainer = DeviceEpochTrainer(
+        net=net, loss_fns=[L1Loss()], loss_weights=[1.0], metric_fns=[],
+        optimizer=torch.optim.Adam(net.parameters(), lr=1e-4),
+        lr_data=bufs[0], hr_data=bufs[1], batch_size=BF16_BATCH,
+        patch=BF16_PATCH, ratio=factor, steps_per_epoch=1, scan_unroll=1,
+        device=device)
+    def float32(when):
+        if not all(p.dtype == torch.float32 and torch.isfinite(p).all()
+                   for p in trainer.net.parameters()):
+            raise SystemExit(f"{name} {dtype} on {device}: parameters not "
+                             f"finite float32 {when} the step")
+
+    seen = []
+    hook = trainer.net.register_forward_hook(
+        lambda _m, _i, out: seen.append(
+            (out[0] if isinstance(out, tuple) else out).detach().float()
+            .cpu()))
+    float32("before")
+    loss = trainer.train_epoch(draws)["Loss"]
+    float32("after")
+    hook.remove()
+    return loss, seen[0]
+
+
+def bf16_nets_card_vs_cpu(card: str, dev) -> dict:
+    """16e: one bf16 train step of each net moved onto the precision
+    policy, at its test config's widths, on the card and on the CPU from
+    the same seeded float32 parameters, buffers and draws: the card's loss
+    within the larger of BF16_LOSS_BAR and twice the CPU's own bf16 error
+    of the loss (relative to the CPU's bf16 loss), the card's output within
+    twice the CPU's own bf16 error (its distance from the CPU's float32
+    output), the parameters float32."""
+    from vsr_tpu_torch import tune
+    from vsr_tpu_torch.data.datasets import misr_target_index
+    from vsr_tpu_torch.runner.device_trainer import epoch_draws
+    from vsr_tpu_torch.utils.rng import RngTree
+
+    res = {}
+    cpu = torch.device("cpu")
+    for name, (kwargs, factor, shape, misr) in BF16_NETS.items():
+        bufs = tune._train_buffers(name, shape, factor)
+        if misr:
+            bufs = (bufs[0], np.ascontiguousarray(
+                bufs[1][:, misr_target_index(shape[1])]))
+        draws = epoch_draws(RngTree("vsr"), 1, torch.from_numpy(bufs[0]), 1,
+                            BF16_BATCH, BF16_PATCH)
+        runs = {(d.type, dtype): bf16_train_step(name, kwargs, factor, bufs,
+                                                 d, dtype, draws)
+                for d, dtype in ((dev, "bfloat16"), (cpu, "bfloat16"),
+                                 (cpu, None))}
+        on_card, on_cpu, f32 = (runs[(dev.type, "bfloat16")],
+                                runs[("cpu", "bfloat16")], runs[("cpu", None)])
+        rel = abs(on_card[0] - on_cpu[0]) / abs(on_cpu[0])
+        own = abs(on_cpu[0] - f32[0]) / abs(on_cpu[0])
+        bar = max(BF16_LOSS_BAR, 2 * own)
+        envelope = (on_cpu[1] - f32[1]).abs().max().item()
+        err = (on_card[1] - on_cpu[1]).abs().max().item()
+        res[name] = {"card_loss": on_card[0], "cpu_loss": on_cpu[0],
+                     "f32_cpu_loss": f32[0], "rel": rel,
+                     "cpu_bf16_loss_error": own, "loss_bar": bar,
+                     "output_err": err, "cpu_bf16_error": envelope}
+        log(f"  {name} bf16{' carry_f32' if kwargs.get('carry_f32') else ''}"
+            f" at its config's widths (batch {BF16_BATCH}, LR "
+            f"{BF16_PATCH}^2): loss card {on_card[0]:.6f}, CPU "
+            f"{on_cpu[0]:.6f}, relative {rel:.2e} (bar {bar:.2e}: the CPU's "
+            f"own bf16 error {own:.2e}, CPU float32 {f32[0]:.6f}); output "
+            f"card vs CPU {err:.3g} against the CPU's own bf16 error "
+            f"{envelope:.3g}; parameters float32 [{card}]")
+        if rel > bar or err > 2 * envelope:
+            raise SystemExit(f"{name} bf16: card and CPU differ (loss "
+                             f"{rel:.2e}, bar {bar:.2e}; output {err:.3g}, "
+                             f"bar {2 * envelope:.3g})")
+    return res
+
+
+def phase_presets(tmp: Path, card: str, dev) -> dict:
+    """Phase 16: 16a the W8A8 kernel on both deconv banks; 16b infer
+    ``--preset tuned`` / ``fast`` against no preset on one 192 x 192 x 10 x
+    30 volume (EDSRNet, DUFNet with K2, DRFNet with K1, MoEEDSRNet with K3)
+    and ``--preset fast`` through export and the daemon; 16c / 16d the
+    tuner; 16e one bf16 train step of each net moved onto the policy."""
+    res: dict = {"seconds_by_step": {}}
+    t0 = time.perf_counter()
+    log("phase 16a: W8A8 on the transposed convs' sub-pixel banks "
+        "(quantize_deconvs)")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    res["deconv"] = {}
+    for name in DECONV_SHAPES:
+        row = res["deconv"][name] = deconv_bank_case(name, dev, gen)
+        log(f"  {name} x {row['x']} bank {row['bank']} "
+            f"{plan_text(row['plan'])}: int32 bit-equal to its twin and to "
+            f"the int8 transposed conv, outputs err {row['max_abs_err']:.3g}; "
+            f"kernel {row['ms']:.3f} ms (the deconv "
+            f"with its shuffle {row['deconv_ms']:.3f}), bound "
+            f"{row['bound_ms']:.4f} by {row['bound_by']} (int8 operations "
+            f"{row['int8_ops_ms']:.4f}), twin {row['plain_ms']:.3f}, cuDNN "
+            f"transposed conv f32 {row['cudnn_f32_ms']:.3f} / bf16 "
+            f"{row['cudnn_bf16_ms']:.3f} [{card}]")
+    res["seconds_by_step"]["16a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 16b: infer --preset tuned / fast against no preset")
+    frames = quality_volume()
+    runs = res["runs"] = {}
+    for key in PRESET_RUNS:
+        base = preset_run(key, None, frames, dev, card)
+        runs[key] = {"none": base,
+                     "tuned": preset_run(key, "tuned", frames, dev, card,
+                                         base),
+                     "fast": preset_run(key, "fast", frames, dev, card, base)}
+        torch.cuda.empty_cache()
+    res["routes"] = presets_routes(tmp, frames, runs["edsr"]["fast"], card,
+                                   dev)
+    for by_preset in runs.values():
+        for run in by_preset.values():
+            run.pop("sr")
+            run.pop("scales")
+    res["seconds_by_step"]["16b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 16c / 16d: the tuner (serving at full geometry, --train)")
+    res["tune"] = presets_tune(tmp, card, dev)
+    res["seconds_by_step"]["16cd"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 16e: one bf16 train step of each net moved onto the "
+        "precision policy, card vs CPU")
+    res["bf16_nets"] = bf16_nets_card_vs_cpu(card, dev)
+    res["seconds_by_step"]["16e"] = time.perf_counter() - t0
+    return res
+
+
+def presets_summary(pr: dict) -> dict:
+    """Phase 16's launches a volume by kernel and preset, and the W8A8
+    deconv banks' rows, for the kernels line."""
+    launches = {f"{key}_{preset}": {k: v for k, v in run["launches"].items()
+                                     if v}
+                for key, by_preset in pr["runs"].items()
+                for preset, run in by_preset.items()}
+    return {"launches": launches,
+            "deconv": {name: {k: row[k] for k in (
+                "x", "bank", "ms", "deconv_ms", "plain_ms", "bound_ms",
+                "bound_by", "cudnn_f32_ms", "cudnn_bf16_ms")}
+                for name, row in pr["deconv"].items()}}
+
+
+# --preset-table: the sweep behind vsr_tpu_torch/presets.py's table (a
+# measurement run of its own, not part of the smoke run). Each registered
+# net at its test config's width: net -> (kwargs, factor, tune's mode
+# flags, the W8A8 form the fast level would take ("lazy": infer's first-
+# batch calibration; "scales": callback scales, the loop-body convs), the
+# chunk grid).
+TABLE_NETS = {
+    "Bicubic": ({"upscale_factor": FACTOR}, FACTOR, [], None, "0,100"),
+    "EDSRNet": (EDSR_KWARGS, FACTOR, [], "lazy", "0,100"),
+    "MoEEDSRNet": (dict(MOE_KWARGS, router_impl="rank_pallas"), FACTOR, [],
+                   "lazy", "0,100"),
+    "SRFBNet": (SRFB_KWARGS, FACTOR, [], "scales", "0,60"),
+    "DRFSISRNet": (dict(SRFB_KWARGS, fused_squeeze=True), FACTOR, [],
+                   "scales", "0,60"),
+    "DRFNet": (dict(DRF_KWARGS, fused_squeeze=True), FACTOR,
+               ["--video-t", str(T_FRAMES)], "scales", "0"),
+    "FRVSRNet": (dict(in_channels=1, out_channels=1, upscale_factor=4,
+                      num_resblocks=10), 4, ["--video-t", str(T_FRAMES)],
+                 "scales", "0"),
+    "TOFlowNet": (dict(in_channels=1, out_channels=1, num_frames=5,
+                       upscale_factor=FACTOR), FACTOR,
+                  ["--windows", "5", "--seq-t", str(T_FRAMES)], "lazy",
+                  "0,30,100"),
+    "DUFNet": (dict(DUF_KWARGS, use_pallas_filter=True), FACTOR,
+               ["--windows", "7", "--seq-t", str(T_FRAMES)], "lazy",
+               "0,30,100"),
+    "RBPNet": (RBPN_KWARGS, FACTOR,
+               ["--windows", "5", "--seq-t", str(T_FRAMES)], "lazy",
+               "0,30,100"),
+    "EDVRNet": (EDVR_KWARGS, 4,
+                ["--windows", "5", "--seq-t", str(T_FRAMES)], "lazy",
+                "0,30,100"),
+    "Volume3DSRNet": (dict(in_channels=1, out_channels=1, num_features=32,
+                           num_resblocks=8, upscale_factor=FACTOR), FACTOR,
+                      ["--seq-t", str(T_FRAMES)], "lazy", "0,10"),
+    "Volume4DSRNet": (VOL4D_KWARGS, FACTOR, ["--seq-t", str(T_FRAMES)],
+                      "scales", "0"),
+}
+
+
+def table_w8a8(net_name: str, kwargs: dict, factor: int, flags: list,
+               form: str, entry: dict, frames: np.ndarray, dev,
+               card: str) -> dict:
+    """The W8A8 on / off run of one net: its tuned knobs (``entry``), on a
+    low-passed 192 x 192 x 10 x 30 volume, without and with W8A8 in the
+    form its fast level would take; frames/s (a warm-up volume, then the
+    median of two), PSNR against the HR input."""
+    from vsr_tpu_torch import quantize
+    from vsr_tpu_torch.infer import (build_serving_net, make_pipeline,
+                                     make_prep, resolve_volume)
+
+    kw = dict(kwargs, **entry.get("net_kwargs", {}))
+    opt = dict(zip(flags[::2], flags[1::2]))
+    video_t = int(opt.get("--video-t", 0))
+    windows = int(opt.get("--windows", 0))
+    seq_t = int(opt.get("--seq-t", 0))
+    volume = resolve_volume(net_name, seq_t=seq_t, chunk=entry["chunk"],
+                            n_frames=len(frames), exc=SystemExit)
+    window = (windows, seq_t, "middle") if windows else None
+    mode = dict(video_t=video_t, window=window, volume=volume,
+                chunk=entry["chunk"])
+    res = {}
+    for name in ("off", "on"):
+        net = build_serving_net(net_name, kw, device=dev)
+        w8a8 = False
+        if name == "on" and form == "lazy":
+            w8a8 = True
+        elif name == "on":
+            z = make_prep(factor, "acdc", video_t, window, volume)(
+                torch.from_numpy(frames).to(dev))[1]
+            w8a8 = quantize.calibrate_w8a8(
+                net, [z[:entry["chunk"]] if entry["chunk"] else z],
+                method="callback")
+            del z
+        pipe = make_pipeline(net, factor, "acdc", w8a8=w8a8, **mode)
+        pipe(torch.from_numpy(frames).to(dev))
+        reset_launches()
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            sr = pipe(torch.from_numpy(frames).to(dev))[1].cpu().numpy()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        res[name] = {"frames_per_s": len(frames) / ms * 1e3,
+                     "psnr": psnr(sr, frames),
+                     "w8a8_launches": quant_launches()["w8a8_conv"] // 2}
+        del net, pipe
+        torch.cuda.empty_cache()
+    res["speed"] = res["on"]["frames_per_s"] / res["off"]["frames_per_s"]
+    res["psnr_delta"] = res["on"]["psnr"] - res["off"]["psnr"]
+    log(f"  {net_name} W8A8 ({form}) on / off at {entry}: "
+        f"{res['on']['frames_per_s']:.1f} / {res['off']['frames_per_s']:.1f}"
+        f" frames/s = {res['speed']:.3f}x, PSNR {res['on']['psnr']:.3f} / "
+        f"{res['off']['psnr']:.3f} dB, {res['on']['w8a8_launches']} "
+        f"w8a8_conv launches a volume [{card}]")
+    return res
+
+
+def phase_preset_table(tmp: Path, card: str, dev, nets: list) -> dict:
+    """The preset sweep: for each net ``python -m vsr_tpu_torch.tune`` at
+    (300, 192, 192) (Volume4DSRNet with and without ``hoist_tail``), then
+    the W8A8 on / off run at the winning knobs."""
+    from vsr_tpu_torch import tune
+
+    frames = quality_volume()
+    res = {}
+    for net_name in nets:
+        kwargs, factor, flags, form, grid = TABLE_NETS[net_name]
+        t0 = time.perf_counter()
+        variants = ([{"hoist_tail": False}, {"hoist_tail": True}]
+                    if net_name == "Volume4DSRNet" else [{}])
+        rows, best = [], None
+        for extra in variants:
+            file = tmp / f"tune_{net_name}.json"
+            out = tune.main(["--net", net_name, "--net-kwargs",
+                             json.dumps(dict(kwargs, **extra)), "--factor",
+                             str(factor), "--shape",
+                             f"{FULL_SLICES * T_FRAMES},{HR},{HR}",
+                             "--chunk-grid", grid, "--repeats", "2",
+                             "--out", str(file), *flags])
+            bad = [r for r in out["measured"] if "error" in r]
+            if bad:  # a table entry rests on the whole sweep or on none
+                raise SystemExit(f"tune {net_name} {extra}: rows with an "
+                                 f"error {bad}")
+            rows += [dict(r, **extra) for r in out["measured"]]
+            if best is None or out["best_volumes_per_sec"] > best[0]:
+                entry = out["presets"][net_name]
+                if extra:
+                    entry.setdefault("net_kwargs", {}).update(extra)
+                best = (out["best_volumes_per_sec"], entry)
+            torch.cuda.empty_cache()
+        row = res[net_name] = {"rows": rows, "entry": best[1],
+                               "best_volumes_per_sec": best[0]}
+        log(f"  tune {net_name}: " + ", ".join(
+            f"{ {k: v for k, v in r.items() if k != 'volumes_per_sec'} }"
+            f" {r['volumes_per_sec']}" for r in rows)
+            + f"; best {best[1]} at {best[0]} volumes/s [{card}]")
+        if form:
+            row["w8a8"] = table_w8a8(net_name, kwargs, factor, flags, form,
+                                     best[1], frames, dev, card)
+            row["w8a8"]["form"] = form
+        row["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="",
@@ -5241,6 +5940,16 @@ def main() -> int:
     parser.add_argument("--feedback", action="store_true",
                         help="only build, write phase 7's tree and run phase "
                              "15 (the feedback family and the MoE routers)")
+    parser.add_argument("--presets", action="store_true",
+                        help="only build and run phase 16 (W8A8 deconvs, "
+                             "the serving presets, the tuner, bf16 training "
+                             "of the nets moved onto the precision policy)")
+    parser.add_argument("--preset-table", dest="preset_table", nargs="*",
+                        default=None, metavar="NET",
+                        help="only build and run the sweep behind "
+                             "vsr_tpu_torch/presets.py's table (tune and "
+                             "W8A8 on / off) for these nets (all without "
+                             "names); writes it to --out")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5320,6 +6029,28 @@ def main() -> int:
             "ema_infer_launches": knobs["ema_infer"]["launches"],
             "qat_w8a8_launches": knobs["qat"]["launches"]}}), flush=True)
         return 0
+    if args.presets or args.preset_table is not None:
+        with tempfile.TemporaryDirectory() as tmp:
+            if args.presets:
+                results = {"card": smi, "presets": phase_presets(
+                    Path(tmp), card, dev)}
+            else:
+                results = {"card": smi, "preset_table": phase_preset_table(
+                    Path(tmp), card, dev, args.preset_table or list(
+                        TABLE_NETS))}
+        results["seconds"] = time.perf_counter() - started
+        log(f"  chip_smoke took {results['seconds']:.1f} s [{card}]")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(results, indent=1))
+        if args.presets:
+            print(json.dumps({"presets": presets_summary(
+                results["presets"])}), flush=True)
+        else:
+            print(json.dumps({"preset_table": {
+                k: {"entry": v["entry"], "w8a8": v.get("w8a8")}
+                for k, v in results["preset_table"].items()}}), flush=True)
+        return 0
     if args.feedback:
         with tempfile.TemporaryDirectory() as tmp:
             log("phase 7a: the synthetic processed tree")
@@ -5392,6 +6123,13 @@ def main() -> int:
         feedback = phase_feedback(Path(tmp), tree, card, dev)
         feedback["seconds"] = time.perf_counter() - t0
         log(f"  phase 15 took {feedback['seconds']:.1f} s [{card}]")
+        log("phase 16: W8A8 deconvs (quantize_deconvs), infer --preset "
+            "tuned / fast with export and the daemon, the tuner, bf16 "
+            "training of the seven nets moved onto the precision policy")
+        t0 = time.perf_counter()
+        presets = phase_presets(Path(tmp), card, dev)
+        presets["seconds"] = time.perf_counter() - t0
+        log(f"  phase 16 took {presets['seconds']:.1f} s [{card}]")
         results = {"card": smi, "build_seconds": build_s,
                    "kernel": {"concat_conv1x1": k1,
                               "concat_conv1x1_backward": k1_bwd,
@@ -5400,7 +6138,8 @@ def main() -> int:
                    "training": training, "slice_training": sliced,
                    "volumes": volumes, "device_epochs": device,
                    "deployment": deploy, "quantized": quant,
-                   "knobs": knobs, "feedback": feedback}
+                   "knobs": knobs, "feedback": feedback,
+                   "presets": presets}
         if args.profile:
             log("phase 8: torch.profiler traces")
             results["profile"] = phase_profile(dev)
@@ -5425,6 +6164,13 @@ def main() -> int:
 
     def launches(key):
         return paths[key]["cli"]["runs"]["on"]["launches"]
+
+    pr = presets_summary(presets)
+
+    def preset_launches(kernel):
+        """Phase 16b: the kernel's launches a volume under each run."""
+        return {run: n[kernel] for run, n in pr["launches"].items()
+                if kernel in n}
 
     def routes(key):
         """A path's launches through phase 12's routes: its artifact (one
@@ -5513,6 +6259,8 @@ def main() -> int:
         # Phase 15: the feedback family's launches (per train step, per
         # validation pass and per volume on each route).
         "feedback_launches": feedback_summary(feedback)["concat_conv1x1"],
+        # Phase 16b: DRFNet under --preset tuned / fast, a volume.
+        "preset_launches": preset_launches("concat_conv1x1"),
     }, {
         # K1's weight and bias gradient (the JAX package computes them in
         # XLA, inside _bwd, so the line it replaces is no Pallas kernel): one
@@ -5554,6 +6302,7 @@ def main() -> int:
         "train_launches": sliced["duf"]["launches"],
         "test_launches": sliced["duf"]["test"]["launches"],
         **routes("duf"),
+        "preset_launches": preset_launches("duf_dynamic_filter"),
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -5573,6 +6322,7 @@ def main() -> int:
         # Phase 15c: a volume under each router and dispatch (the sort and
         # radix routers replace the rank: 0).
         "feedback_launches": feedback_summary(feedback)["pairwise_rank"],
+        "preset_launches": preset_launches("pairwise_rank"),
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
@@ -5605,6 +6355,11 @@ def main() -> int:
         "library_ms": qmain["library_ms"],
         "bf16_ms": qmain["bf16_ms"], "bf16_bound_ms": qmain["bf16_bound_ms"],
         "cudnn_bf16_ms": qmain["cudnn_bf16_ms"],
+        # Phase 16b: --preset fast (W8A8 where the table says so), a volume.
+        "preset_launches": preset_launches("w8a8_conv"),
+        # Phase 16a: the transposed convs' sub-pixel banks
+        # (quantize_deconvs), float32 in and out, dynamic scale.
+        "deconv": pr["deconv"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -162,19 +162,24 @@ _REFUSED_FLAGS = [
     (infer, ["--ema"], "--ema needs --checkpoint"),
     (infer, ["--bucket-t", "8"],
      "--bucket-t is refused by vsr_tpu_torch.*runs eagerly"),
-    (infer, ["--preset-file", "tuned.json"],
-     "--preset-file is not yet ported.*not measured on this card"),
-    (export, ["--preset", "fast"],
-     "--preset is not yet ported.*W8A8, is no faster here"),
-    (export, ["--preset-file", "tuned.json"],
-     "--preset-file is not yet ported.*not measured on this card"),
+    # A preset file naming a knob the port refuses for good.
+    (infer, ["--preset-file", "volumes.json"],
+     "--preset-file: .*EDSRNet.volumes_per_call is refused.*one volume"),
+    (export, ["--preset-file", "unroll.json"],
+     "--preset-file: .*EDSRNet.net_kwargs.unroll is refused.*lax.scan"),
 ]
 
 
 def _case_cli_refuses_jax_flags_by_name(tmp_path, rng):
     """Each flag parses, then stops the CLI with its reason: a message
     exit (status 1), not argparse's usage error (status 2)."""
+    (tmp_path / "volumes.json").write_text(json.dumps(
+        {"presets": {"EDSRNet": {"volumes_per_call": 4}}}))
+    (tmp_path / "unroll.json").write_text(json.dumps(
+        {"EDSRNet": {"net_kwargs": {"unroll": 2}}}))
     for module, flags, match in _REFUSED_FLAGS:
+        flags = [str(tmp_path / f) if f.endswith(".json") else f
+                 for f in flags]
         argv = ([str(tmp_path), str(tmp_path / "o"), "--device", "cpu"]
                 if module is infer else
                 ["--net", "EDSRNet", "--net-kwargs", json.dumps(EDSR_KW),
@@ -183,6 +188,49 @@ def _case_cli_refuses_jax_flags_by_name(tmp_path, rng):
             module.main([*argv, *flags])
         assert isinstance(err.value.code, str), (flags, err.value.code)
     assert not (tmp_path / "x.zip").exists()
+
+
+def _case_cli_takes_presets(tmp_path, rng):
+    """``export --preset`` and ``--preset-file`` (a file written as the
+    tuner writes one; alone it implies ``--preset tuned``) bake the knobs
+    into the artifact, explicit flags winning; ``infer --preset-file``
+    serves with the file's knobs."""
+    from vsr_tpu_torch.presets import SERVING_PRESETS
+
+    tuned = tmp_path / "tuned.json"
+    tuned.write_text(json.dumps({"presets": {"EDSRNet": {
+        "chunk": 4, "net_kwargs": {"fused_tail": True}}}, "measured": []}))
+    argv = ["--net", "EDSRNet", "--net-kwargs", json.dumps(EDSR_KW),
+            "--shape", "6,24,24", "--device", "cpu"]
+    for name, flags, chunk, fused in (
+            ("file", ["--preset-file", str(tuned)], 4, True),
+            ("file_and_flag", ["--preset-file", str(tuned), "--chunk", "2"],
+             2, True),
+            ("fast", ["--preset", "fast"],
+             SERVING_PRESETS["EDSRNet"].get("chunk", 0),
+             SERVING_PRESETS["EDSRNet"].get("net_kwargs", {}).get(
+                 "fused_tail"))):
+        art = tmp_path / f"{name}.pt2.zip"
+        export.main([*argv, *flags, "--out", str(art)])
+        meta = export.ExportedServing(art, device="cpu").meta
+        assert meta["chunk"] == chunk, (name, meta["chunk"])
+        assert meta["net_kwargs"].get("fused_tail") == fused, name
+        # Without --calib the fast level's W8A8 is skipped with a note.
+        assert meta["w8a8_convs"] == 0, name
+    src = tmp_path / "in"
+    nifti.save_nifti(np.round(rng.random((24, 24, 1, 3)) * 255).astype(
+        np.float32), src / "p1" / "p1_4d.nii")
+    stats = infer.main([str(src), str(tmp_path / "out"), "--device", "cpu",
+                        "--net", "EDSRNet", "--net-kwargs",
+                        json.dumps(EDSR_KW), "--preset-file", str(tuned)])
+    assert stats["frames"] == 3
+    args = infer.parse_args([str(src), "o", "--net", "EDSRNet",
+                             "--preset-file", str(tuned)])
+    from vsr_tpu_torch.presets import apply_cli_preset
+
+    apply_cli_preset(args)
+    assert (args.preset, args.chunk) == ("tuned", 4)
+    assert json.loads(args.net_kwargs) == {"fused_tail": True}
 
 
 def _case_cli_defaults_to_edsr(tmp_path, rng):
@@ -235,4 +283,5 @@ def test_refusals_and_cli(tmp_path, rng):
     run_cases([(c.__name__, lambda c=c: c(subdir(tmp_path, c.__name__), rng))
                for c in (_case_refusals, _case_cli_export_and_run,
                          _case_cli_refuses_jax_flags_by_name,
+                         _case_cli_takes_presets,
                          _case_cli_defaults_to_edsr)])

@@ -406,8 +406,7 @@ def test_refusals_keep_their_reasons():
                 (lambda: DRFSISRNet(**SISR, dtype="bfloat16", carry_f32=True,
                                     fused_squeeze=True), "fused_squeeze"),
                 (lambda: SRFBNet(**SISR, dtype="bfloat16", carry_f32=True,
-                                 fused_squeeze=True), "fused_squeeze"),
-                (lambda: FRVSRNet(1, 1, 2, carry_f32=True), "bf16 mode")):
+                                 fused_squeeze=True), "fused_squeeze")):
             with pytest.raises(NotImplementedError, match=match):
                 make()
         # Without a low-precision dtype carry_f32 is a no-op, as in JAX,
@@ -415,6 +414,9 @@ def test_refusals_keep_their_reasons():
         assert not DRFSISRNet(**SISR, carry_f32=True, **EXPERTS).carry_f32
         for make, kw in ((DRFNet, F8), (DRFSISRNet, SISR), (SRFBNet, SISR)):
             assert not make(**kw, carry_f32=True, fused_squeeze=True).carry_f32
+        # FRVSRNet's carry_f32 is ported with its bf16 policy.
+        assert not FRVSRNet(1, 1, 2, carry_f32=True).carry_f32
+        assert FRVSRNet(1, 1, 2, dtype="bfloat16", carry_f32=True).carry_f32
         with pytest.raises(ValueError, match="radix_bits=0"):
             moe.ExpertChoiceMoE(8, 2, router_impl="radix",
                                 dispatch_impl="dense", radix_bits=0)

@@ -78,6 +78,18 @@ def test_frvsr_x3_tail_matches_jax(rng):
     (dict(unroll=2), "unroll"),
     (dict(carry_f32=True), "carry_f32")])
 def test_frvsr_refuses_tpu_knobs_by_name(kw, match):
+    if match == "carry_f32":
+        # Ported with the bf16 policy: a no-op without a bf16 dtype, as in
+        # JAX; with one the final SR conv emits float32.
+        assert not FRVSRNet(1, 1, 4, **kw).carry_f32
+        net = FRVSRNet(1, 1, 4, num_resblocks=1, dtype="bfloat16", **kw)
+        assert net.carry_f32
+        assert {p.dtype for p in net.parameters()} == {torch.float32}
+        with torch.no_grad():
+            sr, warped = net(torch.zeros(1, 2, 1, 8, 8))
+        assert sr.dtype == torch.float32 and sr.shape == (1, 2, 1, 32, 32)
+        assert warped.dtype == torch.float32
+        return
     with pytest.raises(NotImplementedError, match=match):
         FRVSRNet(1, 1, 4, **kw)
     assert FRVSRNet.serving_mode == "video"

@@ -47,9 +47,11 @@ def _operands(rng, dev, channels, f, n=2, h=9, w=13):
 # Ragged shapes on purpose: channel counts off the 32-channel K step, F off
 # the 64-channel tile, pixel counts off the 128-pixel tile and off the
 # 16-byte vector (9 x 13 pixels: the kernel's element-wise loads).
-@pytest.mark.parametrize("channels,f", [((64, 64), 64), ((3, 17, 40), 70),
-                                        ((64,) * 8, 64), ((5,), 1)])
-def test_kernel_matches_twin_f32(rng, dev, channels, f):
+TWIN_F32 = [((64, 64), 64), ((3, 17, 40), 70), ((64,) * 8, 64), ((5,), 1)]
+TWIN_BF16 = [((64, 64, 64), 64), ((7, 33), 20)]
+
+
+def _case_twin_f32(rng, dev, channels, f):
     xs, w, b = _operands(rng, dev, channels, f)
     before = fs.concat_conv1x1.launches
     with torch.inference_mode():
@@ -61,8 +63,7 @@ def test_kernel_matches_twin_f32(rng, dev, channels, f):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("channels,f", [((64, 64, 64), 64), ((7, 33), 20)])
-def test_kernel_matches_twin_bf16(rng, dev, channels, f):
+def _case_twin_bf16(rng, dev, channels, f):
     xs, w, b = _operands(rng, dev, channels, f)
     xs16 = [x.bfloat16() for x in xs]
     with torch.inference_mode():
@@ -73,6 +74,16 @@ def test_kernel_matches_twin_bf16(rng, dev, channels, f):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want, rtol=8e-3, atol=1e-4)
+
+
+def test_kernel_matches_twin_f32(rng, dev):
+    """The f32 and bf16 twin cases, grouped, each run and each failure
+    named (ROADMAP.md, queue 3)."""
+    run_cases(
+        [(f"f32_{c}_{f}", lambda c=c, f=f: _case_twin_f32(rng, dev, c, f))
+         for c, f in TWIN_F32]
+        + [(f"bf16_{c}_{f}", lambda c=c, f=f: _case_twin_bf16(rng, dev, c, f))
+           for c, f in TWIN_BF16])
 
 
 # name -> channels, F, N, H, W. 16-byte copies need H*W*itemsize % 16 == 0.
@@ -499,6 +510,65 @@ def test_device_epoch_graph_equals_eager(rng, dev, tmp_path):
         assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
                    for p in trainer.net.parameters())
     torch.testing.assert_close(logs[True], logs[False], rtol=1e-5, atol=0)
+
+
+def test_device_trainers_capture_one_after_another(dev):
+    """Device trainers built one after another in one process, as the
+    tuner's rows are: each earlier trainer is garbage of a reference cycle
+    (its engine's step refers back to it) when the next one captures, with
+    the collector set to run at nearly every allocation. A collection
+    inside a capture that frees those graphs would invalidate it, so the
+    collector is off for each capture and on for the eager steps; the last
+    trainer is a bf16 Volume4DSRNet with ``remat`` and ``carry_f32``."""
+    import gc
+
+    from vsr_tpu_torch.losses import L1Loss
+    from vsr_tpu_torch.models import Volume4DSRNet
+    from vsr_tpu_torch.runner.device_trainer import (WARMUP_STEPS,
+                                                     DeviceEpochTrainer)
+
+    class Probe(L1Loss):
+        """The L1 loss, noting whether the collector was on at each call."""
+
+        def __init__(self, seen):
+            super().__init__()
+            self.seen = seen
+
+        def forward(self, output, target):
+            self.seen.append(gc.isenabled())
+            return super().forward(output, target)
+
+    data = np.random.default_rng(0)
+    hr = np.round(data.random((4, 3, 1, 4, 32, 32)) * 255).astype(np.float32)
+    lr = np.ascontiguousarray(hr[..., ::2, ::2])
+    steps = WARMUP_STEPS + 2
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        for dtype in (None, None, "bfloat16"):
+            kw = dict(dtype=dtype, carry_f32=True) if dtype else {}
+            net = Volume4DSRNet(1, 1, num_features=8, num_resblocks=2,
+                                remat=True, device=dev,
+                                generator=torch.Generator().manual_seed(0),
+                                **kw)
+            seen = []
+            trainer = DeviceEpochTrainer(
+                net, [Probe(seen)], [1.0], [],
+                torch.optim.Adam(net.parameters(), lr=1e-4), lr, hr,
+                batch_size=2, patch=8, ratio=2, steps_per_epoch=steps,
+                device=dev)
+            out = trainer.train_epoch()
+            torch.cuda.synchronize()
+            assert (trainer.engine.captures, trainer.engine.replays) == (
+                1, steps - WARMUP_STEPS)
+            assert seen == [True] * WARMUP_STEPS + [False], seen
+            assert gc.isenabled()
+            assert np.isfinite(out["Loss"])
+            assert torch.isfinite(trainer.engine.log).all()
+            assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+                       for p in trainer.net.parameters())
+    finally:
+        gc.set_threshold(*thresholds)
 
 
 # ------------------------------------------------------------------ K3 rank
@@ -1317,3 +1387,80 @@ def test_feedback_family_and_routers_on_the_card(rng, dev):
          lambda: _case_moe_routers_on_the_card(rng, dev)),
         ("_case_feedback_frame_serving_on_the_card",
          lambda: _case_feedback_frame_serving_on_the_card(rng, dev))])
+
+
+def _case_w8a8_deconv_banks(rng, dev):
+    """The W8A8 kernel on both transposed-conv banks of the zoo (k6 s2 p2,
+    k8 s4 p2; 64 -> 64): int32 accumulators bit-equal to the twin's and to
+    the unfused int8 transposed conv, the served deconv equal to the
+    twin's, one launch a call."""
+    import torch.nn.functional as F
+
+    from vsr_tpu_torch import quantize
+    from vsr_tpu_torch.models.common import ConvTranspose
+    from vsr_tpu_torch.ops import w8a8_conv as wc
+
+    torch.manual_seed(0)
+    for k, s, p, side in ((6, 2, 2, 24), (8, 4, 2, 12)):
+        mod = ConvTranspose(64, 64, k, s, p).to(dev)
+        x = torch.from_numpy(rng.standard_normal((2, 64, side, side)).astype(
+            np.float32)).to(dev)
+        bank = quantize.deconv_bank(mod)
+        pad = bank["padding"][0]
+        args = (x, bank["weight"], bank["bias"], None, (1, 1), (pad, pad), 1)
+        kw = dict(weight_scale=bank["weight_scale"])
+        with torch.inference_mode():
+            before = wc.w8a8_conv.launches
+            acc = wc.w8a8_conv(*args, out_dtype=torch.int32, **kw)
+            assert wc.w8a8_conv.launches == before + 1
+            assert torch.equal(acc, wc.w8a8_conv_reference(
+                *args, out_dtype=torch.int32, **kw))
+            xs = wc.dynamic_scale(x)
+            xq = wc.quantize_activations(x, xs)
+            wq, _ = wc.quantize_weight(mod.weight.transpose(0, 1))
+            unfused = F.conv_transpose2d(xq.double(),
+                                         wq.transpose(0, 1).double(), None,
+                                         s, p).to(torch.int32)
+            assert torch.equal(F.pixel_shuffle(acc, s), unfused)
+            got = quantize._w8a8_deconv(mod, x, None)
+            want = F.pixel_shuffle(wc.w8a8_conv_reference(*args, **kw), s)
+            assert (got - want).abs().max().item() <= 1e-6 * want.abs().max()
+
+
+def _case_infer_preset_fast(tmp_path, dev):
+    """``infer --preset fast`` on a small EDSRNet: the preset's knobs,
+    W8A8 launched where the card's table sets it, PSNR within 0.5 dB of
+    the run without a preset."""
+    import json
+
+    from vsr_tpu_torch import infer
+    from vsr_tpu_torch.io import nifti
+    from vsr_tpu_torch.ops import w8a8_conv as wc
+    from vsr_tpu_torch.presets import SERVING_PRESETS
+
+    yy, xx = np.mgrid[:48, :48]
+    vol = (120 + 80 * np.sin(yy / 5.0)[..., None, None]
+           * np.cos(xx / 7.0)[..., None, None]) * np.ones((1, 1, 2, 4))
+    nifti.save_nifti(vol.astype(np.float32), tmp_path / "in" / "p" / "p.nii")
+    kw = dict(in_channels=1, out_channels=1, num_resblocks=2, num_features=32,
+              upscale_factor=2)
+    stats = {}
+    for preset in ("", "fast"):
+        before = wc.w8a8_conv.launches
+        stats[preset] = infer.main(
+            [str(tmp_path / "in"), str(tmp_path / f"out{preset}"), "--psnr",
+             "--net", "EDSRNet", "--net-kwargs", json.dumps(kw), "--device",
+             str(dev)] + (["--preset", preset] if preset else []))
+        stats[preset]["launches"] = wc.w8a8_conv.launches - before
+    lazy = SERVING_PRESETS["EDSRNet"].get("w8a8") == "lazy"
+    assert (stats["fast"]["launches"] > 0) == lazy
+    assert stats[""]["launches"] == 0
+    assert abs(stats["fast"]["psnr_mean"] - stats[""]["psnr_mean"]) < 0.5
+
+
+def test_w8a8_deconvs_and_presets_on_the_card(rng, dev, tmp_path):
+    run_cases([
+        ("w8a8_deconv_banks", lambda: _case_w8a8_deconv_banks(rng, dev)),
+        ("infer_preset_fast", lambda: _case_infer_preset_fast(
+            subdir(tmp_path, "preset"), dev)),
+    ])

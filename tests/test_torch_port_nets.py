@@ -303,8 +303,10 @@ def test_seeded_init_of_the_new_nets_is_deterministic():
     (lambda: MoEEDSRNet(1, 1, 2, 8, 2, num_experts=2, group_size=32,
                         router_impl="rank_pallas", dtype=torch.bfloat16),
      (2, 1, 8, 8), torch.bfloat16),
+    # The filters meet the raw (float32) centre frame in their promotion,
+    # so the output is float32, as in the JAX net.
     (lambda: DUFNet(1, 1, 7, 3, 2, dtype="bfloat16"), (2, 7, 1, 8, 8),
-     torch.bfloat16),
+     torch.float32),
     # The fused filter op casts to float32 and returns float32, so the sum
     # with the bf16 residual promotes, as in the JAX net.
     (lambda: DUFNet(1, 1, 7, 3, 2, dtype="bfloat16", use_pallas_filter=True),
@@ -312,10 +314,9 @@ def test_seeded_init_of_the_new_nets_is_deterministic():
 ])
 def test_new_nets_serve_in_bf16(rng, make, shape, out_dtype):
     net = make().eval()
-    # EDSRNet follows the precision policy (float32 parameters, bf16
-    # compute); the MoE and DUF nets still hold their parameters in bf16.
-    assert {p.dtype for p in net.parameters()} == (
-        {torch.float32} if isinstance(net, EDSRNet) else {torch.bfloat16})
+    # Every net follows the precision policy: float32 parameters, bf16
+    # compute.
+    assert {p.dtype for p in net.parameters()} == {torch.float32}
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     with torch.no_grad():
         out = net(x)

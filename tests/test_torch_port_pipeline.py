@@ -268,16 +268,40 @@ def test_pipeline_refuses_bad_mode_combinations(kw, match):
 
 @pytest.mark.parametrize("flag,match", [
     (["--checkpoint", "m.ckpt"], "--checkpoint: no such file"),
-    (["--preset", "fast"], "not yet ported"),
+    (["--preset", "fast"], None),
     (["--mesh", "data=4,spatial=2"], "not yet ported"),
     (["--mesh", "data=2"], "not yet ported"),
     (["--windows", "5"], "mutually exclusive"),
     (["--chunk", "4"], "already sequence-batched"),
-    (["--preset", "tuned"], "not yet ported")])
+    (["--preset", "tuned"], None)])
 def test_cli_refuses_unported_flags(tmp_path, flag, match):
+    argv = [str(tmp_path), str(tmp_path / "o"), "--video", "--device", "cpu",
+            *flag]
+    if match is None:
+        # --preset is ported: main fills the knobs the user left at their
+        # defaults from the card's table (a DRFNet entry: whole-sequence
+        # serving), explicit flags win, and the volume is served.
+        from vsr_tpu_torch.presets import SERVING_PRESETS, apply_cli_preset
+
+        kw = {"in_channels": 1, "out_channels": 1, "num_features": 8,
+              "num_groups": 2, "upscale_factor": 2}
+        nifti.save_nifti(np.round(np.random.default_rng(0).random(
+            (24, 24, 1, 3)) * 255).astype(np.float32),
+            tmp_path / "p1" / "p1_4d.nii")
+        argv += ["--net", "DRFNet", "--net-kwargs", json.dumps(kw)]
+        args = infer.parse_args(argv)
+        notes = apply_cli_preset(args)
+        entry = SERVING_PRESETS["DRFNet"]
+        assert json.loads(args.net_kwargs) == {**kw,
+                                               **entry.get("net_kwargs", {})}
+        assert args.video and args.chunk == 0
+        if flag[1] == "fast" and entry.get("w8a8") == "scales":
+            assert not args.w8a8 and any("w8a8 skipped" in n for n in notes)
+        stats = infer.main(argv)
+        assert stats["frames"] == 3
+        return
     with pytest.raises(SystemExit, match=match):
-        infer.run(infer.parse_args([str(tmp_path), str(tmp_path / "o"),
-                                    "--video", "--device", "cpu", *flag]))
+        infer.run(infer.parse_args(argv))
 
 
 def test_cli_requires_video(tmp_path):

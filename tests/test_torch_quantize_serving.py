@@ -25,6 +25,7 @@ import torch
 
 import vsr_tpu.export as jexport
 import vsr_tpu.infer as jinfer
+import vsr_tpu.quantize as jq
 import vsr_tpu.serve as jserve
 from tests._torch_cases import run_cases, subdir
 from tests._torch_parity import init
@@ -91,11 +92,11 @@ def _case_pipeline_refusals():
                 lambda: infer.make_pipeline(net, 2, "acdc", w8a8=True,
                                             w8a8_kernels={6})(
                     torch.from_numpy(frames)))
-    # Unported by name.
-    with pytest.raises(NotImplementedError, match="quantize_deconvs"):
-        quantize.make_w8a8_apply(net, quantize_deconvs=True)
-    with pytest.raises(NotImplementedError, match="quantize_deconvs"):
-        quantize.calibrate_w8a8(net, [], quantize_deconvs=True)
+    # quantize_deconvs is ported (tests/test_torch_presets_tune.py holds
+    # it against JAX): no refusal; on no sample, no scale, as in JAX.
+    assert quantize.calibrate_w8a8(net, [], quantize_deconvs=True) == {} \
+        == jq.calibrate_w8a8(jnet, variables, [], quantize_deconvs=True)
+    assert callable(quantize.make_w8a8_apply(net, quantize_deconvs=True))
 
 
 def _volume_tree(root, shape=(SIDE, SIDE, 2, 3), seed=0):

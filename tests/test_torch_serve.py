@@ -732,12 +732,28 @@ def _case_live_pipeline_and_checkpoint_over_http(tmp_path):
 
 
 def _case_cli_refuses_unported_flags():
+    """``--mesh`` stays refused; ``--preset`` fills a live ``--net``'s
+    knobs (``--preset-file`` alone implies ``tuned`` and applies to live
+    serving only)."""
     from vsr_tpu_torch import serve
+    from vsr_tpu_torch.presets import SERVING_PRESETS, apply_cli_preset
 
-    for flags in (["--mesh", "data=4"], ["--preset", "tuned"],
-                  ["--preset-file", "p.json"]):
-        with pytest.raises(SystemExit, match=flags[0]):
-            serve.main(["--device", "cpu", *flags])
+    with pytest.raises(SystemExit, match="--mesh"):
+        serve.main(["--device", "cpu", "--mesh", "data=4"])
+    with pytest.raises(SystemExit, match="--preset-file applies to live"):
+        serve.main(["--device", "cpu", "--preset-file", "p.json"])
+    args = serve.parse_args(["--device", "cpu", "--net", "EDSRNet",
+                             "--net-kwargs", json.dumps(EDSR_KW),
+                             "--frames-shape", f"{N},{H},{W}",
+                             "--preset", "tuned"])
+    notes = apply_cli_preset(args)
+    entry = SERVING_PRESETS["EDSRNet"]
+    assert args.chunk == entry.get("chunk", 0)
+    assert json.loads(args.net_kwargs) == {**EDSR_KW,
+                                           **entry.get("net_kwargs", {})}
+    assert all(n.startswith(("net_kwargs", "chunk")) for n in notes)
+    (live,) = serve.live_from_args(args)
+    assert live.meta["chunk"] == args.chunk
 
 
 # The cases above run inside four tests, every case run and each failure

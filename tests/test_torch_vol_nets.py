@@ -226,6 +226,21 @@ def test_refusals(build, match):
         assert out.dtype == (torch.bfloat16 if match == "dtype=bfloat16"
                              else torch.float32)
         return
+    if match in ("dtype=", "carry_f32"):
+        # Volume4DSRNet's bf16 dtype and carry_f32 are ported: float32
+        # parameters; carry_f32 is a no-op without a bf16 dtype, and with
+        # one the head emits the float32 features the hidden volume keeps.
+        net = build()
+        assert {p.dtype for p in net.parameters()} == {torch.float32}
+        assert not net.carry_f32
+        hybrid = Volume4DSRNet(1, 1, num_features=4, num_resblocks=1,
+                               dtype=torch.bfloat16, carry_f32=True)
+        x = torch.zeros((1, 2, 1, 2, 4, 4))
+        assert hybrid.head(x[:, 0]).dtype == torch.float32
+        with torch.no_grad():
+            out = (hybrid if match == "carry_f32" else net)(x)
+        assert out.dtype == torch.bfloat16 and out.shape == (1, 2, 1, 2, 8, 8)
+        return
     with pytest.raises(NotImplementedError, match=match):
         build()
 

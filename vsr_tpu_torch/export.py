@@ -52,13 +52,15 @@ FORMAT_VERSION = 1
 
 def make_serving_fn(net: nn.Module, factor: int, dataset: str,
                     video_t: int = 0, window=None, chunk: int = 0,
-                    volume=None, int8: bool = False, w8a8=False):
+                    volume=None, int8: bool = False, w8a8=False,
+                    quantize_deconvs: bool = False):
     """The fused HR-frames -> (lr, sr) serving program: exactly
     ``infer.make_pipeline``'s, so the artifact is the program the CLI
     serves (frame, whole-sequence ``video_t``, circular window ``window =
     (nf, seq_t, order)`` and ``volume`` modes, ``chunk``, ``int8``, and
     ``w8a8`` as a ``{path: scale}`` dict: lazy first-batch calibration
-    (``w8a8=True``) cannot be serialized and is refused)."""
+    (``w8a8=True``) cannot be serialized and is refused;
+    ``quantize_deconvs``: the dict's transposed convs serve W8A8 too)."""
     from vsr_tpu_torch.infer import make_pipeline
 
     if w8a8 is True:
@@ -68,7 +70,7 @@ def make_serving_fn(net: nn.Module, factor: int, dataset: str,
             "first-batch calibration cannot be serialized")
     return make_pipeline(net, factor, dataset, video_t=video_t or 0,
                          window=window, volume=volume, chunk=chunk, int8=int8,
-                         w8a8=w8a8)
+                         w8a8=w8a8, quantize_deconvs=quantize_deconvs)
 
 
 class _Program(nn.Module):
@@ -86,7 +88,8 @@ class _Program(nn.Module):
 
 def export_serving(net: nn.Module, frames_shape: Sequence[int], factor: int,
                    dataset: str = "acdc", video_t: int = 0, window=None,
-                   chunk: int = 0, volume=None, int8: bool = False, w8a8=False
+                   chunk: int = 0, volume=None, int8: bool = False, w8a8=False,
+                   quantize_deconvs: bool = False
                    ) -> tuple[torch.export.ExportedProgram, dict]:
     """Trace the serving program at ``frames_shape`` on the net's device.
     Returns ``(program, meta)``."""
@@ -94,7 +97,8 @@ def export_serving(net: nn.Module, frames_shape: Sequence[int], factor: int,
 
     device = net_device(net)
     fn = make_serving_fn(net, factor, dataset, video_t=video_t, window=window,
-                         chunk=chunk, volume=volume, int8=int8, w8a8=w8a8)
+                         chunk=chunk, volume=volume, int8=int8, w8a8=w8a8,
+                         quantize_deconvs=quantize_deconvs)
     example = torch.zeros(tuple(frames_shape), dtype=torch.float32,
                           device=device)
     program = torch.export.export(_Program(fn.module, fn), (example,))
@@ -176,10 +180,6 @@ class ExportedServing:
 _NOT_PORTED = {
     "platforms": ("--platforms", "an artifact serves on the device type "
                   "it was traced on (--device)"),
-    "preset": ("--preset", "the presets' table is not measured on this "
-               "card, and its fast level, W8A8, is no faster here"),
-    "preset_file": ("--preset-file", "it names a preset table, which is "
-                    "not measured on this card"),
 }
 
 
@@ -380,10 +380,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--platforms", default="",
                    help="not ported: an artifact serves on the device type "
                         "it was traced on (--device)")
-    p.add_argument("--preset", choices=["tuned", "fast"], default="",
-                   help="not yet ported")
     p.add_argument("--preset-file", dest="preset_file", default="",
-                   help="not yet ported")
+                   help="JSON of {net: preset_entry} measured on this "
+                        "machine (python -m vsr_tpu_torch.tune); overrides "
+                        "the built-in table. Implies --preset tuned")
+    p.add_argument("--preset", choices=["tuned", "fast"], default="",
+                   help="apply the net's serving knobs measured on the card "
+                        "(vsr_tpu_torch/presets.py) to the exported "
+                        "program; explicit flags win. W8A8 at export time "
+                        "needs --calib or --w8a8-scales")
     return p.parse_args(argv)
 
 
@@ -391,6 +396,10 @@ def main(argv: list[str] | None = None) -> None:
     logging.basicConfig(format="%(asctime)s | %(levelname)s | %(message)s",
                         level=logging.INFO, datefmt="%Y-%m-%d %H:%M:%S")
     args = parse_args(argv)
+    if not args.run:
+        from vsr_tpu_torch.presets import apply_cli_preset
+
+        apply_cli_preset(args)
     if args.run:
         if not (args.input_dir and args.output_dir):
             raise SystemExit("--run needs input_dir and output_dir")

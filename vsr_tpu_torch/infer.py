@@ -34,6 +34,9 @@ Usage:
 
 ``--ema`` serves the parameter EMA a trainer with ``ema_decay`` kept in the
 checkpoint; ``--gif`` also writes one animated GIF per slice.
+``--preset tuned|fast`` applies the net's knobs measured on the card
+(``presets.py``; explicit flags win), ``--preset-file`` a table of
+``python -m vsr_tpu_torch.tune``.
 ``--int8`` serves the kernels held in int8 (``quantize.py``); ``--w8a8``
 serves the wide convs as int8 x int8 -> int32 on the card's tensor cores,
 with activation scales calibrated on the first batch, ``--w8a8-scales`` with
@@ -63,6 +66,7 @@ from vsr_tpu_torch.data.datasets import misr_target_index
 from vsr_tpu_torch.io.nifti import load_nifti, save_nifti
 from vsr_tpu_torch.preprocess.intensity import (center_crop_multiple,
                                                 clip_outliers_minmax)
+from vsr_tpu_torch.presets import apply_cli_preset
 from vsr_tpu_torch.preprocess.kspace import kspace_downscale_torch
 from vsr_tpu_torch.registry import build, get_class
 from vsr_tpu_torch.utils.checkpoint import load_net_weights
@@ -72,10 +76,6 @@ from vsr_tpu_torch.utils.normalize import DATASET_STATS
 # JAX CLI flags this port refuses by name: dest -> (flag, why).
 _NOT_PORTED = {
     "mesh": ("--mesh", "it serves on one card"),
-    "preset": ("--preset", "the presets' table is not measured on this "
-               "card, and its fast level, W8A8, is no faster here"),
-    "preset_file": ("--preset-file", "it names a preset table, which is "
-                    "not measured on this card"),
 }
 # ... and the ones it will never take: dest -> (flag, why).
 _NEVER_PORTED = {
@@ -228,7 +228,8 @@ def _check_scales_match(net: torch.nn.Module, scales: dict,
     return scales
 
 
-def _quantized_apply(net: torch.nn.Module, int8: bool, w8a8, w8a8_kernels):
+def _quantized_apply(net: torch.nn.Module, int8: bool, w8a8, w8a8_kernels,
+                     quantize_deconvs: bool = False):
     """The net's apply for ``make_pipeline``: the net itself, its int8 twin
     (a net already wrapped by ``make_quantized_apply`` is taken as it is),
     a W8A8 apply, or ``None`` for W8A8 calibrated at the first call."""
@@ -248,9 +249,11 @@ def _quantized_apply(net: torch.nn.Module, int8: bool, w8a8, w8a8_kernels):
 
     if isinstance(w8a8, dict):
         return quantize.make_w8a8_apply(
-            net, _check_scales_match(net, w8a8, w8a8_kernels))
+            net, _check_scales_match(net, w8a8, w8a8_kernels),
+            quantize_deconvs=quantize_deconvs)
     if w8a8 == "dynamic":
-        return quantize.make_w8a8_apply(net, "dynamic")
+        return quantize.make_w8a8_apply(net, "dynamic",
+                                        quantize_deconvs=quantize_deconvs)
     if w8a8:
         return None
     if int8 and not isinstance(net, quantize.QuantizedApply):
@@ -264,7 +267,7 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
                   window: tuple[int, int, str] | None = None,
                   volume: tuple[str, int] | None = None,
                   chunk: int = 0, int8: bool = False, w8a8=False,
-                  w8a8_kernels=None):
+                  w8a8_kernels=None, quantize_deconvs: bool = False):
     """HR float frames (N, H, W) -> (lr_frames, sr_frames), float32 tensors
     holding uint8 values, on the frames' device.
 
@@ -291,7 +294,9 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
     static activation scales on the first batch served (its first ``chunk``
     items when chunked), a ``{flax module path: scale}`` dict gives them,
     ``"dynamic"`` takes per-call scales. ``w8a8_kernels``: quantize only the
-    convs of these spatial kernel sizes (static scales only). The returned
+    convs of these spatial kernel sizes (static scales only).
+    ``quantize_deconvs``: the eligible transposed convs too
+    (``quantize.make_w8a8_apply``). The returned
     pipeline's ``module`` is the module that holds the served state; a lazy
     W8A8 pipeline's ``act_scales`` are the scales it calibrated (after its
     first call).
@@ -315,7 +320,8 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
     if window and window[2] not in ("middle", "last"):
         raise ValueError(f"window order must be 'middle' or 'last', got "
                          f"{window[2]!r}")
-    net_apply = _quantized_apply(net, int8, w8a8, w8a8_kernels)
+    net_apply = _quantized_apply(net, int8, w8a8, w8a8_kernels,
+                                 quantize_deconvs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     prep = make_prep(factor, dataset, video_t, window, volume)
@@ -345,7 +351,8 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
                                             filter_scales_by_kernel,
                                             make_w8a8_apply)
 
-        act_scales = calibrate_w8a8(net, [z[:chunk] if chunk else z])
+        act_scales = calibrate_w8a8(net, [z[:chunk] if chunk else z],
+                                    quantize_deconvs=quantize_deconvs)
         if w8a8_kernels is not None:
             act_scales = filter_scales_by_kernel(net, act_scales,
                                                  w8a8_kernels)
@@ -359,7 +366,8 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
                 "thinner nets cannot benefit (drop --w8a8), and scan-body "
                 "(recurrent) convs need precomputed scales from "
                 "calibrate_w8a8(method='callback') / --w8a8-scales")
-        state["apply"] = make_w8a8_apply(net, act_scales)
+        state["apply"] = make_w8a8_apply(net, act_scales,
+                                         quantize_deconvs=quantize_deconvs)
         pipeline.act_scales = act_scales
 
     @torch.inference_mode()
@@ -407,7 +415,11 @@ def load_hr_frames(path: Path) -> tuple[np.ndarray, tuple[int, int, int, int]]:
     return np.ascontiguousarray(frames), (h, w, d, t)
 
 
-def run(args) -> dict:
+def serving_pipelines(args):
+    """``run``'s checks of its namespace, its net, and the pipeline each
+    volume takes: ``(mode, pipeline_for)``, where ``pipeline_for(t,
+    n_frames)`` builds the pipeline of a volume of ``t`` time points and
+    ``n_frames`` frames (the net is built once, for every pipeline)."""
     for dest, (flag, why) in _NOT_PORTED.items():
         if getattr(args, dest, None):
             raise SystemExit(f"{flag} is not yet ported to vsr_tpu_torch: "
@@ -462,6 +474,23 @@ def run(args) -> dict:
         net = quantize.make_quantized_apply(net,
                                             *quantize.quantize_params(net))
 
+    def pipeline_for(t: int, n_frames: int):
+        volume = resolve_volume(args.net, seq_t=t, chunk=args.chunk,
+                                n_frames=n_frames, exc=SystemExit)
+        return make_pipeline(
+            net, args.factor, args.dataset,
+            video_t=t if mode == "video" else 0,
+            window=((args.windows, t, args.window_order)
+                    if mode == "window" else None),
+            volume=volume, chunk=args.chunk, int8=args.int8, w8a8=w8a8,
+            w8a8_kernels=w8a8_kernels)
+
+    return mode, pipeline_for
+
+
+def run(args) -> dict:
+    mode, pipeline_for = serving_pipelines(args)
+    device = torch.device(args.device)
     paths = sorted(Path(args.input_dir).glob("**/*.nii*"))
     if not paths:
         raise SystemExit(f"No NIfTI volumes under {args.input_dir}")
@@ -474,17 +503,9 @@ def run(args) -> dict:
     for path in paths:
         frames, (h, w, d, t) = load_hr_frames(path)
 
-        volume = resolve_volume(args.net, seq_t=t, chunk=args.chunk,
-                                n_frames=len(frames), exc=SystemExit)
         key = t if mode != "frame" else None
         if key not in pipelines:
-            pipelines[key] = make_pipeline(
-                net, args.factor, args.dataset,
-                video_t=t if mode == "video" else 0,
-                window=((args.windows, t, args.window_order)
-                        if mode == "window" else None),
-                volume=volume, chunk=args.chunk, int8=args.int8, w8a8=w8a8,
-                w8a8_kernels=w8a8_kernels)
+            pipelines[key] = pipeline_for(t, len(frames))
         t0 = time.perf_counter()
         lr, sr = pipelines[key](torch.from_numpy(frames).to(device))
         sr_np = sr.cpu().numpy()  # waits for the device
@@ -585,9 +606,17 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                              "volumes at a time (frame, window and 3D volume "
                              "modes; bounds live memory)")
     parser.add_argument("--preset", choices=["tuned", "fast"], default="",
-                        help="not yet ported")
+                        help="apply the net's serving knobs measured on the "
+                             "card (vsr_tpu_torch/presets.py): 'tuned' = "
+                             "exact knobs only (chunk, fused tail, dispatch, "
+                             "video / windows), 'fast' = tuned + W8A8 where "
+                             "it measured faster. Explicit flags win")
     parser.add_argument("--preset-file", dest="preset_file", default="",
-                        help="not yet ported")
+                        help="JSON of {net: preset_entry} measured on this "
+                             "machine (python -m vsr_tpu_torch.tune); "
+                             "overrides the built-in table for the nets it "
+                             "names. Implies --preset tuned unless --preset "
+                             "is given")
     parser.add_argument("--ema", action="store_true",
                         help="serve the parameter EMA tracked by the trainer "
                              "(trainer.kwargs.ema_decay) instead of the raw "
@@ -607,7 +636,9 @@ def main(argv: list[str] | None = None) -> dict:
         level=logging.INFO,
         datefmt="%Y-%m-%d %H:%M:%S",
     )
-    return run(parse_args(argv))
+    args = parse_args(argv)
+    apply_cli_preset(args)
+    return run(args)
 
 
 if __name__ == "__main__":

@@ -318,18 +318,47 @@ class ConvTranspose(nn.ConvTranspose2d):
 class PlainConv2d(nn.Conv2d):
     """``nn.Conv2d`` as it is (its init and its forward) where the JAX net
     uses a flax ``nn.Conv`` directly (EDVR's residual blocks, FRVSR), with
-    the interception point of the module docstring."""
+    the interception point of the module docstring. ``dtype`` /
+    ``out_dtype`` (keywords; ``nn.Conv2d``'s own ``dtype`` would be the
+    parameters'): the precision policy of the module docstring."""
+
+    def __init__(self, *args, dtype: torch.dtype | str | None = None,
+                 out_dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = _as_dtype(dtype)
+        self.out_dtype = out_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _intercepted(self, x, super().forward)
+        return _intercepted(self, x, self._plain)
+
+    def _plain(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self.dtype, x, self.weight)
+        x, w, b = x.to(dt), self.weight.to(dt), _cast(self.bias, dt)
+        if self.out_dtype is not None:
+            return accum_conv(x, w, b, self.out_dtype, self.stride,
+                              self.padding)
+        return self._conv_forward(x, w, b)
 
 
 class PlainConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` as it is where the JAX net uses a flax
-    ``nn.ConvTranspose`` directly (FRVSR), with the interception point."""
+    ``nn.ConvTranspose`` directly (FRVSR), with the interception point;
+    ``dtype``: the compute dtype, as :class:`PlainConv2d`'s."""
+
+    def __init__(self, *args, dtype: torch.dtype | str | None = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = _as_dtype(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _intercepted(self, x, super().forward)
+        return _intercepted(self, x, self._plain)
+
+    def _plain(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self.dtype, x, self.weight)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
+                                  _cast(self.bias, dt), self.stride,
+                                  self.padding, self.output_padding,
+                                  self.groups, self.dilation)
 
 
 class BatchNorm(nn.Module):
@@ -359,8 +388,13 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         with torch.no_grad():
+            # The statistics of a low-precision input in float32, as flax
+            # reduces them (the normalization itself runs in float32 and
+            # rounds its output to the input's dtype either way).
             dims = [d for d in range(x.dim()) if d != 1]
-            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            var, mean = torch.var_mean(
+                x.to(torch.promote_types(x.dtype, torch.float32)), dim=dims,
+                correction=0)
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(mean, alpha=m)
             self.running_var.mul_(1 - m).add_(var, alpha=m)

@@ -42,13 +42,15 @@ class _DenseBlock(nn.Module):
     """BN-ReLU-1x1x1 conv - BN-ReLU-3x3x3 conv; ``pad_t=0`` shrinks T by 2."""
 
     def __init__(self, in_channels: int, growth: int, pad_t: int, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         f = in_channels
         self.norms = nn.ModuleList([_batch_norm(f), _batch_norm(f)])
         self.convs = nn.ModuleList([
-            Conv3D(f, f, (1, 1, 1), padding=(0, 0, 0), generator=generator),
-            Conv3D(f, growth, (3, 3, 3), padding=(pad_t, 1, 1),
+            Conv3D(f, f, (1, 1, 1), padding=(0, 0, 0), dtype=dtype,
+                   generator=generator),
+            Conv3D(f, growth, (3, 3, 3), padding=(pad_t, 1, 1), dtype=dtype,
                    generator=generator)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -58,6 +60,7 @@ class _DenseBlock(nn.Module):
 
 class _DenseBackbone(nn.Module):
     def __init__(self, backbone: str, in_channels: int = 64, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         n1, n2, growth, tail_in = _BACKBONES[backbone]
@@ -67,14 +70,14 @@ class _DenseBackbone(nn.Module):
         for i in range(n1 + n2):
             self.blocks.append(_DenseBlock(channels, growth,
                                            pad_t=1 if i < n1 else 0,
-                                           generator=generator))
+                                           dtype=dtype, generator=generator))
             channels += growth
         if channels != tail_in:
             raise ValueError(f"{backbone}: {channels} channels reach the "
                              f"tail, expected {tail_in}")
         self.norm = _batch_norm(tail_in)
         self.conv = Conv3D(tail_in, 256, (1, 3, 3), padding=(0, 1, 1),
-                           generator=generator)
+                           dtype=dtype, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         concat = x
@@ -124,7 +127,7 @@ class DUFNet(nn.Module):
         super().__init__()
         if backbone not in _BACKBONES:
             raise ValueError(f"Unknown backbone {backbone}")
-        self.dtype = resolve_dtype(dtype)
+        self.dtype = dt = resolve_dtype(dtype)
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.num_frames = num_frames
@@ -132,16 +135,18 @@ class DUFNet(nn.Module):
         self.upscale_factor = upscale_factor
         self.use_pallas_filter = use_pallas_filter
         k2, r2 = size_filter ** 2, upscale_factor ** 2
-        one = dict(kernel_size=(1, 1, 1), padding=(0, 0, 0),
+        one = dict(kernel_size=(1, 1, 1), padding=(0, 0, 0), dtype=dt,
                    generator=generator)
-        self.head = Conv(in_channels, 64, 3, padding=1, generator=generator)
-        self.backbone = _DenseBackbone(backbone, generator=generator)
+        self.head = Conv(in_channels, 64, 3, padding=1, dtype=dt,
+                         generator=generator)
+        self.backbone = _DenseBackbone(backbone, dtype=dt,
+                                       generator=generator)
         # In flax creation order: filter branch, then residual branch.
         self.filter_convs = nn.ModuleList([Conv3D(256, 512, **one),
                                            Conv3D(512, k2 * r2, **one)])
         self.residual_convs = nn.ModuleList([
             Conv3D(256, 256, **one), Conv3D(256, in_channels * r2, **one)])
-        self.to(device=device, dtype=self.dtype)
+        self.to(device=device)
 
     def _records_gradients(self, x: torch.Tensor) -> bool:
         return torch.is_grad_enabled() and (x.requires_grad or any(
@@ -152,7 +157,6 @@ class DUFNet(nn.Module):
         if t != self.num_frames:
             raise ValueError(f"DUFNet was built for windows of "
                              f"{self.num_frames} frames, got {t}")
-        x = x.to(self.dtype)
         target = x[:, misr_target_index(t)]  # raw centre frame (N, C, h, w)
 
         feats = self.head(x.reshape(n * t, c, h, w))
@@ -173,5 +177,9 @@ class DUFNet(nn.Module):
         else:
             k2, r2 = self.size_filter ** 2, self.upscale_factor ** 2
             filters = filter_logits.reshape(n, k2, r2, h, w).softmax(dim=1)
-            out = apply_dynamic_filters(target, filters, self.upscale_factor)
+            # The raw frame and the compute-dtype filters meet in their
+            # promotion, as jnp.einsum promotes them.
+            dt = torch.promote_types(target.dtype, filters.dtype)
+            out = apply_dynamic_filters(target.to(dt), filters.to(dt),
+                                        self.upscale_factor)
         return out + residual

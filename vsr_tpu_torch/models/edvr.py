@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vsr_tpu_torch.models.common import (Conv, FoldableConv, PlainConv2d,
-                                         resolve_dtype, torch_default_init_)
+                                         compute_dtype, resolve_dtype,
+                                         torch_default_init_)
 from vsr_tpu_torch.models.toflow import crop, pad_to_multiple
 from vsr_tpu_torch.ops.deform_conv import deform_conv2d
 from vsr_tpu_torch.ops.upsample import upsample_bilinear
@@ -45,10 +46,11 @@ class ResidualBlockNoBN(nn.Module):
     """conv-relu-conv + identity; kaiming-normal (fan_in, relu) weights
     scaled by 0.1, zero bias."""
 
-    def __init__(self, nf: int = 64, *,
+    def __init__(self, nf: int = 64, *, dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.convs = nn.ModuleList(PlainConv2d(nf, nf, 3, padding=1)
+        self.convs = nn.ModuleList(PlainConv2d(nf, nf, 3, padding=1,
+                                               dtype=dtype)
                                    for _ in range(2))
         std = math.sqrt(2.0 / (9 * nf)) * 0.1
         with torch.no_grad():
@@ -63,7 +65,12 @@ class ResidualBlockNoBN(nn.Module):
 class DeformConvPack(nn.Module):
     """DCNv1 (``modulated=False``) or DCNv2 with its offsets (and mask)
     predicted by a zero-initialized conv of ``extra`` (of ``x`` when no
-    ``extra`` is given). The DCN weight is U(+-1/sqrt(fan_in)), its bias 0."""
+    ``extra`` is given). The DCN weight is U(+-1/sqrt(fan_in)), its bias 0.
+    ``dtype``: the offset conv's compute dtype (the policy of
+    ``models/common.py``); the DCN computes in ``x``'s dtype, its weight,
+    bias, offsets and mask cast to it, as in the JAX pack. The offset conv
+    is a plain ``nn.Conv2d`` (a subclass of ``nn.Conv`` in JAX: W8A8 leaves
+    it alone)."""
 
     modulated = False
 
@@ -71,8 +78,10 @@ class DeformConvPack(nn.Module):
                  deformable_groups: int = 1, kernel_size: int = 3,
                  stride: int = 1, padding: int = 1, dilation: int = 1,
                  extra_channels: int | None = None, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.dtype = dtype
         k2 = kernel_size * kernel_size
         self.dg, self.k2 = deformable_groups, k2
         self.stride, self.padding, self.dilation = stride, padding, dilation
@@ -89,7 +98,11 @@ class DeformConvPack(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 extra: torch.Tensor | None = None) -> torch.Tensor:
-        raw = self.offset_conv(x if extra is None else extra)
+        src = x if extra is None else extra
+        conv = self.offset_conv
+        dt = compute_dtype(self.dtype, src, conv.weight)
+        raw = conv._conv_forward(src.to(dt), conv.weight.to(dt),
+                                 conv.bias.to(dt))
         n, _, ho, wo = raw.shape
         m = 2 * self.dg * self.k2
         offsets = raw[:, :m].reshape(n, 2, self.dg, self.k2, ho, wo)
@@ -97,7 +110,10 @@ class DeformConvPack(nn.Module):
         if self.modulated:
             mask = torch.sigmoid(raw[:, m:]).reshape(n, self.dg, self.k2,
                                                      ho, wo)
-        return deform_conv2d(x, offsets, self.weight, self.bias, mask,
+        xd = x.dtype
+        return deform_conv2d(x, offsets.to(xd), self.weight.to(xd),
+                             self.bias.to(xd),
+                             None if mask is None else mask.to(xd),
                              self.stride, self.padding, self.dilation)
 
 
@@ -120,9 +136,10 @@ class PCDAlign(nn.Module):
     _CONV_IN = (2, 1, 2, 2, 1, 2, 2, 2, 1, 2, 2, 1)
 
     def __init__(self, nf: int = 64, groups: int = 8, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        g = dict(generator=generator)
+        g = dict(dtype=dtype, generator=generator)
         self.convs = nn.ModuleList(Conv(m * nf, nf, 3, padding=1, **g)
                                    for m in self._CONV_IN)
         self.dcns = nn.ModuleList(ModulatedDeformConvPack(nf, nf, groups, **g)
@@ -172,11 +189,12 @@ class TSAFusion(nn.Module):
               (1, 3), (1, 1), (1, 3), (1, 1), (1, 1))
 
     def __init__(self, nf: int = 64, nframes: int = 5, center: int = 2, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.center = center
         self.convs = nn.ModuleList(
-            Conv((m or nframes) * nf, nf, k, padding=k // 2,
+            Conv((m or nframes) * nf, nf, k, padding=k // 2, dtype=dtype,
                  generator=generator)
             for m, k in self._CONVS)
 
@@ -206,9 +224,10 @@ class PredeblurPyramid(nn.Module):
     """Pre-deblur resblock pyramid."""
 
     def __init__(self, in_channels: int, nf: int = 128, hr_in: bool = False,
-                 *, generator: torch.Generator | None = None):
+                 *, dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
         super().__init__()
-        g = dict(generator=generator)
+        g = dict(dtype=dtype, generator=generator)
         self.hr_in = hr_in
         strides = (1, 2, 2, 2, 2) if hr_in else (1, 2, 2)
         self.convs = nn.ModuleList(
@@ -253,8 +272,8 @@ class EDVRNet(nn.Module):
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        g = dict(generator=generator)
         self.dtype = resolve_dtype(dtype)
+        g = dict(dtype=self.dtype, generator=generator)
         self.nframes = nframes
         self.center = nframes // 2 if center is None else center
         self.hr_in, self.w_tsa, self.fused_tail = HR_in, w_TSA, fused_tail
@@ -282,14 +301,14 @@ class EDVRNet(nn.Module):
                                   for _ in range(back_RBs))
         self.hr_conv = FoldableConv(64, 64, 3, factor=2, **g)
         self.last_conv = FoldableConv(64, out_channels, 3, factor=2, **g)
-        self.to(device=device, dtype=self.dtype)
+        self.to(device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, c, h, w = x.shape
         if t != self.nframes:
             raise ValueError(f"EDVRNet was built for windows of "
                              f"{self.nframes} frames, got {t}")
-        x, pads = pad_to_multiple(x.to(self.dtype), 4)
+        x, pads = pad_to_multiple(x, 4)
         h, w = x.shape[-2:]
         x_center = x[:, self.center]
         convs = iter(self.convs)

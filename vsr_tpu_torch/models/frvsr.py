@@ -14,9 +14,10 @@ or two x2) as in the JAX net.
 
 ``remat`` runs each frame step under ``torch.utils.checkpoint`` while a
 gradient is recorded (its activations are recomputed in the backward). The
-JAX net's ``unroll`` (its scan's unroll) and ``carry_f32`` (a bf16 training
-mode, which waits for this net's move onto the bf16 policy of
-``models/common.py``) are not ported and raise when set.
+JAX net's ``unroll`` (its scan's unroll, a TPU knob) raises when set. A bf16
+``dtype`` computes every conv in bf16 on float32 parameters (the policy of
+``models/common.py``); ``carry_f32`` keeps the final SR conv's float32
+accumulation.
 """
 
 from __future__ import annotations
@@ -42,19 +43,21 @@ def _xavier_(module: nn.Module,
 
 
 def _conv(in_channels: int, out_channels: int,
-          generator: torch.Generator | None) -> nn.Conv2d:
-    return _xavier_(PlainConv2d(in_channels, out_channels, 3, padding=1),
-                    generator)
+          generator: torch.Generator | None,
+          dtype: torch.dtype | None = None,
+          out_dtype: torch.dtype | None = None) -> nn.Conv2d:
+    return _xavier_(PlainConv2d(in_channels, out_channels, 3, padding=1,
+                                dtype=dtype, out_dtype=out_dtype), generator)
 
 
-def _deconv(features: int, stride: int,
-            generator: torch.Generator | None) -> nn.ConvTranspose2d:
+def _deconv(features: int, stride: int, generator: torch.Generator | None,
+            dtype: torch.dtype | None = None) -> nn.ConvTranspose2d:
     """x2: ConvTranspose2d(k=3, s=2, p=1, output_padding=1); x3: (k=3, s=3,
     p=0)."""
     padding, extra = (1, 1) if stride == 2 else (0, 0)
     return _xavier_(PlainConvTranspose2d(features, features, 3, stride,
-                                         padding, output_padding=extra),
-                    generator)
+                                         padding, output_padding=extra,
+                                         dtype=dtype), generator)
 
 
 def stn_warp(img: torch.Tensor, flow_uv: torch.Tensor,
@@ -71,10 +74,10 @@ def stn_warp(img: torch.Tensor, flow_uv: torch.Tensor,
 
 
 class _ResBlock(nn.Module):
-    def __init__(self, features: int, *,
+    def __init__(self, features: int, *, dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.convs = nn.ModuleList(_conv(features, features, generator)
+        self.convs = nn.ModuleList(_conv(features, features, generator, dtype)
                                    for _ in range(2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -82,10 +85,12 @@ class _ResBlock(nn.Module):
 
 
 class SRNet(nn.Module):
-    """``forward(warped_s2d, lr_img)`` -> the SR frame."""
+    """``forward(warped_s2d, lr_img)`` -> the SR frame. ``out_f32``: the
+    final conv accumulates in float32 and emits float32 (``carry_f32``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  upscale_factor: int, num_resblocks: int = 10, *,
+                 dtype: torch.dtype | None = None, out_f32: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         strides = {2: (2,), 3: (3,), 4: (2, 2)}.get(upscale_factor)
@@ -93,11 +98,13 @@ class SRNet(nn.Module):
             raise NotImplementedError(f"upscale_factor={upscale_factor}")
         r2 = upscale_factor ** 2
         self.convs = nn.ModuleList([
-            _conv(in_channels * r2 + in_channels, 64, generator),
-            _conv(64, out_channels, generator)])
-        self.blocks = nn.ModuleList(_ResBlock(64, generator=generator)
+            _conv(in_channels * r2 + in_channels, 64, generator, dtype),
+            _conv(64, out_channels, generator, dtype,
+                  torch.float32 if out_f32 else None)])
+        self.blocks = nn.ModuleList(_ResBlock(64, dtype=dtype,
+                                              generator=generator)
                                     for _ in range(num_resblocks))
-        self.deconvs = nn.ModuleList(_deconv(64, s, generator)
+        self.deconvs = nn.ModuleList(_deconv(64, s, generator, dtype)
                                      for s in strides)
 
     def forward(self, warped_s2d: torch.Tensor,
@@ -115,13 +122,14 @@ class FNet(nn.Module):
     the batch minimum; tanh output in normalized flow units."""
 
     def __init__(self, in_channels: int, out_channels: int = 2, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         widths = [2 * in_channels]
         for f in (32, 64, 128, 256, 128, 64):
             widths += [f, f]
         widths += [32, out_channels]
-        self.convs = nn.ModuleList(_conv(a, b, generator)
+        self.convs = nn.ModuleList(_conv(a, b, generator, dtype)
                                    for a, b in zip(widths[:-1], widths[1:]))
 
     def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -141,12 +149,14 @@ class FNet(nn.Module):
 class _FRVSRStep(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  upscale_factor: int, num_resblocks: int, *,
+                 dtype: torch.dtype | None = None, carry_f32: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.upscale_factor = upscale_factor
-        self.fnet = FNet(in_channels, 2, generator=generator)
+        self.fnet = FNet(in_channels, 2, dtype=dtype, generator=generator)
         self.srnet = SRNet(in_channels, out_channels, upscale_factor,
-                           num_resblocks, generator=generator)
+                           num_resblocks, dtype=dtype, out_f32=carry_f32,
+                           generator=generator)
 
     def forward(self, lr_last: torch.Tensor, sr_last: torch.Tensor,
                 lr_img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -164,7 +174,11 @@ class _FRVSRStep(nn.Module):
 class FRVSRNet(nn.Module):
     """VSR: ``(N, T, C, h, w)`` -> ``(sr (N, T, C, H, W), warped_lr (N, T,
     C, h, w))``, or ``sr`` alone with ``is_prediction``. ``dtype``,
-    ``device``, ``generator``: as ``DRFNet``."""
+    ``device``, ``generator``: as ``DRFNet``; the frames and the SR carry
+    stay in the input's dtype (each step's SR frame is cast to it before it
+    is warped again). ``carry_f32`` (under a bf16 ``dtype``; a no-op
+    without one): the final SR conv accumulates in float32 and emits
+    float32, as ``vsr_tpu/models/frvsr.py``'s."""
 
     serving_mode = "video"
 
@@ -180,31 +194,27 @@ class FRVSRNet(nn.Module):
             raise NotImplementedError(
                 "FRVSRNet unroll is a TPU lax.scan knob; the port's frame "
                 "loop is a Python loop and has no such setting")
-        if carry_f32:
-            raise NotImplementedError(
-                "FRVSRNet carry_f32 is not yet ported to vsr_tpu_torch: it "
-                "is a bf16 mode, and this net still converts its parameters "
-                "to a bf16 dtype instead of computing in it")
         self.remat = remat
-        self.dtype = resolve_dtype(dtype)
+        self.dtype = dt = resolve_dtype(dtype)
+        self.carry_f32 = carry_f32 and dt != torch.float32
         self.upscale_factor = upscale_factor
         self.is_prediction = is_prediction
         self.step = _FRVSRStep(in_channels, out_channels, upscale_factor,
-                               num_resblocks, generator=generator)
-        self.to(device=device, dtype=self.dtype)
+                               num_resblocks, dtype=dt,
+                               carry_f32=self.carry_f32, generator=generator)
+        self.to(device=device)
 
     def forward(self, x: torch.Tensor):
-        x = x.to(self.dtype)
         n, t, c, h, w = x.shape
         f = self.upscale_factor
         lr_last = x[:, 0]
         sr_last = x.new_zeros(n, c, h * f, w * f)
         srs, warped = [], []
         for i in range(t):
-            sr_last, warped_lr = remat_step(self.remat, self.step, lr_last,
-                                            sr_last, x[:, i])
-            lr_last = x[:, i]
-            srs.append(sr_last)
+            sr, warped_lr = remat_step(self.remat, self.step, lr_last,
+                                       sr_last, x[:, i])
+            lr_last, sr_last = x[:, i], sr.to(x.dtype)
+            srs.append(sr)
             warped.append(warped_lr)
         sr = torch.stack(srs, dim=1)
         if self.is_prediction:

@@ -237,7 +237,9 @@ class MoEEDSRNet(nn.Module):
     """EDSR trunk with an :class:`ExpertChoiceMoE` block after every
     ``moe_every``-th residual block: ``(N, C, h, w) -> (N, C_out, H, W)``.
     Arguments as the JAX net (``radix_bits``: the ``radix`` router's bits a
-    pass). ``dtype``, ``device``, ``generator``: as ``DRFNet``."""
+    pass). ``dtype`` (the compute dtype; the parameters stay float32: the
+    experts' are cast to the activations' dtype at use, the router's
+    affinities are float32), ``device``, ``generator``: as ``DRFNet``."""
 
     serving_mode = "frame"
 
@@ -252,27 +254,31 @@ class MoEEDSRNet(nn.Module):
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.dtype = resolve_dtype(dtype)
+        self.dtype = dt = resolve_dtype(dtype)
         f = num_features
-        self.head = Conv(in_channels, f, 3, padding=1, generator=generator)
+        self.head = Conv(in_channels, f, 3, padding=1, dtype=dt,
+                         generator=generator)
         self.blocks = nn.ModuleList()
         self.moes = nn.ModuleDict()  # index of the resblock it follows -> MoE
         for i in range(num_resblocks):
-            self.blocks.append(_ResBlock(f, res_scale, generator=generator))
+            self.blocks.append(_ResBlock(f, res_scale, dtype=dt,
+                                         generator=generator))
             if (i + 1) % moe_every == 0:
                 self.moes[str(i)] = ExpertChoiceMoE(
                     f, num_experts, capacity_factor, hidden_mult, group_size,
                     router_impl, dispatch_impl, radix_bits,
                     generator=generator)
-        self.body_end = Conv(f, f, 3, padding=1, generator=generator)
-        self.up = _UpBlock(f, upscale_factor, generator=generator)
+        self.body_end = Conv(f, f, 3, padding=1, dtype=dt,
+                             generator=generator)
+        self.up = _UpBlock(f, upscale_factor, dtype=dt, generator=generator)
         self.tail = ShuffleConv(f, out_channels, 3,
                                 factor=_UpBlock.split(upscale_factor),
-                                fused=fused_tail, generator=generator)
-        self.to(device=device, dtype=self.dtype)
+                                fused=fused_tail, dtype=dt,
+                                generator=generator)
+        self.to(device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        head = self.head(x.to(self.dtype))
+        head = self.head(x)
         body = head
         for i, block in enumerate(self.blocks):
             body = block(body)

@@ -32,10 +32,11 @@ class _ConvP(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  stride: int = 1, pad: int = 1, act: bool = True, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.conv = Conv(in_channels, out_channels, kernel, stride, pad,
-                         generator=generator)
+                         dtype=dtype, generator=generator)
         self.act = PReLU(0.25) if act else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -48,10 +49,12 @@ class _DeconvP(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  stride: int, pad: int, *, subpixel: bool = False,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.conv = ConvTranspose(in_channels, out_channels, kernel, stride,
-                                  pad, subpixel=subpixel, generator=generator)
+                                  pad, dtype=dtype, subpixel=subpixel,
+                                  generator=generator)
         self.act = PReLU(0.25)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -61,12 +64,13 @@ class _DeconvP(nn.Module):
 class _ResnetBlock(nn.Module):
     """conv-act-conv + skip, then the same act again."""
 
-    def __init__(self, features: int, *,
+    def __init__(self, features: int, *, dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.act = PReLU(0.25)
         self.convs = nn.ModuleList(
-            Conv(features, features, 3, padding=1, generator=generator)
+            Conv(features, features, 3, padding=1, dtype=dtype,
+                 generator=generator)
             for _ in range(2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -76,14 +80,14 @@ class _ResnetBlock(nn.Module):
 
 class _UpBlock(nn.Module):
     def __init__(self, features: int, k: int, s: int, p: int, *,
-                 subpixel: bool = False,
+                 subpixel: bool = False, dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        g = dict(dtype=dtype, generator=generator)
         self.deconvs = nn.ModuleList(
-            _DeconvP(features, features, k, s, p, subpixel=subpixel,
-                     generator=generator)
+            _DeconvP(features, features, k, s, p, subpixel=subpixel, **g)
             for _ in range(2))
-        self.conv = _ConvP(features, features, k, s, p, generator=generator)
+        self.conv = _ConvP(features, features, k, s, p, **g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h0 = self.deconvs[0](x)
@@ -92,14 +96,14 @@ class _UpBlock(nn.Module):
 
 class _DownBlock(nn.Module):
     def __init__(self, features: int, k: int, s: int, p: int, *,
-                 subpixel: bool = False,
+                 subpixel: bool = False, dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        g = dict(dtype=dtype, generator=generator)
         self.convs = nn.ModuleList(
-            _ConvP(features, features, k, s, p, generator=generator)
-            for _ in range(2))
+            _ConvP(features, features, k, s, p, **g) for _ in range(2))
         self.deconv = _DeconvP(features, features, k, s, p, subpixel=subpixel,
-                               generator=generator)
+                               **g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         l0 = self.convs[0](x)
@@ -113,10 +117,11 @@ class DBPNet(nn.Module):
 
     def __init__(self, base_filter: int, feat: int, num_stages: int,
                  upscale_factor: int, *, subpixel_deconv: bool = False,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         k, s, p = PROJECTION_PARAMS[upscale_factor]
-        g = dict(generator=generator)
+        g = dict(dtype=dtype, generator=generator)
         sp = dict(subpixel=subpixel_deconv, **g)
         self.head = _ConvP(base_filter, feat, 1, 1, 0, **g)
         self.ups = nn.ModuleList(_UpBlock(feat, k, s, p, **sp)
@@ -134,8 +139,10 @@ class DBPNet(nn.Module):
 
 class _ResChain(nn.Sequential):
     def __init__(self, features: int, num_resblocks: int, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
-        super().__init__(*(_ResnetBlock(features, generator=generator)
+        super().__init__(*(_ResnetBlock(features, dtype=dtype,
+                                        generator=generator)
                            for _ in range(num_resblocks)))
 
 
@@ -158,7 +165,7 @@ class RBPNet(nn.Module):
         k, s, p = PROJECTION_PARAMS[upscale_factor]
         self.dtype = resolve_dtype(dtype)
         self.num_frames = num_frames
-        g = dict(generator=generator)
+        g = dict(dtype=self.dtype, generator=generator)
         bf = base_filter
         # In flax creation order: _ConvP_0, _ConvP_1, DBPNet_0, _ResChain_0,
         # _DeconvP_0, _ResChain_1, _ConvP_2, _ResChain_2, _ConvP_3, _ConvP_4.
@@ -175,14 +182,13 @@ class RBPNet(nn.Module):
         self.res3_down = _ConvP(feat, bf, k, s, p, **g)
         self.output = _ConvP((num_frames - 1) * feat, out_channels, 3, 1, 1,
                              act=False, **g)
-        self.to(device=device, dtype=self.dtype)
+        self.to(device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         t = x.shape[1]
         if t != self.num_frames:
             raise ValueError(f"RBPNet was built for windows of "
                              f"{self.num_frames} frames, got {t}")
-        x = x.to(self.dtype)
         c_idx = misr_target_index(t)
         center = x[:, c_idx]
         state = self.feat0(center)

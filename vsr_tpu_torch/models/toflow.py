@@ -60,11 +60,12 @@ class _SpyNetBlock(nn.Module):
     2 flow channels."""
 
     def __init__(self, in_channels: int, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         widths = (in_channels, *_SPY_WIDTHS, 2)
         self.convs = nn.ModuleList(
-            Conv(a, b, 7, padding=3, generator=generator)
+            Conv(a, b, 7, padding=3, dtype=dtype, generator=generator)
             for a, b in zip(widths[:-1], widths[1:]))
         self.norms = nn.ModuleList(BatchNorm(w) for w in _SPY_WIDTHS)
 
@@ -80,10 +81,12 @@ class SpyNet(nn.Module):
     displacement, channel 0 = x, 1 = y."""
 
     def __init__(self, in_channels: int = 1, *,
+                 dtype: torch.dtype | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.blocks = nn.ModuleList(
-            _SpyNetBlock(2 * in_channels + 2, generator=generator)
+            _SpyNetBlock(2 * in_channels + 2, dtype=dtype,
+                         generator=generator)
             for _ in range(4))
 
     def forward(self, ref: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
@@ -114,18 +117,18 @@ class TOFlowNet(nn.Module):
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.dtype = resolve_dtype(dtype)
+        self.dtype = dt = resolve_dtype(dtype)
         self.num_frames = num_frames
         self.upscale_factor = upscale_factor
-        self.spynet = SpyNet(in_channels, generator=generator)
+        self.spynet = SpyNet(in_channels, dtype=dt, generator=generator)
         # The fusion head: 9 x 9, 9 x 9, 1 x 1, 1 x 1.
+        g = dict(dtype=dt, generator=generator)
         self.convs = nn.ModuleList([
-            Conv(num_frames * in_channels, 64, 9, padding=4,
-                 generator=generator),
-            Conv(64, 64, 9, padding=4, generator=generator),
-            Conv(64, 64, 1, padding=0, generator=generator),
-            Conv(64, out_channels, 1, padding=0, generator=generator)])
-        self.to(device=device, dtype=self.dtype)
+            Conv(num_frames * in_channels, 64, 9, padding=4, **g),
+            Conv(64, 64, 9, padding=4, **g),
+            Conv(64, 64, 1, padding=0, **g),
+            Conv(64, out_channels, 1, padding=0, **g)])
+        self.to(device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, c, h, w = x.shape
@@ -133,7 +136,7 @@ class TOFlowNet(nn.Module):
             raise ValueError(f"TOFlowNet was built for windows of "
                              f"{self.num_frames} frames, got {t}")
         ref_idx = misr_target_index(t)
-        y = upsample_bicubic(x.to(self.dtype).reshape(n * t, c, h, w),
+        y = upsample_bicubic(x.reshape(n * t, c, h, w),
                              scale=self.upscale_factor, align_corners=False)
         y, pads = pad_to_multiple(y, 16)
         frames = y.reshape(n, t, c, *y.shape[-2:])

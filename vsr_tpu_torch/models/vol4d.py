@@ -30,16 +30,21 @@ class _Vol4DStep(nn.Module):
     def __init__(self, num_features: int, num_resblocks: int,
                  out_channels: int, upscale_factor: int, res_scale: float,
                  fused_tail: bool = False, *,
+                 dtype: torch.dtype | None = None, carry_f32: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         f = num_features
+        # Under carry_f32 the float32 hidden volume and features are
+        # consumed in float32: the squeeze computes in the promoted dtype.
         self.squeeze = Conv3D(2 * f, f, (1, 1, 1), padding=(0, 0, 0),
+                              dtype=None if carry_f32 else dtype,
                               generator=generator)
         self.blocks = nn.ModuleList(
-            _ResBlock3D(f, res_scale, generator=generator)
+            _ResBlock3D(f, res_scale, carry_f32, dtype=dtype,
+                        generator=generator)
             for _ in range(num_resblocks))
         self.tail = VolumeTail(f, out_channels, upscale_factor, fused_tail,
-                               generator=generator)
+                               dtype=dtype, generator=generator)
 
     def forward(self, hidden: torch.Tensor, in_feat: torch.Tensor | None = None,
                 mode: str = "full"):
@@ -69,8 +74,11 @@ class Volume4DSRNet(nn.Module):
     ``fused_tail``: the final conv is folded through the last shuffle. All
     three keep the parameters, and so the checkpoints, of the plain net.
     ``unroll`` is the JAX scan's unroll factor, a TPU knob: only 1 (the
-    Python loop) is accepted. ``carry_f32`` and a ``dtype`` other than
-    float32 are refused."""
+    Python loop) is accepted. ``dtype``: the compute dtype (the parameters
+    stay float32). ``carry_f32`` (under a bf16 ``dtype``; a no-op without
+    one): the head emits float32, the hidden volume, the resblocks'
+    residual chain and the global skip stay float32, every conv computes
+    in bf16 but the squeeze, which computes in float32."""
 
     serving_mode = "volume"
 
@@ -83,24 +91,21 @@ class Volume4DSRNet(nn.Module):
                  device: torch.device | str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if resolve_dtype(dtype) != torch.float32:
-            raise NotImplementedError(
-                f"Volume4DSRNet dtype={dtype} is not yet ported to "
-                "vsr_tpu_torch (its bf16 compute goes with carry_f32)")
-        if carry_f32:
-            raise NotImplementedError(
-                "Volume4DSRNet carry_f32 is not yet ported to vsr_tpu_torch")
         if unroll != 1:
             raise NotImplementedError(
                 f"Volume4DSRNet unroll={unroll}: unroll is a TPU lax.scan "
                 "knob; the port's frame loop is a Python loop (unroll 1)")
+        self.dtype = dt = resolve_dtype(dtype)
+        self.carry_f32 = carry = carry_f32 and dt != torch.float32
         self.remat = remat
         self.hoist_tail = hoist_tail
         self.upscale_factor = upscale_factor
-        self.head = Conv3D(in_channels, num_features, generator=generator)
+        self.head = Conv3D(in_channels, num_features, dtype=dt,
+                           out_dtype=torch.float32 if carry else None,
+                           generator=generator)
         self.step = _Vol4DStep(num_features, num_resblocks, out_channels,
                                upscale_factor, res_scale, fused_tail,
-                               generator=generator)
+                               dtype=dt, carry_f32=carry, generator=generator)
         self.to(device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -26,9 +26,12 @@ of output channel ``o`` is bank channel ``o*s^2 + ry*s + rx``: the order
 + o`` for its own interleave).
 
 The output is ``s`` times the input, which is what the transposed conv
-gives when ``k - 2p = s`` (every projection of the feedback and DBPN
-ladders: k6 s2 p2, k7 s3 p2, k8 s4 p2, k12 s8 p2, k4 s2 p1); other
-geometries are refused.
+gives when ``k - 2p + output_padding = s`` (every projection of the
+feedback and DBPN ladders: k6 s2 p2, k7 s3 p2, k8 s4 p2, k12 s8 p2, k4 s2
+p1; FRVSR's k3 s2 p1 with an output padding of 1 and k3 s3 p0); other
+geometries are refused. Without an output padding the window is
+symmetric (``d_min = -d_max``); with one the conv pads ``-d_min`` before and
+``d_max`` after (:func:`phase_padding`).
 """
 
 from __future__ import annotations
@@ -37,14 +40,15 @@ import torch
 import torch.nn.functional as F
 
 
-def phase_geometry(k: int, s: int, p: int):
+def phase_geometry(k: int, s: int, p: int, output_padding: int = 0):
     """Per output phase ``r``: ``(a0_r, taps_r, c_r)``, and the window's
     ``(d_min, d_max)``."""
-    if k - 2 * p != s:
+    if k - 2 * p + output_padding != s:
         raise ValueError(
             f"the sub-pixel transposed conv computes outputs of stride x the "
-            f"input (kernel - 2 * padding == stride); got kernel {k}, stride "
-            f"{s}, padding {p}")
+            f"input (kernel - 2 * padding + output_padding == stride); got "
+            f"kernel {k}, stride {s}, padding {p}, output padding "
+            f"{output_padding}")
     phases = []
     for r in range(s):
         a0 = (r + p) % s
@@ -55,12 +59,22 @@ def phase_geometry(k: int, s: int, p: int):
     return phases, d_min, d_max
 
 
-def subpixel_bank(weight: torch.Tensor, s: int, p: int) -> torch.Tensor:
+def phase_padding(k: int, s: int, p: int,
+                  output_padding: int = 0) -> tuple[int, int]:
+    """The bank conv's zero padding of each spatial axis, ``(before,
+    after)`` = ``(-d_min, d_max)``."""
+    _, d_min, d_max = phase_geometry(k, s, p, output_padding)
+    return -d_min, d_max
+
+
+def subpixel_bank(weight: torch.Tensor, s: int, p: int,
+                  output_padding: int = 0) -> torch.Tensor:
     """``(C_in, C_out, k, k)`` transposed-conv weight -> the ``(C_out*s*s,
     C_in, w, w)`` stride-1 conv weight, channel ``o*s^2 + ry*s + rx`` holding
-    phase ``(ry, rx)`` of output channel ``o``."""
+    phase ``(ry, rx)`` of output channel ``o``. Only slices, flips and zero
+    pads: an int8 weight gives the int8 bank."""
     c_in, c_out, k, _ = weight.shape
-    phases, d_min, d_max = phase_geometry(k, s, p)
+    phases, d_min, d_max = phase_geometry(k, s, p, output_padding)
     w = d_max - d_min + 1
     blocks = []
     for a0y, ty, cy in phases:

@@ -11,7 +11,10 @@ weights and computes, as the JAX function does:
   half to even;
 - per output channel ``ws = where(amax > 0, amax / 127, 1)`` of the dense
   weights, ``wq = clip(round(w / ws), -127, 127)``, quantized at each call
-  (no cache: nothing derived from a weight outlives the call);
+  (no cache: nothing derived from a weight outlives the call); or, with
+  ``weight_scale``, the int8 weights and their scales as given (a
+  transposed conv's sub-pixel bank, sliced from the weights it quantized
+  whole, ``quantize._w8a8_deconv``);
 - the convolution ``acc = conv(xq, wq)`` in int32;
 - ``out = float32(acc) * (ws * xs)``, ``+ bias``, cast to ``out_dtype``.
 
@@ -210,17 +213,30 @@ def _dequantize(acc: torch.Tensor, ws: torch.Tensor, xs: torch.Tensor,
     return out.to(out_dtype)
 
 
+def _weights(weight: torch.Tensor, weight_scale: torch.Tensor | None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(wq int8, ws float32 (F,))``: quantized here, or as given."""
+    if weight_scale is None:
+        return quantize_weight(weight)
+    if weight.dtype != torch.int8 or weight_scale.shape != weight.shape[:1]:
+        raise ValueError(f"weight_scale {tuple(weight_scale.shape)} goes "
+                         f"with int8 weights of {weight.shape[0]} output "
+                         f"channels; got {weight.dtype} {tuple(weight.shape)}")
+    return weight, weight_scale.detach().float()
+
+
 def w8a8_conv_reference(x: torch.Tensor, weight: torch.Tensor,
                         bias: torch.Tensor | None, act_scale: float | None,
                         stride: Sequence[int], padding: Sequence[int],
                         groups: int = 1,
-                        out_dtype: torch.dtype = torch.float32
+                        out_dtype: torch.dtype = torch.float32,
+                        weight_scale: torch.Tensor | None = None
                         ) -> torch.Tensor:
     """Plain twin: same arguments and result as :func:`w8a8_conv`
     (``out_dtype=torch.int32``: the int32 accumulators)."""
     _geometry(x, weight, stride, padding, groups)
     xs = activation_scale(x, act_scale)
-    wq, ws = quantize_weight(weight)
+    wq, ws = _weights(weight, weight_scale)
     conv = F.conv2d if weight.dim() == 4 else F.conv3d
     acc = conv(quantize_activations(x, xs).double(), wq.double(), None,
                tuple(stride), tuple(padding), 1, groups)
@@ -232,26 +248,29 @@ def w8a8_conv_reference(x: torch.Tensor, weight: torch.Tensor,
 def w8a8_conv(x: torch.Tensor, weight: torch.Tensor,
               bias: torch.Tensor | None, act_scale: float | None,
               stride: Sequence[int], padding: Sequence[int], groups: int = 1,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              out_dtype: torch.dtype = torch.float32,
+              weight_scale: torch.Tensor | None = None) -> torch.Tensor:
     """x: ``(N, C, H, W)`` or ``(N, C, D, H, W)``, float32 or bfloat16;
-    weight: the dense ``(F, C / groups, *kernel)`` float weights; bias
-    ``(F,)`` or ``None``; ``act_scale``: a static activation scale or
-    ``None`` (dynamic). Returns ``(N, F, *out)`` in ``out_dtype`` (float32,
-    bfloat16, or int32 for the accumulators). ``w8a8_conv.launches`` counts
-    the kernel's launches."""
+    weight: the dense ``(F, C / groups, *kernel)`` float weights, or with
+    ``weight_scale`` (float32 ``(F,)``) int8 weights already quantized by
+    it; bias ``(F,)`` or ``None``; ``act_scale``: a static activation scale
+    or ``None`` (dynamic). Returns ``(N, F, *out)`` in ``out_dtype``
+    (float32, bfloat16, or int32 for the accumulators).
+    ``w8a8_conv.launches`` counts the kernel's launches."""
     _geometry(x, weight, stride, padding, groups)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"w8a8_conv runs on cpu or cuda, not {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         if x.device.type == "cpu":
             return w8a8_conv_reference(x, weight, bias, act_scale, stride,
-                                       padding, groups, out_dtype)
+                                       padding, groups, out_dtype,
+                                       weight_scale)
         raise RuntimeError(
             "w8a8_conv's CUDA kernel has no backward: call it under "
             "torch.no_grad() / torch.inference_mode() (serving only)")
     return torch.ops.vsr_tpu_torch.w8a8_conv(
         x, weight, bias, act_scale, [int(s) for s in stride],
-        [int(p) for p in padding], int(groups), out_dtype)
+        [int(p) for p in padding], int(groups), out_dtype, weight_scale)
 
 
 w8a8_conv.launches = 0
@@ -262,16 +281,17 @@ w8a8_conv.launches = 0
 def _w8a8_conv_op(x: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor | None, act_scale: float | None,
                   stride: list[int], padding: list[int], groups: int,
-                  out_dtype: torch.dtype) -> torch.Tensor:
+                  out_dtype: torch.dtype,
+                  weight_scale: torch.Tensor | None) -> torch.Tensor:
     """The op without autograd that serving reaches: the twin on CPU
     tensors, the kernel on CUDA tensors."""
     return w8a8_conv_reference(x, weight, bias, act_scale, stride, padding,
-                               groups, out_dtype)
+                               groups, out_dtype, weight_scale)
 
 
 @_w8a8_conv_op.register_kernel("cuda")
 def _w8a8_conv_cuda(x, weight, bias, act_scale, stride, padding, groups,
-                    out_dtype):
+                    out_dtype, weight_scale):
     out_shape = _geometry(x, weight, stride, padding, groups)
     if out_dtype not in _OUT_KINDS:
         raise ValueError(f"w8a8_conv writes float32, bfloat16 or int32, not "
@@ -293,8 +313,10 @@ def _w8a8_conv_cuda(x, weight, bias, act_scale, stride, padding, groups,
                          f"channels and 65535 groups; got F={f}, "
                          f"groups={groups}")
     plan = kernel_plan(x.shape, weight.shape, stride, padding, groups)
-    # The weights quantized here and repacked tap-major, channels padded.
-    wq, ws = quantize_weight(weight)
+    # The weights quantized here (or as given) and repacked tap-major,
+    # channels padded.
+    wq, ws = _weights(weight, weight_scale)
+    ws = ws.contiguous()
     packed = repack_weight(wq)
     xs = activation_scale(x, act_scale).reshape(1)
     b = None if bias is None else bias.detach().float().contiguous()
@@ -327,7 +349,7 @@ def _w8a8_conv_cuda(x, weight, bias, act_scale, stride, padding, groups,
 
 @_w8a8_conv_op.register_fake
 def _w8a8_conv_fake(x, weight, bias, act_scale, stride, padding, groups,
-                    out_dtype):
+                    out_dtype, weight_scale):
     return x.new_empty(_out_shape(x, weight, stride, padding),
                        dtype=out_dtype)
 

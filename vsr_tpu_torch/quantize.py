@@ -18,10 +18,18 @@ is the exact type of a flax ``nn.Conv``: the port's ``Conv`` and
 ``PlainConv2d``, and ``Conv3D`` unless it folds a shuffle; not
 ``FoldableConv`` / ``ShuffleConv`` (raw parameters in JAX), not the fused
 squeeze (a ``nn.Conv`` subclass in JAX, so K1 keeps serving it), not a DCN
-pack, not ``ConvTranspose``; and only with ``min(C_in, C_out) >=
-min_channels`` at call time. Activation scales are dynamic (per call) or a
-``{flax module path: scale}`` dict from :func:`calibrate_w8a8`; a JSON file
-of either package serves the other.
+pack; and only with ``min(C_in, C_out) >= min_channels`` at call time.
+With ``quantize_deconvs`` also the transposed convs that stand for a flax
+``nn.ConvTranspose`` (``ConvTranspose`` without ``subpixel``, which stands
+for JAX's ``_SubpixelConvTranspose``, and ``PlainConvTranspose2d``) whose
+output is ``stride`` times the input: :func:`_w8a8_deconv` quantizes the
+deconv's weights whole (one scale per output channel over every tap, as
+JAX's ``_w8a8_conv``), slices the int8 sub-pixel bank of
+``ops/subpixel.py`` from them and runs it through ``w8a8_conv`` and
+``F.pixel_shuffle``: the same int32 sums as JAX's int8
+``lax.conv_transpose``, in another order. Activation scales are dynamic
+(per call) or a ``{flax module path: scale}`` dict from
+:func:`calibrate_w8a8`; a JSON file of either package serves the other.
 
 QAT (``make_qat_interceptor``, ``resolve_qat``, the trainers' ``qat``):
 the same eligible convs run :func:`fake_quant_conv`, the differentiable
@@ -33,10 +41,8 @@ module's dtype. :func:`fake_quant` passes the gradient straight through
 a value that lands exactly on the clip bound (``jnp.clip``'s subgradient).
 It is plain PyTorch (an elementwise pass and a cuDNN float32 conv): the
 JAX package computes it in XLA, outside any Pallas kernel. With
-``quantize_deconvs`` QAT also takes the transposed convs that stand for a
-flax ``nn.ConvTranspose`` (``ConvTranspose``, ``PlainConvTranspose2d``).
-
-Not ported, refused by name: ``quantize_deconvs=True`` in W8A8 serving.
+``quantize_deconvs`` QAT also takes the transposed convs that W8A8 serving
+takes.
 """
 
 from __future__ import annotations
@@ -54,7 +60,8 @@ from vsr_tpu_torch.interop import SCAN_BODIES, kernel_leaves, module_slots
 from vsr_tpu_torch.models.common import (Conv, Conv3D, ConvTranspose,
                                          PlainConv2d, PlainConvTranspose2d,
                                          compute_dtype, intercept_convs)
-from vsr_tpu_torch.ops.w8a8_conv import w8a8_conv
+from vsr_tpu_torch.ops.subpixel import phase_padding, subpixel_bank
+from vsr_tpu_torch.ops.w8a8_conv import quantize_weight, w8a8_conv
 
 
 def quantize_params(net: nn.Module) -> tuple[dict, dict]:
@@ -153,14 +160,25 @@ def kernel_size_filter(sizes: Iterable[int]) -> Callable[[nn.Module], bool]:
     return lambda mod: int(mod.kernel_size[0]) in sizes
 
 
-def _refuse_deconvs(quantize_deconvs: bool) -> None:
-    if quantize_deconvs:
-        raise NotImplementedError(
-            "quantize_deconvs=True is not yet ported to vsr_tpu_torch's W8A8 "
-            "serving (the transposed convs serve full precision)")
-
-
 _DECONVS = (ConvTranspose, PlainConvTranspose2d)
+
+
+def _deconv_eligible(mod: nn.Module) -> bool:
+    """A transposed conv the sub-pixel bank computes: not a sub-pixel
+    ``ConvTranspose`` (JAX's ``_SubpixelConvTranspose``, never
+    intercepted), one group, no dilation, square geometry with an output
+    ``stride`` times the input (every deconv of the zoo). The weight is
+    ``(C_in, C_out, k, k)``, JAX's ``transpose_kernel=False`` layout."""
+    if getattr(mod, "subpixel", False) or mod.groups != 1:
+        return False
+    if len({*mod.kernel_size}) != 1 or len({*mod.stride}) != 1 or len(
+            {*mod.padding}) != 1 or len({*mod.output_padding}) != 1:
+        return False
+    if mod.dilation != (1, 1):
+        return False
+    k, s, p, op = (mod.kernel_size[0], mod.stride[0], mod.padding[0],
+                   mod.output_padding[0])
+    return k - 2 * p + op == s
 
 
 def _conv_eligible(mod: nn.Module, x: torch.Tensor, min_channels: int,
@@ -174,8 +192,10 @@ def _conv_eligible(mod: nn.Module, x: torch.Tensor, min_channels: int,
     if kind is Conv3D:
         if mod.fold_shuffle2d:
             return False
-    elif kind not in (Conv, PlainConv2d) and not (quantize_deconvs
-                                                  and kind in _DECONVS):
+    elif kind in _DECONVS:
+        if not (quantize_deconvs and _deconv_eligible(mod)):
+            return False
+    elif kind not in (Conv, PlainConv2d):
         return False
     if x.dim() != len(mod.kernel_size) + 2 or not x.is_floating_point():
         return False
@@ -193,6 +213,50 @@ def _w8a8_conv(mod: nn.Module, x: torch.Tensor,
     out_dtype = compute_dtype(getattr(mod, "dtype", None), x, mod.weight)
     return w8a8_conv(x, mod.weight, mod.bias, act_scale, mod.stride,
                      mod.padding, mod.groups, out_dtype)
+
+
+def deconv_bank(mod: nn.Module) -> dict:
+    """The int8 sub-pixel bank of an eligible transposed conv: its ``(C_in,
+    C_out, k, k)`` weights quantized whole, per output channel (the scale
+    of JAX's ``_w8a8_conv``: the amax over every axis but ``out``), the
+    bank sliced from the int8 weights (``ops/subpixel.subpixel_bank``), each
+    channel's scale and bias repeated over its ``stride^2`` phases, and the
+    bank conv's zero padding ``(before, after)`` and the shuffle's
+    ``stride``."""
+    k, s, p, op = (mod.kernel_size[0], mod.stride[0], mod.padding[0],
+                   mod.output_padding[0])
+    wq, ws = quantize_weight(mod.weight.transpose(0, 1))
+    return {"weight": subpixel_bank(wq.transpose(0, 1), s, p,
+                                    op).contiguous(),
+            "weight_scale": ws.repeat_interleave(s * s),
+            "bias": (None if mod.bias is None
+                     else mod.bias.repeat_interleave(s * s)),
+            "padding": phase_padding(k, s, p, op), "stride": s}
+
+
+def _w8a8_deconv(mod: nn.Module, x: torch.Tensor, act_scale: float | None,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The intercepted body of an eligible transposed conv: its bank
+    (:func:`deconv_bank`) through ``w8a8_conv`` at stride 1, then
+    ``F.pixel_shuffle``. Out in the module's compute dtype, as
+    :func:`_w8a8_conv` (``out_dtype``: another, ``torch.int32`` for the
+    accumulators)."""
+    out_dtype = out_dtype or compute_dtype(getattr(mod, "dtype", None), x,
+                                           mod.weight)
+    bank = deconv_bank(mod)
+    (before, after), pad = bank["padding"], bank["padding"][0]
+    if before != after:  # zeros quantize to 0, as the conv's own padding
+        x, pad = F.pad(x, (before, after, before, after)), 0
+    out = w8a8_conv(x, bank["weight"], bank["bias"], act_scale, (1, 1),
+                    (pad, pad), 1, out_dtype,
+                    weight_scale=bank["weight_scale"])
+    return F.pixel_shuffle(out, bank["stride"])
+
+
+def _w8a8_body(mod: nn.Module, x: torch.Tensor,
+               act_scale: float | None) -> torch.Tensor:
+    return (_w8a8_deconv if isinstance(mod, _DECONVS) else _w8a8_conv)(
+        mod, x, act_scale)
 
 
 class _FakeQuant(torch.autograd.Function):
@@ -308,11 +372,11 @@ def make_w8a8_apply(net: nn.Module, act_scales="dynamic",
                     quantize_deconvs: bool = False) -> Callable:
     """``apply(x)`` serving the eligible convs of ``net`` as W8A8.
     ``act_scales``: ``"dynamic"`` or ``{flax module path: scale}`` (a conv
-    without a scale serves full precision)."""
-    _refuse_deconvs(quantize_deconvs)
+    without a scale serves full precision); ``quantize_deconvs``: the
+    transposed convs too (:func:`_w8a8_deconv`)."""
     interceptor = _conv_interceptor(
-        net, lambda mod, x, scale, _: _w8a8_conv(mod, x, scale), act_scales,
-        min_channels, conv_filter, False)
+        net, lambda mod, x, scale, _: _w8a8_body(mod, x, scale), act_scales,
+        min_channels, conv_filter, quantize_deconvs)
 
     def apply(x, **kwargs):
         with intercept_convs(interceptor):
@@ -385,8 +449,8 @@ def calibrate_w8a8(net: nn.Module, sample_inputs: Iterable[torch.Tensor],
     in JAX) leaves out the convs flax runs inside a scan body
     (``interop.SCAN_BODIES``): they serve full precision; ``"callback"``
     includes them, the maximum over the loop's iterations.
+    ``quantize_deconvs``: the eligible transposed convs' inputs too.
     The maxima stay on the device and come to the host once per sample."""
-    _refuse_deconvs(quantize_deconvs)
     paths = _conv_paths(net)
     scan_body = SCAN_BODIES.get(type(net)) if method == "outputs" else None
     merged: dict[str, float] = {}
@@ -397,7 +461,8 @@ def calibrate_w8a8(net: nn.Module, sample_inputs: Iterable[torch.Tensor],
             path = paths.get(id(mod))
             if (path is not None
                     and not (scan_body and path.startswith(scan_body))
-                    and _conv_eligible(mod, xin, min_channels, conv_filter)):
+                    and _conv_eligible(mod, xin, min_channels, conv_filter,
+                                       quantize_deconvs)):
                 amax = xin.detach().float().abs().amax()
                 prev = stats.get(path)
                 stats[path] = amax if prev is None else torch.maximum(prev,

@@ -43,6 +43,7 @@ under the 14 ``*DeviceTrainer`` names of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import logging
 from typing import Sequence
 
@@ -320,10 +321,19 @@ class EpochEngine:
 
     def _capture(self) -> torch.cuda.CUDAGraph:
         """Capture the next step; its Python runs once, moving the host
-        state as an eager step does."""
+        state as an eager step does. The garbage collector stays off for
+        the capture (``torch.cuda.graph`` collects once before it begins):
+        a collection inside it that frees an earlier trainer's graphs
+        releases their memory pool mid-capture and invalidates it."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._one_step()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self._one_step()
+        finally:
+            if collecting:
+                gc.enable()
         self.captures += 1
         return graph
 
@@ -375,6 +385,8 @@ class DeviceEpochTrainer(trainers.TrainStep):
         qat: ``True`` or a dict of ``quantize.resolve_qat``: the step's
             forward runs the fake-quant convs. ``device``: ``cuda`` unless
             the caller asks for ``cpu``.
+        grad_accumulation: ``optim.GradientChain``'s micro-steps an update
+            (two captured graphs on the card, as in the config trainers).
     """
 
     def __init__(self, net, loss_fns: Sequence, loss_weights: Sequence[float],
@@ -384,7 +396,8 @@ class DeviceEpochTrainer(trainers.TrainStep):
                  dataset_stats: str = "acdc", random_seed: int | str = "vsr",
                  window: int | None = None, scan_unroll: int | str = "auto",
                  qat: dict | bool | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 grad_accumulation: int = 1):
         check_scan_unroll(scan_unroll)
         self.device = torch.device(device)
         trainers.training_precision(net)
@@ -397,7 +410,8 @@ class DeviceEpochTrainer(trainers.TrainStep):
             optimizer = optimizer.bind(self.net.parameters())
         self.optimizer = (make_capturable(optimizer, self.device)
                           if self.device.type == "cuda" else optimizer)
-        self.chain = GradientChain(self.optimizer, self.net)
+        self.chain = GradientChain(self.optimizer, self.net,
+                                   grad_accumulation)
         self.lr_buf = torch.as_tensor(np.asarray(lr_data, np.float32)).to(
             self.device)
         self.hr_buf = torch.as_tensor(np.asarray(hr_data, np.float32)).to(
@@ -418,7 +432,8 @@ class DeviceEpochTrainer(trainers.TrainStep):
         self.engine = EpochEngine(
             lambda inputs, hr: self._train_step(inputs, hr)[0], self.lr_buf,
             self.hr_buf, patch, ratio, self.stats, self.steps_per_epoch,
-            len(self.scalar_names), window)
+            len(self.scalar_names), window, graph_key=self.chain.graph_key,
+            after_replay=self.chain.advance, warmup=self.chain.every_k)
         self.epoch = 0
 
     @staticmethod

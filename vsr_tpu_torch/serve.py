@@ -39,8 +39,9 @@ Serving semantics:
 
 Differences from the JAX daemon: ``/debug/profile`` records with
 ``torch.profiler``; ``--device`` (default ``cuda``) names the card; the
-mesh-sharded live mode and the preset flags are not ported and are refused
-by name. The live backend serves ``--int8`` and ``--w8a8-scales`` (with
+mesh-sharded live mode is not ported and is refused by name; ``--preset``
+/ ``--preset-file`` fill the live ``--net``'s knobs from the card's table
+(``presets.py``). The live backend serves ``--int8`` and ``--w8a8-scales`` (with
 ``--w8a8-kernels``); a quantized artifact carries its kernels in its
 program.
 
@@ -813,8 +814,10 @@ def make_server(artifact_paths, host: str = "127.0.0.1", port: int = 0,
                     self._send_json(404, {"error": str(exc)})
                     metrics.observe("/v1/stream", 404, 0.0)
                 return
-            self._send_json(404, {"error": f"unknown path {path}"})
+            # Counted before the answer, so a client that reads /metrics
+            # right after its 404 sees it.
             metrics.observe("<other>", 404, 0.0)
+            self._send_json(404, {"error": f"unknown path {path}"})
 
         def _profile_request(self, query: str) -> None:
             """POST /debug/profile?seconds=S — record a torch.profiler trace
@@ -869,8 +872,8 @@ def make_server(artifact_paths, host: str = "127.0.0.1", port: int = 0,
                 self._profile_request(parsed.query)
                 return
             if parsed.path != "/v1/sr":
-                self._send_json(404, {"error": f"unknown path {parsed.path}"})
                 metrics.observe("<other>", 404, 0.0)
+                self._send_json(404, {"error": f"unknown path {parsed.path}"})
                 return
             t0 = time.perf_counter()
             status = 500
@@ -960,8 +963,7 @@ def live_from_args(args) -> list:
 
 
 # JAX daemon flags this port does not serve: dest -> flag.
-_NOT_PORTED = {"mesh": "--mesh", "preset": "--preset",
-               "preset_file": "--preset-file"}
+_NOT_PORTED = {"mesh": "--mesh"}
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -1040,9 +1042,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="with --w8a8-scales: quantize only convs of these "
                         "spatial kernel sizes (e.g. '6')")
     p.add_argument("--preset", choices=["tuned", "fast"], default="",
-                   help="not yet ported")
+                   help="apply the live --net's serving knobs measured on "
+                        "the card (vsr_tpu_torch/presets.py); explicit "
+                        "flags win. W8A8 here needs --w8a8-scales")
     p.add_argument("--preset-file", dest="preset_file", default="",
-                   help="not yet ported")
+                   help="JSON of {net: preset_entry} measured on this "
+                        "machine (python -m vsr_tpu_torch.tune); implies "
+                        "--preset tuned")
     return p.parse_args(argv)
 
 
@@ -1056,6 +1062,15 @@ def main(argv: list[str] | None = None) -> None:
                              "(serve it with python -m vsr_tpu.serve)")
     if args.batch_wait_ms < 0:
         raise SystemExit("--batch-wait-ms must be >= 0")
+    if args.preset_file and not args.net:
+        raise SystemExit(
+            "--preset-file applies to live --net serving; stream sessions "
+            "take their own --stream-* flags and artifacts bake their "
+            "knobs at export time")
+    if args.net:
+        from vsr_tpu_torch.presets import apply_cli_preset
+
+        apply_cli_preset(args)
     live = live_from_args(args)
     stream_spec = None
     if args.stream_net:

@@ -178,12 +178,11 @@ def _frvsr_stream(net: nn.Module):
     f = net.upscale_factor
 
     def apply_step(carry, z):
-        z = z.to(net.dtype)
         if carry is None:
             n, c, h, w = z.shape
             carry = (z, z.new_zeros(n, c, h * f, w * f))
         sr, _warped_lr = net.step(carry[0], carry[1], z)
-        return (z, sr), sr
+        return (z, sr.to(z.dtype)), sr
 
     return apply_step
 
