@@ -59,12 +59,22 @@ config for its net, with random seeded weights:
   trained, tested and served, DRFNet with experts, sub-pixel deconvs and
   ``remat``, MoEEDSRNet's ``sort`` / ``radix`` routers and ``dense_nhwc``
   dispatch (K3 with ``rank_pallas``), the step-stacked nets through an
-  artifact, the daemon and a frame stream.
+  artifact, the daemon and a frame stream;
+- the offline tools to a tested checkpoint: raw ACDC NIfTIs and raw DSB15
+  DICOMs of the script's own making through the port's CLIs
+  (``vsr_tpu_torch.io.dicom``, ``preprocess.dsb15`` and ``preprocess.acdc``
+  with ``--backend torch`` on the card, ``preprocess.cropping``), then
+  ``configs/train/acdc_vsr_drf_x2.yaml`` trained on the processed tree with
+  ``native_decode``, ``async_ckpt`` and ``profile_dir`` (K1 forward and
+  backward) and ``main --test`` on ``configs/test/acdc_vsr_drf_x2.yaml``
+  with the cropping's ``coordinates.pkl``.
 
 Phases; any failure exits non-zero and prints no result:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles ``vsr_tpu_torch/csrc/*.cu`` with nvcc, prints the time;
+2. build: compiles ``vsr_tpu_torch/csrc/*.cu`` with nvcc, prints the time
+   (the native NIfTI decoder, ``csrc_host/vsr_native.cpp``, is built with
+   g++ at its first use, in phase 17);
 3. kernel vs twin: every kernel against its plain PyTorch twin on the card
    at the shapes its path gives it (K1: every squeeze shape of a DRFNet
    frame step, f32 and bf16, without and with its PReLU epilogue, plus a
@@ -293,7 +303,33 @@ Phases; any failure exits non-zero and prints no result:
    the CPU: losses within the larger of 1e-4 relative and twice the CPU's
    own bf16 error of the loss, outputs within twice the CPU's own bf16
    error, parameters float32;
-17. prints the kernels' JSON line, then the final JSON line.
+17. the offline tools to a tested checkpoint: (a) a raw ACDC tree
+   (``training/patient00{1,2,3}``, ``testing/patient101``, each a (216,
+   256, 2, 30) int16 4D NIfTI: ACDC's in-plane size and frame count, 2
+   slices, a low-passed background with a beating disc) and a raw DSB15
+   DICOM tree (``train/1/study/sax_5``, 30 explicit-VR frames of 256 x 192,
+   ``validate/2/study/sax_7``, 30 implicit-VR frames, ``train/1/study/
+   sax_6``, 20 frames; file names shuffled against InstanceNumber); (b)
+   the CLIs as processes: ``io.dicom`` (its arrays equal the pixels
+   written), ``preprocess.dsb15 --backend torch`` (the 20-frame series
+   absent) and ``preprocess.acdc --backend torch``, their HR frames/s and
+   the share of wall time in the downscale calls and in the NIfTI writes;
+   (c) every LR file against the numpy backend's downscale of its HR
+   sequence in memory (>= 98 % exact, <= 1 grey; each frame file equal to
+   its video's frame), a numpy-backend run of one patient (its HR files
+   byte-equal; its HR frames/s), ``preprocess.cropping`` on the valid and
+   the test HR videos into one directory (every patient in
+   ``coordinates.pkl``, a box holding the disc); (d) the native decoder
+   built at its first use, decode ms a file, native against Python; the first 64 training samples bit-equal with
+   ``native_decode`` on and off; ``acdc_vsr_drf_x2.yaml`` (F=64, G=6, batch
+   16) for 2 epochs on the processed tree with ``native_decode``,
+   ``async_ckpt`` and ``profile_dir`` (K1 launches as in phase 7; a trace
+   after epoch 2 and none after epoch 1, naming K1's kernel; the last
+   asynchronous checkpoints equal to a synchronous save of the trainer's
+   state tensor for tensor; the ms the loop blocks in an async and a sync
+   save); (e) ``main --test`` on ``configs/test/acdc_vsr_drf_x2.yaml`` on
+   the test patient (finite CardiacPSNR / CardiacSSIM, K1 12 a frame);
+18. prints the kernels' JSON line, then the final JSON line.
 
 ``--profile`` adds one ``torch.profiler`` trace of a full volume per serving
 path (f32, and bf16 for DRFNet; the two volume nets) and of 6 train steps
@@ -313,6 +349,9 @@ then W8A8 on and off at the winning knobs (first-batch calibration, or
 callback scales for the nets whose convs run in their frame or step
 loops), frames/s and PSNR on a low-passed volume.
 
+``--offline`` runs only the build and phase 17, prints a summary line and
+the final JSON line.
+
 ``--latency N`` runs only the build, phase 12a and phase 12b with N
 requests per client (8 N a daemon; a p99 is printed from 100 on), then
 traces one volume through the DRF artifact and through ``make_pipeline``
@@ -320,7 +359,8 @@ traces one volume through the DRF artifact and through ``make_pipeline``
 
 Usage: python3 chip_smoke.py [--out details.json] [--profile | --latency N |
                              --quantized | --knobs | --feedback |
-                             --presets | --preset-table [NET ...]]
+                             --presets | --preset-table [NET ...] |
+                             --offline]
 """
 
 from __future__ import annotations
@@ -330,6 +370,7 @@ import collections
 import dataclasses
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -5918,6 +5959,537 @@ def phase_preset_table(tmp: Path, card: str, dev, nets: list) -> dict:
     return res
 
 
+# ================================================ offline tools (phase 17)
+
+# Raw ACDC: 4D NIfTIs of ACDC's in-plane size and 30 frames; 2 slices is the
+# depth cut (ACDC has 6-18). Three training patients (an 8:2 split gives
+# two to train, one to validate) and one testing patient.
+ACDC_RAW_SHAPE = (216, 256, 2, 30)
+ACDC_RAW = {"training": ("patient001", "patient002", "patient003"),
+            "testing": ("patient101",)}
+DISC_RADIUS, DISC_BEAT = 22.0, 6.0  # pixels: the beating disc's radius
+# Raw DSB15: single-frame DICOMs, (split, patient, series): (frames,
+# explicit VR); the 20-frame series is under preprocessing's 30 and skipped.
+DSB15_FRAME = (256, 192)
+DSB15_SERIES = {("train", "1", "sax_5"): (30, True),
+                ("validate", "2", "sax_7"): (30, False),
+                ("train", "1", "sax_6"): (20, True)}
+PREPROCESS_EXACT, PREPROCESS_GREY = 0.98, 1.0  # tests/test_preprocess.py
+OFFLINE_SAMPLES = 64  # dataset samples decoded natively and in Python
+OFFLINE_BUDGET_S = 120.0
+
+
+def beating_disc(rng: np.random.Generator, shape: tuple,
+                 center: tuple[int, int]) -> np.ndarray:
+    """(H, W, D, T) int16: a low-passed background per slice with a bright
+    disc at ``center`` whose radius beats once over the T frames (largest
+    at frame 0, smallest at frame T // 2), so that the ROI finder sees
+    motion and the nets have something to learn."""
+    h, w, d, t = shape
+    ny, nx = np.fft.fftfreq(h)[:, None], np.fft.fftfreq(w)[None, :]
+    lowpass = np.exp(-(ny ** 2 + nx ** 2) / (2 * 0.03 ** 2))
+    yy, xx = np.mgrid[:h, :w]
+    dist = np.hypot(yy - center[0], xx - center[1])
+    vol = np.empty(shape, np.float64)
+    for z in range(d):
+        bg = np.fft.ifft2(np.fft.fft2(rng.standard_normal((h, w)))
+                          * lowpass).real
+        bg = 150 + 120 * bg / np.abs(bg).max()
+        for k in range(t):
+            r = DISC_RADIUS + DISC_BEAT * np.cos(2 * np.pi * k / t) - 2.0 * z
+            vol[..., z, k] = bg + 500 / (1 + np.exp((dist - r) / 1.5))
+    return np.clip(np.round(vol), 0, None).astype(np.int16)
+
+
+def _dicom_element(group: int, elem: int, vr: bytes, value: bytes,
+                   explicit: bool) -> bytes:
+    if not explicit:
+        return struct.pack("<HHI", group, elem, len(value)) + value
+    if vr in (b"OB", b"OW", b"OF", b"SQ", b"UT", b"UN"):
+        return struct.pack("<HH2sHI", group, elem, vr, 0, len(value)) + value
+    return struct.pack("<HH2sH", group, elem, vr, len(value)) + value
+
+
+def write_dicom(path: Path, pixels: np.ndarray, instance: int,
+                explicit: bool) -> None:
+    """One single-frame DICOM file (preamble, file meta with the transfer
+    syntax, InstanceNumber, geometry, 16-bit unsigned pixels), explicit or
+    implicit VR little endian."""
+    rows, cols = pixels.shape
+    parts = [(0x0020, 0x0013, b"IS", str(instance).encode()),
+             (0x0028, 0x0010, b"US", struct.pack("<H", rows)),
+             (0x0028, 0x0011, b"US", struct.pack("<H", cols)),
+             (0x0028, 0x0030, b"DS", b"1.4\\1.4"),
+             (0x0028, 0x0100, b"US", struct.pack("<H", 16)),
+             (0x0028, 0x0103, b"US", struct.pack("<H", 0)),
+             (0x7FE0, 0x0010, b"OW", pixels.astype("<u2").tobytes())]
+    body = b"".join(_dicom_element(*p, explicit) for p in parts)
+    syntax = b"1.2.840.10008.1.2.1" if explicit else b"1.2.840.10008.1.2\x00"
+    meta = _dicom_element(0x0002, 0x0010, b"UI", syntax, True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(b"\0" * 128 + b"DICM" + meta + body)
+
+
+def write_raw_trees(root: Path, rng: np.random.Generator) -> dict:
+    """The raw ACDC tree (``training/`` and ``testing/``) and the raw DSB15
+    DICOM tree (file names shuffled against InstanceNumber); returns each
+    ACDC patient's disc centre and each DICOM series' pixels in instance
+    order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vsr_tpu_torch.io.nifti import save_nifti
+
+    centres, jobs = {}, []
+    for split, patients in ACDC_RAW.items():
+        for i, patient in enumerate(patients):
+            centre = (96 + 10 * i, 118 + 12 * i)
+            centres[patient] = centre
+            jobs.append((beating_disc(rng, ACDC_RAW_SHAPE, centre),
+                         root / "acdc" / split / patient
+                         / f"{patient}_4d.nii.gz"))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: save_nifti(*job), jobs))
+    series = {}
+    for (split, patient, sax), (frames, explicit) in DSB15_SERIES.items():
+        vol = beating_disc(rng, (*DSB15_FRAME, 1, frames), (120, 90))[:, :, 0]
+        pixels = vol.astype(np.uint16)  # (H, W, T)
+        series[split, patient, sax] = pixels
+        order = rng.permutation(frames)
+        for name_i, k in enumerate(order):
+            write_dicom(root / "dsb15" / split / patient / "study" / sax
+                        / f"IM-{name_i:04d}.dcm", pixels[..., k], int(k) + 1,
+                        explicit)
+    return {"centres": centres, "series": series}
+
+
+def start_cli(module: str, *args) -> tuple:
+    """``python -m <module> <args>`` started from the checkout's root, its
+    log (standard error) to a file; ``finish_cli`` waits for it."""
+    root = Path(__file__).resolve().parent
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-m", module, *map(str, args)],
+                            cwd=root, stdout=subprocess.DEVNULL, stderr=err,
+                            text=True)
+    return module, proc, err, time.perf_counter()
+
+
+def finish_cli(handle: tuple) -> tuple[float, str]:
+    """The CLI's wall seconds and log; a failed CLI fails the phase."""
+    module, proc, err, t0 = handle
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    seconds = time.perf_counter() - t0
+    err.seek(0)
+    log_text = err.read()
+    err.close()
+    if proc.returncode:
+        raise SystemExit(f"python -m {module} failed ({proc.returncode}):\n"
+                         f"{log_text[-3000:]}")
+    return seconds, log_text
+
+
+def logged_timings(stderr: str) -> dict:
+    """The ``Timings: {...}`` line a preprocessing CLI logs last."""
+    lines = [ln for ln in stderr.splitlines() if "Timings: " in ln]
+    if not lines:
+        raise SystemExit(f"no Timings line in the CLI's log:\n{stderr[-2000:]}")
+    return json.loads(lines[-1].split("Timings: ", 1)[1])
+
+
+def check_lr_files(tree: Path) -> dict:
+    """Every LR file of a processed tree against the numpy backend's
+    downscale of its HR sequence, computed in memory (video files at JAX's
+    bar between its backends; each frame file equal to its video's frame);
+    one job a sequence and factor, on 8 threads (numpy's FFT and zlib
+    release the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vsr_tpu_torch.io.nifti import load_nifti
+    from vsr_tpu_torch.preprocess.pipeline import (DOWNSCALE_FACTORS,
+                                                   downscale_sequence)
+
+    def check(job):
+        hr_path, f = job
+        split, patient = hr_path.parts[-4], hr_path.parts[-2]
+        seq = hr_path.name.split("sequence")[1][:2]
+        want = downscale_sequence(load_nifti(hr_path), f, backend="numpy")
+        got = load_nifti(tree / "videos" / split / "LR" / f"X{f}" / patient
+                         / hr_path.name)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise SystemExit(f"{hr_path.name} x{f}: LR {got.shape} "
+                             f"{got.dtype}, want {want.shape} {want.dtype}")
+        same = int((got == want).sum())
+        grey = float(np.abs(got.astype(np.float64) - want).max())
+        if same / got.size < PREPROCESS_EXACT or grey > PREPROCESS_GREY:
+            raise SystemExit(f"{split}/{patient} {hr_path.name} x{f}: the "
+                             f"torch backend's LR is {same / got.size:.4f} "
+                             f"exact, {grey} grey off the numpy backend's")
+        frames_dir = tree / "imgs" / split / "LR" / f"X{f}" / patient
+        for t in range(got.shape[-1]):
+            frame = load_nifti(frames_dir / f"{patient}_2d_slice{seq}_"
+                               f"frame{t + 1:02d}.nii.gz")
+            if not np.array_equal(frame, got[..., t]):
+                raise SystemExit(f"{frames_dir} frame {t + 1} is not its "
+                                 "video's frame")
+        return same, got.size, grey, 1 + got.shape[-1]
+
+    jobs = [(p, f) for p in sorted(tree.glob("videos/*/HR/*/*.nii.gz"))
+            for f in DOWNSCALE_FACTORS]
+    with ThreadPoolExecutor(8) as pool:
+        rows = list(pool.map(check, jobs))
+    same, size = sum(r[0] for r in rows), sum(r[1] for r in rows)
+    return {"files": sum(r[3] for r in rows), "exact_share": same / size,
+            "worst_file_exact_share": min(r[0] / r[1] for r in rows),
+            "max_grey": max(r[2] for r in rows)}
+
+
+def offline_trees(tmp: Path, card: str, dev) -> dict:
+    """17a-17c: the raw trees, the three CLIs, the gates on the trees, a
+    numpy-backend run of one patient, the cropping."""
+    import pickle
+
+    from vsr_tpu_torch.io.nifti import load_nifti
+    from vsr_tpu_torch.preprocess import acdc, cropping, pipeline
+
+    res = {}
+    t0 = time.perf_counter()
+    raw = write_raw_trees(tmp / "raw", np.random.default_rng(17))
+    res["raw_seconds"] = time.perf_counter() - t0
+    log(f"  raw trees: ACDC {len(raw['centres'])} patients of "
+        f"{ACDC_RAW_SHAPE} int16, DSB15 {len(DSB15_SERIES)} DICOM series of "
+        f"{DSB15_FRAME} ({sum(v[0] for v in DSB15_SERIES.values())} files) in "
+        f"{res['raw_seconds']:.1f} s")
+
+    log("phase 17b: conversion and preprocessing (the port's CLIs; the "
+        "DICOM conversion runs beside the ACDC preprocessing, the DSB15 "
+        "preprocessing beside the ACDC tree's gates)")
+    device = ["--device", dev.type]
+    converted, proc, proc_dsb = (tmp / "dsb15_nifti", tmp / "processed",
+                                 tmp / "processed_dsb15")
+    acdc_cli = start_cli("vsr_tpu_torch.preprocess.acdc", tmp / "raw" / "acdc",
+                         proc, "--backend", "torch", *device)
+    res["dicom_seconds"], _ = finish_cli(start_cli(
+        "vsr_tpu_torch.io.dicom", tmp / "raw" / "dsb15", converted))
+    for (split, patient, sax), pixels in raw["series"].items():
+        out = "valid" if split == "validate" else split
+        got = load_nifti(converted / out / patient / sax / f"{sax}.nii.gz")
+        if got.dtype != np.int16 or not np.array_equal(
+                got[:, :, 0], pixels.astype(np.int16)):
+            raise SystemExit(f"io.dicom: {split}/{patient}/{sax} converted "
+                             f"to {got.shape} {got.dtype}, not the pixels "
+                             "written")
+    (converted / "test").mkdir(exist_ok=True)  # no DSB15 test series here
+    secs, err = finish_cli(acdc_cli)
+    res["acdc"] = dict(logged_timings(err), cli_seconds=secs)
+    dsb_cli = start_cli("vsr_tpu_torch.preprocess.dsb15", converted, proc_dsb,
+                        "--backend", "torch", *device)
+
+    log("phase 17c: gates on the trees, a numpy-backend run, the cropping")
+    t0 = time.perf_counter()
+    res["lr_check"] = {"acdc": check_lr_files(proc)}
+    secs, err = finish_cli(dsb_cli)
+    res["dsb15"] = dict(logged_timings(err), cli_seconds=secs)
+    hr_dsb = sorted(p.name for p in proc_dsb.glob("videos/*/HR/*/*.nii.gz"))
+    if (hr_dsb != ["1_2d+1d_sequence01.nii.gz", "2_2d+1d_sequence01.nii.gz"]
+            or any(proc_dsb.rglob("1_2d*sequence02*"))):
+        raise SystemExit(f"preprocess.dsb15: HR sequences {hr_dsb}; the "
+                         "20-frame series must be skipped")
+    res["lr_check"]["dsb15"] = check_lr_files(proc_dsb)
+    res["lr_check_seconds"] = time.perf_counter() - t0
+    for key in ("acdc", "dsb15"):
+        r = res[key]
+        log(f"  preprocess.{key} --backend torch: {r['hr_frames']} HR frames "
+            f"in {r['wall_seconds']:.2f} s ({r['hr_frames_per_sec']:.1f} HR "
+            f"frames/s; {r['cli_seconds']:.2f} s with the process's start), "
+            f"{r['downscale_seconds']:.3f} s in the downscale calls "
+            f"({r['downscale_seconds'] / r['wall_seconds']:.3f} of the wall "
+            f"time), {r['write_wait_seconds']:.2f} s waiting on the NIfTI "
+            f"writes ({r['write_wait_seconds'] / r['wall_seconds']:.3f}) "
+            f"[{card}]")
+
+    log(f"  every LR file against the numpy backend in memory "
+        f"({res['lr_check_seconds']:.2f} s with the DSB15 CLI beside): "
+        f"{ {k: (v['files'], round(v['exact_share'], 6), v['max_grey']) for k, v in res['lr_check'].items()} } "
+        f"(files, exact share, max grey; bar {PREPROCESS_EXACT} exact, "
+        f"{PREPROCESS_GREY} grey)")
+    splits = {p.parts[-2]: k for k, v in acdc.split_paths(
+        tmp / "raw" / "acdc").items() for p in v}
+    patient = "patient001"
+    numpy_tree, writer = tmp / "processed_numpy", pipeline.SequenceWriter()
+    t0 = time.perf_counter()
+    with writer:
+        pipeline.process_acdc_volume(
+            numpy_tree, splits[patient], patient, load_nifti(
+                tmp / "raw" / "acdc" / "training" / patient
+                / f"{patient}_4d.nii.gz"),
+            pipeline.PreprocessStats(), backend="numpy", writer=writer)
+    res["numpy_one_patient"] = writer.timings(time.perf_counter() - t0)
+    hr_files = sorted(p.relative_to(numpy_tree) for p in numpy_tree.glob(
+        f"*/{splits[patient]}/HR/{patient}/*.nii.gz"))
+    differ = [str(p) for p in hr_files
+              if (numpy_tree / p).read_bytes() != (proc / p).read_bytes()]
+    if len(hr_files) != 2 * (1 + T_FRAMES) or differ:
+        raise SystemExit(f"{len(hr_files)} HR files of {patient}; not "
+                         f"byte-equal to the numpy backend's: {differ[:4]}")
+    r = res["numpy_one_patient"]
+    log(f"  numpy backend, {patient} in process: {r['hr_frames']} HR frames "
+        f"in {r['wall_seconds']:.2f} s ({r['hr_frames_per_sec']:.1f} HR "
+        f"frames/s), {r['downscale_seconds']:.2f} s in the downscale calls "
+        f"({r['downscale_seconds'] / r['wall_seconds']:.3f}); its "
+        f"{len(hr_files)} HR files byte-equal to the torch run's")
+
+    crop = tmp / "cropped"
+    t0 = time.perf_counter()
+    for split in ("valid", "test"):
+        cropping.main([str(proc / "videos" / split / "HR"), str(crop)])
+    res["crop_seconds"] = time.perf_counter() - t0
+    with open(crop / "coordinates.pkl", "rb") as f:
+        boxes = pickle.load(f)
+    want = sorted(p for p, s in splits.items() if s in ("valid", "test"))
+    if sorted(boxes) != want:
+        raise SystemExit(f"coordinates.pkl holds {sorted(boxes)}, want {want}")
+    (_, _, w0_crop, _) = pipeline.center_crop_multiple(ACDC_RAW_SHAPE[:2])
+    reach = DISC_RADIUS + DISC_BEAT
+    for p, (h0, hn, w0, wn) in boxes.items():
+        cy, cx = raw["centres"][p][0], raw["centres"][p][1] - w0_crop
+        if not (h0 <= cy - reach and cy + reach <= hn and w0 <= cx - reach
+                and cx + reach <= wn):
+            raise SystemExit(f"{p}: box {(h0, hn, w0, wn)} does not hold the "
+                             f"disc (centre {(cy, cx)}, radius {reach})")
+        gifs = list((crop / p).glob("*.gif"))
+        if len(gifs) != ACDC_RAW_SHAPE[2]:
+            raise SystemExit(f"{p}: {len(gifs)} cropped GIFs")
+    res["boxes"] = boxes
+    log(f"  cropping (valid, then test, merged): {boxes} in "
+        f"{res['crop_seconds']:.2f} s")
+    res["tree"], res["cropped"], res["splits"] = proc, crop, splits
+    return res
+
+
+def offline_decode(tree: Path, card: str) -> dict:
+    """Decode ms per file, native against Python, on the processed videos
+    (files just written: a warm read)."""
+    from vsr_tpu_torch.io import native
+    from vsr_tpu_torch.io.nifti import load_nifti
+
+    paths = sorted(tree.glob("videos/**/*.nii.gz"))
+    t0 = time.perf_counter()
+    native.load_nifti_native(paths[0])  # builds the library at first use
+    res = {"files": len(paths), "build_seconds": time.perf_counter() - t0}
+    log(f"  {native.SOURCE.relative_to(Path(__file__).resolve().parent)} "
+        f"-> {native.library_path().name} built and loaded in "
+        f"{res['build_seconds']:.2f} s")
+    for name, fn in (("python", load_nifti),
+                     ("native", native.load_nifti_native)):
+        t0 = time.perf_counter()
+        for p in paths:
+            fn(p)
+        res[f"{name}_ms_per_file"] = (time.perf_counter() - t0) * 1e3 / len(paths)
+    t0 = time.perf_counter()
+    native.load_nifti_batch(paths, n_threads=8)
+    res["native_batch_ms_per_file"] = (time.perf_counter() - t0) * 1e3 / len(paths)
+    log(f"  decode of {len(paths)} video files (warm): Python "
+        f"{res['python_ms_per_file']:.2f} ms a file, native "
+        f"{res['native_ms_per_file']:.2f}, native batch of 8 threads "
+        f"{res['native_batch_ms_per_file']:.2f} [{card}]")
+    return res
+
+
+def offline_test_config(tree: Path, run: Path, crop: Path, tmp: Path) -> Path:
+    """``configs/test/acdc_vsr_drf_x2.yaml`` with its data, checkpoint and
+    both ``coordinates_path`` entries pointed at this phase's files."""
+    from vsr_tpu_torch.config import load_config, save_config
+
+    root = Path(__file__).resolve().parent
+    cfg = load_config(root / "configs" / "test" / "acdc_vsr_drf_x2.yaml")
+    out = run / "predictions"
+    cfg.main.saved_dir = str(out)
+    cfg.main.loaded_path = str(run / "checkpoints" / "model_best.ckpt")
+    cfg.dataset.kwargs.data_dir = str(tree / "videos")
+    cfg.net.kwargs.update(fused_squeeze=True)
+    for spec in cfg.metrics:
+        if "coordinates_path" in (spec.get("kwargs") or {}):
+            spec.kwargs.coordinates_path = str(crop / "coordinates.pkl")
+    cfg.predictor.kwargs.saved_dir = str(out)
+    path = tmp / "offline_test.yaml"
+    save_config(cfg, path)
+    return path
+
+
+def offline_training(tmp: Path, trees: dict, card: str) -> dict:
+    """17d-17e: DRFNet trained on the processed tree with ``native_decode``,
+    ``async_ckpt`` and ``profile_dir``, then ``main --test`` on it."""
+    import copy
+    import csv
+
+    from vsr_tpu_torch import main as port_main
+    from vsr_tpu_torch.registry import build
+    from vsr_tpu_torch.runner.trainers import BaseTrainer
+    from vsr_tpu_torch.utils import profiling
+    from vsr_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tree, res = trees["tree"], {}
+    res["decode"] = offline_decode(tree, card)
+    run, trace_dir = tmp / "offline_run", tmp / "offline_trace"
+    cfg = training_config("acdc_vsr_drf_x2", tree, run,
+                          {"fused_squeeze": True}, tmp)
+    cfg.dataset.kwargs.native_decode = True
+    cfg.trainer.kwargs.update(async_ckpt=True, profile_dir=str(trace_dir))
+
+    t0 = time.perf_counter()
+    on = build("dataset", cfg.dataset, type="train")
+    spec = copy.deepcopy(cfg.dataset)
+    spec.kwargs.native_decode = False
+    off = build("dataset", spec, type="train")
+    n = min(OFFLINE_SAMPLES, len(on))
+    for i in range(n):
+        a = on.__getitem__(i, rng=np.random.default_rng(i))
+        b = off.__getitem__(i, rng=np.random.default_rng(i))
+        if any(not np.array_equal(a[k], b[k]) for k in b):
+            raise SystemExit(f"native_decode: sample {i} differs")
+    res["samples_bit_equal"] = n
+    log(f"  the first {n} training samples bit-equal with native_decode on "
+        f"and off ({time.perf_counter() - t0:.2f} s)")
+
+    seen, run_epoch = [], BaseTrainer._run_epoch
+
+    def spy(trainer, mode, epoch):
+        if mode == "validation":  # what the trace directory holds by now
+            seen.append(sorted(p.name for p in trace_dir.glob("*"))
+                        if trace_dir.exists() else [])
+        return run_epoch(trainer, mode, epoch)
+
+    BaseTrainer._run_epoch = spy
+    try:
+        trained = train_run("offline drf", cfg, card, TRAIN_T, True)
+    finally:
+        BaseTrainer._run_epoch = run_epoch
+    stats, trainer = trained["stats"], trained["trainer"]
+    res["train"] = stats
+    if len(seen) != TRAIN_EPOCHS or seen[0] or len(seen[1]) != 1:
+        raise SystemExit(f"profile_dir: the trace directory held {seen} at "
+                         "the validation of epochs 1 and 2 (want nothing, "
+                         "then one trace)")
+    trace_file = trace_dir / seen[1][0]
+    kernels = profiling.kernel_events(trace_file)
+    k1_events = sum("concat_conv1x1_kernel" in e["name"] for e in kernels)
+    res["trace"] = {"bytes": trace_file.stat().st_size,
+                    "kernel_events": len(kernels), "k1_events": k1_events}
+    if not k1_events:
+        raise SystemExit(f"the epoch-2 trace names no K1 kernel "
+                         f"({len(kernels)} kernel events)")
+    log(f"  profile_dir: a trace after epoch 2 only, "
+        f"{res['trace']['bytes'] / 1e6:.1f} MB, {len(kernels)} kernel "
+        f"events, {k1_events} of K1's concat_conv1x1_kernel")
+
+    # The loop's block in an async save (the snapshot) against a sync one,
+    # then the last async checkpoint against the sync file of the same state.
+    writer = trainer._ckpt_writer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save(tmp / "offline_async_probe.ckpt")
+    async_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    trainer.wait_for_checkpoints()
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    trainer._ckpt_writer = None
+    t0 = time.perf_counter()
+    trainer.save(tmp / "offline_sync.ckpt")
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    trainer._ckpt_writer = writer
+    res["save"] = {"async_block_ms": async_ms, "async_drain_ms": drain_ms,
+                   "sync_ms": sync_ms}
+    sync, _ = load_checkpoint(tmp / "offline_sync.ckpt")
+    compared = []
+    for name in (f"model_{TRAIN_EPOCHS}.ckpt", "model_best.ckpt"):
+        state, aux = load_checkpoint(run / "checkpoints" / name)
+        if aux["epoch"] != TRAIN_EPOCHS:
+            continue
+        pairs = [*((k, v, sync["net"][k]) for k, v in state["net"].items()),
+                 *((f"{i}.{k}", torch.as_tensor(v), torch.as_tensor(
+                     sync["optimizer"]["state"][i][k]))
+                   for i, st in state["optimizer"]["state"].items()
+                   for k, v in st.items())]
+        bad = [k for k, a, b in pairs if not torch.equal(a, b)]
+        if bad or state["optimizer"]["param_groups"] != sync["optimizer"][
+                "param_groups"]:
+            raise SystemExit(f"async {name} differs from a sync save of the "
+                             f"same state: {bad[:5]}")
+        compared.append(name)
+    res["save"]["compared"] = compared
+    log(f"  async_ckpt: {compared} written by the writer equal a sync save "
+        f"tensor for tensor; the loop blocks {async_ms:.2f} ms in an async "
+        f"save (the write then takes {drain_ms:.1f} ms on its thread) "
+        f"against {sync_ms:.1f} ms in a sync one [{card}]")
+
+    log("phase 17e: main --test on the processed test split")
+    path = offline_test_config(tree, run, trees["cropped"], tmp)
+    frames = ACDC_RAW_SHAPE[2] * ACDC_RAW_SHAPE[3] * len(ACDC_RAW["testing"])
+    want = SQUEEZES_PER_STEP * frames
+    reset_launches()
+    t0 = time.perf_counter()
+    port_main.main([str(path), "--test"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_launches("offline main --test", "concat_conv1x1", want)
+    with open(run / "predictions" / "results.csv", newline="") as f:
+        rows = list(csv.reader(f))
+    header, rows = rows[0], rows[1:]
+    cols = [header.index(c) for c in ("CardiacPSNR", "CardiacSSIM")]
+    values = np.array([[float(r[c]) for c in cols] for r in rows])
+    patients = {r[0].split("_")[0] for r in rows}
+    if (len(rows) != frames or patients != set(ACDC_RAW["testing"])
+            or not np.isfinite(values).all()):
+        raise SystemExit(f"offline main --test: {len(rows)} rows of "
+                         f"{patients}, finite Cardiac* "
+                         f"{bool(np.isfinite(values).all())}")
+    res["test"] = {"seconds": seconds, "frames": len(rows),
+                   "launches": want, "cardiac_psnr": float(values[:, 0].mean()),
+                   "cardiac_ssim": float(values[:, 1].mean())}
+    log(f"  main --test: {len(rows)} rows of {sorted(patients)} in "
+        f"{seconds:.2f} s, CardiacPSNR {res['test']['cardiac_psnr']:.4f} dB, "
+        f"CardiacSSIM {res['test']['cardiac_ssim']:.4f}, K1 launches {want} "
+        f"[{card}]")
+    return res
+
+
+def phase_offline(tmp: Path, card: str, dev) -> dict:
+    """Phase 17: the offline tools to a tested checkpoint."""
+    t0 = time.perf_counter()
+    tmp.mkdir(parents=True, exist_ok=True)
+    log("phase 17a: raw ACDC NIfTIs and raw DSB15 DICOMs")
+    trees = offline_trees(tmp, card, dev)
+    log("phase 17d: DRFNet F=64 G=6 x2 trained on the processed tree "
+        "(native_decode, async_ckpt, profile_dir; K1 forward and backward)")
+    res = offline_training(tmp, trees, card)
+    res.update({k: v for k, v in trees.items()
+                if k not in ("tree", "cropped", "splits")})
+    res["boxes"] = {k: list(v) for k, v in res["boxes"].items()}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 17 took {res['seconds']:.1f} s (budget {OFFLINE_BUDGET_S:.0f}"
+        f" s) [{card}]")
+    return res
+
+
+def offline_summary(off: dict) -> dict:
+    return {"seconds": off["seconds"],
+            "hr_frames_per_sec": {"torch": off["acdc"]["hr_frames_per_sec"],
+                                  "numpy": off["numpy_one_patient"][
+                                      "hr_frames_per_sec"]},
+            "lr_exact_share": {k: v["exact_share"]
+                               for k, v in off["lr_check"].items()},
+            "decode_ms_per_file": {k: off["decode"][f"{k}_ms_per_file"]
+                                   for k in ("python", "native")},
+            "save_ms": off["save"],
+            "trace_bytes": off["trace"]["bytes"],
+            "k1_launches": {"train": off["train"]["launches"],
+                            "backward": off["train"]["backward_launches"],
+                            "test": off["test"]["launches"]}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="",
@@ -5944,6 +6516,9 @@ def main() -> int:
                         help="only build and run phase 16 (W8A8 deconvs, "
                              "the serving presets, the tuner, bf16 training "
                              "of the nets moved onto the precision policy)")
+    parser.add_argument("--offline", action="store_true",
+                        help="only build and run phase 17 (the offline "
+                             "tools to a tested checkpoint)")
     parser.add_argument("--preset-table", dest="preset_table", nargs="*",
                         default=None, metavar="NET",
                         help="only build and run the sweep behind "
@@ -6066,6 +6641,23 @@ def main() -> int:
         print(json.dumps({"feedback": feedback_summary(
             results["feedback"])}), flush=True)
         return 0
+    if args.offline:
+        with tempfile.TemporaryDirectory() as tmp:
+            log("phase 17: the offline tools to a tested checkpoint")
+            results = {"card": smi, "offline": phase_offline(
+                Path(tmp), card, dev)}
+        results["seconds"] = time.perf_counter() - started
+        log(f"  chip_smoke --offline took {results['seconds']:.1f} s "
+            f"[{card}]")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(results, indent=1))
+        print(json.dumps({"offline": offline_summary(results["offline"])}),
+              flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     log("phase 3: kernel vs twin")
     k1 = phase_kernel_squeeze(dev)
     k3 = phase_kernel_rank(dev)
@@ -6130,6 +6722,11 @@ def main() -> int:
         presets = phase_presets(Path(tmp), card, dev)
         presets["seconds"] = time.perf_counter() - t0
         log(f"  phase 16 took {presets['seconds']:.1f} s [{card}]")
+        log("phase 17: the offline tools to a tested checkpoint (DICOM "
+            "conversion, ACDC / DSB15 preprocessing on the card, cropping, "
+            "DRFNet trained with native_decode, async_ckpt and profile_dir, "
+            "main --test)")
+        offline = phase_offline(Path(tmp) / "offline", card, dev)
         results = {"card": smi, "build_seconds": build_s,
                    "kernel": {"concat_conv1x1": k1,
                               "concat_conv1x1_backward": k1_bwd,
@@ -6139,7 +6736,7 @@ def main() -> int:
                    "volumes": volumes, "device_epochs": device,
                    "deployment": deploy, "quantized": quant,
                    "knobs": knobs, "feedback": feedback,
-                   "presets": presets}
+                   "presets": presets, "offline": offline}
         if args.profile:
             log("phase 8: torch.profiler traces")
             results["profile"] = phase_profile(dev)
@@ -6261,6 +6858,11 @@ def main() -> int:
         "feedback_launches": feedback_summary(feedback)["concat_conv1x1"],
         # Phase 16b: DRFNet under --preset tuned / fast, a volume.
         "preset_launches": preset_launches("concat_conv1x1"),
+        # Phase 17: DRFNet trained on the tree the port's own preprocessing
+        # wrote (forward; dx in its backward), then main --test on it.
+        "offline_train_launches": offline["train"]["launches"],
+        "offline_backward_launches": offline["train"]["backward_launches"],
+        "offline_test_launches": offline["test"]["launches"],
     }, {
         # K1's weight and bias gradient (the JAX package computes them in
         # XLA, inside _bwd, so the line it replaces is no Pallas kernel): one
@@ -6277,6 +6879,8 @@ def main() -> int:
             knobs["host_loop"]["straight"]["k1_launches_per_micro_step"],
         # Phase 15: DRFSISRNet's training run, DRFNet's remat steps.
         "drfsisr_launches": feedback["drfsisr"]["train"]["backward_launches"],
+        # Phase 17: the DRFNet trained on the port's own processed tree.
+        "offline_launches": offline["train"]["backward_launches"],
         "drf_remat_launches": feedback["drf"]["remat"]["dw_launches"],
         # Serving has no backward: phase 12 gates these at 0.
         "export_launches": 0, "serve_launches": 0, "stream_launches": 0,

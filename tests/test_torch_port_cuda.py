@@ -318,10 +318,7 @@ DW_RAGGED_CASES = {
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("case", sorted(DW_RAGGED_CASES))
-def test_dw_kernel_ragged_and_unaligned(rng, dev, case, offset, dtype):
+def _case_dw_ragged_and_unaligned(rng, dev, case, offset, dtype):
     """Ragged and unaligned pixel rows stay inside the kernel: ``offset``
     puts every operand one element into its storage, so that no pointer is
     a multiple of 16 bytes. Two launches give the same bits."""
@@ -350,6 +347,17 @@ def test_dw_kernel_ragged_and_unaligned(rng, dev, case, offset, dtype):
     assert bool(((dw - want_dw).abs() <= 1e-5 * scale_dw + 1e-6).all())
     assert bool(((db - want_db).abs() <= 1e-5 * scale_db + 1e-6).all())
     assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+def test_dw_kernel_ragged_and_unaligned(rng, dev):
+    """Every ragged case at offsets 0 and 1, float32 and bf16, grouped: each
+    run and each failure named."""
+    run_cases([
+        (f"{case}-offset{offset}-{str(dtype)[6:]}",
+         lambda c=case, o=offset, d=dtype: _case_dw_ragged_and_unaligned(
+             rng, dev, c, o, d))
+        for case in sorted(DW_RAGGED_CASES) for offset in (0, 1)
+        for dtype in (torch.float32, torch.bfloat16)])
 
 
 def test_dw_kernel_refuses_what_it_cannot_take(rng, dev):
@@ -1463,4 +1471,90 @@ def test_w8a8_deconvs_and_presets_on_the_card(rng, dev, tmp_path):
         ("w8a8_deconv_banks", lambda: _case_w8a8_deconv_banks(rng, dev)),
         ("infer_preset_fast", lambda: _case_infer_preset_fast(
             subdir(tmp_path, "preset"), dev)),
+    ])
+
+
+# ------------------------------------------- offline tools and trainer knobs
+
+
+def _case_torch_backend_on_the_card(rng):
+    """The torch preprocessing backend at ACDC's cropped size (216 x 252,
+    30 frames) against numpy at JAX's bar between its backends; TF32 stays
+    as the caller set it."""
+    from vsr_tpu_torch.preprocess import pipeline
+
+    data = np.round(rng.random((216, 252, 1, 30)) * 255).astype(np.float32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for f in pipeline.DOWNSCALE_FACTORS:
+            got = pipeline.downscale_sequence(data, f, backend="torch")
+            assert torch.backends.cuda.matmul.allow_tf32
+            want = pipeline.downscale_sequence(data, f, backend="numpy")
+            assert got.shape == want.shape == (216 // f, 252 // f, 1, 30)
+            assert (got == want).mean() >= 0.98
+            assert np.abs(got - want).max() <= 1.0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _case_async_snapshot_under_adam(dev, tmp_path):
+    """A snapshot of CUDA parameters and Adam state, submitted right before
+    an in-place Adam step (no synchronization between them), holds the
+    submit-time values; a snapshot inside a graph capture is refused."""
+    from vsr_tpu_torch.utils.checkpoint import (AsyncCheckpointWriter,
+                                                load_checkpoint)
+
+    net = torch.nn.Linear(256, 256).to(dev)
+    opt = torch.optim.Adam(net.parameters(), lr=1e-2)
+    x = torch.randn(64, 256, device=dev)
+    for _ in range(2):
+        opt.zero_grad()
+        net(x).square().mean().backward()
+        opt.step()
+    state = {"net": net.state_dict(), "optimizer": opt.state_dict(),
+             "chain": None}
+    want = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    moments = {k: v.cpu().clone() for k, v in opt.state_dict()["state"][0].items()}
+    writer = AsyncCheckpointWriter()
+    writer.submit(tmp_path / "snap.ckpt", state, {"epoch": 2})
+    opt.zero_grad()
+    net(x).square().mean().backward()
+    opt.step()  # in place, queued right behind the snapshot's clones
+    writer.wait()
+    got, aux = load_checkpoint(tmp_path / "snap.ckpt")
+    assert aux == {"epoch": 2}
+    for k, v in want.items():
+        assert torch.equal(got["net"][k], v), k
+        assert not torch.equal(net.state_dict()[k].cpu(), v), k
+    for k, v in moments.items():
+        assert torch.equal(torch.as_tensor(got["optimizer"]["state"][0][k]), v)
+    graph, y = torch.cuda.CUDAGraph(), torch.ones(4, device=dev)
+    with pytest.raises(RuntimeError, match="graph capture"):
+        with torch.cuda.graph(graph):
+            y.mul_(2)
+            writer.submit(tmp_path / "never.ckpt", {"net": {"y": y}})
+    assert not (tmp_path / "never.ckpt").exists()
+
+
+def _case_trace_holds_kernel_events(rng, dev, tmp_path):
+    """``utils/profiling.trace`` on the card: the Chrome trace holds the
+    device kernels, K1's among them."""
+    from vsr_tpu_torch.utils import profiling
+
+    xs, w, b = _operands(rng, dev, (64, 64), 64)
+    with profiling.trace(tmp_path / "trace"):
+        with torch.inference_mode():
+            fs.concat_conv1x1(xs, w, b)
+    (path,) = (tmp_path / "trace").glob("trace_*.json")
+    names = [e["name"] for e in profiling.kernel_events(path)]
+    assert any("concat_conv1x1_kernel" in n for n in names), names[:10]
+
+
+def test_offline_tools_and_trainer_knobs_on_the_card(rng, dev, tmp_path):
+    run_cases([
+        ("torch_backend", lambda: _case_torch_backend_on_the_card(rng)),
+        ("async_snapshot", lambda: _case_async_snapshot_under_adam(
+            dev, subdir(tmp_path, "async"))),
+        ("trace", lambda: _case_trace_holds_kernel_events(
+            rng, dev, subdir(tmp_path, "trace"))),
     ])

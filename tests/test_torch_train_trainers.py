@@ -320,9 +320,7 @@ def test_reduce_lr_on_plateau_steps_on_the_validation_loss(tree, tmp_path):
     (dict(pipe_microbatches=2), "pipe_microbatches"),
     (dict(zero_optim=True), "zero_optim"), (dict(fsdp=True), "fsdp"),
     (dict(qat=True, mesh_axes={"pipe": 2}), "qat"),
-    (dict(async_ckpt=True), "async_ckpt"),
-    (dict(sharded_ckpt=True), "sharded_ckpt"),
-    (dict(profile_dir="p"), "profile_dir")])
+    (dict(sharded_ckpt=True), "sharded_ckpt")])
 def test_refused_trainer_keywords_raise_by_name(tree, tmp_path, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         _port_trainer("sisr", tree, tmp_path, **kwargs)
@@ -462,8 +460,8 @@ def test_main_refuses_test_mode_distributed_and_unknown_keywords(tree, tmp_path)
     with pytest.raises(TypeError, match="t_bucket"):
         port_main.run_train(cfg)
     cfg = _config("sisr", tree, tmp_path / "run")
-    cfg.trainer.kwargs.async_ckpt = True
-    with pytest.raises(NotImplementedError, match="async_ckpt"):
+    cfg.trainer.kwargs.sharded_ckpt = True
+    with pytest.raises(NotImplementedError, match="sharded_ckpt"):
         port_main.run_train(cfg)
 
 

@@ -14,8 +14,9 @@ Arrays stay channels-last numpy, (H, W, C) frames, (T, H, W, C) windows,
 (H, W, D, C) volumes and (T, H, W, D, C) volume windows;
 ``__getitem__(index, rng=...)`` takes an explicit numpy Generator for
 augmentation, so samples are reproducible without global seeding. The Dsb15
-classes only change the registry name. ``native_decode`` (the C++ NIfTI
-decoder) is refused.
+classes only change the registry name. ``native_decode: true`` decodes
+through the port's C++ NIfTI decoder (``io/native.py``, zlib on native
+threads), float32 like the Python reader's processed files.
 """
 
 from __future__ import annotations
@@ -111,11 +112,13 @@ class _SRDatasetMixin(BaseDataset):
         self.downscale_factor = downscale_factor
         self.transforms = compose(transforms)
         self.augments = compose(augments)
-        if native_decode:
-            raise NotImplementedError(
-                "native_decode (the C++ NIfTI decoder) is not yet ported to "
-                "vsr_tpu_torch")
         loader = load_nifti
+        if native_decode:
+            # The C++ decoder (io/native.py): float32, built at first use;
+            # it raises where it cannot build or decode.
+            from vsr_tpu_torch.io.native import load_nifti_native
+
+            loader = load_nifti_native
         if cache_decoded:
             # Host-RAM decode cache: sequence datasets re-read the same
             # NIfTI for every window of it; cache the decoded array (the

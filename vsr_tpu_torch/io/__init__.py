@@ -1,1 +1,1 @@
-"""Volume I/O (numpy only)."""
+"""Volume I/O: NIfTI (numpy, and a native decoder) and DICOM."""

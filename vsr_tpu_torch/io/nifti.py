@@ -18,12 +18,20 @@ not depend on, by implementing the single-file NIfTI-1 format
 
 Only the subset of the spec exercised by this project is supported; unknown
 datatypes raise.
+
+Beyond the copy, :class:`NiftiWriter` runs ``save_nifti`` on a thread pool
+for the port's tools that write many files (gzip at level 9 sets their
+pace, and zlib releases the interpreter lock).
 """
 
 from __future__ import annotations
 
+import collections
 import gzip
+import os
 import struct
+import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -195,3 +203,67 @@ def save_nifti(
     else:
         with open(path, "wb") as f:
             f.write(payload)
+
+
+# Threads of a NiftiWriter; the bytes written do not depend on it.
+WRITER_THREADS = min(8, os.cpu_count() or 1)
+
+
+class NiftiWriter:
+    """``save_nifti`` on ``WRITER_THREADS`` threads (inline for 1). At most
+    ``MAX_PENDING_BYTES`` of arrays wait for their write: ``save`` then
+    waits for the oldest. ``close()`` waits for every write and raises the
+    first error; leaving a ``with`` block on an exception drops the pending
+    writes and lets that exception through. The arrays handed to ``save``
+    must not change until their write is done. ``wait_seconds``: the time
+    callers spent in ``save`` and ``close``."""
+
+    MAX_PENDING_BYTES = 1 << 29
+
+    def __init__(self):
+        threads = WRITER_THREADS
+        self._pool = ThreadPoolExecutor(threads) if threads > 1 else None
+        self._pending: collections.deque = collections.deque()
+        self._pending_bytes = 0
+        self.wait_seconds = 0.0
+
+    def save(self, data: np.ndarray, path: str | Path) -> None:
+        t0 = time.perf_counter()
+        if self._pool is None:
+            save_nifti(data, path)
+        else:
+            self._pending.append((self._pool.submit(save_nifti, data, path),
+                                  data.nbytes))
+            self._pending_bytes += data.nbytes
+            while self._pending_bytes > self.MAX_PENDING_BYTES:
+                self._wait_oldest()
+        self.wait_seconds += time.perf_counter() - t0
+
+    def _wait_oldest(self) -> None:
+        fut, nbytes = self._pending.popleft()
+        self._pending_bytes -= nbytes
+        fut.result()
+
+    def _shutdown(self) -> None:
+        self._pending.clear()
+        self._pending_bytes = 0
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+
+    def close(self) -> None:
+        t0 = time.perf_counter()
+        try:
+            while self._pending:
+                self._wait_oldest()
+        finally:
+            self._shutdown()
+            self.wait_seconds += time.perf_counter() - t0
+
+    def __enter__(self) -> "NiftiWriter":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> None:
+        if exc_type is None:
+            self.close()
+        else:
+            self._shutdown()

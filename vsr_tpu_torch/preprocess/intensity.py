@@ -1,8 +1,10 @@
 """Intensity preprocessing: outlier clip + min-max, and /12 center-crop.
 
-Copies of ``vsr_tpu/preprocess/intensity.py``'s two serving helpers (the
-port imports nothing of ``vsr_tpu``); ``tests/test_torch_port_pipeline.py``
-pins them bit-equal to the originals.
+Copies of ``vsr_tpu/preprocess/intensity.py``'s helpers (the port imports
+nothing of ``vsr_tpu``): the two serving ones, which
+``tests/test_torch_port_pipeline.py`` pins bit-equal to the originals, and
+the offline pipeline's dataset moments, which ``tests/test_torch_offline.py``
+pins.
 """
 
 from __future__ import annotations
@@ -43,3 +45,28 @@ def center_crop_multiple(shape_hw: tuple[int, int], multiple: int = 12) -> tuple
     h0, hn = (h % r) // 2, h - ((h % r) - (h % r) // 2)
     w0, wn = (w % r) // 2, w - ((w % r) - (w % r) // 2)
     return h0, hn, w0, wn
+
+
+class RunningMoments:
+    """Accumulates dataset mean/std the way the reference does
+    (sum / sum-of-squares over all cropped voxels)."""
+
+    def __init__(self) -> None:
+        self.sum = 0.0
+        self.square_sum = 0.0
+        self.count = 0
+
+    def update(self, data: np.ndarray) -> None:
+        self.sum += float(data.sum())
+        self.square_sum += float((data.astype(np.float64) ** 2).sum())
+        self.count += int(np.prod(data.shape))
+
+    @property
+    def mean(self) -> float:
+        return self.sum / self.count if self.count else 0.0
+
+    @property
+    def std(self) -> float:
+        if not self.count:
+            return 0.0
+        return float(np.sqrt(self.square_sum / self.count - self.mean**2))

@@ -7,6 +7,18 @@ rectangle -> inverse FFT -> ``round(|.|)`` -> bicubic downscale by ``f`` ->
 ``A_h @ img @ A_w.T`` with two dense complex matrices; here it runs as real
 f32 matmuls, split into real and imaginary parts exactly as the JAX chain
 does (the image is real, so the first product needs two real matmuls).
+
+:func:`kspace_downscale` is the float64 numpy path of one frame (``vsr_tpu``'s:
+numpy.fft, the reference's backend), which the offline pipeline's default
+``numpy`` backend runs for reference parity. Where the factor divides both
+sides (always in the pipeline, whose frames are cropped to multiples of 12)
+its bicubic step runs as two float64 matmuls instead of ``vsr_tpu``'s
+three-operand ``einsum``, which loops over every (output, input) pixel pair
+(about 1 s a 216 x 252 frame on a CPU core): the source offsets are then
+whole or half pixels, every weight is a multiple of 1/32, the low-passed
+frame holds integers, so every partial sum is exact in float64 and neither
+order of summation can change a bit. ``tests/test_torch_offline.py`` pins
+the pipeline's files byte-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -16,7 +28,51 @@ import functools
 import numpy as np
 import torch
 
-from vsr_tpu_torch.preprocess.resize import resize_bicubic_torch
+from vsr_tpu_torch.preprocess.resize import (bicubic_resize_matrix,
+                                             resize_bicubic,
+                                             resize_bicubic_torch)
+
+
+def kspace_truncation_mask(h: int, w: int, factor: int) -> np.ndarray:
+    """The central-rectangle pass mask in fftshifted coordinates."""
+    mask = np.zeros((h, w), dtype=np.float64)
+    kx_max, ky_max = h // 2, w // 2
+    lx, ly = h // factor, w // factor
+    mask[
+        kx_max - lx // 2 : kx_max + (lx - lx // 2),
+        ky_max - ly // 2 : ky_max + (ly - ly // 2),
+    ] = 1.0
+    return mask
+
+
+def kspace_lowpass(img: np.ndarray, factor: int) -> np.ndarray:
+    """FFT -> truncate -> iFFT -> round(abs(.)) at the original resolution."""
+    img = np.asarray(img)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    kspace = np.fft.fftshift(np.fft.fftn(np.fft.ifftshift(img), norm="ortho"))
+    mask = kspace_truncation_mask(img.shape[0], img.shape[1], factor)[..., None]
+    lowpassed = np.fft.fftshift(np.fft.ifftn(np.fft.ifftshift(kspace * mask), norm="ortho"))
+    out = np.around(np.abs(lowpassed))
+    return out[..., 0] if squeeze else out
+
+
+def kspace_downscale(img: np.ndarray, factor: int) -> np.ndarray:
+    """Full LR simulation for one (H, W) or (H, W, 1) frame, numpy path."""
+    img = np.asarray(img)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    low = kspace_lowpass(img, factor)
+    h, w, _ = low.shape
+    if h % factor or w % factor:
+        lr = resize_bicubic(low[..., 0], h // factor, w // factor)
+    else:  # exact: the same bits as the einsum (module docstring)
+        lr = (bicubic_resize_matrix(h, h // factor) @ low[..., 0]
+              @ bicubic_resize_matrix(w, w // factor).T)
+    lr = np.clip(np.round(lr), 0, 255)[..., None]
+    return lr[..., 0] if squeeze else lr
 
 
 @functools.lru_cache(maxsize=64)

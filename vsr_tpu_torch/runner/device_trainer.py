@@ -270,18 +270,21 @@ class EpochEngine:
     ``captures`` and ``replays`` count what ran. ``log`` holds the last
     epoch's per-step scalars ``(steps, n)`` on the device. ``use_graph`` is
     not a setting of the trainers: a test clears it to hold the graphs
-    against eager steps."""
+    against eager steps. ``before_capture()`` runs before each capture (the
+    trainers drain their async checkpoint writer there: no other thread may
+    copy from the device while a capture runs)."""
 
     def __init__(self, step, lr_buf: torch.Tensor, hr_buf: torch.Tensor,
                  patch: int, ratio: int, stats: tuple[float, float],
                  steps: int, n_scalars: int, window: int | None = None,
                  graph_key=lambda: None, after_replay=lambda: None,
-                 warmup: int = WARMUP_STEPS):
+                 warmup: int = WARMUP_STEPS, before_capture=lambda: None):
         self.step = step
         self.lr_buf, self.hr_buf = lr_buf, hr_buf
         self.patch, self.ratio, self.stats = patch, ratio, stats
         self.steps, self.window = steps, window
         self.graph_key, self.after_replay = graph_key, after_replay
+        self.before_capture = before_capture
         self.warmup = max(int(warmup), WARMUP_STEPS)
         self.device = lr_buf.device
         self.use_graph = self.device.type == "cuda"
@@ -355,6 +358,7 @@ class EpochEngine:
             key = self.graph_key()
             graph = self.graphs.get(key)
             if graph is None:
+                self.before_capture()
                 graph = self.graphs[key] = self._capture()
             else:
                 self.after_replay()
@@ -489,7 +493,10 @@ class DeviceTrainerMixin:
     ``grad_accumulation``, ``grad_clip`` and ``ema_decay`` run inside the
     captured step: with ``grad_accumulation > 1`` two graphs are captured,
     an accumulate-only micro-step and an accumulate-then-apply one, and the
-    host's micro-step counter picks the one to replay. Refused by name: the
+    host's micro-step counter picks the one to replay. ``profile_dir``
+    traces the second epoch's replays, and ``async_ckpt`` snapshots between
+    epochs, never inside a capture (a capture waits for the writes in
+    flight). Refused by name: the
     parallel trainer knobs (``mesh_axes`` with any axis, the ``'expert'``
     axis among them, ``zero_optim``, ``fsdp``, a multi-process run), and
     resuming a host-loop trainer's mid-epoch preemption checkpoint."""
@@ -563,7 +570,8 @@ class DeviceTrainerMixin:
             self.ratio, DATASET_STATS[self.dataset_stats],
             self.steps_per_epoch, len(self._scalar_names),
             graph_key=self.chain.graph_key, after_replay=self.chain.advance,
-            warmup=self.chain.every_k)
+            warmup=self.chain.every_k,
+            before_capture=self.wait_for_checkpoints)
 
     def _pack_device_targets(self, hr, inputs):
         """The task trainer's target structure (``inputs``: the sampled LR

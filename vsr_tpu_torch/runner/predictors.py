@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from vsr_tpu_torch.callbacks.logger import write_png
-from vsr_tpu_torch.io.nifti import save_nifti
+from vsr_tpu_torch.io.nifti import NiftiWriter, save_nifti
 from vsr_tpu_torch.registry import register
 from vsr_tpu_torch.utils.checkpoint import load_net_weights
 from vsr_tpu_torch.utils.gif import write_gif
@@ -365,9 +365,14 @@ class VolumePredictor(BasePredictor):
     (patient, frame), losses and metrics on the whole denormalized volume
     (SSIM ``dim: 3`` applies directly); exports each SR volume as
     ``volumes/<patient>/frameNN_sr.nii.gz`` (H, W, D) and its middle slice
-    as ``frameNN_mid.png``."""
+    as ``frameNN_mid.png``. The NIfTIs (gzip 9, a volume a frame) are
+    written on a ``NiftiWriter``'s threads while the next frames run."""
 
     def predict(self) -> dict:
+        with NiftiWriter() as writer:
+            return self._predict(writer)
+
+    def _predict(self, writer: NiftiWriter) -> dict:
         dataset = self.test_dataloader.dataset
         results = [self._csv_header()] if self.exported else None
         log = self._init_log()
@@ -392,8 +397,8 @@ class VolumePredictor(BasePredictor):
                 vol = vols[0]  # (D, H, W)
                 out_dir = self.saved_dir / "volumes" / patient
                 out_dir.mkdir(parents=True, exist_ok=True)
-                save_nifti(np.moveaxis(vol, 0, -1).astype(np.float32),
-                           out_dir / f"frame{fid}_sr.nii.gz")
+                writer.save(np.moveaxis(vol, 0, -1).astype(np.float32),
+                            out_dir / f"frame{fid}_sr.nii.gz")
                 write_png(out_dir / f"frame{fid}_mid.png",
                           vol[vol.shape[0] // 2])
             self._add_to_log(log, rows[0])

@@ -27,7 +27,9 @@ of ``models/common.py``, flax's mixed precision), and a net that holds
 parameters of another dtype is refused. The JAX trainer pads validation
 sequences to T buckets only to bound its recompiles; there is no compile
 step here, so sequences run at their own length and ``t_bucket`` is not a
-parameter. Knobs of the JAX trainer that are not ported raise when passed.
+parameter. The parallel knobs of the JAX trainer (``mesh_axes``,
+``pipe_microbatches``, ``zero_optim``, ``fsdp``, ``sharded_ckpt``) are not
+ported yet and raise when passed.
 
 The JAX trainer's optax chain runs as ``optim.GradientChain`` after the
 backward: ``grad_accumulation`` (a running mean of the micro-gradients,
@@ -36,6 +38,12 @@ the accumulated gradient) and ``ema_decay`` (an EMA of the parameters after
 each applied update, saved in the checkpoint for ``infer --ema``). ``qat``
 runs every forward of the train and validation steps under the fake-quant
 interceptor of ``quantize.py``.
+
+``profile_dir`` records a ``torch.profiler`` trace of the second training
+epoch into that directory (``utils/profiling.trace``); ``async_ckpt``
+routes every save through ``utils/checkpoint.AsyncCheckpointWriter`` (an
+on-device snapshot, the write on a thread), which ``train()`` drains at its
+end and ``load()`` drains first. The device trainers inherit both.
 """
 
 from __future__ import annotations
@@ -54,8 +62,10 @@ from vsr_tpu_torch.models.common import intercept_convs
 from vsr_tpu_torch.optim import (GradientChain, OptimizerFactory, Scheduler,
                                  get_learning_rate, set_learning_rate)
 from vsr_tpu_torch.registry import register
-from vsr_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from vsr_tpu_torch.utils.checkpoint import (AsyncCheckpointWriter,
+                                            load_checkpoint, save_checkpoint)
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
+from vsr_tpu_torch.utils.profiling import trace
 from vsr_tpu_torch.utils.rng import RngTree
 
 
@@ -156,6 +166,9 @@ class BaseTrainer(TrainStep):
     ``torch.optim.Optimizer``. ``device``: where the net trains (``cuda``
     unless the caller asks for ``cpu``)."""
 
+    profile_dir = None
+    _ckpt_writer = None  # an AsyncCheckpointWriter with async_ckpt
+
     def __init__(
         self,
         train_dataloader,
@@ -188,12 +201,15 @@ class BaseTrainer(TrainStep):
         for name, value in (("mesh_axes", mesh_axes),
                             ("pipe_microbatches", pipe_microbatches),
                             ("zero_optim", zero_optim), ("fsdp", fsdp),
-                            ("profile_dir", profile_dir),
-                            ("async_ckpt", async_ckpt),
                             ("sharded_ckpt", sharded_ckpt)):
             if value:
                 raise NotImplementedError(
                     f"trainer {name} is not yet ported to vsr_tpu_torch")
+        self.profile_dir = profile_dir
+        # Non-blocking checkpoint writes: save() snapshots on the device and
+        # a writer thread copies to the host and writes; the files equal
+        # sync saves, and train() / load() drain the queue.
+        self._ckpt_writer = AsyncCheckpointWriter() if async_ckpt else None
         self.device = torch.device(device)
         training_precision(net)
         self.prefetch_to_device = bool(prefetch_to_device)
@@ -406,12 +422,19 @@ class BaseTrainer(TrainStep):
             self._train_loop()
         finally:
             self._restore_handlers(previous_handlers)
+            # Async writes must land before the process can exit (the
+            # preemption checkpoint and the last epoch's saves).
+            self.wait_for_checkpoints()
 
     def _train_loop(self) -> None:
         while self.epoch <= self.num_epochs:
             logging.info(f"Epoch {self.epoch}.")
-            train_log, train_batch, train_outputs = self._run_epoch(
-                "training", self.epoch)
+            # A trace of the second training epoch (the first pays the
+            # one-time costs: kernel builds, cuDNN's autotuning, captures).
+            profiled = self.profile_dir if self.epoch == 2 else None
+            with trace(profiled):
+                train_log, train_batch, train_outputs = self._run_epoch(
+                    "training", self.epoch)
             if self._preempted:
                 self._save_preempt_checkpoint()
                 break
@@ -462,9 +485,18 @@ class BaseTrainer(TrainStep):
             "random_seed": str(self.rng_tree.root_seed),
             **(extra_aux or {}),
         }
-        save_checkpoint(path, {"net": self.net.state_dict(),
-                               "optimizer": self._optimizer_state(),
-                               "chain": self.chain.state_dict()}, aux)
+        state = {"net": self.net.state_dict(),
+                 "optimizer": self._optimizer_state(),
+                 "chain": self.chain.state_dict()}
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.submit(path, state, aux)
+            return
+        save_checkpoint(path, state, aux)
+
+    def wait_for_checkpoints(self) -> None:
+        """Drain pending async checkpoint writes (no-op for sync saves)."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait()
 
     def _optimizer_state(self) -> dict:
         return self.optimizer.state_dict()
@@ -473,6 +505,8 @@ class BaseTrainer(TrainStep):
         self.optimizer.load_state_dict(state)
 
     def load(self, path: str | Path) -> None:
+        # A just-submitted async write to this very file must land first.
+        self.wait_for_checkpoints()
         state, aux = load_checkpoint(path, map_location=self.device)
         self.net.load_state_dict(state["net"], strict=True)
         self._load_optimizer_state(state["optimizer"])

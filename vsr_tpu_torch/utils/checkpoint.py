@@ -21,13 +21,20 @@ not the port's optimizer state. Either kind serves its parameter EMA
 (``load_net_weights(..., ema=True)``, ``infer --ema``): the port's from
 ``"chain"``, a flax one from the ``{inner_opt_state, ema}`` tree of its
 ``opt_state`` (``optim.find_ema``).
+
+:class:`AsyncCheckpointWriter` takes the write off the train loop
+(``trainer.kwargs.async_ckpt``): an on-device snapshot now, the host copy
+and the file write on a writer thread; its files equal synchronous saves.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import pickle
+import queue
 import struct
+import threading
 from pathlib import Path
 from typing import Any, Mapping
 
@@ -53,6 +60,98 @@ def save_checkpoint(path: str | Path, state: Mapping[str, Any],
     tmp = path.with_name(path.name + ".tmp")
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def _map_tensors(fn, obj: Any) -> Any:
+    """A copy of a state nest with ``fn`` applied to every tensor: dicts
+    (an ``OrderedDict``'s ``_metadata`` kept), lists and tuples rebuilt,
+    anything else deep-copied."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        out = type(obj)((k, _map_tensors(fn, v)) for k, v in obj.items())
+        if hasattr(obj, "_metadata"):
+            out._metadata = copy.deepcopy(obj._metadata)
+        return out
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(fn, v) for v in obj)
+    return copy.deepcopy(obj)
+
+
+class AsyncCheckpointWriter:
+    """Checkpoint writes that overlap training (port of ``vsr_tpu``'s).
+
+    ``submit()`` snapshots the state without waiting for a device-to-host
+    copy: every tensor is cloned on its own device, on the current stream,
+    so the snapshot is ordered before the next step's in-place optimizer
+    update or graph replay (torch optimizers update parameters in place),
+    and a CUDA event is recorded after the clones; ``aux`` is deep-copied.
+    One writer thread waits for that event, copies the snapshot to the host
+    and writes it through :func:`save_checkpoint`'s atomic tmp + rename, so
+    writes land in submit order and a later ``model_best.ckpt`` always
+    wins. At most 2 jobs wait in the queue (each pins a full snapshot in
+    device memory): ``submit`` blocks beyond that. A worker's error is
+    raised again at the next ``submit()`` / ``wait()``. Call ``wait()``
+    before reading a just-submitted file or exiting the process. A
+    snapshot inside a CUDA graph capture is refused: the clones would be
+    recorded into the graph, not run."""
+
+    def __init__(self) -> None:
+        self._queue: queue.Queue = queue.Queue(maxsize=2)
+        self._errors: list[BaseException] = []
+        self._lock = threading.Lock()
+        self._thread: threading.Thread | None = None
+
+    def submit(self, path: str | Path, state: Mapping[str, Any],
+               aux: Mapping[str, Any] | None = None) -> None:
+        """Snapshot ``state`` (on-device copies) and queue its write;
+        raises any error of an earlier write."""
+        self._raise_pending()
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("an async checkpoint snapshot cannot be taken "
+                               "inside a CUDA graph capture")
+        snapshot = _map_tensors(lambda t: t.detach().clone(), state)
+        event = None
+        if torch.cuda.is_initialized():  # orders the clones for the writer
+            event = torch.cuda.Event()
+            event.record()
+        self._ensure_thread()
+        self._queue.put((Path(path), snapshot, copy.deepcopy(dict(aux or {})),
+                         event))
+
+    def wait(self) -> None:
+        """Block until every submitted write has landed; re-raise errors."""
+        self._queue.join()
+        self._raise_pending()
+
+    def _ensure_thread(self) -> None:
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=self._worker, name="vsr-ckpt-writer", daemon=True)
+            self._thread.start()
+
+    def _worker(self) -> None:
+        while True:
+            path, snapshot, aux, event = self._queue.get()
+            try:
+                if event is not None:
+                    event.synchronize()
+                save_checkpoint(path, _map_tensors(torch.Tensor.cpu,
+                                                   snapshot), aux)
+            except BaseException as e:  # surfaced at the next submit / wait
+                with self._lock:
+                    self._errors.append(e)
+            finally:
+                del snapshot
+                self._queue.task_done()
+
+    def _raise_pending(self) -> None:
+        with self._lock:
+            if self._errors:
+                err = self._errors[0]
+                self._errors.clear()
+                raise RuntimeError(
+                    "async checkpoint write failed (earlier submit)") from err
 
 
 def load_checkpoint(path: str | Path,
