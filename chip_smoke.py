@@ -148,8 +148,8 @@ Phases; any failure exits non-zero and prints no result:
    entry where none does; MoE mask first), step times,
    patches/s, peak memory; ``main --test`` on FRVSR;
 10. the volumetric slice: a tree of 3 patients of 12 slices of 192 x 192 x
-   30 (2 train, 1 valid, which is the test split too), low-passed like
-   phase 7's; Volume3DSRNet and Volume4DSRNet trained through ``run_train``
+   30 (2 train, 1 valid, which is the test split too, cut to its first 10
+   frames), low-passed like phase 7's; Volume3DSRNet and Volume4DSRNet trained through ``run_train``
    (no parameter NaN, ``model_best.ckpt``; the first batch on the card
    against the CPU: loss <= 1e-4 relative, gradients <= 1e-3 of the net's
    largest entry; 4D: the first step's gradients with ``remat`` on and off
@@ -329,7 +329,28 @@ Phases; any failure exits non-zero and prints no result:
    state tensor for tensor; the ms the loop blocks in an async and a sync
    save); (e) ``main --test`` on ``configs/test/acdc_vsr_drf_x2.yaml`` on
    the test patient (finite CardiacPSNR / CardiacSSIM, K1 12 a frame);
-18. prints the kernels' JSON line, then the final JSON line.
+18. data-parallel training on phase 7's tree: ``python -m
+   vsr_tpu_torch.main`` as separate processes that join through
+   ``main.distributed``'s ``VSR_*`` variables, ``acdc_vsr_drf_x2.yaml``
+   (DRFNet F=64 G=6 through K1, global batch 16, ``host_shard``,
+   ``drop_last``: one epoch of 7 steps and its validation pass); (a) one
+   rank over NCCL with ``mesh_axes: {data: 1}`` and ``sharded_ckpt``:
+   every step's loss within 1e-4 of the same run without a mesh (in this
+   process), K1's forward, dx and dW / db launches under DDP, the step ms
+   with and without DDP; ``convert --consolidate`` of its sharded
+   checkpoint and ``infer --checkpoint`` on the sharded main file and on
+   the consolidated one (the same volume to 1 grey); a seeded DRFNet's flax
+   variables written as ``vsr_tpu``'s sharded-v1 layout of two processes
+   by the port's writer and served directly against the plain flax file
+   of the same variables (to 1 grey); (b) two ranks sharing the card over
+   gloo, on CUDA tensors: ``data: 2``, then with ``zero_optim``, then with
+   ``fsdp``, each rank's backend and device, the parameters after the
+   epoch within 1e-3 of each leaf's largest entry of run (a)'s; (c)
+   ``acdc_sisr_edsr_x2_device.yaml`` (bf16) with ``mesh_axes: {data: 1}``
+   over NCCL for 40 steps: the gradients' all-reduce inside the captured
+   graph, the per-step losses within 1e-4 of the run without a mesh, the
+   replayed step ms against that run's;
+19. prints the kernels' JSON line, then the final JSON line.
 
 ``--profile`` adds one ``torch.profiler`` trace of a full volume per serving
 path (f32, and bf16 for DRFNet; the two volume nets) and of 6 train steps
@@ -350,7 +371,8 @@ callback scales for the nets whose convs run in their frame or step
 loops), frames/s and PSNR on a low-passed volume.
 
 ``--offline`` runs only the build and phase 17, prints a summary line and
-the final JSON line.
+the final JSON line; ``--parallel`` the build, phase 7's tree and phase 18,
+then the same two lines.
 
 ``--latency N`` runs only the build, phase 12a and phase 12b with N
 requests per client (8 N a daemon; a p99 is printed from 100 on), then
@@ -360,7 +382,7 @@ traces one volume through the DRF artifact and through ``make_pipeline``
 Usage: python3 chip_smoke.py [--out details.json] [--profile | --latency N |
                              --quantized | --knobs | --feedback |
                              --presets | --preset-table [NET ...] |
-                             --offline]
+                             --offline | --parallel]
 """
 
 from __future__ import annotations
@@ -2485,6 +2507,10 @@ def phase_profile_training(tmp: Path, dev, runs: list | None = None,
 # patient doubles as the test split.
 VOL_SLICES = 12
 VOL_PATIENTS = {"train": 2, "valid": 1}
+# Frames of the validation (= test) sequences: the 4D test writes one
+# (HR, HR, VOL_SLICES, VOL_VALID_T) gzip-9 NIfTI, 53 MB and about a minute
+# at 30 frames.
+VOL_VALID_T = 10
 VOL_SERVE_T = 6  # frames of the validation patient served by the CLI
 # (config, net, training samples' frames): configs/train/acdc_3d_vol_x2.yaml
 # (batch 4 of [32, 32, 4] LR crops) and acdc_4d_vol_x2.yaml (batch 2 of
@@ -2496,10 +2522,11 @@ REMAT_SHARE = 1e-6  # remat on vs off: of the net's largest gradient entry
 
 def make_volume_tree(root: Path, dev) -> dict:
     """``videos/{train,valid,test}/{HR,LR/X2}/patientNNN/...sequenceSS.nii.gz``
-    for VOL_PATIENTS patients of VOL_SLICES slices of HR x HR x T_FRAMES,
-    each slice low-passed like the training tree and its LR made by the
-    port's k-space chain on the card; the test split is the validation
-    split again. Returns the validation patient's HR volume (H, W, D, T)."""
+    for VOL_PATIENTS patients of VOL_SLICES slices of HR x HR x T_FRAMES
+    (the validation sequences cut to their first VOL_VALID_T frames), each
+    slice low-passed like the training tree and its LR made by the port's
+    k-space chain on the card; the test split is the validation split
+    again. Returns the validation patient's HR volume (H, W, D, T)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from vsr_tpu_torch.io.nifti import save_nifti
@@ -2513,6 +2540,8 @@ def make_volume_tree(root: Path, dev) -> dict:
             pat = f"patient{p:03d}"
             for s in range(1, VOL_SLICES + 1):
                 hr = smooth_sequence(rng)  # (H, W, 1, T) uint8
+                if split == "valid":
+                    hr = np.ascontiguousarray(hr[..., :VOL_VALID_T])
                 frames = torch.from_numpy(np.ascontiguousarray(
                     np.moveaxis(hr[:, :, 0], -1, 0))).float().to(dev)
                 lr = np.moveaxis(kspace_downscale_torch(frames, FACTOR).cpu()
@@ -2528,8 +2557,9 @@ def make_volume_tree(root: Path, dev) -> dict:
         list(pool.map(lambda job: save_nifti(*job), jobs))
     seconds = time.perf_counter() - t0
     log(f"  wrote the volume tree: {sum(VOL_PATIENTS.values())} patients of "
-        f"{VOL_SLICES} slices of {HR}x{HR}x{T_FRAMES} (+ LR x{FACTOR}; test = "
-        f"valid), {len(jobs)} files, in {seconds:.1f} s")
+        f"{VOL_SLICES} slices of {HR}x{HR}x{T_FRAMES} (validation "
+        f"{VOL_VALID_T} frames; + LR x{FACTOR}; test = valid), {len(jobs)} "
+        f"files, in {seconds:.1f} s")
     return {"seconds": seconds, "files": len(jobs),
             "valid_hr": np.stack(valid_hr, axis=2).astype(np.float32)}
 
@@ -2638,10 +2668,10 @@ def volume_test_run(what: str, name: str, tree: Path, run: Path, tmp: Path,
     vols = sorted(out.glob("volumes/*/*.nii.gz"))
     if per_frame is None:
         per_frame = what == "test 3d"
-    want = ([(HR, HR, VOL_SLICES)] * T_FRAMES if per_frame
-            else [(HR, HR, VOL_SLICES, T_FRAMES)])
+    want = ([(HR, HR, VOL_SLICES)] * VOL_VALID_T if per_frame
+            else [(HR, HR, VOL_SLICES, VOL_VALID_T)])
     shapes = [load_nifti(v).shape for v in vols]
-    if (len(rows) != T_FRAMES or shapes != want
+    if (len(rows) != VOL_VALID_T or shapes != want
             or rows[0][0] != "patient001_frame01"
             or not np.isfinite(values).all()):
         raise SystemExit(f"{what}: {len(rows)} rows (first {rows[0][:1]}), "
@@ -4304,10 +4334,10 @@ class UpdateProbe:
         self.initial, self.snapshots = None, []
         saved, probe = self._saved, self
 
-        def step(chain):
+        def step(chain, **kwargs):
             if probe.initial is None:
                 probe.initial = [p.detach().clone() for p in chain.params]
-            saved(chain)
+            saved(chain, **kwargs)
             if chain.mini_step == 0:
                 probe.snapshots.append([p.detach().clone()
                                         for p in chain.params])
@@ -6490,6 +6520,411 @@ def offline_summary(off: dict) -> dict:
                             "test": off["test"]["launches"]}}
 
 
+# --- phase 18: data-parallel training ----------------------------------------
+
+PAR_STEPS_DEVICE = 40   # (c): 3 eager steps, 1 capture, 37 replays
+PAR_LOSS_TOL = 1e-4     # a step's loss, a mesh of one rank vs no mesh
+PAR_PARAM_SHARE = 1e-3  # (b) vs (a): of each leaf's largest entry
+PAR_VOLUME = (96, 96, 1, 10)  # the volume served in 18a
+PAR_MODES = {"ddp": {}, "zero": {"zero_optim": True}, "fsdp": {"fsdp": True}}
+
+
+def par_drf_config(tmp: Path, name: str, **trainer_kwargs) -> Path:
+    """``acdc_vsr_drf_x2.yaml`` on phase 7's tree, through K1, one epoch:
+    ``host_shard`` and ``drop_last`` give every world the same 7 global
+    batches of 16; written to a file as a user's config is."""
+    from vsr_tpu_torch.config import save_config
+
+    cfg = training_config("acdc_vsr_drf_x2", tmp / "tree", tmp / name,
+                          {"fused_squeeze": True}, tmp)
+    cfg.trainer.kwargs.num_epochs = cfg.monitor.kwargs.saved_freq = 1
+    cfg.trainer.kwargs.update(trainer_kwargs)
+    world = trainer_kwargs.get("mesh_axes", {}).get("data", 1)
+    cfg.dataloader.kwargs.update(
+        train_batch_size=TRAIN_N // world, host_shard=True, drop_last=True)
+    path = tmp / f"{name}.yaml"
+    save_config(cfg, path)
+    return path
+
+
+def par_device_config(tmp: Path, name: str, **trainer_kwargs) -> Path:
+    from vsr_tpu_torch.config import save_config
+
+    cfg = device_config("acdc_sisr_edsr_x2_device", tmp / "tree", tmp / name,
+                        tmp, steps_per_epoch=PAR_STEPS_DEVICE,
+                        **trainer_kwargs)
+    path = tmp / f"{name}.yaml"
+    save_config(cfg, path)
+    return path
+
+
+def par_train(config: str, device_epoch: bool) -> dict:
+    """One ``vsr_tpu_torch.main`` run of a config (a rank joins through
+    ``main.distributed`` first when the ``VSR_*`` variables say so),
+    probed: the per-step losses and step ms (CUDA events; a device epoch:
+    its logged losses and the replayed step), K1's counters, this rank's
+    backend and device, and the all-reduce calls made inside a CUDA graph
+    capture."""
+    import torch.distributed as dist
+
+    from vsr_tpu_torch import main as port_main
+    from vsr_tpu_torch.parallel import distributed
+
+    reset_launches()
+    in_capture, all_reduce = [0], dist.all_reduce
+
+    def counted(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            in_capture[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        if device_epoch:
+            with EpochClock() as clock:
+                port_main.main([config])
+            res = {"losses": torch.cat([g[:, 0] for g in clock.logs]).tolist(),
+                   "replay_ms": clock.replay_ms(),
+                   "replays": len(clock.replay_events)}
+        else:
+            with StepProbe() as probe:
+                port_main.main([config])
+            res = {"losses": torch.stack(probe.losses).tolist(),
+                   "step_ms": probe.step_ms()}
+    finally:
+        dist.all_reduce = all_reduce
+    torch.cuda.synchronize()
+    fwd, dx, dw = k1_calls()
+    res.update(k1={"forward": fwd, "dx": dx, "dw": dw},
+               all_reduce_in_capture=in_capture[0],
+               backend=distributed.backend(),
+               device=str(distributed.rank_device("cuda")),
+               rank=distributed.process_index(),
+               world=distributed.process_count())
+    return res
+
+
+def rank_run(spec_path: str) -> int:
+    """A process of phase 18 (``--rank-run``): each of its stages joins a
+    group through the stage's ``VSR_*`` variables (at the first run's
+    ``main``), runs the stage's runs and leaves the group; the results go
+    into the spec's ``out``. A fatal signal prints the Python stack."""
+    import faulthandler
+    import os
+
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    spec = json.loads(Path(spec_path).read_text())
+    results = []
+    for stage in spec["stages"]:
+        os.environ.update(stage["env"])
+        results.append([par_train(r["config"], r["device_epoch"])
+                        for r in stage["runs"]])
+        dist.destroy_process_group()
+    Path(spec["out"]).write_text(json.dumps(results))
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def identity(port: int, world: int, rank: int) -> dict:
+    """The ``VSR_*`` variables of a rank of a group on ``port``."""
+    return {"VSR_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+            "VSR_NUM_PROCESSES": str(world), "VSR_PROCESS_ID": str(rank)}
+
+
+def par_processes(tmp: Path, stages: list) -> list:
+    """One process of this script on the card for each list of stages
+    (``{"env": the VSR_* variables, "runs": [...]}``), all started
+    together (a rank waits in its group's rendezvous for its peers); every
+    process must exit 0. Returns each process's results, by stage."""
+    procs = []
+    for i, own in enumerate(stages):
+        spec = tmp / f"par_process{i}.json"
+        spec.write_text(json.dumps({"stages": own,
+                                    "out": str(tmp / f"par_process{i}.out")}))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank-run",
+             str(spec)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:  # a process that failed leaves its peers waiting
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for i, (proc, out) in enumerate(zip(procs, outs)):
+        if proc.returncode:
+            raise SystemExit(f"phase 18: process {i} exited "
+                             f"{proc.returncode}:\n{out[-6000:]}")
+    return [json.loads((tmp / f"par_process{i}.out").read_text())
+            for i in range(len(stages))]
+
+
+def par_expected_k1(steps: int, valid_frames: int) -> dict:
+    """K1's calls in one DRF epoch: 12 squeezes a frame step, 5 frame steps
+    a train sample batch (forward, dx, dW / db), 12 a validation frame."""
+    per_step = SQUEEZES_PER_STEP * TRAIN_T * steps
+    return {"forward": per_step + SQUEEZES_PER_STEP * valid_frames,
+            "dx": per_step, "dw": per_step}
+
+
+def par_check_losses(what: str, got: list, want: list) -> float:
+    if len(got) != len(want):
+        raise SystemExit(f"{what}: {len(got)} steps, the run without a mesh "
+                         f"{len(want)}")
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    if diff > PAR_LOSS_TOL:
+        raise SystemExit(f"{what}: a step's loss differs by {diff:.3g} from "
+                         f"the run without a mesh (> {PAR_LOSS_TOL})")
+    return diff
+
+
+def par_serve(tmp: Path, name: str, checkpoint: Path, src: Path) -> np.ndarray:
+    """``infer --checkpoint`` on phase 18's volume, DRFNet through K1."""
+    from vsr_tpu_torch import infer
+    from vsr_tpu_torch.io.nifti import load_nifti
+
+    reset_launches()
+    infer.main([str(src), str(tmp / name), "--video", "--fused-tail",
+                "--net", "DRFNet", "--net-kwargs",
+                json.dumps(dict(DRF_KWARGS, fused_squeeze=True)),
+                "--checkpoint", str(checkpoint)])
+    check_launches(f"18a infer {name}", "concat_conv1x1",
+                   SQUEEZES_PER_STEP * PAR_VOLUME[3])
+    sr = load_nifti(tmp / name / "patient000" / "patient000_4d_sr.nii.gz")
+    check_sr(f"18a infer {name}", sr, PAR_VOLUME)
+    return sr
+
+
+def flax_variables(net, seed: int) -> dict:
+    """A flax variables tree (``{"params": ...}``) of ``net``'s structure
+    (``interop``'s slot table), drawn from ``seed``: kernels uniform over
+    +-1/sqrt(fan-in), every other leaf over +-0.1."""
+    from vsr_tpu_torch.interop import _KERNEL_LAYOUTS, module_slots
+
+    rng, tree = np.random.default_rng(seed), {}
+    for path, tensor, transform in module_slots(net):
+        shape = tuple(tensor.shape)
+        if transform in _KERNEL_LAYOUTS:
+            shape = _KERNEL_LAYOUTS[transform][1](shape)
+            bound = 1.0 / np.sqrt(np.prod(shape[:-1]))
+            value = rng.uniform(-bound, bound, shape)
+        else:
+            value = rng.uniform(-0.1, 0.1, shape)
+        cursor = tree
+        for part in path[:-1]:
+            cursor = cursor.setdefault(part, {})
+        cursor[path[-1]] = value.astype(np.float32)
+    return tree
+
+
+def par_checkpoints(tmp: Path, run_a: Path, card: str, dev) -> dict:
+    """18a's files: the sharded checkpoint consolidated and both served;
+    the sharded-v1 layout of ``vsr_tpu`` written by the port and served
+    directly against the plain flax file."""
+    from vsr_tpu_torch import convert
+    from vsr_tpu_torch.io.nifti import save_nifti
+    from vsr_tpu_torch.registry import build
+    from vsr_tpu_torch.utils import checkpoint, msgpack
+
+    main_file = run_a / "checkpoints" / "model_1.ckpt"
+    shards = sorted(p.name for p in main_file.parent.glob("model_1.ckpt*"))
+    if shards != ["model_1.ckpt", "model_1.ckpt.shard0"] or not (
+            checkpoint.is_sharded_checkpoint(main_file)):
+        raise SystemExit(f"18a: sharded_ckpt wrote {shards}")
+    whole = tmp / "par_consolidated.ckpt"
+    convert.main(["--consolidate", str(main_file), str(whole)])
+    src = tmp / "par_volume"
+    save_nifti(np.round(np.random.default_rng(18).random(PAR_VOLUME) * 255)
+               .astype(np.float32), src / "patient000" / "patient000_4d.nii")
+    sharded_sr = par_serve(tmp, "par_sr_sharded", main_file, src)
+    whole_sr = par_serve(tmp, "par_sr_whole", whole, src)
+    exact, grey = agreement(sharded_sr, whole_sr)
+    if grey > 1:
+        raise SystemExit(f"18a: the sharded main file and its consolidation "
+                         f"serve volumes {grey} grey apart")
+    res = {"files": shards, "served_exact_fraction": exact,
+           "served_max_grey": grey}
+    log(f"  18a: sharded_ckpt wrote {shards}; convert --consolidate; infer "
+        f"--checkpoint on both: {exact * 100:.4f}% exact, max {grey:g} grey, "
+        f"K1 {SQUEEZES_PER_STEP * PAR_VOLUME[3]} launches a volume each "
+        f"[{card}]")
+
+    net = build("net", {"name": "DRFNet", "kwargs": DRF_KWARGS}, device="cpu",
+                generator=torch.Generator().manual_seed(0))
+    variables = flax_variables(net, 18)  # {"params": {...}}
+    flat = checkpoint._flatten_flax({"params": variables})
+    blocks = {k: 2 for k, v in flat.items()
+              if np.ndim(v) >= 2 and v.shape[-1] % 2 == 0}
+    v1 = tmp / "par_flax" / "model_1.ckpt"
+    for process in (0, 1):
+        checkpoint.save_flax_checkpoint_sharded(
+            v1, {"params": variables}, {"epoch": 1}, blocks,
+            process=process, num_processes=2)
+    plain = tmp / "par_flax_plain.ckpt"
+    plain.write_bytes(msgpack.serialize({"state": {"params": variables},
+                                         "aux": {"epoch": 1}}))
+    v1_sr = par_serve(tmp, "par_sr_flax_sharded", v1, src)
+    plain_sr = par_serve(tmp, "par_sr_flax_plain", plain, src)
+    exact, grey = agreement(v1_sr, plain_sr)
+    if grey > 1:
+        raise SystemExit(f"18a: the sharded-v1 file and the plain flax file "
+                         f"serve volumes {grey} grey apart")
+    res.update(flax_sharded_leaves=len(blocks), flax_exact_fraction=exact,
+               flax_max_grey=grey)
+    log(f"  18a: a seeded DRFNet's flax variables in vsr_tpu's sharded-v1 "
+        f"layout of 2 processes ({len(blocks)} leaves in 2 blocks), written "
+        f"by the port: infer --checkpoint on its main file vs the plain flax "
+        f"file: {exact * 100:.4f}% exact, max {grey:g} grey [{card}]")
+    return res
+
+
+def par_params_close(what: str, got: dict, want: dict) -> float:
+    """The largest difference of a leaf over its own largest entry."""
+    worst = 0.0
+    for key, ref in want.items():
+        scale = float(ref.abs().max()) or 1.0
+        worst = max(worst, float((got[key].float() - ref.float()).abs().max())
+                    / scale)
+    if worst > PAR_PARAM_SHARE:
+        raise SystemExit(f"{what}: parameters {worst:.3g} of a leaf's largest "
+                         f"entry from run (a)'s (> {PAR_PARAM_SHARE})")
+    return worst
+
+
+def phase_parallel(tmp: Path, card: str, dev) -> dict:
+    """Phase 18: data-parallel training (the docstring's item 18)."""
+    from vsr_tpu_torch.utils import checkpoint
+
+    res = {}
+    t0 = time.perf_counter()
+    steps = (TREE_SEQUENCES["train"][0] * TREE_SEQUENCES["train"][1]
+             * T_FRAMES) // TRAIN_N
+    log("phase 18a: DRFNet x2 (F=64, G=6, K1), the run without a mesh in "
+        "this process, then one rank over NCCL with mesh_axes {data: 1} "
+        "and sharded_ckpt, with the EDSR device config (18c)")
+    base = par_train(str(par_drf_config(tmp, "par_base")), False)
+    base_dev = par_train(str(par_device_config(tmp, "par_base_dev")), True)
+    mesh1 = {"mesh_axes": {"data": 1}}
+    one = [{"config": str(par_drf_config(tmp, "par_a", sharded_ckpt=True,
+                                         **mesh1)), "device_epoch": False},
+           {"config": str(par_device_config(tmp, "par_c", **mesh1)),
+            "device_epoch": True}]
+    two = [{"config": str(par_drf_config(tmp, f"par_b_{mode}",
+                                         mesh_axes={"data": 2}, **kw)),
+            "device_epoch": False} for mode, kw in PAR_MODES.items()]
+    # Process 0 runs (a) and (c) as the one rank of an NCCL group, then
+    # rank 0 of (b)'s gloo group; process 1, rank 1 of (b), waits in that
+    # group's rendezvous meanwhile (one start-up fewer).
+    port_one, port_two = free_port(), free_port()
+    procs = par_processes(tmp, [
+        [{"env": identity(port_one, 1, 0), "runs": one},
+         {"env": identity(port_two, 2, 0), "runs": two}],
+        [{"env": identity(port_two, 2, 1), "runs": two}]])
+    (a, c), ranks = procs[0][0], [procs[0][1], procs[1][0]]
+    valid_frames = TREE_SEQUENCES["valid"][0] * TREE_SEQUENCES["valid"][1] \
+        * T_FRAMES
+    want = par_expected_k1(steps, valid_frames)
+    for what, run in (("18a without a mesh", base), ("18a DDP", a)):
+        if run["k1"] != want:
+            raise SystemExit(f"{what}: K1 calls {run['k1']}, expected {want}")
+    if (a["backend"], a["device"], a["world"]) != ("nccl", "cuda:0", 1):
+        raise SystemExit(f"18a: rank 0 on {a['backend']} / {a['device']} "
+                         f"in a world of {a['world']}")
+    diff = par_check_losses("18a", a["losses"], base["losses"])
+    ms = {k: statistics.median(r["step_ms"][1:]) for k, r in
+          (("ddp", a), ("no_mesh", base))}
+    res["a"] = {"steps": len(a["losses"]), "max_loss_diff": diff,
+                "losses": a["losses"], "k1_launches": a["k1"],
+                "step_ms": ms["ddp"], "no_mesh_step_ms": ms["no_mesh"],
+                "backend": a["backend"], "device": a["device"]}
+    log(f"  rank 0: backend {a['backend']}, device {a['device']}, world "
+        f"{a['world']}")
+    log(f"  18a: {len(a['losses'])} steps, every step's loss within "
+        f"{diff:.3g} of the run without a mesh; K1 under DDP: forward "
+        f"{a['k1']['forward']}, dx {a['k1']['dx']}, dW / db {a['k1']['dw']}; "
+        f"median step {ms['ddp']:.2f} ms with DDP, {ms['no_mesh']:.2f} ms "
+        f"without [{card}]")
+    res["a"].update(par_checkpoints(tmp, tmp / "par_a", card, dev))
+
+    log("phase 18c: acdc_sisr_edsr_x2_device.yaml (bf16) with mesh_axes "
+        "{data: 1} over NCCL")
+    if (c["backend"], c["all_reduce_in_capture"]) != ("nccl", 1) or (
+            c["replays"] != PAR_STEPS_DEVICE - 3):
+        raise SystemExit(f"18c: backend {c['backend']}, "
+                         f"{c['all_reduce_in_capture']} all-reduce calls "
+                         f"inside the capture, {c['replays']} replays")
+    diff_c = par_check_losses("18c", c["losses"], base_dev["losses"])
+    res["c"] = {"replay_ms": c["replay_ms"],
+                "no_mesh_replay_ms": base_dev["replay_ms"],
+                "all_reduce_in_capture": c["all_reduce_in_capture"],
+                "max_loss_diff": diff_c, "steps": len(c["losses"])}
+    log(f"  18c: the gradients' all-reduce captured in the graph "
+        f"({c['all_reduce_in_capture']} call inside the capture), "
+        f"{c['replays']} replays, losses within {diff_c:.3g} of the run "
+        f"without a mesh; replayed step {c['replay_ms']:.3f} ms with the "
+        f"NCCL all-reduce, {base_dev['replay_ms']:.3f} ms without a mesh "
+        f"[{card}]")
+
+    log("phase 18b: two ranks sharing the card over gloo, CUDA tensors: "
+        "data: 2, then zero_optim, then fsdp")
+    want_state = checkpoint.read_port_checkpoint(
+        tmp / "par_a" / "checkpoints" / "model_1.ckpt")[0]["net"]
+    want_rank = par_expected_k1(steps, valid_frames // 2)
+    res["b"] = {}
+    for i, mode in enumerate(PAR_MODES):
+        r0, r1 = ranks[0][i], ranks[1][i]
+        for r in (r0, r1):
+            log(f"  {mode} rank {r['rank']}: backend {r['backend']}, device "
+                f"{r['device']}, world {r['world']}, K1 {r['k1']}")
+            if (r["backend"], r["device"], r["world"]) != ("gloo", "cuda:0",
+                                                           2):
+                raise SystemExit(f"18b {mode}: rank {r['rank']} on "
+                                 f"{r['backend']} / {r['device']}")
+            if r["k1"] != want_rank:
+                raise SystemExit(f"18b {mode}: rank {r['rank']} K1 calls "
+                                 f"{r['k1']}, expected {want_rank}")
+        # The global batch's loss: the mean of the ranks' halves.
+        losses = [(x + y) / 2 for x, y in zip(r0["losses"], r1["losses"])]
+        state = checkpoint.read_port_checkpoint(
+            tmp / f"par_b_{mode}" / "checkpoints" / "model_1.ckpt")[0]["net"]
+        worst = par_params_close(f"18b {mode}", state, want_state)
+        loss_diff = max(abs(x - y) for x, y in zip(losses, a["losses"]))
+        res["b"][mode] = {"param_share": worst, "max_loss_diff": loss_diff,
+                          "step_ms": statistics.median(r0["step_ms"][1:]),
+                          "k1_launches_per_rank": r0["k1"],
+                          "backends": [r0["backend"], r1["backend"]],
+                          "devices": [r0["device"], r1["device"]]}
+        log(f"  18b {mode}: parameters within {worst:.3g} of a leaf's "
+            f"largest entry of run (a)'s, the global batch's loss within "
+            f"{loss_diff:.3g}, median step {res['b'][mode]['step_ms']:.2f} ms "
+            f"(two ranks on one card over gloo) [{card}]")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 18 took {res['seconds']:.1f} s [{card}]")
+    return res
+
+
+def parallel_summary(par: dict) -> dict:
+    return {"seconds": par["seconds"],
+            "a": {k: par["a"][k] for k in (
+                "steps", "max_loss_diff", "k1_launches", "step_ms",
+                "no_mesh_step_ms", "served_max_grey", "flax_max_grey")},
+            "b": {m: {k: v[k] for k in ("param_share", "backends", "devices")}
+                  for m, v in par["b"].items()},
+            "c": par["c"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="",
@@ -6519,6 +6954,11 @@ def main() -> int:
     parser.add_argument("--offline", action="store_true",
                         help="only build and run phase 17 (the offline "
                              "tools to a tested checkpoint)")
+    parser.add_argument("--parallel", action="store_true",
+                        help="only build, write phase 7's tree and run phase "
+                             "18 (data-parallel training)")
+    parser.add_argument("--rank-run", dest="rank_run", default="",
+                        help=argparse.SUPPRESS)  # a rank of phase 18
     parser.add_argument("--preset-table", dest="preset_table", nargs="*",
                         default=None, metavar="NET",
                         help="only build and run the sweep behind "
@@ -6530,6 +6970,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.rank_run:
+        return rank_run(args.rank_run)
     from vsr_tpu_torch import _build
 
     started = time.perf_counter()
@@ -6658,6 +7100,25 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if args.parallel:
+        with tempfile.TemporaryDirectory() as tmp:
+            log("phase 7a: the synthetic processed tree")
+            make_training_tree(Path(tmp) / "tree", dev)
+            log("phase 18: data-parallel training")
+            results = {"card": smi, "parallel": phase_parallel(
+                Path(tmp), card, dev)}
+        results["seconds"] = time.perf_counter() - started
+        log(f"  chip_smoke --parallel took {results['seconds']:.1f} s "
+            f"[{card}]")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(results, indent=1))
+        print(json.dumps({"parallel": parallel_summary(
+            results["parallel"])}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     log("phase 3: kernel vs twin")
     k1 = phase_kernel_squeeze(dev)
     k3 = phase_kernel_rank(dev)
@@ -6727,6 +7188,11 @@ def main() -> int:
             "DRFNet trained with native_decode, async_ckpt and profile_dir, "
             "main --test)")
         offline = phase_offline(Path(tmp) / "offline", card, dev)
+        log("phase 18: data-parallel training (main.distributed, DDP over "
+            "NCCL, two ranks over gloo with ZeRO-1 and FSDP, sharded "
+            "checkpoints, convert --consolidate, the device trainer's "
+            "captured all-reduce), K1 under DDP")
+        parallel = phase_parallel(Path(tmp), card, dev)
         results = {"card": smi, "build_seconds": build_s,
                    "kernel": {"concat_conv1x1": k1,
                               "concat_conv1x1_backward": k1_bwd,
@@ -6736,7 +7202,8 @@ def main() -> int:
                    "volumes": volumes, "device_epochs": device,
                    "deployment": deploy, "quantized": quant,
                    "knobs": knobs, "feedback": feedback,
-                   "presets": presets, "offline": offline}
+                   "presets": presets, "offline": offline,
+                   "parallel": parallel}
         if args.profile:
             log("phase 8: torch.profiler traces")
             results["profile"] = phase_profile(dev)
@@ -6863,6 +7330,13 @@ def main() -> int:
         "offline_train_launches": offline["train"]["launches"],
         "offline_backward_launches": offline["train"]["backward_launches"],
         "offline_test_launches": offline["test"]["launches"],
+        # Phase 18: DRFNet's epoch under DDP (one rank over NCCL: forward,
+        # dx in its backward), and each rank's of two sharing the card over
+        # gloo (plain data axis).
+        "ddp_train_launches": parallel["a"]["k1_launches"]["forward"],
+        "ddp_backward_launches": parallel["a"]["k1_launches"]["dx"],
+        "gloo_rank_launches":
+            parallel["b"]["ddp"]["k1_launches_per_rank"]["forward"],
     }, {
         # K1's weight and bias gradient (the JAX package computes them in
         # XLA, inside _bwd, so the line it replaces is no Pallas kernel): one
@@ -6882,6 +7356,8 @@ def main() -> int:
         # Phase 17: the DRFNet trained on the port's own processed tree.
         "offline_launches": offline["train"]["backward_launches"],
         "drf_remat_launches": feedback["drf"]["remat"]["dw_launches"],
+        # Phase 18: DRFNet's epoch under DDP (one rank over NCCL).
+        "ddp_launches": parallel["a"]["k1_launches"]["dw"],
         # Serving has no backward: phase 12 gates these at 0.
         "export_launches": 0, "serve_launches": 0, "stream_launches": 0,
         "max_abs_err": k1_bwd["dw_max_abs_err"],

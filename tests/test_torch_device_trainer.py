@@ -361,21 +361,28 @@ def test_the_fourteen_names_resolve():
                       trainers.Volume4DTrainer)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh_axes={"data": 2}), "mesh_axes"),
-    (dict(mesh_axes={"data": 1, "expert": 2}), "'expert'"),
-    (dict(zero_optim=True), "zero_optim"), (dict(fsdp=True), "fsdp"),
-    (dict(qat=True, mesh_axes={"pipe": 2}), "qat"),
-    (dict(scan_unroll=2), "scan_unroll=2")])
-def test_mixin_refusals(tree, tmp_path, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+# The data mesh is ported (tests/test_torch_parallel.py): the JAX trainer's
+# own refusals, in its words, and the axes not ported.
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(mesh_axes={"data": 2}), ValueError, "Mesh needs 2 devices, have 1"),
+    (dict(mesh_axes={"data": 1, "expert": 2}), NotImplementedError,
+     "'expert'"),
+    (dict(zero_optim=True), ValueError, "zero_optim needs mesh_axes"),
+    (dict(fsdp=True), ValueError, "fsdp needs mesh_axes"),
+    (dict(qat=True, mesh_axes={"pipe": 2}), NotImplementedError, "qat"),
+    (dict(scan_unroll=2), NotImplementedError, "scan_unroll=2")])
+def test_mixin_refusals(tree, tmp_path, kwargs, error, match):
+    with pytest.raises(error, match=match):
         _port_trainer("sisr", tree, tmp_path, **kwargs)
 
 
 def test_mixin_refuses_a_multi_process_run(tree, tmp_path, monkeypatch):
+    # A multi-process run without mesh_axes (where the JAX device trainer
+    # fails with a TypeError) is refused by name.
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(NotImplementedError,
+                       match="multi-process run needs mesh_axes"):
         _port_trainer("sisr", tree, tmp_path)
 
 

@@ -122,17 +122,22 @@ def _case_jax_trainer_checkpoint_reads_bit_equal(tmp_path, monkeypatch):
     assert got_state["params"]["params"]["head_bf16"].dtype == torch.bfloat16
 
 
-def _case_sharded_and_foreign_files_are_refused(tmp_path):
-    from vsr_tpu.utils.checkpoint import is_sharded_checkpoint
+def _case_sharded_files_read_and_foreign_files_refused(tmp_path):
+    from vsr_tpu.utils.checkpoint import (consolidate_sharded_checkpoint,
+                                          is_sharded_checkpoint,
+                                          save_checkpoint_sharded)
 
     main_file = tmp_path / "model_1.ckpt"
-    # The main file of save_checkpoint_sharded: its payload's format key.
-    main_file.write_bytes(serialization.msgpack_serialize({
-        "format": "sharded-v1", "num_processes": 2, "save_id": "x",
-        "state": {"params": {}}, "aux": {}, "sharded": {}}))
+    # A sharded checkpoint (its main file and shard): read whole, as the
+    # JAX package's consolidation gives it.
+    state = _jax_trainer_state()
+    save_checkpoint_sharded(main_file, state, {"epoch": 1})
     assert is_sharded_checkpoint(main_file)
-    with pytest.raises(ValueError, match="sharded flax checkpoint"):
-        checkpoint.load_flax_checkpoint(main_file)
+    consolidate_sharded_checkpoint(main_file, tmp_path / "whole.ckpt")
+    got_state, got_aux = checkpoint.load_flax_checkpoint(main_file)
+    assert got_aux == {"epoch": 1}
+    want = serialization.msgpack_restore((tmp_path / "whole.ckpt").read_bytes())
+    assert _assert_same_tree(want["state"], got_state) >= 12
     bare = tmp_path / "bare.ckpt"
     bare.write_bytes(serialization.msgpack_serialize({"params": {}}))
     with pytest.raises(ValueError, match="flax msgpack file but not"):
@@ -206,7 +211,7 @@ def test_reader_against_flax(tmp_path, monkeypatch):
     cases = [("_case_decoder_reads_every_type_flax_writes",
               lambda: _case_decoder_reads_every_type_flax_writes(monkeypatch))]
     cases += [(c.__name__, lambda c=c: c(subdir(tmp_path, c.__name__)))
-              for c in (_case_sharded_and_foreign_files_are_refused,
+              for c in (_case_sharded_files_read_and_foreign_files_refused,
                         _case_resuming_training_from_a_flax_checkpoint_is_refused)]
     cases.append(("_case_jax_trainer_checkpoint_reads_bit_equal",
                   lambda: _case_jax_trainer_checkpoint_reads_bit_equal(

@@ -659,12 +659,7 @@ def test_duf_kernel_casts_bf16_and_refuses_grad(rng, dev):
 # ------------------------- the MISR / FRVSR slice: warps, DUF route, MoE
 
 
-@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
-@pytest.mark.parametrize("w", [17, 31, 64, 96])
-def test_warp_gradient_conventions_on_the_card(rng, dev, w, padding_mode):
-    """Integer samples (zero and integer flows, on and past the border) and
-    FRVSR's normalized mesh: the card's gradients are the CPU's, which the
-    CPU tests hold against JAX's hat convention."""
+def _case_warp_gradient_conventions(rng, dev, w, padding_mode):
     from vsr_tpu_torch.models.frvsr import stn_warp
     from vsr_tpu_torch.ops.warp import flow_warp
 
@@ -685,6 +680,16 @@ def test_warp_gradient_conventions_on_the_card(rng, dev, w, padding_mode):
                 scale = max(1.0, want.abs().max().item())
                 torch.testing.assert_close(got, want, rtol=1e-5,
                                            atol=1e-5 * scale)
+
+
+def test_warp_gradient_conventions_on_the_card(rng, dev):
+    """Integer samples (zero and integer flows, on and past the border) and
+    FRVSR's normalized mesh, widths 17 to 96, zero and border padding: the
+    card's gradients are the CPU's, which the CPU tests hold against JAX's
+    hat convention."""
+    run_cases([(f"w={w} {mode}", lambda w=w, mode=mode:
+                _case_warp_gradient_conventions(rng, dev, w, mode))
+               for w in (17, 31, 64, 96) for mode in ("zeros", "border")])
 
 
 def test_deform_conv_gradients_on_the_card(rng, dev):
@@ -1558,3 +1563,115 @@ def test_offline_tools_and_trainer_knobs_on_the_card(rng, dev, tmp_path):
         ("trace", lambda: _case_trace_holds_kernel_events(
             rng, dev, subdir(tmp_path, "trace"))),
     ])
+
+
+# --------------------------------------------------- data-parallel training
+
+
+def _drf_trainer(tree, saved, dev, **kwargs):
+    """``AcdcVSRTrainer`` on a DRFNet (F = 8, G = 2) through K1: 8 windows
+    of the tree in 4 batches of 2 (``host_shard``: the rank's block)."""
+    from vsr_tpu_torch import losses, metrics, models, optim
+    from vsr_tpu_torch.callbacks.monitor import Monitor
+    from vsr_tpu_torch.data import datasets
+    from vsr_tpu_torch.data.loader import Dataloader
+    from vsr_tpu_torch.runner.trainers import AcdcVSRTrainer
+
+    def dataset(type_):
+        return datasets.AcdcVSRDataset(
+            data_dir=tree / "videos", type=type_, downscale_factor=2,
+            transforms=[{"name": "Normalize",
+                         "kwargs": {"means": [54.089], "stds": [48.084]}},
+                        {"name": "ToTensor"}],
+            augments=[{"name": "RandomCropPatch",
+                       "kwargs": {"size": [8, 8], "ratio": 2}}],
+            num_frames=3, temporal_order="last")
+
+    net = models.DRFNet(in_channels=1, out_channels=1, num_features=8,
+                        num_groups=2, upscale_factor=2, fused_squeeze=True,
+                        generator=torch.Generator().manual_seed(0))
+    return AcdcVSRTrainer(
+        train_dataloader=Dataloader(dataset("train"), batch_size=2,
+                                    shuffle=True, host_shard=True),
+        valid_dataloader=Dataloader(dataset("valid"), batch_size=1),
+        net=net, loss_fns=[losses.L1Loss()], loss_weights=[1.0],
+        metric_fns=[metrics.PSNR()], optimizer=optim.Adam(lr=1e-3),
+        lr_scheduler=None, logger=None,
+        monitor=Monitor(checkpoints_dir=saved, mode="min", target="Loss",
+                        saved_freq=1, early_stop=0),
+        num_epochs=1, device=dev, **kwargs)
+
+
+def _epoch_losses(trainer) -> list[float]:
+    """One training epoch; each step's loss."""
+    losses, step = [], trainer._train_step
+
+    def probe(inputs, targets):
+        scalars, outputs = step(inputs, targets)
+        losses.append(float(scalars[0]))
+        return scalars, outputs
+
+    trainer._train_step = probe
+    trainer._run_epoch("training", 1)
+    return losses
+
+
+def test_data_parallel_one_nccl_rank_and_sharded_checkpoint(rng, dev,
+                                                            tmp_path):
+    """``mesh_axes: {data: 1}`` over one NCCL rank (DDP; K1 forward, dx and
+    dW / db inside its autograd) against the run without a mesh: 4 DRF
+    steps, each loss within 1e-4, the parameters within 1e-3 of each leaf's
+    largest entry; then its sharded save, ``convert --consolidate`` and the
+    same volume served from both files."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vsr_tpu_torch import convert
+    from vsr_tpu_torch.infer import make_pipeline
+    from vsr_tpu_torch.models import DRFNet
+    from vsr_tpu_torch.parallel import distributed
+    from vsr_tpu_torch.utils import checkpoint
+
+    tree = _write_tree(tmp_path / "tree", rng, frames=8)
+    plain = _drf_trainer(tree, tmp_path / "plain", dev)
+    want = _epoch_losses(plain)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        assert (dist.get_backend(), dist.get_world_size()) == ("nccl", 1)
+        fs.concat_conv1x1.launches = fs.concat_conv1x1.backward_launches = 0
+        fs.concat_conv1x1_dw.launches = 0
+        ddp = _drf_trainer(tree, tmp_path / "ddp", dev,
+                           mesh_axes={"data": 1}, sharded_ckpt=True)
+        got = _epoch_losses(ddp)
+        # G = 2: four squeezes of more than one part a frame step, T = 3.
+        assert (fs.concat_conv1x1.launches,
+                fs.concat_conv1x1.backward_launches,
+                fs.concat_conv1x1_dw.launches) == (4 * 3 * 4,) * 3
+        assert len(got) == 4
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+        a, b = ddp.net.state_dict(), plain.net.state_dict()
+        for key, value in b.items():
+            scale = float(value.abs().max()) or 1.0
+            assert float((a[key] - value).abs().max()) <= 1e-3 * scale, key
+        ddp.save(tmp_path / "sharded.ckpt")
+    finally:
+        dist.destroy_process_group()
+    assert checkpoint.is_sharded_checkpoint(tmp_path / "sharded.ckpt")
+    convert.main(["--consolidate", str(tmp_path / "sharded.ckpt"),
+                  str(tmp_path / "whole.ckpt")])
+    frames = torch.from_numpy(rng.integers(0, 256, (8, 48, 48)).astype(
+        np.float32)).to(dev)
+    served = []
+    for name in ("sharded.ckpt", "whole.ckpt"):
+        net = DRFNet(in_channels=1, out_channels=1, num_features=8,
+                     num_groups=2, upscale_factor=2, fused_squeeze=True,
+                     device=dev)
+        checkpoint.load_net_weights(net, tmp_path / name, map_location=dev)
+        with torch.inference_mode():
+            served.append(make_pipeline(net, 2, "acdc", video_t=8)(
+                frames)[1].cpu())
+    assert torch.equal(served[0], served[1])

@@ -280,8 +280,9 @@ def test_dataset_and_loader_refusals(tree):
         datasets.AcdcVSRDataset(**{**kw, "data_dir": tree / "videos"},
                                 num_frames=9)
     ds = datasets.AcdcSISRDataset(**kw)
-    with pytest.raises(NotImplementedError, match="host_shard"):
-        Dataloader(ds, host_shard=True)
+    # host_shard in one process: the plain loader's batches (each rank's
+    # block: tests/test_torch_parallel.py).
+    assert len(Dataloader(ds, batch_size=3, host_shard=True)) == len(ds) // 3
     with pytest.raises(ValueError, match="shuffle=True"):
         next(iter(Dataloader(ds, shuffle=True)))
     # Ported since the volumetric slice.

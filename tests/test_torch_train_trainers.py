@@ -315,14 +315,19 @@ def test_reduce_lr_on_plateau_steps_on_the_validation_loss(tree, tmp_path):
     assert optim.get_learning_rate(trainer.optimizer) == pytest.approx(LR * 0.1)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh_axes={"data": 2}), "mesh_axes"),
-    (dict(pipe_microbatches=2), "pipe_microbatches"),
-    (dict(zero_optim=True), "zero_optim"), (dict(fsdp=True), "fsdp"),
-    (dict(qat=True, mesh_axes={"pipe": 2}), "qat"),
-    (dict(sharded_ckpt=True), "sharded_ckpt")])
-def test_refused_trainer_keywords_raise_by_name(tree, tmp_path, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+# The JAX trainer's own refusals, in its words (the data mesh is ported:
+# its multi-process cases are in tests/test_torch_parallel.py).
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(mesh_axes={"data": 2}), ValueError, "Mesh needs 2 devices, have 1"),
+    (dict(pipe_microbatches=2), ValueError,
+     "pipe_microbatches has no effect without a 'pipe' mesh axis"),
+    (dict(zero_optim=True), ValueError, "zero_optim needs mesh_axes"),
+    (dict(fsdp=True), ValueError, "fsdp needs mesh_axes"),
+    (dict(qat=True, mesh_axes={"pipe": 2}), NotImplementedError, "qat"),
+    (dict(sharded_ckpt=True), ValueError, "sharded_ckpt needs mesh_axes")])
+def test_refused_trainer_keywords_raise_by_name(tree, tmp_path, kwargs, error,
+                                                match):
+    with pytest.raises(error, match=match):
         _port_trainer("sisr", tree, tmp_path, **kwargs)
 
 
@@ -445,23 +450,29 @@ def test_main_default_device_is_cuda(tree, tmp_path):
         port_main.run_train(cfg)  # no fallback to the CPU
 
 
-def test_main_refuses_test_mode_distributed_and_unknown_keywords(tree, tmp_path):
+def test_main_refuses_test_mode_distributed_and_unknown_keywords(
+        tree, tmp_path, monkeypatch):
     save_config(_config("sisr", tree, tmp_path / "run"), tmp_path / "c.yaml")
     # --test is ported; a training config, which has no predictor section,
     # is refused by name.
     with pytest.raises(ValueError, match="predictor section"):
         port_main.main([str(tmp_path / "c.yaml"), "--test"])
+    # main.distributed with an incomplete identity (no process count or
+    # id, no torchrun variables) raises before anything runs.
     cfg = _config("sisr", tree, tmp_path / "run")
     cfg.main.distributed = {"coordinator_address": "x:1"}
-    with pytest.raises(NotImplementedError, match="distributed"):
-        port_main.run_train(cfg)
+    save_config(cfg, tmp_path / "d.yaml")
+    for key in ("VSR_NUM_PROCESSES", "VSR_PROCESS_ID", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="a process count and a process id"):
+        port_main.main([str(tmp_path / "d.yaml")])
     cfg = _config("sisr", tree, tmp_path / "run")
     cfg.trainer.kwargs.t_bucket = 16
     with pytest.raises(TypeError, match="t_bucket"):
         port_main.run_train(cfg)
     cfg = _config("sisr", tree, tmp_path / "run")
     cfg.trainer.kwargs.sharded_ckpt = True
-    with pytest.raises(NotImplementedError, match="sharded_ckpt"):
+    with pytest.raises(ValueError, match="sharded_ckpt needs mesh_axes"):
         port_main.run_train(cfg)
 
 

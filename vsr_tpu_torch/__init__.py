@@ -25,7 +25,9 @@ metrics, optimizers and schedulers, monitor and loggers (``callbacks/``),
 checkpoints and preemption recovery (``utils/``). The fused squeeze is
 differentiable (its ``dx`` runs through the same CUDA kernel, its ``dW`` and
 ``db`` through ``csrc/fused_squeeze_dw.cu``), so DRFNet trains with the
-kernel on.
+kernel on. ``mesh_axes: {data: n}`` trains one model across ``n`` processes
+(``parallel/``: DDP, ZeRO-1, FSDP, sharded checkpoints), and ``python -m
+vsr_tpu_torch.convert --consolidate`` stitches a sharded checkpoint.
 
 Importing the package never compiles a kernel: ``_build.load`` runs
 ``nvcc`` at the first launch on a CUDA tensor.

@@ -8,8 +8,13 @@
   worker count and schedule.
 - Channels-last numpy batches; the trainer moves each to the device through
   pinned memory and permutes it to the nets' layout.
-
-``host_shard`` (multi-host input sharding) is not ported and raises.
+- ``host_shard`` (multi-process training): every rank computes the same
+  epoch order (the ``RngTree`` seed is shared), splits it into global
+  batches of ``batch_size * world`` samples and loads only its own
+  ``batch_size`` block of each, so the ranks' batches at step k together
+  are the single-process batch of that global size at step k, with the same
+  crops (a sample's RNG is keyed by its global index); ``__len__`` drops
+  the ragged tail across the ranks.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Any, Iterator, Mapping
 
 import numpy as np
 
+from vsr_tpu_torch.parallel.distributed import process_count, process_index
 from vsr_tpu_torch.registry import register
 from vsr_tpu_torch.utils.rng import RngTree
 
@@ -47,6 +53,7 @@ class Dataloader:
         drop_last: drop the trailing partial batch.
         prefetch: number of batches decoded ahead of the consumer.
         collate_fn: override batch assembly (defaults to stacking).
+        host_shard: each rank loads its block of every global batch.
     """
 
     def __init__(
@@ -67,13 +74,19 @@ class Dataloader:
         self.drop_last = bool(drop_last)
         self.prefetch = max(int(prefetch), 1)
         self.collate_fn = collate_fn or default_collate
-        if host_shard:
-            raise NotImplementedError(
-                "Dataloader host_shard (multi-host input sharding) is not yet "
-                "ported to vsr_tpu_torch")
+        self.host_shard = bool(host_shard)
+
+    def _shard_info(self) -> tuple[int, int]:
+        """(shard_count, shard_index) when host-sharding, else (1, 0)."""
+        if not self.host_shard:
+            return 1, 0
+        return process_count(), process_index()
 
     def __len__(self) -> int:
         n = len(self.dataset)
+        nproc, _ = self._shard_info()
+        if nproc > 1:
+            return n // (self.batch_size * nproc)
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -84,6 +97,20 @@ class Dataloader:
             if epoch_rng is None:
                 raise ValueError("shuffle=True requires epoch(rng_tree, epoch) iteration")
             epoch_rng.shuffle(order)
+        nproc, pid = self._shard_info()
+        if nproc > 1:
+            gbs = self.batch_size * nproc
+            if len(order) < gbs:
+                raise ValueError(
+                    f"host-sharded loader: dataset has {len(order)} samples "
+                    f"but one global batch needs batch_size * process_count "
+                    f"= {self.batch_size} * {nproc} = {gbs}; shrink the "
+                    f"batch or the process count")
+            return [
+                order[i + pid * self.batch_size:
+                      i + (pid + 1) * self.batch_size].tolist()
+                for i in range(0, len(order) - gbs + 1, gbs)
+            ]
         batches = [
             order[i : i + self.batch_size].tolist()
             for i in range(0, len(order), self.batch_size)

@@ -12,7 +12,14 @@ The net trains on ``trainer.kwargs.device`` of the config and is tested on
 overrides it. ``--test`` loads ``main.loaded_path``, a checkpoint that the
 port's trainer or ``vsr_tpu``'s wrote (a flax msgpack file), and writes
 ``results.csv``, PNGs and GIFs under ``predictor.kwargs.saved_dir``.
-``main.distributed`` is not ported yet and raises.
+
+Multi-process training: ``main.distributed`` (``{coordinator_address,
+num_processes, process_id}``, or ``auto`` for ``torchrun``'s variables) and
+the ``VSR_COORDINATOR_ADDRESS`` / ``VSR_NUM_PROCESSES`` / ``VSR_PROCESS_ID``
+overrides join the process group before anything touches the device
+(``parallel/distributed.py``); each rank takes its own device, and the
+trainer's ``mesh_axes: {data: n}`` trains one model across the ranks.
+Rank 0 writes the config, logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import logging
 from pathlib import Path
 
 from vsr_tpu_torch.config import Config, load_config, save_config
+from vsr_tpu_torch.parallel import distributed
 from vsr_tpu_torch.registry import build, get_class
 from vsr_tpu_torch.utils.recovery import find_latest_checkpoint
 from vsr_tpu_torch.utils.rng import RngTree
@@ -49,17 +57,16 @@ def build_metrics(config):
 
 def run_train(config: Config, device: str | None = None):
     """Train as the config says; returns the trainer. ``device`` overrides
-    ``trainer.kwargs.device`` (whose default is ``cuda``)."""
-    if config.main.get("distributed"):
-        raise NotImplementedError(
-            "main.distributed (multi-host training) is not yet ported to "
-            "vsr_tpu_torch")
+    ``trainer.kwargs.device`` (whose default is ``cuda``); in a
+    multi-process run each rank takes its own device of that type."""
     saved_dir = Path(config.main.saved_dir)
     saved_dir.mkdir(parents=True, exist_ok=True)
-    save_config(config, saved_dir / "config.yaml")
+    if distributed.is_primary():
+        save_config(config, saved_dir / "config.yaml")
 
     trainer_kwargs = dict(config.trainer.get("kwargs") or {})
-    device = device or trainer_kwargs.pop("device", None) or "cuda"
+    device = str(distributed.rank_device(
+        device or trainer_kwargs.pop("device", None) or "cuda"))
     trainer_kwargs["device"] = device
 
     logging.info("Create the training and validation datasets.")
@@ -205,6 +212,14 @@ def main(argv: list[str] | None = None) -> None:
 
     config = load_config(args.config_path)
     logging.info(f'Loaded the config from "{args.config_path}".')
+    # Multi-process: join the process group before anything touches the
+    # device (main.distributed, overridable per process by the VSR_*
+    # variables; parallel/distributed.py).
+    section = config.get("predictor" if args.test else "trainer") or {}
+    requested = args.device or (section.get("kwargs") or {}).get(
+        "device", "cuda")
+    distributed.initialize_from_config(config.main.get("distributed"),
+                                       device=requested)
     if args.test:
         run_test(config, device=args.device)
     else:

@@ -36,7 +36,9 @@ import math
 from typing import Any, Iterable, Sequence
 
 import torch
+import torch.distributed as dist
 
+from vsr_tpu_torch.parallel.distributed import assign_full, local
 from vsr_tpu_torch.registry import register
 
 # name -> the JAX package's default learning rate for it.
@@ -84,10 +86,16 @@ class OptimizerFactory:
         self.lr = float(lr)
         self.kwargs = kwargs
 
+    def optimizer_class(self) -> type:
+        return getattr(torch.optim, self.torch_name)
+
+    def bind_kwargs(self) -> dict[str, Any]:
+        """The class's keyword arguments, the learning rate among them."""
+        return {"lr": self.lr, **{k: tuple(v) if k in _PAIRS else v
+                                  for k, v in self.kwargs.items()}}
+
     def bind(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-        kwargs = {k: tuple(v) if k in _PAIRS else v
-                  for k, v in self.kwargs.items()}
-        return getattr(torch.optim, self.torch_name)(params, lr=self.lr, **kwargs)
+        return self.optimizer_class()(params, **self.bind_kwargs())
 
 
 for _name, _lr in _OPTIMIZERS.items():
@@ -182,7 +190,12 @@ class GradientChain:
       parameters only (no buffers), keyed by their names.
 
     ``param_groups`` are the optimizer's, so ``get_learning_rate`` /
-    ``set_learning_rate`` and the schedulers work through the chain."""
+    ``set_learning_rate`` and the schedulers work through the chain.
+
+    Under a ``data`` mesh (``parallel/data_parallel.py``): FSDP's sharded
+    parameters (``DTensor``) are updated block by block, and the clip's
+    norm sums the squares of every rank's blocks; under DDP an applying
+    micro-step that follows :meth:`preload` is ``step(summed=True)``."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  net: torch.nn.Module, grad_accumulation: int = 1,
@@ -201,6 +214,7 @@ class GradientChain:
                 raise ValueError(f"ema decay must be in (0, 1), got {ema_decay}")
         self.mini_step = 0
         self.acc = self.count = self.ema = None
+        self._sharded = any(local(p) is not p for p in self.params)
         with torch.no_grad():
             if self.every_k > 1:
                 self.acc = [torch.zeros_like(p) for p in self.params]
@@ -223,35 +237,50 @@ class GradientChain:
         self.mini_step = (self.mini_step + 1) % self.every_k
 
     @torch.no_grad()
-    def step(self) -> None:
+    def preload(self) -> None:
+        """Before the backward of an applying micro-step whose earlier
+        micro-steps ran under DDP's ``no_sync``: ``.grad`` becomes the sum
+        of this rank's earlier micro-gradients, which the backward adds to
+        and DDP all-reduces; ``step(summed=True)`` divides by k."""
+        for p, a in zip(self.params, self.acc):
+            p.grad = a * self.mini_step
+
+    @torch.no_grad()
+    def step(self, summed: bool = False) -> None:
         grads = [p.grad for p in self.params]
         if self.acc is not None or self.max_norm:
             # A parameter the loss does not reach has a gradient of zeros
             # in JAX: it counts in the mean and the norm.
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(self.params, grads)]
-        if self.acc is not None:
+        if self.acc is not None and summed:
+            for g in grads:
+                local(g).div_(self.every_k)
+        elif self.acc is not None:
             for a, g in zip(self.acc, grads):
-                a.add_((g - a) / (self.count + 1))
+                local(a).add_((local(g) - local(a)) / (self.count + 1))
             if not self.graph_key():
                 self.count.add_(1)
                 self.advance()
                 return
             grads = self.acc
         if self.max_norm:
-            norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+            square = torch.stack([local(g).square().sum() for g in grads]).sum()
+            if self._sharded:
+                dist.all_reduce(square)
+            norm = square.sqrt()
             keep = norm < self.max_norm
-            for g in grads:
+            for g in map(local, grads):
                 g.copy_(torch.where(keep, g, (g / norm) * self.max_norm))
         for p, g in zip(self.params, grads):
             p.grad = g
         self.optimizer.step()
         if self.ema is not None:
-            for e, p in zip(self.ema, self.params):
+            for e, p in zip(map(local, self.ema), map(local, self.params)):
                 e.copy_(e * self.decay + p * (1.0 - self.decay))
         if self.acc is not None:
             for a in self.acc:
-                a.zero_()
+                local(a).zero_()
             self.count.zero_()
         self.advance()
 
@@ -288,12 +317,12 @@ class GradientChain:
                 f"accumulation {has[0]}, EMA {has[1]})")
         if self.acc is not None:
             for name, a in zip(self.names, self.acc):
-                a.copy_(state["acc"][name])
+                assign_full(a, state["acc"][name])
             self.mini_step = int(state["mini_step"])
             self.count.fill_(self.mini_step)
         if self.ema is not None:
             for name, e in zip(self.names, self.ema):
-                e.copy_(state["ema"][name])
+                assign_full(e, state["ema"][name])
 
 
 def find_ema(opt_state) -> dict | None:

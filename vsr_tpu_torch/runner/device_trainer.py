@@ -35,6 +35,19 @@ deterministic by seed, not bit-equal to the JAX package's draws nor to the
 host-loop loader's. ``draw_batch`` and ``apply_draws`` are split so that a
 test can feed another package's draws.
 
+Under ``mesh_axes: {data: n}`` over ``n`` ranks (JAX
+``device_trainer.py:520-560``): each rank holds its contiguous block of the
+train split (truncated to a multiple of ``n``), ``train_batch_size`` stays
+the global batch and each rank steps ``batch / n`` samples drawn from its
+block with its own generator (``("device-epoch", epoch, rank)``, as JAX
+folds the device index into its key). The gradients and the BatchNorm
+statistics are averaged by an explicit all-reduce of their flattened
+concatenation after the backward (``parallel/data_parallel.py``), which the
+captured graph holds on NCCL; DDP's hooks do not belong inside a capture.
+Gloo cannot be captured: ranks that share a card (or run on the CPU) step
+eagerly, and the log says so. The per-step logs are averaged over the
+ranks once an epoch.
+
 ``DeviceEpochTrainer`` is the standalone trainer over given buffers;
 ``DeviceTrainerMixin`` is the config-driven one, mixed into the task
 trainers (validation, checkpoints, monitor, logger and scheduler inherited),
@@ -121,12 +134,14 @@ def draw_batch(generator: torch.Generator, m: int, batch: int | tuple,
 
 def epoch_draws(rng_tree: RngTree, epoch: int, lr_buf: torch.Tensor,
                 steps: int, batch: int, patch: int,
-                window: int | None = None) -> list[torch.Tensor]:
+                window: int | None = None,
+                rank: int | None = None) -> list[torch.Tensor]:
     """An epoch's ``(steps, batch)`` draws for ``lr_buf`` from the generator
-    ``("device-epoch", epoch)`` on its device, and with ``window`` the
+    ``("device-epoch", epoch)`` on its device (``("device-epoch", epoch,
+    rank)`` for a rank of a ``data`` mesh), and with ``window`` the
     windows' start frames."""
-    gen = rng_tree.torch_generator("device-epoch", epoch,
-                                   device=lr_buf.device)
+    tokens = ("device-epoch", epoch) + (() if rank is None else (rank,))
+    gen = rng_tree.torch_generator(*tokens, device=lr_buf.device)
     h, w = lr_buf.shape[-2:]
     draws = list(draw_batch(gen, lr_buf.shape[0], (steps, batch), h, w,
                             patch))
@@ -496,10 +511,14 @@ class DeviceTrainerMixin:
     host's micro-step counter picks the one to replay. ``profile_dir``
     traces the second epoch's replays, and ``async_ckpt`` snapshots between
     epochs, never inside a capture (a capture waits for the writes in
-    flight). Refused by name: the
-    parallel trainer knobs (``mesh_axes`` with any axis, the ``'expert'``
-    axis among them, ``zero_optim``, ``fsdp``, a multi-process run), and
-    resuming a host-loop trainer's mid-epoch preemption checkpoint."""
+    flight). ``mesh_axes: {data: n}`` runs the module's ``data`` mesh.
+    Refused by name: ``zero_optim`` and ``fsdp`` (as in the JAX device
+    trainer), the other mesh axes, a multi-process run without
+    ``mesh_axes`` (the JAX device trainer fails there with a
+    ``TypeError``), and resuming a host-loop trainer's mid-epoch
+    preemption checkpoint."""
+
+    _explicit_reduce = True
 
     def __init__(self, *args, patch: int, ratio: int,
                  steps_per_epoch: int | None = None,
@@ -511,17 +530,28 @@ class DeviceTrainerMixin:
             raise NotImplementedError(
                 "device trainers: the 'expert' mesh axis is not yet ported "
                 "to vsr_tpu_torch")
-        for name in ("mesh_axes", "zero_optim", "fsdp"):
-            if kwargs.get(name):
-                raise NotImplementedError(
-                    f"device trainers: {name} is not yet ported to "
-                    "vsr_tpu_torch")
+        # Without a mesh the host-loop trainer refuses both in the JAX
+        # trainer's words.
+        if kwargs.get("zero_optim") and mesh_axes:
+            raise NotImplementedError(
+                "zero_optim is not wired into the device-epoch shard_map "
+                "(its opt_state in_specs are replicated; moments at these "
+                "net sizes are <20 MB vs the ~0.5 GB sample buffers that "
+                "already shard — see BENCH.md round 5) — use the "
+                "host-loop trainer for ZeRO-1")
+        if kwargs.get("fsdp") and mesh_axes:
+            raise NotImplementedError(
+                "fsdp is not wired into the device-epoch shard_map (its "
+                "params/opt_state in_specs are replicated) — use the "
+                "host-loop trainer for FSDP/ZeRO-3")
         if (torch.distributed.is_available()
                 and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
+                and torch.distributed.get_world_size() > 1
+                and not mesh_axes):
             raise NotImplementedError(
-                "device trainers: multi-process training is not yet ported "
-                "to vsr_tpu_torch")
+                "device trainers: a multi-process run needs mesh_axes="
+                "{'data': n} (without a mesh every process would train its "
+                "own copy)")
         check_scan_unroll(scan_unroll)
         super().__init__(*args, **kwargs)
         self.patch, self.ratio = int(patch), int(ratio)
@@ -532,6 +562,7 @@ class DeviceTrainerMixin:
             self.chain.optimizer = self.optimizer
         self.lr_buf = self.hr_buf = None
         self.engine = None
+        self._step_batch = None
 
     # -------------------------------------------------------- checkpoints
     def _optimizer_state(self) -> dict:
@@ -551,20 +582,49 @@ class DeviceTrainerMixin:
         override it."""
         return np.moveaxis(lr, -1, -3), np.moveaxis(hr, -1, -3)
 
+    def _buffer_indices(self) -> tuple[range, int]:
+        """This rank's samples of the train split and the size of the split
+        the ranks share: the whole split without a mesh; on a ``data`` mesh
+        of ``n`` ranks the rank's block of the split truncated to a
+        multiple of ``n``."""
+        dataset = self.train_dataloader.dataset
+        n = len(dataset)
+        if self.buffer_limit is not None:
+            n = min(self.buffer_limit, n)
+        world = self._dp.world if self._dp is not None else 1
+        if self.batch_size % world:
+            raise ValueError(
+                f"batch_size {self.batch_size} not divisible by data "
+                f"axis {world}")
+        m = (n // world) * world
+        if m == 0:
+            raise ValueError(
+                f"train split has {n} samples — fewer than the data axis "
+                f"size {world}; every chip needs at least one buffered "
+                "sample")
+        if m != n:
+            logging.info(f"DP buffers: truncating {n} -> {m} samples "
+                         f"(multiple of data axis {world}).")
+        block = m // world
+        rank = self._dp.rank if self._dp is not None else 0
+        return range(rank * block, (rank + 1) * block), m
+
     def _ensure_buffers(self) -> None:
         if self.lr_buf is not None:
             return
         self.batch_size = self.train_dataloader.batch_size
+        indices, m = self._buffer_indices()
         lr, hr = stack_dataset_raw(self.train_dataloader.dataset,
-                                   limit=self.buffer_limit)
+                                   indices=indices)
         lr, hr = self._buffer_layout(lr, hr)
         self.lr_buf = torch.from_numpy(
             np.ascontiguousarray(lr, np.float32)).to(self.device)
         self.hr_buf = torch.from_numpy(
             np.ascontiguousarray(hr, np.float32)).to(self.device)
         self.m = self.lr_buf.shape[0]
-        self.steps_per_epoch = self._steps_cfg or max(
-            1, self.m // self.batch_size)
+        world = self._dp.world if self._dp is not None else 1
+        self._step_batch = self.batch_size // world
+        self.steps_per_epoch = self._steps_cfg or max(1, m // self.batch_size)
         self.engine = EpochEngine(
             self._engine_step, self.lr_buf, self.hr_buf, self.patch,
             self.ratio, DATASET_STATS[self.dataset_stats],
@@ -572,6 +632,14 @@ class DeviceTrainerMixin:
             graph_key=self.chain.graph_key, after_replay=self.chain.advance,
             warmup=self.chain.every_k,
             before_capture=self.wait_for_checkpoints)
+        if (self.engine.use_graph and self._dp is not None
+                and torch.distributed.get_backend() != "nccl"):
+            # A gloo collective cannot be captured.
+            self.engine.use_graph = False
+            logging.info(f"Device epoch on rank {self._dp.rank}: the "
+                         f"{torch.distributed.get_backend()} backend cannot "
+                         "be captured in a CUDA graph; the steps run "
+                         "eagerly.")
 
     def _pack_device_targets(self, hr, inputs):
         """The task trainer's target structure (``inputs``: the sampled LR
@@ -585,9 +653,13 @@ class DeviceTrainerMixin:
         return scalars
 
     def epoch_draws(self, epoch: int) -> list[torch.Tensor]:
-        """The epoch's draws (the module's ``epoch_draws``)."""
+        """The epoch's draws (the module's ``epoch_draws``; a rank's own
+        on a ``data`` mesh of more than one rank)."""
+        rank = (self._dp.rank if self._dp is not None and self._dp.world > 1
+                else None)
         return epoch_draws(self.rng_tree, epoch, self.lr_buf,
-                           self.steps_per_epoch, self.batch_size, self.patch)
+                           self.steps_per_epoch, self._step_batch, self.patch,
+                           rank=rank)
 
     def _run_epoch(self, mode: str, epoch: int):
         if mode != "training":
@@ -598,8 +670,13 @@ class DeviceTrainerMixin:
                 "host-loop trainer; resume it with the same trainer family "
                 "(a device epoch cannot be entered at a batch offset)")
         self._ensure_buffers()
-        log = self.engine.run(self.epoch_draws(epoch)).mean(0).tolist()
-        return dict(zip(self._scalar_names, log)), None, None
+        log = self.engine.run(self.epoch_draws(epoch)).mean(0)
+        if self._dp is not None:  # pmean of the logged scalars
+            from vsr_tpu_torch.parallel.data_parallel import all_reduce_mean
+
+            log = log.clone()
+            all_reduce_mean([log], self._dp.world)
+        return dict(zip(self._scalar_names, log.tolist())), None, None
 
 
 class _DeviceFRVSRBase(DeviceTrainerMixin, trainers.FRVSRTrainer):

@@ -27,9 +27,22 @@ of ``models/common.py``, flax's mixed precision), and a net that holds
 parameters of another dtype is refused. The JAX trainer pads validation
 sequences to T buckets only to bound its recompiles; there is no compile
 step here, so sequences run at their own length and ``t_bucket`` is not a
-parameter. The parallel knobs of the JAX trainer (``mesh_axes``,
-``pipe_microbatches``, ``zero_optim``, ``fsdp``, ``sharded_ckpt``) are not
-ported yet and raise when passed.
+parameter.
+
+``mesh_axes: {data: n}`` trains one model on the global batch across the
+world's ranks (``parallel/data_parallel.py``: DDP for the gradients, an
+all-reduce mean of the BatchNorm statistics after each step, the epoch's
+logs summed over the ranks); ``zero_optim`` runs ZeRO-1
+(``ZeroRedundancyOptimizer``) and ``fsdp`` FSDP (``fully_shard``), each on a
+``data`` axis of 2 or more. Each rank reads its block of every global batch
+with the loader's ``host_shard``. Rank 0 writes the logs and the
+checkpoints, gathered first (a collective); ``sharded_ckpt`` has every rank
+write only its part (``utils/checkpoint.save_checkpoint_sharded``), and
+``load`` restores either kind at the same world size. A multi-process run
+without ``mesh_axes``, and ``zero_optim`` / ``fsdp`` / ``sharded_ckpt``
+without a mesh, are refused in the JAX trainer's words; the other mesh axes
+(and ``pipe_microbatches``, which needs ``pipe``) are not ported yet and
+raise by name.
 
 The JAX trainer's optax chain runs as ``optim.GradientChain`` after the
 backward: ``grad_accumulation`` (a running mean of the micro-gradients,
@@ -49,6 +62,7 @@ end and ``load()`` drains first. The device trainers inherit both.
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import signal
 from pathlib import Path
@@ -61,9 +75,15 @@ from torch import nn
 from vsr_tpu_torch.models.common import intercept_convs
 from vsr_tpu_torch.optim import (GradientChain, OptimizerFactory, Scheduler,
                                  get_learning_rate, set_learning_rate)
+from vsr_tpu_torch.parallel import distributed
 from vsr_tpu_torch.registry import register
 from vsr_tpu_torch.utils.checkpoint import (AsyncCheckpointWriter,
-                                            load_checkpoint, save_checkpoint)
+                                            flatten_state,
+                                            is_sharded_checkpoint,
+                                            load_checkpoint,
+                                            load_checkpoint_sharded,
+                                            save_checkpoint,
+                                            save_checkpoint_sharded)
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
 from vsr_tpu_torch.utils.profiling import trace
 from vsr_tpu_torch.utils.rng import RngTree
@@ -109,22 +129,87 @@ def refuse_qat_with_pipe(qat, mesh_axes: dict | None) -> None:
             "qat does not compose with a 'pipe' mesh axis")
 
 
+def build_data_parallel(mesh_axes: dict | None, zero_optim: bool = False,
+                        fsdp: bool = False, sharded_ckpt: bool = False,
+                        pipe_microbatches: int | None = None,
+                        explicit: bool = False):
+    """``(mesh, DataParallel or None)`` of a trainer's mesh knobs, with the
+    JAX trainer's refusals in its words (``vsr_tpu/runner/trainers.py``:
+    ``sharded_ckpt``, a multi-process run, ``zero_optim`` and ``fsdp``
+    without a mesh; ``zero_optim`` / ``fsdp`` on a ``data`` axis below 2;
+    both together). Without a process group a mesh of one device needs no
+    collective: ``DataParallel`` is ``None`` (the JAX single-device mesh
+    gives the plain step's numbers). ``explicit``: the device trainers'
+    all-reduce in place of DDP."""
+    from vsr_tpu_torch.parallel.data_parallel import DataParallel
+    from vsr_tpu_torch.parallel.mesh import make_mesh
+
+    if sharded_ckpt and not mesh_axes:
+        raise ValueError(
+            "sharded_ckpt needs mesh_axes — without a mesh no state is "
+            "sharded and the default (gathered) checkpoint is already "
+            "optimal")
+    if distributed.is_multiprocess() and not mesh_axes:
+        raise ValueError(
+            "multi-host training needs mesh_axes={'data': n} so the "
+            "processes train ONE model on the global batch; without a "
+            "mesh each process would train its own copy on its shard")
+    if zero_optim and not mesh_axes:
+        raise ValueError(
+            "zero_optim needs mesh_axes with a 'data' axis of size "
+            ">= 2 — without a mesh the moments stay replicated")
+    if fsdp and not mesh_axes:
+        raise ValueError(
+            "fsdp needs mesh_axes with a 'data' axis of size >= 2 — "
+            "without a mesh the params/moments stay replicated")
+    if pipe_microbatches and not (mesh_axes and "pipe" in mesh_axes):
+        raise ValueError(
+            "pipe_microbatches has no effect without a 'pipe' mesh "
+            "axis (mesh_axes={'data': n, 'pipe': p})")
+    if not mesh_axes:
+        return None, None
+    mesh = make_mesh(dict(mesh_axes))
+    mode = "ddp"
+    if zero_optim:
+        if mesh.shape.get("data", 1) < 2:
+            raise ValueError(
+                "zero_optim needs a 'data' mesh axis of size >= 2")
+        mode = "zero"
+    if fsdp:
+        if zero_optim:
+            raise NotImplementedError(
+                "fsdp subsumes zero_optim — enable only one")
+        if mesh.shape.get("data", 1) < 2:
+            raise ValueError("fsdp needs a 'data' mesh axis of size >= 2")
+        mode = "fsdp"
+    if not torch.distributed.is_initialized():
+        return mesh, None
+    return mesh, DataParallel(mesh, mode, explicit=explicit)
+
+
 class TrainStep:
     """The train step of the host-loop and the device-epoch trainers. A
     subclass holds ``net``, ``optimizer``, its ``chain``
     (``optim.GradientChain``), ``loss_weights``, ``dataset_stats`` and
     ``_qat_interceptor`` and gives the ``_compute_losses`` /
-    ``_compute_metrics`` hooks."""
+    ``_compute_metrics`` hooks; under a ``data`` mesh also ``_dp``
+    (``parallel.data_parallel.DataParallel``) and ``_step_module``, the
+    module the train step calls (DDP's wrapper)."""
 
     dataset_stats = "acdc"
     _qat_interceptor = None
+    _dp = None
+    _step_module = None
 
     def _forward(self, inputs):
-        """The net's forward, under the QAT interceptor when there is one."""
+        """The net's forward, under the QAT interceptor when there is one
+        (a train step through ``_step_module`` when there is one)."""
         ctx = (contextlib.nullcontext() if self._qat_interceptor is None
                else intercept_convs(self._qat_interceptor))
+        module = (self._step_module if self._step_module is not None
+                  and self.net.training else self.net)
         with ctx:
-            return self.net(inputs)
+            return module(inputs)
 
     def _compute_losses(self, outputs, targets) -> list:
         raise NotImplementedError
@@ -148,12 +233,22 @@ class TrainStep:
     def _train_step(self, inputs, targets):
         """One step. Returns (the scalars vector, the outputs, detached)."""
         self.net.train()
-        outputs = self._forward(inputs)
-        losses = self._compute_losses(outputs, targets)
-        total = self._weighted_total(losses)
-        self.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        self.chain.step()
+        dp = self._dp
+        summed = dp is not None and dp.preloads(self.chain)
+        with (dp.grad_sync(self.chain) if dp is not None
+              else contextlib.nullcontext()):
+            outputs = self._forward(inputs)
+            losses = self._compute_losses(outputs, targets)
+            total = self._weighted_total(losses)
+            self.optimizer.zero_grad(set_to_none=True)
+            if summed:
+                self.chain.preload()
+            total.backward()
+        if dp is not None:
+            dp.reduce_gradients(self.chain.params)
+        self.chain.step(summed=summed)
+        if dp is not None:
+            dp.sync_buffers()
         outputs = _detached(outputs)
         with torch.no_grad():
             metrics = self._compute_metrics(outputs, targets)
@@ -168,6 +263,11 @@ class BaseTrainer(TrainStep):
 
     profile_dir = None
     _ckpt_writer = None  # an AsyncCheckpointWriter with async_ckpt
+    mesh = None
+    _sharded_ckpt = False
+    _explicit_reduce = False  # the device trainers all-reduce by hand
+    #: Multi-process preemption votes happen every this many train batches.
+    _PREEMPT_SYNC_EVERY = 8
 
     def __init__(
         self,
@@ -198,19 +298,20 @@ class BaseTrainer(TrainStep):
         sharded_ckpt: bool = False,
     ):
         refuse_qat_with_pipe(qat, mesh_axes)
-        for name, value in (("mesh_axes", mesh_axes),
-                            ("pipe_microbatches", pipe_microbatches),
-                            ("zero_optim", zero_optim), ("fsdp", fsdp),
-                            ("sharded_ckpt", sharded_ckpt)):
-            if value:
-                raise NotImplementedError(
-                    f"trainer {name} is not yet ported to vsr_tpu_torch")
+        self.mesh, self._dp = build_data_parallel(
+            mesh_axes, zero_optim, fsdp, sharded_ckpt, pipe_microbatches,
+            explicit=self._explicit_reduce)
+        self._sharded_ckpt = bool(sharded_ckpt)
         self.profile_dir = profile_dir
         # Non-blocking checkpoint writes: save() snapshots on the device and
         # a writer thread copies to the host and writes; the files equal
-        # sync saves, and train() / load() drain the queue.
-        self._ckpt_writer = AsyncCheckpointWriter() if async_ckpt else None
-        self.device = torch.device(device)
+        # sync saves, and train() / load() drain the queue. A sharded save
+        # hands each rank's part to the sharded writer.
+        self._ckpt_writer = None
+        if async_ckpt:
+            self._ckpt_writer = AsyncCheckpointWriter(
+                self._sharded_writer() if sharded_ckpt else None)
+        self.device = distributed.rank_device(device)
         training_precision(net)
         self.prefetch_to_device = bool(prefetch_to_device)
         self.train_dataloader = train_dataloader
@@ -220,7 +321,10 @@ class BaseTrainer(TrainStep):
         self.loss_fns = list(loss_fns)
         self.loss_weights = [float(w) for w in loss_weights]
         self.metric_fns = list(metric_fns)
-        if isinstance(optimizer, OptimizerFactory):
+        if self._dp is not None:
+            self._step_module = self._dp.wrap(self.net, self.device)
+            optimizer = self._dp.make_optimizer(optimizer, self.net)
+        elif isinstance(optimizer, OptimizerFactory):
             optimizer = optimizer.bind(self.net.parameters())
         self.optimizer = optimizer
         self.chain = GradientChain(optimizer, self.net, grad_accumulation,
@@ -340,7 +444,7 @@ class BaseTrainer(TrainStep):
             w = self._batch_weight(batch)
             acc = scalars * w if acc is None else acc + scalars * w
             count += w
-            if training and self._preempted:
+            if training and self._agreed_preempted(step_i):
                 # Graceful stop at a batch boundary: record how far the
                 # epoch got (plus the device-resident accumulators) so the
                 # preempt checkpoint can resume step-granular.
@@ -349,10 +453,32 @@ class BaseTrainer(TrainStep):
                     "acc": acc, "count": count, "total": len(loader),
                 }
                 break
+        if self._dp is not None:
+            # Every rank reports the global mean: the weighted sums and
+            # weights of all ranks (JAX pmeans each step's scalars).
+            acc, count = self._dp.reduce_log(acc, count,
+                                             len(self._scalar_names),
+                                             self.device)
+            acc = acc if count else None
         # The epoch's one read of the device-resident scalars.
         values = [] if acc is None else acc.tolist()
         log = {k: v / count for k, v in zip(self._scalar_names, values)}
         return log, batch, outputs
+
+    def _agreed_preempted(self, step_i: int) -> bool:
+        """The graceful-stop flag agreed across ranks: a SIGTERM may reach
+        one rank only, and a rank that left the epoch alone would leave the
+        others blocked in the next collective. The ranks vote every
+        ``_PREEMPT_SYNC_EVERY`` batches and stop on the OR; one process
+        checks every batch."""
+        if not distributed.is_multiprocess():
+            return self._preempted
+        if step_i % self._PREEMPT_SYNC_EVERY:
+            return False
+        if self._dp.agreed(self._preempted, self.device):
+            self._preempted = True  # adopt the group's decision
+            return True
+        return False
 
     def _install_preemption_handlers(self) -> dict:
         """SIGTERM/SIGINT request a graceful stop: the current batch
@@ -389,6 +515,14 @@ class BaseTrainer(TrainStep):
             return
         path = Path(self.monitor.checkpoints_dir) / "model_preempt.ckpt"
         progress, self._epoch_progress = self._epoch_progress, None
+        if progress and self._dp is not None:
+            # Every rank resumes from rank 0's file: its share of the sums
+            # is their mean over the ranks (a collective; the ranks stop
+            # together).
+            from vsr_tpu_torch.parallel.data_parallel import all_reduce_mean
+
+            progress["acc"] = progress["acc"].clone()
+            all_reduce_mean([progress["acc"]], self._dp.world)
         if progress and progress["steps_done"] < progress["total"]:
             # STEP-GRANULAR preemption: the checkpoint records how many of
             # the interrupted epoch's batches were applied plus the scalar
@@ -447,7 +581,9 @@ class BaseTrainer(TrainStep):
                 metric = valid_log.get("Loss") if self.lr_scheduler.needs_metric else None
                 set_learning_rate(self.optimizer, self.lr_scheduler.step(metric))
 
-            if self.logger is not None:
+            if self.logger is not None and distributed.is_primary():
+                # Rank 0 owns every file write (logs and checkpoints); all
+                # ranks hold the same state and logs.
                 self.logger.write(
                     self.epoch, train_log, train_batch,
                     self._host_outputs(train_outputs),
@@ -485,13 +621,43 @@ class BaseTrainer(TrainStep):
             "random_seed": str(self.rng_tree.root_seed),
             **(extra_aux or {}),
         }
-        state = {"net": self.net.state_dict(),
-                 "optimizer": self._optimizer_state(),
-                 "chain": self.chain.state_dict()}
+        if self._sharded_ckpt:
+            # Every rank writes only what it holds (rank 0 also the main
+            # file): no gather.
+            state = self._sharded_state()
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.submit(path, state, aux)
+                return
+            self._sharded_writer()(path, state, aux)
+            return
+        # A sharded state is gathered by every rank (a collective) before
+        # rank 0's write.
+        state = (self._dp.full_state(self) if self._dp is not None
+                 else self._local_state())
+        if not distributed.is_primary():
+            return
         if self._ckpt_writer is not None:
             self._ckpt_writer.submit(path, state, aux)
             return
         save_checkpoint(path, state, aux)
+
+    def _local_state(self) -> dict:
+        return {"net": self.net.state_dict(),
+                "optimizer": self._optimizer_state(),
+                "chain": self.chain.state_dict()}
+
+    def _sharded_state(self) -> dict:
+        """This rank's part of a sharded save (all of it replicated
+        without a process group)."""
+        if self._dp is not None:
+            return self._dp.sharded_state(self)
+        return {"replicated": flatten_state(self._local_state()),
+                "manifest": {}, "owners": {}, "leaves": {}, "subtrees": {}}
+
+    def _sharded_writer(self):
+        return functools.partial(save_checkpoint_sharded,
+                                 rank=distributed.process_index(),
+                                 world=distributed.process_count())
 
     def wait_for_checkpoints(self) -> None:
         """Drain pending async checkpoint writes (no-op for sync saves)."""
@@ -507,10 +673,18 @@ class BaseTrainer(TrainStep):
     def load(self, path: str | Path) -> None:
         # A just-submitted async write to this very file must land first.
         self.wait_for_checkpoints()
-        state, aux = load_checkpoint(path, map_location=self.device)
-        self.net.load_state_dict(state["net"], strict=True)
-        self._load_optimizer_state(state["optimizer"])
-        self.chain.load_state_dict(state.get("chain"))
+        if is_sharded_checkpoint(path):
+            state, aux = load_checkpoint_sharded(
+                path, distributed.process_count(), map_location=self.device)
+        else:
+            state, aux = load_checkpoint(path, map_location=self.device)
+        if self._dp is not None:
+            # Placed by the mesh's rule (ZeRO's share, FSDP's blocks).
+            self._dp.load_full_state(self, state)
+        else:
+            self.net.load_state_dict(state["net"], strict=True)
+            self._load_optimizer_state(state["optimizer"])
+            self.chain.load_state_dict(state.get("chain"))
         self.epoch = aux["epoch"] + 1
         if aux.get("mid_epoch"):
             # Step-granular preemption checkpoint: aux epoch is the last

@@ -1,5 +1,6 @@
-"""A msgpack decoder for the checkpoints of ``vsr_tpu``: the port's
-counterpart of ``flax.serialization.msgpack_restore``, in plain Python.
+"""A msgpack decoder and encoder for the checkpoints of ``vsr_tpu``: the
+port's counterparts of ``flax.serialization.msgpack_restore`` and
+``msgpack_serialize``, in plain Python.
 
 It decodes every msgpack type that flax writes: maps, arrays, strings, bin,
 ints, floats, nil and bool, and flax's ext types ``ndarray = 1`` (a packed
@@ -10,6 +11,14 @@ for: that one comes back as a ``torch.bfloat16`` tensor. Flax splits an
 array of more than ``MAX_CHUNK_SIZE`` bytes into a
 ``{"__msgpack_chunked_array__": True, "shape": ..., "chunks": ...}`` dict;
 :func:`restore` joins such dicts back into one array.
+
+:func:`serialize` writes the bytes that flax's ``msgpack_serialize`` writes
+for the same tree (msgpack-python's ``packb(..., strict_types=True)``: the
+smallest encoding of each int, floats as doubles, every map's keys sorted,
+as flax's copy of the tree through ``jax.tree_util`` sorts them;
+numpy arrays and ``torch.bfloat16`` tensors as the ndarray ext, numpy
+scalars as the npscalar ext, arrays over ``MAX_CHUNK_SIZE`` bytes chunked
+inside dicts), so a file the port writes can be byte-equal to flax's.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch
 
 EXT_NDARRAY, EXT_NATIVE_COMPLEX, EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+MAX_CHUNK_SIZE = 2 ** 30  # flax.serialization.MAX_CHUNK_SIZE
 
 # Fixed-width types: first byte -> (struct format, size).
 _FIXED = {0xca: (">f", 4), 0xcb: (">d", 8),
@@ -156,3 +166,144 @@ def restore(data: bytes) -> Any:
     """``flax.serialization.msgpack_restore``: the tree of dicts, lists and
     leaves that ``msgpack_serialize`` wrote, chunked arrays joined."""
     return _unchunk(unpackb(data))
+
+
+# ------------------------------------------------------------------ encoder
+
+
+def _header(n: int, fix: tuple[int, int] | None, sized: tuple) -> bytes:
+    """The length header of a str / bin / array / map of ``n`` items:
+    the fix form ``(base, limit)`` below its limit, else the first sized
+    form ``(byte, struct format, limit)`` that holds ``n``."""
+    if fix is not None and n < fix[1]:
+        return bytes([fix[0] | n])
+    for byte, fmt, limit in sized:
+        if n < limit:
+            return bytes([byte]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack cannot hold a length of {n}")
+
+
+_STR = ((0xa0, 32), ((0xd9, ">B", 1 << 8), (0xda, ">H", 1 << 16),
+                     (0xdb, ">I", 1 << 32)))
+_BIN = (None, ((0xc4, ">B", 1 << 8), (0xc5, ">H", 1 << 16),
+               (0xc6, ">I", 1 << 32)))
+_ARRAY = ((0x90, 16), ((0xdc, ">H", 1 << 16), (0xdd, ">I", 1 << 32)))
+_MAP = ((0x80, 16), ((0xde, ">H", 1 << 16), (0xdf, ">I", 1 << 32)))
+_INTS = ((0, 0x80, None, None), (-0x20, 0, None, None),
+         (0x80, 0x100, 0xcc, ">B"), (-0x80, 0, 0xd0, ">b"),
+         (0x100, 0x10000, 0xcd, ">H"), (-0x8000, 0, 0xd1, ">h"),
+         (0x10000, 1 << 32, 0xce, ">I"), (-(1 << 31), 0, 0xd2, ">i"),
+         (1 << 32, 1 << 64, 0xcf, ">Q"), (-(1 << 63), 0, 0xd3, ">q"))
+
+
+def _int(v: int) -> bytes:
+    for low, high, byte, fmt in _INTS:  # msgpack-python's order of checks
+        if low <= v < high:
+            return (struct.pack(">b", v) if byte is None
+                    else bytes([byte]) + struct.pack(fmt, v))
+    raise OverflowError("Integer value out of range")
+
+
+def _ext(code: int, data: bytes) -> bytes:
+    fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    n = len(data)
+    if n in fixed:
+        head = bytes([fixed[n]])
+    elif n <= 0xff:
+        head = bytes([0xc7, n])
+    elif n <= 0xffff:
+        head = b"\xc8" + struct.pack(">H", n)
+    else:
+        head = b"\xc9" + struct.pack(">I", n)
+    return head + struct.pack(">b", code) + data
+
+
+def _ndarray_bytes(arr) -> bytes:
+    """flax's ``_ndarray_to_bytes``: ``packb((shape, dtype name, C-order
+    bytes))``."""
+    if isinstance(arr, torch.Tensor):
+        if arr.dtype != torch.bfloat16:
+            raise TypeError(f"only bfloat16 tensors are written as flax "
+                            f"arrays, got {arr.dtype}")
+        shape, name = list(arr.shape), "bfloat16"
+        data = arr.detach().cpu().contiguous().view(torch.int16).numpy(
+            ).tobytes()
+    else:
+        shape, name, data = list(arr.shape), arr.dtype.name, arr.tobytes("C")
+    return (_header(3, *_ARRAY) + _header(len(shape), *_ARRAY)
+            + b"".join(_int(int(d)) for d in shape) + _pack(name)
+            + _header(len(data), *_BIN) + data)
+
+
+def _pack(obj: Any) -> bytes:
+    kind = type(obj)
+    if obj is None:
+        return b"\xc0"
+    if kind is bool:
+        return b"\xc3" if obj else b"\xc2"
+    if kind is int:
+        return _int(obj)
+    if kind is float:
+        return b"\xcb" + struct.pack(">d", obj)
+    if kind in (bytes, bytearray):
+        return _header(len(obj), *_BIN) + bytes(obj)
+    if kind is str:
+        data = obj.encode("utf-8")
+        return _header(len(data), *_STR) + data
+    if kind is list:
+        return _header(len(obj), *_ARRAY) + b"".join(map(_pack, obj))
+    if kind is dict:
+        return _header(len(obj), *_MAP) + b"".join(
+            _pack(k) + _pack(v) for k, v in obj.items())
+    if isinstance(obj, np.ndarray) or isinstance(obj, torch.Tensor):
+        return _ext(EXT_NDARRAY, _ndarray_bytes(obj))
+    if isinstance(obj, np.generic):
+        return _ext(EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)))
+    if kind is complex:
+        return _ext(EXT_NATIVE_COMPLEX,
+                    _header(2, *_ARRAY) + _pack(obj.real) + _pack(obj.imag))
+    raise TypeError(f"Cannot serialize {obj!r}")
+
+
+def _nbytes(leaf) -> int:
+    return leaf.numel() * leaf.element_size() if isinstance(
+        leaf, torch.Tensor) else leaf.size * leaf.dtype.itemsize
+
+
+def _chunked(arr) -> dict:
+    """flax's ``_chunk``: ``{"__msgpack_chunked_array__": True, "shape":
+    {"0": ...}, "chunks": {"0": ...}}``."""
+    itemsize = arr.element_size() if isinstance(arr, torch.Tensor) \
+        else arr.dtype.itemsize
+    size = max(1, int(MAX_CHUNK_SIZE / itemsize))
+    flat = arr.reshape(-1)
+    n = flat.numel() if isinstance(flat, torch.Tensor) else flat.size
+    chunks = [flat[i:i + size] for i in range(0, n, size)]
+    return {_CHUNKED: True,
+            "shape": {str(i): d for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)}}
+
+
+def _sorted(tree: Any) -> Any:
+    """A copy with every dict's keys sorted, in lists too (flax copies the
+    tree with ``jax.tree_util.tree_map``, which sorts them)."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_sorted(v) for v in tree]
+    return tree
+
+
+def _chunk_leaves(tree: Any) -> Any:
+    """Chunk the oversized arrays that are dict values (flax looks only
+    there)."""
+    if isinstance(tree, dict):
+        return {k: (_chunked(v) if isinstance(v, (np.ndarray, torch.Tensor))
+                    and _nbytes(v) > MAX_CHUNK_SIZE else _chunk_leaves(v))
+                for k, v in tree.items()}
+    return tree
+
+
+def serialize(tree: Any) -> bytes:
+    """``flax.serialization.msgpack_serialize(tree)``, byte for byte."""
+    return _pack(_chunk_leaves(_sorted(tree)))
