@@ -69,7 +69,16 @@ config for its net, with random seeded weights:
   backward) and ``main --test`` on ``configs/test/acdc_vsr_drf_x2.yaml``
   with the cropping's ``coordinates.pkl``.
 
-Phases; any failure exits non-zero and prints no result:
+Phases; any failure exits non-zero and prints no result. They run in this
+order: 1-6 and 16 alone on the card and the host; then three lanes,
+processes of this script started together, run 10 and 11; 14, 17 and 18;
+15 and 19, beside this process's 7, 9 and 12 (each lane that trains
+writes phase 7a's tree for itself; every process runs on 2 CPU threads;
+12 and 15, the two largest, take turns on a file lock); then 13 alone. A lane's output is printed when it ends, with the
+host's busy cores and the card's utilization while the lanes ran. The
+step times, rates and latencies of phases 7, 9-12, 14, 15 and 17-19 are
+taken while the lanes share the card and the host's cores; the kernel
+times of 3, 6, 13 and 16 are not:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles ``vsr_tpu_torch/csrc/*.cu`` with nvcc, prints the time
@@ -350,7 +359,28 @@ Phases; any failure exits non-zero and prints no result:
    over NCCL for 40 steps: the gradients' all-reduce inside the captured
    graph, the per-step losses within 1e-4 of the run without a mesh, the
    replayed step ms against that run's;
-19. prints the kernels' JSON line, then the final JSON line.
+19. ``--mesh`` serving and the ``model`` / ``expert`` axes, as separate
+   processes given ``torchrun``'s variables: (a) ``make_pipeline(mesh=)``
+   of DRFNet x2 (F=64, G=6) with ``--mesh data=1`` on a 192 x 192 x 10 x 30
+   volume (two calls: the second warm) and ``infer --mesh data=1`` on its
+   first slice, as the one rank of an NCCL group, against the same
+   pipeline without a mesh in this process (no pixel more than one grey
+   apart; K1 360 launches a call); then two ranks sharing the card over
+   gloo: (b) ``--mesh model=2`` of DRFNet on that slice through the
+   pipeline (K1 at F = 32 on each rank, 360 launches a rank and call; at
+   the same bar) and ``--mesh expert=2`` of MoE-EDSR x2 (``rank_pallas``,
+   sparse) through the pipeline and the CLI (K3 on the rows of 2 of 4
+   experts, 8 launches a rank and call; within one grey and < 1 % of
+   pixels different); (c) 4 steps of 16 of
+   ``acdc_sisr_moe_x2.yaml`` with ``{expert: 2}`` and of
+   ``acdc_vsr_drf_x2.yaml`` (K1) with ``{model: 2}``: each step's loss
+   within 1e-4 of the run without a mesh, the parameters within 1e-3 of a
+   leaf's largest entry or JAX's own bar of these tests (``rtol`` 5e-4,
+   ``atol`` 1e-5), each split leaf and its Adam moments 1/2 a rank;
+   (d) ``serve --mesh expert=2`` answers 2 requests (within the expert
+   bar) while the follower rank runs the same calls, and both ranks shut
+   down;
+20. prints the kernels' JSON line, then the final JSON line.
 
 ``--profile`` adds one ``torch.profiler`` trace of a full volume per serving
 path (f32, and bf16 for DRFNet; the two volume nets) and of 6 train steps
@@ -372,7 +402,8 @@ loops), frames/s and PSNR on a low-passed volume.
 
 ``--offline`` runs only the build and phase 17, prints a summary line and
 the final JSON line; ``--parallel`` the build, phase 7's tree and phase 18,
-then the same two lines.
+and ``--mesh-axes`` the build, phase 7's tree and phase 19, then the same
+two lines.
 
 ``--latency N`` runs only the build, phase 12a and phase 12b with N
 requests per client (8 N a daemon; a p99 is printed from 100 on), then
@@ -382,13 +413,14 @@ traces one volume through the DRF artifact and through ``make_pipeline``
 Usage: python3 chip_smoke.py [--out details.json] [--profile | --latency N |
                              --quantized | --knobs | --feedback |
                              --presets | --preset-table [NET ...] |
-                             --offline | --parallel]
+                             --offline | --parallel | --mesh-axes]
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -3734,14 +3766,17 @@ def phase_deployment(tmp: Path, card: str, dev, served7: dict) -> dict:
     res = {}
     log("phase 12a: artifacts (torch.export at the full frames shape)")
     arts = deploy_artifacts(tmp, frames, card, dev)
+    torch.cuda.empty_cache()
     log("phase 12b: the HTTP daemon")
     res["daemon"] = deploy_daemon(tmp, arts, vols, card, dev)
     res["artifacts"] = {k: {n: v for n, v in a.items()
                             if n not in ("served", "pipe", "out")}
                         for k, a in arts.items()}
     del arts
+    torch.cuda.empty_cache()
     log("phase 12c: streams")
     res["streams"] = deploy_streams(frames, card, dev)
+    torch.cuda.empty_cache()
     log("phase 12d: the checkpoint through the daemon's live backend")
     res["checkpoint"] = deploy_checkpoint(tmp, served7, card, dev)
     return res
@@ -5301,6 +5336,7 @@ def phase_feedback(tmp: Path, tree: dict, card: str, dev) -> dict:
         log(f"phase {label}")
         t0 = time.perf_counter()
         res[key] = run()
+        torch.cuda.empty_cache()  # the lanes share the card (LANES)
         seconds[key] = time.perf_counter() - t0
         log(f"  phase 15{'abcde'[len(seconds) - 1]} took "
             f"{seconds[key]:.1f} s [{card}]")
@@ -6925,6 +6961,846 @@ def parallel_summary(par: dict) -> dict:
             "c": par["c"]}
 
 
+# --- phase 19: --mesh serving, the model and expert axes ---------------------
+
+MESH_STEPS = 4            # (c): train steps of 16, with a mesh and without
+MESH_LOSS_TOL = 1e-4      # (c): a step's loss, mesh vs no mesh
+MESH_PARAM_SHARE = 1e-3   # (c): parameters, of each leaf's largest entry,
+# or within the JAX mesh tests' own bar (tests/test_expert_parallel.py:
+# rtol 5e-4, atol 1e-5): a zero-initialized expert bias moves by Adam's
+# +-lr steps only, its largest entry is lr x steps (4e-4), and a gradient
+# near Adam's eps moves its step by float noise (7e-7 on the card).
+MESH_PARAM_TOL = dict(rtol=5e-4, atol=1e-5)
+MESH_REQUESTS = 2         # (d): requests the daemon answers
+MESH_CALLS = 2            # pipeline calls a run: the first pays the start-up
+MOE_MESH_KWARGS = dict(MOE_KWARGS, router_impl="rank_pallas",
+                       dispatch_impl="sparse")
+DRF_MESH_KWARGS = dict(DRF_KWARGS, fused_squeeze=True)
+
+
+def torchrun_env(port: int, world: int, rank: int) -> dict:
+    """The variables ``torchrun`` gives a rank of a group of ``world``
+    ranks on this host (``parallel/distributed.initialize`` reads them)."""
+    return {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+            "RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world)}
+
+
+class KernelShapes:
+    """Records the output width F of every K1 call of the nets and the
+    experts of every K3 call of the MoE layers, inside the block."""
+
+    def __enter__(self):
+        from vsr_tpu_torch.models import common, moe
+
+        self.k1_f, self.k3_experts = set(), set()
+        self._saved = (common.concat_conv1x1, moe.pairwise_rank)
+        k1, k3 = self._saved
+
+        def k1_call(xs, w, *args, **kwargs):
+            self.k1_f.add(int(w.shape[0]))
+            return k1(xs, w, *args, **kwargs)
+
+        def k3_call(af):
+            self.k3_experts.add(int(af.shape[1]))
+            return k3(af)
+
+        common.concat_conv1x1, moe.pairwise_rank = k1_call, k3_call
+        return self
+
+    def __exit__(self, *exc):
+        from vsr_tpu_torch.models import common, moe
+
+        common.concat_conv1x1, moe.pairwise_rank = self._saved
+        return False
+
+
+def launches() -> dict:
+    """Every kernel's launches since ``reset_launches`` (K1's ``dx``
+    launches apart)."""
+    counts = {k: fn.launches for k, fn in kernel_counters().items()}
+    counts["concat_conv1x1_dx"] = kernel_counters()[
+        "concat_conv1x1"].backward_launches
+    return counts
+
+
+def mesh_of(spec: str):
+    """``--mesh``'s mesh over this process's group (joined through
+    ``torchrun``'s variables), or ``None`` for an empty spec."""
+    if not spec:
+        return None
+    from vsr_tpu_torch.parallel import distributed
+    from vsr_tpu_torch.parallel.mesh import make_mesh
+    from vsr_tpu_torch.parallel.serving import parse_mesh_axes
+
+    distributed.initialize(device="cuda")
+    return make_mesh(parse_mesh_axes(spec))
+
+
+def mesh_pipeline(net: str, frames_path: str, mesh: str = "",
+                  out: str = "") -> dict:
+    """``infer.make_pipeline`` of the CLI's seeded net over ``mesh``,
+    called ``MESH_CALLS`` times on the frames: each call's ms (host clock,
+    the card synchronized) and launches, the widths the kernels saw; the
+    first call's SR frames saved to ``out`` by rank 0."""
+    from vsr_tpu_torch.infer import build_serving_net, make_pipeline
+    from vsr_tpu_torch.parallel import distributed
+
+    drf = net == "DRFNet"
+    grid = mesh_of(mesh)
+    dev = distributed.rank_device("cuda")
+    kwargs = dict(DRF_MESH_KWARGS, fused_tail=True) if drf else \
+        MOE_MESH_KWARGS
+    pipe = make_pipeline(build_serving_net(net, kwargs, device=dev), FACTOR,
+                         "acdc", video_t=T_FRAMES if drf else 0, mesh=grid)
+    frames = torch.from_numpy(np.load(frames_path)).to(dev)
+    res = {"ms": [], "launches": []}
+    with KernelShapes() as shapes:
+        for call in range(MESH_CALLS):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            sr = pipe(frames)[1].cpu().numpy()
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["launches"].append(launches())
+            if call == 0 and out and distributed.is_primary():
+                np.save(out, sr)
+    res.update(k1_f=sorted(shapes.k1_f), k3_experts=sorted(shapes.k3_experts))
+    return res
+
+
+def mesh_infer(argv: list) -> dict:
+    """``vsr_tpu_torch.infer.main`` on this rank: its kernel launches and
+    the widths the kernels saw."""
+    from vsr_tpu_torch import infer
+
+    torch.cuda.synchronize()
+    reset_launches()
+    with KernelShapes() as shapes:
+        infer.main(argv)
+    torch.cuda.synchronize()
+    return {"launches": launches(), "k1_f": sorted(shapes.k1_f),
+            "k3_experts": sorted(shapes.k3_experts)}
+
+
+def mesh_train(config: str, steps: int, out: str) -> dict:
+    """``run_train`` of a config for ``steps`` train steps (its loop cut
+    there): each step's loss and CUDA-event ms, the kernels' launches, each
+    parameter's and Adam moment's shape on this rank, and the net's state
+    (gathered under a mesh, a collective) saved by rank 0 to ``out``."""
+    from vsr_tpu_torch.config import load_config
+    from vsr_tpu_torch.main import run_train
+    from vsr_tpu_torch.parallel import distributed
+    from vsr_tpu_torch.runner.trainers import BaseTrainer
+
+    losses, ms = [], []
+
+    def few_steps(trainer):
+        batches = trainer._device_batches(
+            trainer.train_dataloader.epoch(trainer.rng_tree, 1))
+        for _, (_, inputs, targets) in zip(range(steps), batches):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            scalars, _ = trainer._train_step(inputs, targets)
+            end.record()
+            losses.append(scalars[0])
+            ms.append((start, end))
+
+    torch.cuda.synchronize()
+    reset_launches()
+    train = BaseTrainer.train
+    BaseTrainer.train = few_steps
+    try:
+        with KernelShapes() as shapes:
+            trainer = run_train(load_config(config))
+    finally:
+        BaseTrainer.train = train
+    torch.cuda.synchronize()
+    state = (trainer._dp.full_state(trainer)["net"] if trainer._dp
+             is not None else trainer.net.state_dict())
+    if distributed.is_primary():
+        torch.save({k: v.detach().cpu() for k, v in state.items()}, out)
+    names = [n for n, _ in trainer.net.named_parameters()]
+    moments = {names[i]: sorted({tuple(v.shape) for v in st.values()
+                                 if torch.is_tensor(v) and v.dim()})
+               for i, st in trainer.optimizer.state_dict()["state"].items()}
+    return {"losses": torch.stack(losses).tolist(),
+            "step_ms": [s.elapsed_time(e) for s, e in ms],
+            "launches": launches(), "k1_f": sorted(shapes.k1_f),
+            "k3_experts": sorted(shapes.k3_experts),
+            "shapes": {n: list(p.shape) for n, p in
+                       trainer.net.named_parameters()},
+            "moments": {n: [list(s) for s in v] for n, v in moments.items()},
+            "split": sorted(getattr(trainer._dp, "split", {}))}
+
+
+def mesh_daemon(argv: list, frames_path: str, out: str, requests: int
+                ) -> dict:
+    """``vsr_tpu_torch.serve.main`` on this rank. Rank 0's client posts the
+    frames ``requests`` times, saves the last answer to ``out`` and stops
+    the daemon (SIGTERM), whose shutdown reaches the follower rank; a
+    follower returns the calls it ran."""
+    import os
+    import signal
+    import threading
+
+    from vsr_tpu_torch import serve
+    from vsr_tpu_torch.parallel import distributed
+
+    torch.cuda.synchronize()
+    reset_launches()
+    res = {"followed": None, "request_s": []}
+    if distributed.is_primary():
+        servers, make_server = [], serve.make_server
+
+        def recording(*args, **kwargs):
+            servers.append(make_server(*args, **kwargs))
+            return servers[-1]
+
+        def client():
+            try:
+                while not servers:
+                    time.sleep(0.05)
+                url = f"http://127.0.0.1:{servers[0].server_address[1]}"
+                body = npy_bytes(np.load(frames_path))
+                for _ in range(requests):
+                    sr, seconds, _ = post(f"{url}/v1/sr", body,
+                                          "application/x-npy")
+                    res["request_s"].append(seconds)
+                np.save(out, from_npy(sr))
+            finally:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        serve.make_server = recording
+        thread = threading.Thread(target=client)
+        thread.start()
+        try:
+            serve.main(argv)
+        finally:
+            serve.make_server = make_server
+            thread.join()
+    else:
+        follow = serve.follow
+
+        def counted(live, device):
+            res["followed"] = follow(live, device)
+            return res["followed"]
+
+        serve.follow = counted
+        try:
+            serve.main(argv)
+        finally:
+            serve.follow = follow
+    torch.cuda.synchronize()
+    res["launches"] = launches()
+    return res
+
+
+MESH_JOBS = {"pipeline": mesh_pipeline, "infer": mesh_infer,
+             "train": mesh_train, "daemon": mesh_daemon}
+
+
+def mesh_rank_run(spec_path: str) -> int:
+    """A process of phase 19 (``--mesh-run``): each stage sets the
+    ``torchrun`` variables of its group, runs its jobs (the first joins
+    the group) and leaves the group; the results go into the spec's
+    ``out``. A fatal signal prints the Python stack."""
+    import faulthandler
+    import os
+
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    spec = json.loads(Path(spec_path).read_text())
+    results = []
+    for stage in spec["stages"]:
+        os.environ.update(stage["env"])
+        got = []
+        for job in stage["jobs"]:
+            t0 = time.perf_counter()
+            got.append(MESH_JOBS[job["kind"]](**job["args"]))
+            got[-1]["seconds"] = time.perf_counter() - t0
+        results.append(got)
+        dist.destroy_process_group()
+    Path(spec["out"]).write_text(json.dumps(results))
+    return 0
+
+
+def mesh_processes(tmp: Path, stages: list) -> list:
+    """One ``--mesh-run`` process of this script for each list of stages,
+    all started together; every process must exit 0. Returns each
+    process's results, by stage and job."""
+    procs = []
+    for i, own in enumerate(stages):
+        spec = tmp / f"mesh_process{i}.json"
+        spec.write_text(json.dumps({"stages": own,
+                                    "out": str(tmp / f"mesh_process{i}.out")}))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-run",
+             str(spec)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:  # a process that failed leaves its peer waiting
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for i, (proc, out) in enumerate(zip(procs, outs)):
+        if proc.returncode:
+            raise SystemExit(f"phase 19: process {i} exited "
+                             f"{proc.returncode}:\n{out[-6000:]}")
+    return [json.loads((tmp / f"mesh_process{i}.out").read_text())
+            for i in range(len(stages))]
+
+
+def mesh_infer_argv(src: Path, out: Path, net: str, mesh: str) -> list:
+    drf = net == "DRFNet"
+    return [str(src), str(out), *(["--video", "--fused-tail"] if drf else []),
+            "--net", net, "--net-kwargs",
+            json.dumps(DRF_MESH_KWARGS if drf else MOE_MESH_KWARGS),
+            "--mesh", mesh]
+
+
+def mesh_cli_sr(out: Path) -> np.ndarray:
+    """The CLI's SR volume of phase 19's slice, as (T, H, W) frames."""
+    from vsr_tpu_torch.io.nifti import load_nifti
+
+    return as_frames(load_nifti(
+        out / "patient000" / "patient000_4d_sr.nii.gz"))
+
+
+def mesh_train_config(tmp: Path, name: str, config: str, net_kwargs: dict,
+                      **trainer_kwargs) -> Path:
+    """``configs/train/<config>.yaml`` on phase 7's tree, written to a file
+    as a user's config is."""
+    from vsr_tpu_torch.config import save_config
+
+    cfg = training_config(config, tmp / "tree", tmp / name, net_kwargs, tmp)
+    cfg.trainer.kwargs.update(trainer_kwargs)
+    path = tmp / f"{name}.yaml"
+    save_config(cfg, path)
+    return path
+
+
+def gate_mesh(what: str, got: np.ndarray, want: np.ndarray, expert: bool
+              ) -> dict:
+    """The serving bars of the JAX package's mesh tests: under ``model``
+    (``tests/test_tensor_parallel.py``) no pixel more than one grey apart;
+    under ``expert`` (``tests/test_expert_parallel.py``) also < 1 % of the
+    pixels different."""
+    if got.shape != want.shape:
+        raise SystemExit(f"{what}: shape {got.shape} vs {want.shape}")
+    exact, worst = agreement(got, want)
+    if worst > 1 or (expert and 1 - exact >= 0.01):
+        raise SystemExit(f"{what}: {exact * 100:.4f}% exact, max {worst:g} "
+                         "grey")
+    return {"exact_fraction": exact, "max_grey_diff": worst}
+
+
+def mesh_check_launches(what: str, got: dict, want: dict) -> None:
+    others = {k: v for k, v in got.items() if k not in want and v}
+    if {k: got[k] for k in want} != want or others:
+        raise SystemExit(f"{what}: kernel launches {got}, expected {want} "
+                         "and no other")
+
+
+def mesh_check_training(what: str, got: list, want: dict, state: dict,
+                        ref_state: dict) -> dict:
+    """(c)'s gates on the two ranks' runs against the run without a mesh:
+    the losses, the parameters (the worst leaf named), each split leaf and
+    its Adam moments 1/2 a rank, the others whole."""
+    diff = max(abs(a - b) for r in got for a, b in zip(r["losses"],
+                                                       want["losses"]))
+    worst, leaf, outside = 0.0, "", []
+    for key, ref in ref_state.items():
+        scale = float(ref.abs().max()) or 1.0
+        share = float((state[key] - ref).abs().max()) / scale
+        if share > worst:
+            worst, leaf = share, key
+        if share > MESH_PARAM_SHARE and not torch.allclose(
+                state[key].float(), ref.float(), **MESH_PARAM_TOL):
+            outside.append(key)
+    res = {"max_loss_diff": diff, "param_share": worst, "worst_leaf": leaf,
+           "worst_leaf_max": float(ref_state[leaf].abs().max()) if leaf
+           else 0.0, "split_leaves": len(got[0]["split"]),
+           "leaves": len(want["shapes"])}
+    res["worst_leaf_abs"] = worst * (res["worst_leaf_max"] or 1.0)
+    if diff > MESH_LOSS_TOL or any(len(r["losses"]) != MESH_STEPS
+                                   for r in got):
+        raise SystemExit(f"{what}: a step's loss differs by {diff:.3g} from "
+                         f"the run without a mesh (> {MESH_LOSS_TOL})")
+    if outside:
+        raise SystemExit(f"{what}: parameters of {outside} beyond 1e-3 of "
+                         "their largest entry and beyond rtol 5e-4 / atol "
+                         "1e-5 of the run without a mesh")
+    full, split = want["shapes"], set(got[0]["split"])
+    if not split:
+        raise SystemExit(f"{what}: no leaf is split")
+    for r in got:
+        for name, shape in r["shapes"].items():
+            cut = [d for d, (a, b) in enumerate(zip(shape, full[name]))
+                   if a != b]
+            ok = (len(cut) == 1 and shape[cut[0]] * 2 == full[name][cut[0]]
+                  if name in split else not cut)
+            if not ok or r["moments"].get(name) != [shape]:
+                raise SystemExit(f"{what}: {name} holds {shape} (moments "
+                                 f"{r['moments'].get(name)}) of {full[name]}")
+    return res
+
+
+def phase_mesh(tmp: Path, card: str, dev) -> dict:
+    """Phase 19: ``--mesh`` serving and the ``model`` / ``expert`` axes (the
+    docstring's item 19). Every gate runs; the failures are raised
+    together at the end."""
+    from vsr_tpu_torch.io.nifti import save_nifti
+
+    res, failed = {"a": {}, "b": {}, "c": {}}, []
+
+    def gated(fn, *args):
+        try:
+            return fn(*args)
+        except SystemExit as err:
+            failed.append(str(err))
+            log(f"  FAILED: {err}")
+            return {}
+
+    t0 = time.perf_counter()
+    vol = make_volume(19, FULL_SLICES)
+    paths = {"full": tmp / "mesh_full.npy", "slice": tmp / "mesh_slice.npy"}
+    np.save(paths["full"], as_frames(vol))
+    np.save(paths["slice"], as_frames(vol[:, :, :1]))
+    src = tmp / "mesh_slice_nifti"
+    save_nifti(vol[:, :, :1], src / "patient000" / "patient000_4d.nii")
+
+    log("phase 19: the runs without a mesh in this process: make_pipeline of "
+        "DRFNet x2 (F=64, G=6, K1) on a 192 x 192 x 10 x 30 volume and on "
+        "its first slice, of MoE-EDSR x2 (rank_pallas, sparse, K3) on that "
+        "slice; 4 steps of 16 of each training config")
+    ref = {"drf": mesh_pipeline("DRFNet", str(paths["full"]),
+                                out=str(tmp / "mesh_ref_drf.npy")),
+           "drf_slice": mesh_pipeline("DRFNet", str(paths["slice"]),
+                                      out=str(tmp / "mesh_ref_drf_slice.npy")),
+           "moe": mesh_pipeline("MoEEDSRNet", str(paths["slice"]),
+                                out=str(tmp / "mesh_ref_moe.npy"))}
+    k1 = {"concat_conv1x1": SQUEEZES_PER_STEP * T_FRAMES}
+    k3 = {"pairwise_rank": MOE_LAYERS}
+    for key, want in (("drf", k1), ("drf_slice", k1), ("moe", k3)):
+        for n in ref[key]["launches"]:
+            gated(mesh_check_launches, f"19 {key} without a mesh", n, want)
+    want_sr = {k: np.load(tmp / f"mesh_ref_{k}.npy")
+               for k in ("drf", "drf_slice", "moe")}
+    configs = {
+        "moe": mesh_train_config(tmp, "mesh_moe_base", "acdc_sisr_moe_x2",
+                                 {"router_impl": "rank_pallas"}),
+        "drf": mesh_train_config(tmp, "mesh_drf_base", "acdc_vsr_drf_x2",
+                                 {"fused_squeeze": True})}
+    base = {k: mesh_train(str(c), MESH_STEPS, str(tmp / f"mesh_{k}_base.pt"))
+            for k, c in configs.items()}
+    train_k1 = SQUEEZES_PER_STEP * TRAIN_T * MESH_STEPS
+    want_train = {"drf": {"concat_conv1x1": train_k1,
+                          "concat_conv1x1_dx": train_k1,
+                          "concat_conv1x1_dw": train_k1},
+                  "moe": {"pairwise_rank": MOE_LAYERS * MESH_STEPS}}
+    for key in base:
+        gated(mesh_check_launches, f"19 {key} training without a mesh",
+              base[key]["launches"], want_train[key])
+
+    def pipeline_job(net, frames, mesh, out):
+        return {"kind": "pipeline", "args": {
+            "net": net, "frames_path": str(paths[frames]), "mesh": mesh,
+            "out": str(tmp / out)}}
+
+    def infer_job(net, mesh, out):
+        return {"kind": "infer", "args": {"argv": mesh_infer_argv(
+            src, tmp / out, net, mesh)}}
+
+    one = [pipeline_job("DRFNet", "full", "data=1", "mesh_a.npy"),
+           infer_job("DRFNet", "data=1", "mesh_a_cli")]
+    two = [pipeline_job("DRFNet", "slice", "model=2", "mesh_b_drf.npy"),
+           pipeline_job("MoEEDSRNet", "slice", "expert=2", "mesh_b_moe.npy"),
+           infer_job("MoEEDSRNet", "expert=2", "mesh_b_moe_cli"),
+           {"kind": "train", "args": {"config": str(mesh_train_config(
+               tmp, "mesh_moe_expert", "acdc_sisr_moe_x2",
+               {"router_impl": "rank_pallas"}, mesh_axes={"expert": 2})),
+               "steps": MESH_STEPS, "out": str(tmp / "mesh_moe_expert.pt")}},
+           {"kind": "train", "args": {"config": str(mesh_train_config(
+               tmp, "mesh_drf_model", "acdc_vsr_drf_x2",
+               {"fused_squeeze": True}, mesh_axes={"model": 2})),
+               "steps": MESH_STEPS, "out": str(tmp / "mesh_drf_model.pt")}},
+           {"kind": "daemon", "args": {
+               "argv": ["--net", "MoEEDSRNet", "--net-kwargs",
+                        json.dumps(MOE_MESH_KWARGS), "--frames-shape",
+                        f"{T_FRAMES},{HR},{HR}", "--mesh", "expert=2",
+                        "--port", "0"],
+               "frames_path": str(paths["slice"]),
+               "out": str(tmp / "mesh_d.npy"), "requests": MESH_REQUESTS}}]
+    port_one, port_two = free_port(), free_port()
+    log("phase 19a-d: process 0 as the one rank of an NCCL group (--mesh "
+        "data=1), then with process 1 as two gloo ranks sharing the card")
+    procs = mesh_processes(tmp, [
+        [{"env": torchrun_env(port_one, 1, 0), "jobs": one},
+         {"env": torchrun_env(port_two, 2, 0), "jobs": two}],
+        [{"env": torchrun_env(port_two, 2, 1), "jobs": two}]])
+    (a, a_cli), ranks = procs[0][0], [procs[0][1], procs[1][0]]
+
+    # (a) one NCCL rank, --mesh data=1.
+    for n in a["launches"]:
+        gated(mesh_check_launches, "19a make_pipeline --mesh data=1", n, k1)
+    gated(mesh_check_launches, "19a infer --mesh data=1", a_cli["launches"],
+          k1)
+    res["a"] = dict(
+        gated(gate_mesh, "19a make_pipeline --mesh data=1",
+              np.load(tmp / "mesh_a.npy"), want_sr["drf"], False),
+        cli=gated(gate_mesh, "19a infer --mesh data=1",
+                  mesh_cli_sr(tmp / "mesh_a_cli"), want_sr["drf_slice"],
+                  False),
+        k1_launches=a["launches"][-1]["concat_conv1x1"], k1_f=a["k1_f"],
+        ms=a["ms"], no_mesh_ms=ref["drf"]["ms"])
+    log(f"  19a: DRFNet --mesh data=1, one NCCL rank: "
+        f"{res['a'].get('exact_fraction', 0) * 100:.4f}% exact, max "
+        f"{res['a'].get('max_grey_diff')} grey against the run without a "
+        f"mesh (the CLI on the slice: {res['a']['cli']}); K1 "
+        f"{res['a']['k1_launches']} launches a volume at F = {a['k1_f']}; "
+        f"pipeline {a['ms'][-1]:.1f} ms a volume warm ({a['ms'][0]:.1f} the "
+        f"first call), {ref['drf']['ms'][-1]:.1f} ms without a mesh [{card}]")
+
+    # (b) two gloo ranks: DRFNet over 'model' (make_pipeline), MoE-EDSR
+    # over 'expert' (make_pipeline, then the CLI).
+    for i, key, axis in ((0, "drf", "model"), (1, "moe", "expert")):
+        want = k1 if key == "drf" else k3
+        full = F_ if key == "drf" else MOE_KWARGS["num_experts"]
+        for r, rank in enumerate(ranks):
+            run = rank[i]
+            clis = [rank[i + 1]["launches"]] if key == "moe" else []
+            for n in (*run["launches"], *clis):
+                gated(mesh_check_launches, f"19b {key} rank {r}", n, want)
+            widths = run["k1_f" if key == "drf" else "k3_experts"]
+            if widths != [full // 2]:
+                failed.append(f"19b {key} rank {r}: the kernel saw {widths}, "
+                              f"not {full // 2} of {full}")
+            log(f"  19b {key} --mesh {axis}=2 rank {r}: "
+                f"{'K1 F' if key == 'drf' else 'K3 experts'} {widths} of "
+                f"{full}, launches a call {run['launches'][-1]}, pipeline "
+                f"{run['ms'][-1]:.1f} ms warm ({run['ms'][0]:.1f} the first "
+                f"call) [{card}]")
+        ref_key = "drf_slice" if key == "drf" else "moe"
+        res["b"][key] = dict(
+            gated(gate_mesh, f"19b {key} --mesh {axis}=2",
+                  np.load(tmp / f"mesh_b_{key}.npy"), want_sr[ref_key],
+                  key == "moe"),
+            cli=gated(gate_mesh, f"19b {key} infer --mesh {axis}=2",
+                      mesh_cli_sr(tmp / f"mesh_b_{key}_cli"),
+                      want_sr[ref_key], True) if key == "moe" else None,
+            launches_per_rank=[r[i]["launches"][-1] for r in ranks],
+            widths=ranks[0][i]["k1_f" if key == "drf" else "k3_experts"],
+            ms=ranks[0][i]["ms"], no_mesh_ms=ref[ref_key]["ms"])
+        log(f"  19b {key}: {res['b'][key].get('exact_fraction', 0) * 100:.4f}"
+            f"% exact, max {res['b'][key].get('max_grey_diff')} grey against "
+            f"the run without a mesh on the slice (CLI: "
+            f"{res['b'][key]['cli']}); {ref[ref_key]['ms'][-1]:.1f} ms a "
+            f"slice without a mesh [{card}]")
+
+    # (c) training on two gloo ranks.
+    for i, key, axis in ((3, "moe", "expert"), (4, "drf", "model")):
+        got = [r[i] for r in ranks]
+        full = F_ if key == "drf" else MOE_KWARGS["num_experts"]
+        for r, run in enumerate(got):
+            gated(mesh_check_launches, f"19c {key} rank {r}",
+                  run["launches"], want_train[key])
+            if full // 2 not in run["k1_f" if key == "drf" else
+                                    "k3_experts"]:
+                failed.append(f"19c {key} rank {r}: the kernel did not run "
+                              f"at {full // 2} of {full}")
+        gates = gated(mesh_check_training, f"19c {key} {{{axis}: 2}}", got,
+                      base[key], torch.load(tmp / f"mesh_{key}_{axis}.pt"),
+                      torch.load(tmp / f"mesh_{key}_base.pt"))
+        ms = statistics.median(got[0]["step_ms"][1:])
+        base_ms = statistics.median(base[key]["step_ms"][1:])
+        res["c"][key] = dict(gates, step_ms=ms, no_mesh_step_ms=base_ms,
+                             losses=got[0]["losses"],
+                             no_mesh_losses=base[key]["losses"],
+                             launches_per_rank=[r["launches"] for r in got])
+        log(f"  19c {key} {{{axis}: 2}}: {MESH_STEPS} steps, {gates}; "
+            f"launches a rank {got[0]['launches']}; median step {ms:.2f} ms "
+            f"(two ranks over gloo), {base_ms:.2f} ms without a mesh [{card}]")
+
+    # (d) the daemon.
+    lead, follower = ranks[0][5], ranks[1][5]
+    if follower["followed"] != MESH_REQUESTS + 1:
+        failed.append(f"19d: the follower ran {follower['followed']} calls, "
+                      f"not the warm-up and {MESH_REQUESTS}")
+    for r, run in enumerate((lead, follower)):
+        gated(mesh_check_launches, f"19d rank {r}", run["launches"],
+              {"pairwise_rank": MOE_LAYERS * (MESH_REQUESTS + 1)})
+    res["d"] = dict(gated(gate_mesh, "19d serve --mesh expert=2",
+                          np.load(tmp / "mesh_d.npy"), want_sr["moe"], True),
+                    requests=MESH_REQUESTS,
+                    follower_calls=follower["followed"],
+                    request_s=lead["request_s"],
+                    launches_per_rank=[lead["launches"]["pairwise_rank"],
+                                       follower["launches"]["pairwise_rank"]])
+    log(f"  19d: serve --mesh expert=2 answered {MESH_REQUESTS} requests "
+        f"({', '.join(f'{s:.2f}' for s in lead['request_s'])} s); the "
+        f"follower ran {follower['followed']} calls; both ranks shut down; "
+        f"K3 {res['d']['launches_per_rank']} launches a rank; "
+        f"{res['d'].get('exact_fraction', 0) * 100:.4f}% exact against the "
+        f"run without a mesh [{card}]")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 19 took {res['seconds']:.1f} s [{card}]")
+    if failed:
+        raise SystemExit("phase 19 failed:\n" + "\n".join(failed))
+    return res
+
+
+def mesh_summary(mesh: dict) -> dict:
+    return {"seconds": mesh["seconds"],
+            "a": {k: mesh["a"][k] for k in ("max_grey_diff", "k1_launches",
+                                            "ms", "no_mesh_ms")},
+            "b": {k: {n: v[n] for n in ("max_grey_diff", "launches_per_rank",
+                                         "ms", "no_mesh_ms")}
+                  for k, v in mesh["b"].items()},
+            "c": {k: {n: v[n] for n in ("max_loss_diff", "param_share",
+                                         "step_ms", "no_mesh_step_ms")}
+                  for k, v in mesh["c"].items()},
+            "d": {n: mesh["d"][n] for n in ("follower_calls",
+                                             "max_grey_diff")}}
+
+
+# ==================================================================== lanes
+
+# Phases 1-6 and 16 run first and 13 last, alone on the card and the host:
+# 3, 6, 13 and 16 time the kernels, and 13 serves phase 7's and 9's
+# checkpoints. Between them the other phases run in lanes: a process of
+# this script each (--lane), all started together beside this process's
+# phases 7, 9 and 12. A lane that trains writes phase 7a's tree for itself
+# (seeded: the same files), keeps its phases in their order and hands the
+# card back its cached blocks after each. 4, 12, 13, 15 and 16 serve full
+# DUF, MoE and step-stacked volumes (up to 19-27 GB live, and twice that
+# cached as their calls change shape), 18 and 19 run up to four processes
+# of 3-6 GB each: so no two of 4, 12, 15 and 16 meet, 15 and 19 share a
+# lane, 12 and 15 take turns on a file lock (CARD_LOCK), and while the
+# lanes run, this process and the lanes that capture no CUDA graph hand
+# back their cached blocks above GC_SHARE of the card before they allocate
+# more (the allocator's garbage_collection_threshold).
+LANE_PHASES = {
+    "10": ("volumes", "the volumetric slice, Volume3DSRNet and Volume4DSRNet "
+           "(no port kernel on these paths)",
+           lambda tmp, tree, card, dev: phase_volumes(tmp, card, dev)),
+    "11": ("device_epochs", "the device-epoch trainers (captured CUDA "
+           "graphs), the four *_device.yaml configs, bf16 training through K1",
+           lambda tmp, tree, card, dev: phase_device_epochs(tmp, card, dev)),
+    "14": ("knobs", "the training knobs (grad_accumulation, grad_clip, "
+           "ema_decay, qat) in both trainer families, infer --ema / --gif, "
+           "SGD and Adagrad captured, QAT to W8A8",
+           lambda tmp, tree, card, dev: phase_knobs(tmp, card, dev)),
+    "15": ("feedback", "the feedback family (DRFSISRNet, sub-pixel deconvs, "
+           "DRFNet's experts and remat) and the MoE routers (sort, radix, "
+           "dense_nhwc), K1 and K3",
+           lambda tmp, tree, card, dev: phase_feedback(tmp, tree, card, dev)),
+    "17": ("offline", "the offline tools to a tested checkpoint (DICOM "
+           "conversion, ACDC / DSB15 preprocessing on the card, cropping, "
+           "DRFNet trained with native_decode, async_ckpt and profile_dir, "
+           "main --test)",
+           lambda tmp, tree, card, dev: phase_offline(tmp / "offline", card,
+                                                      dev)),
+    "18": ("parallel", "data-parallel training (main.distributed, DDP over "
+           "NCCL, two ranks over gloo with ZeRO-1 and FSDP, sharded "
+           "checkpoints, convert --consolidate, the device trainer's "
+           "captured all-reduce), K1 under DDP",
+           lambda tmp, tree, card, dev: phase_parallel(tmp, card, dev)),
+    "19": ("mesh", "--mesh serving and the model / expert axes (infer --mesh "
+           "data=1 over NCCL; model=2 and expert=2 on two gloo ranks sharing "
+           "the card: serving, training, the daemon), K1 at F = 32 and K3 on "
+           "half the experts",
+           lambda tmp, tree, card, dev: phase_mesh(tmp, card, dev)),
+}
+TREE_PHASES = {"11", "14", "15", "18", "19"}  # those that read tmp / "tree"
+# Lane -> its phases, balanced on their times alone (PERF.md section 5)
+# against this process's 7, 9 and 12.
+LANES = {"volumes": ("10", "11"), "offline": ("14", "17", "18"),
+         "feedback": ("15", "19")}
+LANE_TIMEOUT_S = 900
+GC_SHARE = 0.25
+# This process's cap while the lanes run: its 7, 9 and 12 hold 20.6 GB live
+# at most but cached 43.5 GB under the GC alone (PERF.md, PR 17, run F5);
+# at the cap the allocator hands back its free blocks before it grows.
+MAIN_SHARE = 0.4
+GC_LANES = {"feedback"}  # 11 and 14 capture CUDA graphs
+# CPU threads of each lane's operators (OMP_NUM_THREADS), and of this
+# process's while the lanes run: four processes and their children share
+# the host's cores.
+LANE_THREADS = 2
+# Held by this process's phase 12 and the lane's phases below, one at a
+# time: 12 (19 GB live) and 15 (27 GB) never meet on the card. The file
+# lies in the directory of the lanes' results; a process that dies lets go.
+CARD_LOCK = "card.lock"
+CARD_LOCK_PHASES = {"15"}
+
+
+@contextlib.contextmanager
+def card_lock(path: Path, what: str, card: str):
+    """Holds the file lock at ``path`` (waits for it first, and logs how
+    long when it had to)."""
+    import fcntl
+
+    with open(path, "a") as f:
+        t0 = time.perf_counter()
+        fcntl.flock(f, fcntl.LOCK_EX)
+        waited = time.perf_counter() - t0
+        if waited > 0.5:
+            log(f"  {what} waited {waited:.1f} s for the card lock [{card}]")
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def run_lane(name: str, tmp: Path, card: str, dev, lock: Path) -> dict:
+    """A lane's phases in this process, each result under its key; the
+    phases of CARD_LOCK_PHASES under the file lock at ``lock``."""
+    tree = None
+    if TREE_PHASES & set(LANES[name]):
+        log("phase 7a: the synthetic processed tree")
+        tree = make_training_tree(tmp / "tree", dev)
+    if name in GC_LANES:
+        torch.cuda.set_per_process_memory_fraction(1.0)  # turns the GC on
+    out = {}
+    for phase in LANES[name]:
+        key, title, run = LANE_PHASES[phase]
+        log(f"phase {phase}: {title}")
+        with (card_lock(lock, f"phase {phase}", card)
+              if phase in CARD_LOCK_PHASES else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            res = out[key] = run(tmp, tree, card, dev)
+            if "seconds" not in res:  # 17, 18 and 19 log their own
+                res["seconds"] = time.perf_counter() - t0
+                log(f"  phase {phase} took {res['seconds']:.1f} s [{card}]")
+            res["lane_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+            res["lane_allocated_gb"] = (torch.cuda.max_memory_allocated()
+                                        / 1e9)
+            log(f"  phase {phase}: {res['lane_allocated_gb']:.2f} GB "
+                f"allocated, {res['lane_reserved_gb']:.2f} GB reserved at "
+                "most in this process")
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def cpu_seconds() -> float:
+    """User and system CPU time of this process and its waited children."""
+    import resource
+
+    return sum(sum(resource.getrusage(who)[:2]) for who in (
+        resource.RUSAGE_SELF, resource.RUSAGE_CHILDREN))
+
+
+class Lanes:
+    """The lanes' processes, each started in a session of its own (so that
+    its rank processes stop with it), its output in files under ``tmp``;
+    and, while they run, the card's utilization and memory as
+    ``nvidia-smi`` reads them each second, and the CPU time of this process
+    and its children. This process's allocator keeps at most MAIN_SHARE
+    of the card while they run."""
+
+    def __init__(self, tmp: Path):
+        import os
+
+        self.tmp, self.procs = tmp, {}
+        self.t0 = time.perf_counter()
+        self.cpu0 = cpu_seconds()
+        self.threads = torch.get_num_threads()
+        torch.set_num_threads(LANE_THREADS)
+        torch.cuda.empty_cache()
+        # turns the GC on, and caps this process's cache
+        torch.cuda.set_per_process_memory_fraction(MAIN_SHARE)
+        env = dict(os.environ, OMP_NUM_THREADS=str(LANE_THREADS))
+        with open(tmp / "smi.csv", "w") as smi:
+            self.smi = subprocess.Popen(
+                ["nvidia-smi", "--id=0", "--query-gpu=utilization.gpu,"
+                 "memory.used", "--format=csv,noheader,nounits", "-lms",
+                 "1000"], stdout=smi, stderr=subprocess.DEVNULL)
+        torch.cuda.reset_peak_memory_stats()
+        for name in LANES:
+            with open(tmp / f"lane_{name}.out", "w") as out, \
+                    open(tmp / f"lane_{name}.err", "w") as err:
+                self.procs[name] = subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--lane",
+                     name, "--out", str(tmp / f"lane_{name}.json")],
+                    stdout=out, stderr=err, env=env, start_new_session=True)
+        log("lanes started: " + ", ".join(
+            f"{name} (phases {', '.join(LANES[name])})" for name in LANES))
+
+    def finish(self, card: str) -> tuple[dict, dict]:
+        """Waits for every lane, prints its output, fails if any lane
+        failed; returns their results, merged, and the host's and the
+        card's load while they ran."""
+        import os
+
+        results, failed = {}, []
+        for name, proc in self.procs.items():
+            rc = proc.wait(timeout=LANE_TIMEOUT_S)
+            log(f"lane {name} (phases {', '.join(LANES[name])}) exited {rc}:")
+            print((self.tmp / f"lane_{name}.out").read_text(), end="",
+                  flush=True)
+            print((self.tmp / f"lane_{name}.err").read_text(), end="",
+                  file=sys.stderr, flush=True)
+            if rc:
+                failed.append(name)
+            else:
+                results.update(json.loads(
+                    (self.tmp / f"lane_{name}.json").read_text()))
+        if failed:
+            raise SystemExit(f"lanes failed: {', '.join(failed)}")
+        wall = time.perf_counter() - self.t0
+        cpu = cpu_seconds() - self.cpu0
+        self.smi.terminate()
+        self.smi.wait()
+        log(f"  this process: {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+            f"GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
+            "reserved at most from its last training run through phase 12 "
+            f"[{card}]")
+        rows = [line.split(",") for line in
+                (self.tmp / "smi.csv").read_text().splitlines()]
+        rows = [(float(u), float(m)) for u, m in
+                (r for r in rows if len(r) == 2)]
+        load = {"seconds": wall, "cpu_seconds": cpu,
+                "cores": len(os.sched_getaffinity(0)),
+                "busy_cores": cpu / wall,
+                "card_utilization": statistics.fmean(u for u, _ in rows)
+                if rows else None,
+                "card_memory_mib": max((m for _, m in rows), default=None)}
+        log(f"  the lanes took {wall:.1f} s: {load['busy_cores']:.2f} of "
+            f"{load['cores']} cores busy on average (this process and its "
+            f"children, CPU time over wall time); the card "
+            + ("not sampled" if not rows else
+               f"{load['card_utilization']:.1f} % utilized on average "
+               f"(nvidia-smi, {len(rows)} samples), "
+               f"{load['card_memory_mib']:.0f} MiB at most") + f" [{card}]")
+        return results, load
+
+    def stop(self) -> None:
+        """Kills each lane's session (whatever of it still runs) and the
+        sampler, and gives this process its threads and the card back."""
+        import os
+        import signal
+
+        for proc in self.procs.values():
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+        if self.smi.poll() is None:
+            self.smi.kill()
+            self.smi.wait()
+        torch.set_num_threads(self.threads)
+        torch.cuda.set_per_process_memory_fraction(1.0)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="",
@@ -6957,8 +7833,17 @@ def main() -> int:
     parser.add_argument("--parallel", action="store_true",
                         help="only build, write phase 7's tree and run phase "
                              "18 (data-parallel training)")
+    parser.add_argument("--mesh-axes", dest="mesh_axes",
+                        action="store_true",
+                        help="only build, write phase 7's tree and run phase "
+                             "19 (--mesh serving, the model and expert "
+                             "axes)")
     parser.add_argument("--rank-run", dest="rank_run", default="",
                         help=argparse.SUPPRESS)  # a rank of phase 18
+    parser.add_argument("--mesh-run", dest="mesh_run", default="",
+                        help=argparse.SUPPRESS)  # a rank of phase 19
+    parser.add_argument("--lane", default="", choices=["", *LANES],
+                        help=argparse.SUPPRESS)  # a lane of the full run
     parser.add_argument("--preset-table", dest="preset_table", nargs="*",
                         default=None, metavar="NET",
                         help="only build and run the sweep behind "
@@ -6966,12 +7851,20 @@ def main() -> int:
                              "W8A8 on / off) for these nets (all without "
                              "names); writes it to --out")
     args = parser.parse_args()
+    import os
+
+    # Read when the allocator starts; acts once a process sets its memory
+    # fraction (the lanes, GC_SHARE).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          f"garbage_collection_threshold:{GC_SHARE}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
     if args.rank_run:
         return rank_run(args.rank_run)
+    if args.mesh_run:
+        return mesh_rank_run(args.mesh_run)
     from vsr_tpu_torch import _build
 
     started = time.perf_counter()
@@ -6998,6 +7891,12 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.lane:
+        with tempfile.TemporaryDirectory() as tmp:
+            results = run_lane(args.lane, Path(tmp), card, dev,
+                               Path(args.out).with_name(CARD_LOCK))
+        Path(args.out).write_text(json.dumps(results))
+        return 0
     if args.latency:
         with tempfile.TemporaryDirectory() as tmp:
             results = {"card": smi, "latency": phase_latency(
@@ -7100,6 +7999,23 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if args.mesh_axes:
+        with tempfile.TemporaryDirectory() as tmp:
+            log("phase 7a: the synthetic processed tree")
+            make_training_tree(Path(tmp) / "tree", dev)
+            results = {"card": smi, "mesh": phase_mesh(Path(tmp), card, dev)}
+        results["seconds"] = time.perf_counter() - started
+        log(f"  chip_smoke --mesh-axes took {results['seconds']:.1f} s "
+            f"[{card}]")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(results, indent=1))
+        print(json.dumps({"mesh": mesh_summary(results["mesh"])}),
+              flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.parallel:
         with tempfile.TemporaryDirectory() as tmp:
             log("phase 7a: the synthetic processed tree")
@@ -7123,7 +8039,6 @@ def main() -> int:
     k1 = phase_kernel_squeeze(dev)
     k3 = phase_kernel_rank(dev)
     k2 = phase_kernel_duf(dev)
-
     with tempfile.TemporaryDirectory() as tmp:
         paths = phase_paths(Path(tmp), card, dev)
     log("phase 5: card vs CPU")
@@ -7131,51 +8046,6 @@ def main() -> int:
     log("phase 6: K1 backward vs twin")
     k1_bwd = phase_kernel_squeeze_backward(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        training = phase_training(Path(tmp), card, dev)
-        tree = training.pop("sequences")
-        served7 = training.pop("served_checkpoint")
-        log("phase 9: the MISR and FRVSR training paths, DUF and MoE "
-            "training")
-        sliced = phase_slice_training(Path(tmp), tree, card, dev)
-        log("phase 10: the volumetric slice, Volume3DSRNet and Volume4DSRNet "
-            "(no port kernel on these paths)")
-        t0 = time.perf_counter()
-        volumes = phase_volumes(Path(tmp), card, dev)
-        volumes["seconds"] = time.perf_counter() - t0
-        log(f"  phase 10 took {volumes['seconds']:.1f} s")
-        log("phase 11: the device-epoch trainers (captured CUDA graphs), the "
-            "four *_device.yaml configs, bf16 training through K1")
-        t0 = time.perf_counter()
-        device = phase_device_epochs(Path(tmp), card, dev)
-        device["seconds"] = time.perf_counter() - t0
-        log(f"  phase 11 took {device['seconds']:.1f} s")
-        log("phase 12: the serving deployment (exported artifacts, the HTTP "
-            "daemon, online streams, the checkpoint's live pipeline), K1, K2 "
-            "and K3 through each")
-        t0 = time.perf_counter()
-        deploy = phase_deployment(Path(tmp), card, dev, served7)
-        deploy["seconds"] = time.perf_counter() - t0
-        log(f"  phase 12 took {deploy['seconds']:.1f} s")
-        log("phase 13: quantized serving (int8 weights; W8A8 convs on the "
-            "int8 tensor cores), EDSRNet, DRFNet and DUFNet")
-        t0 = time.perf_counter()
-        quant = phase_quantized(Path(tmp), card, dev)
-        quant["seconds"] = time.perf_counter() - t0
-        log(f"  phase 13 took {quant['seconds']:.1f} s")
-        log("phase 14: the training knobs (grad_accumulation, grad_clip, "
-            "ema_decay, qat) in both trainer families, infer --ema / --gif, "
-            "SGD and Adagrad captured, QAT to W8A8")
-        t0 = time.perf_counter()
-        knobs = phase_knobs(Path(tmp), card, dev)
-        knobs["seconds"] = time.perf_counter() - t0
-        log(f"  phase 14 took {knobs['seconds']:.1f} s [{card}]")
-        log("phase 15: the feedback family (DRFSISRNet, sub-pixel deconvs, "
-            "DRFNet's experts and remat) and the MoE routers (sort, radix, "
-            "dense_nhwc), K1 and K3")
-        t0 = time.perf_counter()
-        feedback = phase_feedback(Path(tmp), tree, card, dev)
-        feedback["seconds"] = time.perf_counter() - t0
-        log(f"  phase 15 took {feedback['seconds']:.1f} s [{card}]")
         log("phase 16: W8A8 deconvs (quantize_deconvs), infer --preset "
             "tuned / fast with export and the daemon, the tuner, bf16 "
             "training of the seven nets moved onto the precision policy")
@@ -7183,16 +8053,36 @@ def main() -> int:
         presets = phase_presets(Path(tmp), card, dev)
         presets["seconds"] = time.perf_counter() - t0
         log(f"  phase 16 took {presets['seconds']:.1f} s [{card}]")
-        log("phase 17: the offline tools to a tested checkpoint (DICOM "
-            "conversion, ACDC / DSB15 preprocessing on the card, cropping, "
-            "DRFNet trained with native_decode, async_ckpt and profile_dir, "
-            "main --test)")
-        offline = phase_offline(Path(tmp) / "offline", card, dev)
-        log("phase 18: data-parallel training (main.distributed, DDP over "
-            "NCCL, two ranks over gloo with ZeRO-1 and FSDP, sharded "
-            "checkpoints, convert --consolidate, the device trainer's "
-            "captured all-reduce), K1 under DDP")
-        parallel = phase_parallel(Path(tmp), card, dev)
+        lanes = Lanes(Path(tmp))
+        try:
+            training = phase_training(Path(tmp), card, dev)
+            tree = training.pop("sequences")
+            served7 = training.pop("served_checkpoint")
+            log("phase 9: the MISR and FRVSR training paths, DUF and MoE "
+                "training")
+            sliced = phase_slice_training(Path(tmp), tree, card, dev)
+            log("phase 12: the serving deployment (exported artifacts, the "
+                "HTTP daemon, online streams, the checkpoint's live "
+                "pipeline), K1, K2 and K3 through each")
+            with card_lock(Path(tmp) / CARD_LOCK, "phase 12", card):
+                t0 = time.perf_counter()
+                deploy = phase_deployment(Path(tmp), card, dev, served7)
+                deploy["seconds"] = time.perf_counter() - t0
+                torch.cuda.empty_cache()
+            log(f"  phase 12 took {deploy['seconds']:.1f} s [{card}]")
+            laned, load = lanes.finish(card)
+        finally:
+            lanes.stop()
+        volumes = laned["volumes"]
+        device, knobs = laned["device_epochs"], laned["knobs"]
+        feedback, offline = laned["feedback"], laned["offline"]
+        parallel, mesh = laned["parallel"], laned["mesh"]
+        log("phase 13: quantized serving (int8 weights; W8A8 convs on the "
+            "int8 tensor cores), EDSRNet, DRFNet and DUFNet")
+        t0 = time.perf_counter()
+        quant = phase_quantized(Path(tmp), card, dev)
+        quant["seconds"] = time.perf_counter() - t0
+        log(f"  phase 13 took {quant['seconds']:.1f} s")
         results = {"card": smi, "build_seconds": build_s,
                    "kernel": {"concat_conv1x1": k1,
                               "concat_conv1x1_backward": k1_bwd,
@@ -7203,7 +8093,7 @@ def main() -> int:
                    "deployment": deploy, "quantized": quant,
                    "knobs": knobs, "feedback": feedback,
                    "presets": presets, "offline": offline,
-                   "parallel": parallel}
+                   "parallel": parallel, "mesh": mesh, "lanes": load}
         if args.profile:
             log("phase 8: torch.profiler traces")
             results["profile"] = phase_profile(dev)
@@ -7212,6 +8102,7 @@ def main() -> int:
             results["profile_volumes"] = phase_profile_volumes(dev)
             results["profile_determinism"] = phase_profile_determinism(
                 dev, card)
+            make_volume_tree(Path(tmp) / "volume_tree", dev)  # lane's own
             results["profile_training_volumes"] = phase_profile_training(
                 Path(tmp), dev, [(f"vol_{key}", name, {}) for key, (name, _, _)
                                  in VOL_RUNS.items()],
@@ -7337,6 +8228,20 @@ def main() -> int:
         "ddp_backward_launches": parallel["a"]["k1_launches"]["dx"],
         "gloo_rank_launches":
             parallel["b"]["ddp"]["k1_launches_per_rank"]["forward"],
+        # Phase 19: DRFNet under infer --mesh data=1 (one NCCL rank, a
+        # volume), then each of two gloo ranks under --mesh model=2 (F = 32,
+        # one slice) and training with {model: 2} (forward; dx in its
+        # backward), per rank.
+        "mesh_data1_launches": mesh["a"]["k1_launches"],
+        "mesh_model_rank_launches": [
+            r["concat_conv1x1"]
+            for r in mesh["b"]["drf"]["launches_per_rank"]],
+        "mesh_model_train_rank_launches": [
+            r["concat_conv1x1"]
+            for r in mesh["c"]["drf"]["launches_per_rank"]],
+        "mesh_model_backward_rank_launches": [
+            r["concat_conv1x1_dx"]
+            for r in mesh["c"]["drf"]["launches_per_rank"]],
     }, {
         # K1's weight and bias gradient (the JAX package computes them in
         # XLA, inside _bwd, so the line it replaces is no Pallas kernel): one
@@ -7358,6 +8263,10 @@ def main() -> int:
         "drf_remat_launches": feedback["drf"]["remat"]["dw_launches"],
         # Phase 18: DRFNet's epoch under DDP (one rank over NCCL).
         "ddp_launches": parallel["a"]["k1_launches"]["dw"],
+        # Phase 19c: DRFNet with {model: 2}, each of two gloo ranks (F = 32).
+        "mesh_model_rank_launches": [
+            r["concat_conv1x1_dw"]
+            for r in mesh["c"]["drf"]["launches_per_rank"]],
         # Serving has no backward: phase 12 gates these at 0.
         "export_launches": 0, "serve_launches": 0, "stream_launches": 0,
         "max_abs_err": k1_bwd["dw_max_abs_err"],
@@ -7403,6 +8312,14 @@ def main() -> int:
         # radix routers replace the rank: 0).
         "feedback_launches": feedback_summary(feedback)["pairwise_rank"],
         "preset_launches": preset_launches("pairwise_rank"),
+        # Phase 19: MoE-EDSR on one slice under --mesh expert=2 (the rows of
+        # 2 of 4 experts), training with {expert: 2} and the daemon's
+        # warm-up and requests, per rank of two gloo ranks.
+        "mesh_expert_rank_launches": [
+            r["pairwise_rank"] for r in mesh["b"]["moe"]["launches_per_rank"]],
+        "mesh_expert_train_rank_launches": [
+            r["pairwise_rank"] for r in mesh["c"]["moe"]["launches_per_rank"]],
+        "mesh_daemon_rank_launches": mesh["d"]["launches_per_rank"],
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],

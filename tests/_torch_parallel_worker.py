@@ -38,6 +38,13 @@ TASKS = {
                  net_kwargs=dict(in_channels=1, out_channels=1,
                                  num_resblocks=1, num_features=8,
                                  upscale_factor=2)),
+    "moe": dict(dataset="AcdcSISRDataset", sub="imgs", ds={},
+                trainer="AcdcSISRTrainer", net="MoEEDSRNet",
+                net_kwargs=dict(in_channels=1, out_channels=1,
+                                num_resblocks=1, num_features=8,
+                                upscale_factor=2, num_experts=4,
+                                group_size=16, moe_every=1,
+                                router_impl="rank_pallas")),
 }
 GLOBAL_BATCH, LR = 4, 1e-3
 
@@ -47,7 +54,8 @@ def _numpy(tree):
 
 
 def _trainer(task, tree, weights, saved_dir, world, mode=None,
-             opt=("Adam", {"lr": LR}), batch=GLOBAL_BATCH, **knobs):
+             opt=("Adam", {"lr": LR}), batch=GLOBAL_BATCH, mesh_axes=None,
+             **knobs):
     from vsr_tpu_torch import losses, metrics, models, optim
     from vsr_tpu_torch.callbacks.monitor import Monitor
     from vsr_tpu_torch.data import datasets
@@ -66,10 +74,13 @@ def _trainer(task, tree, weights, saved_dir, world, mode=None,
     load_jax_params(net, weights)
     mesh = {"zero": dict(zero_optim=True), "fsdp": dict(fsdp=True)}.get(
         mode, {})
+    mesh_axes = mesh_axes or {"data": world}
     return getattr(trainers, t["trainer"])(
         train_dataloader=Dataloader(dataset("train"),
-                                    batch_size=batch // world,
-                                    shuffle=True, host_shard=True),
+                                    batch_size=batch // mesh_axes.get(
+                                        "data", 1),
+                                    shuffle=True, host_shard=True,
+                                    drop_last=True),
         valid_dataloader=Dataloader(dataset("valid"), batch_size=1),
         net=net, loss_fns=[losses.L1Loss()], loss_weights=[1.0],
         metric_fns=[metrics.PSNR()], optimizer=getattr(optim, opt[0])(**opt[1]),
@@ -77,8 +88,7 @@ def _trainer(task, tree, weights, saved_dir, world, mode=None,
         monitor=Monitor(checkpoints_dir=Path(saved_dir) / "checkpoints",
                         mode="min", target="Loss", saved_freq=1,
                         early_stop=0),
-        num_epochs=1, device="cpu", mesh_axes={"data": world}, **mesh,
-        **knobs)
+        num_epochs=1, device="cpu", mesh_axes=mesh_axes, **mesh, **knobs)
 
 
 def job_train(rank, world, task, tree, weights, out, epochs, mode=None,
@@ -291,7 +301,14 @@ def run_rank(rank: int, world: int, port: int, job_file: str) -> None:
     results = {}
     for name, kind, kwargs in jobs:
         try:
-            results[name] = JOBS[kind](rank, world, **kwargs)
+            if kind in JOBS:
+                job = JOBS[kind]
+            else:  # "module:function" of another test helper
+                import importlib
+
+                module, _, func = kind.partition(":")
+                job = getattr(importlib.import_module(module), func)
+            results[name] = job(rank, world, **kwargs)
         except Exception:
             results[name] = {"error": traceback.format_exc()}
     if rank == 0:

@@ -91,9 +91,10 @@ def _jax_dataset(task, tree, type_):
 
 
 def _jax_run(task, tree, ckpt_dir, epochs=EPOCHS, opt=("Adam", {"lr": LR}),
-             valid=False, **knobs):
-    """The JAX trainer on ``{data: 2}``: the initial variables, each
-    step's loss, the validation log, the final variables and EMA."""
+             valid=False, mesh_axes=None, **knobs):
+    """The JAX trainer on ``mesh_axes`` (default ``{data: 2}``): the
+    initial variables, each step's loss, the validation log, the final
+    variables and EMA."""
     t = TASKS[task]
     jt = getattr(jtrainers, t["trainer"])(
         train_dataloader=JaxDataloader(_jax_dataset(task, tree, "train"),
@@ -109,7 +110,7 @@ def _jax_run(task, tree, ckpt_dir, epochs=EPOCHS, opt=("Adam", {"lr": LR}),
         monitor=JaxMonitor(checkpoints_dir=ckpt_dir, mode="min",
                            target="Loss", saved_freq=1, early_stop=0),
         num_epochs=epochs, prefetch_to_device=False,
-        mesh_axes={"data": 2}, **knobs)
+        mesh_axes=mesh_axes or {"data": 2}, **knobs)
     kw = {"train": False} if jt._net_train_kwarg else {}
     jt.params = randomize(init(jt.net, np.zeros(jt._example_inputs().shape,
                                                 np.float32), **kw),
@@ -337,7 +338,7 @@ def _case_host_shard_blocks(tree, monkeypatch):
     for axes, error, match in (
             ({"data": -1, "seq": -1}, ValueError, "Only one mesh axis"),
             ({"data": -1, "seq": 2}, ValueError, "1 devices not divisible"),
-            ({"data": 1, "model": 1}, NotImplementedError, "'model'"),
+            ({"data": 1, "pipe": 1}, NotImplementedError, "'pipe'"),
             ({"data": 1, "spatial": 1}, NotImplementedError, "'spatial'"),
             ({"data": 2}, ValueError, "Mesh needs 2 devices, have 1")):
         with pytest.raises(error, match=match):

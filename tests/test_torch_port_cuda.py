@@ -1675,3 +1675,92 @@ def test_data_parallel_one_nccl_rank_and_sharded_checkpoint(rng, dev,
             served.append(make_pipeline(net, 2, "acdc", video_t=8)(
                 frames)[1].cpu())
     assert torch.equal(served[0], served[1])
+
+
+# ------------------------------------------- the model and expert mesh axes
+
+
+def _case_k1_column_slice(rng, dev, dtype, epilogue):
+    """K1 on a column slice: F = 32 of a K = 6 x 64 concatenation (DRFNet
+    under ``model=2``), against its twin, and against the same rows of the
+    full F = 64 launch."""
+    channels, n, h, w = (64,) * 6, 2, 16, 16
+    xs, wt, b = _operands(rng, dev, channels, 64, n, h, w)
+    alpha = torch.tensor([0.2], device=dev) if epilogue else None
+    got, want = _k1_run(xs, wt[32:].contiguous(), b[32:].contiguous(), alpha,
+                        dtype)
+    _k1_close(got, want, dtype)
+    full, _ = _k1_run(xs, wt, b, alpha, dtype)
+    _k1_close(got, full[:, 32:].float(), dtype)
+
+
+def _case_k1_column_slice_backward(rng, dev, dtype):
+    """dx, dW / db and dalpha of the F = 32 slice against the twin's
+    autograd (the tolerances of the full-width backward tests)."""
+    channels, n, h, w = (64,) * 6, 2, 16, 16
+    xs, wt, b = _operands(rng, dev, channels, 64, n, h, w)
+    wt, b = wt[:32].contiguous(), b[:32].contiguous()
+    a = torch.tensor([0.2], device=dev)
+    g = torch.from_numpy(rng.standard_normal((n, 32, h, w)).astype(np.float32)
+                         ).to(dev)
+    if dtype == torch.float32:
+        g = _off_the_kink(g, xs, wt, b)
+        before = (fs.concat_conv1x1.backward_launches,
+                  fs.concat_conv1x1_dw.launches)
+        out, got = _grads(fs.concat_conv1x1, xs, wt, b, a, g)
+        assert (fs.concat_conv1x1.backward_launches,
+                fs.concat_conv1x1_dw.launches) == tuple(c + 1 for c in before)
+        ref, want = _grads(fs.concat_conv1x1_reference, xs, wt, b, a, g)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+        for d, r in zip(got[:6], want[:6]):
+            torch.testing.assert_close(d, r, rtol=1e-4, atol=1e-4)
+        for d, r in zip(got[6:], want[6:]):
+            bar = 1e-5 * max(r.abs().max().item(), 1.0) * (n * h * w) ** 0.5
+            torch.testing.assert_close(d, r, rtol=1e-4, atol=bar)
+        return
+    xs16 = [x.bfloat16() for x in xs]
+    twin_ops = ([x.float() for x in xs16], wt.bfloat16().float(),
+                b.bfloat16().float())
+    g = _off_the_kink(g.bfloat16(), *twin_ops)
+    out, got = _grads(fs.concat_conv1x1, xs16, wt, b, a, g)
+    ref, want = _grads(fs.concat_conv1x1_reference, *twin_ops,
+                       a.bfloat16().float(), g.float())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref, rtol=8e-3, atol=1e-4)
+    for i, (d, r) in enumerate(zip(got[:8], want[:8])):  # dx..., dW, db
+        assert d.dtype == (torch.bfloat16 if i < 6 else torch.float32)
+        torch.testing.assert_close(d.float(), r, rtol=2e-2,
+                                   atol=2e-2 * r.abs().max().item())
+
+
+def _case_k3_expert_rows(rng, dev):
+    """K3 on the rows of 2 of 4 experts (MoE-EDSR under ``expert=2``): bit
+    equal to the twin, and to the same rows of the full launch."""
+    af = torch.from_numpy(rng.random((45, 4, 256)).astype(np.float32)).to(dev)
+    full = rk.pairwise_rank(af)
+    for lo in (0, 2):
+        rows = af[:, lo:lo + 2].contiguous()
+        before = rk.pairwise_rank.launches
+        got = rk.pairwise_rank(rows)
+        assert rk.pairwise_rank.launches == before + 1
+        assert torch.equal(got, rk.pairwise_rank_reference(rows))
+        assert torch.equal(got, full[:, lo:lo + 2])
+
+
+def test_column_slice_and_expert_rows_on_the_card(rng, dev):
+    """K1 at F = 32 of a K = 6 x 64 concatenation (forward with and without
+    the PReLU epilogue, dx, dW / db; f32 and bf16) and K3 on (G, 2, 256)
+    expert rows, against their twins: the shapes the ``model`` and
+    ``expert`` mesh axes give them."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for epilogue in (False, True):
+            cases.append((f"K1 F=32 {dtype} epilogue={epilogue}",
+                          lambda d=dtype, e=epilogue: _case_k1_column_slice(
+                              rng, dev, d, e)))
+        cases.append((f"K1 F=32 backward {dtype}",
+                      lambda d=dtype: _case_k1_column_slice_backward(
+                          rng, dev, d)))
+    cases.append(("K3 expert rows", lambda: _case_k3_expert_rows(rng, dev)))
+    run_cases(cases)

@@ -732,9 +732,9 @@ def _case_live_pipeline_and_checkpoint_over_http(tmp_path):
 
 
 def _case_cli_refuses_unported_flags():
-    """``--mesh`` stays refused; ``--preset`` fills a live ``--net``'s
-    knobs (``--preset-file`` alone implies ``tuned`` and applies to live
-    serving only)."""
+    """A ``--mesh`` larger than the world is refused; ``--preset`` fills a
+    live ``--net``'s knobs (``--preset-file`` alone implies ``tuned`` and
+    applies to live serving only)."""
     from vsr_tpu_torch import serve
     from vsr_tpu_torch.presets import SERVING_PRESETS, apply_cli_preset
 

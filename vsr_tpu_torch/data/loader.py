@@ -75,11 +75,17 @@ class Dataloader:
         self.prefetch = max(int(prefetch), 1)
         self.collate_fn = collate_fn or default_collate
         self.host_shard = bool(host_shard)
+        # (count, index) of this rank's data block when the mesh's 'data'
+        # axis does not span every rank (a 'model' or 'expert' axis): the
+        # ranks of one block read the same samples.
+        self._host_shard_override: tuple[int, int] | None = None
 
     def _shard_info(self) -> tuple[int, int]:
         """(shard_count, shard_index) when host-sharding, else (1, 0)."""
         if not self.host_shard:
             return 1, 0
+        if self._host_shard_override is not None:
+            return self._host_shard_override
         return process_count(), process_index()
 
     def __len__(self) -> int:

@@ -32,6 +32,15 @@ Usage:
       --net-kwargs '{...}' [--int8 | --w8a8 | --w8a8-scales scales.json] \
       [--w8a8-kernels 3,6]
 
+Under ``torchrun`` (one rank a card, or gloo ranks sharing one or on the
+CPU), ``--mesh data=2`` splits each volume's frames over the ranks,
+``--mesh model=2`` every layer's output features, ``--mesh expert=2`` the
+MoE experts (with ``data`` beside either): every rank reads each volume and
+rank 0 writes the outputs (``parallel/serving.py``):
+
+  torchrun --nproc-per-node 2 -m vsr_tpu_torch.infer <input_dir> \
+      <output_dir> --video --mesh model=2 --net DRFNet --net-kwargs '{...}'
+
 ``--ema`` serves the parameter EMA a trainer with ``ema_decay`` kept in the
 checkpoint; ``--gif`` also writes one animated GIF per slice.
 ``--preset tuned|fast`` applies the net's knobs measured on the card
@@ -64,6 +73,7 @@ import torch
 
 from vsr_tpu_torch.data.datasets import misr_target_index
 from vsr_tpu_torch.io.nifti import load_nifti, save_nifti
+from vsr_tpu_torch.parallel.distributed import is_primary, rank_device
 from vsr_tpu_torch.preprocess.intensity import (center_crop_multiple,
                                                 clip_outliers_minmax)
 from vsr_tpu_torch.presets import apply_cli_preset
@@ -73,11 +83,7 @@ from vsr_tpu_torch.utils.checkpoint import load_net_weights
 from vsr_tpu_torch.utils.gif import write_gif
 from vsr_tpu_torch.utils.normalize import DATASET_STATS
 
-# JAX CLI flags this port refuses by name: dest -> (flag, why).
-_NOT_PORTED = {
-    "mesh": ("--mesh", "it serves on one card"),
-}
-# ... and the ones it will never take: dest -> (flag, why).
+# JAX CLI flags this port will never take: dest -> (flag, why).
 _NEVER_PORTED = {
     "bucket_t": ("--bucket-t", "it rounds T up so that variable-T volumes "
                  "share compiled programs, and the port runs eagerly: it "
@@ -262,12 +268,37 @@ def _quantized_apply(net: torch.nn.Module, int8: bool, w8a8, w8a8_kernels,
     return net
 
 
+def place_on_mesh(net: torch.nn.Module, mesh) -> None:
+    """The parameter placement of ``make_pipeline`` under a mesh
+    (``vsr_tpu/infer.py:333-358``): an ``expert`` axis validates the net
+    and splits its expert stacks (``parallel/ep.py``), a ``model`` axis
+    refuses ``spatial`` beside it and splits every leaf's output features
+    (``parallel/tp.py``). A net is placed once (the CLI places it before it
+    quantizes, so the int8 kernels are this rank's blocks); a quantized
+    apply is placed through its net."""
+    from vsr_tpu_torch.parallel import ep, tp
+
+    target = getattr(net, "net", net)
+    if getattr(target, "placed_on", None) is mesh:
+        return
+    if mesh.shape.get("expert", 1) > 1:
+        ep.validate_expert_mesh(mesh, target, context="--mesh serving",
+                                exc=ValueError,
+                                dispatch_impl=ep.resolve_dispatch_impl(target))
+        ep.shard_expert_params(target, mesh)
+    elif "model" in mesh.shape:
+        tp.reject_spatial_x_model(mesh)
+        tp.shard_model_params(target, mesh)
+    target.placed_on = mesh
+
+
 def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
                   video_t: int = 0,
                   window: tuple[int, int, str] | None = None,
                   volume: tuple[str, int] | None = None,
                   chunk: int = 0, int8: bool = False, w8a8=False,
-                  w8a8_kernels=None, quantize_deconvs: bool = False):
+                  w8a8_kernels=None, quantize_deconvs: bool = False,
+                  mesh=None):
     """HR float frames (N, H, W) -> (lr_frames, sr_frames), float32 tensors
     holding uint8 values, on the frames' device.
 
@@ -296,7 +327,12 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
     ``"dynamic"`` takes per-call scales. ``w8a8_kernels``: quantize only the
     convs of these spatial kernel sizes (static scales only).
     ``quantize_deconvs``: the eligible transposed convs too
-    (``quantize.make_w8a8_apply``). The returned
+    (``quantize.make_w8a8_apply``). ``mesh`` (``parallel/mesh.make_mesh``):
+    every rank of the world calls the pipeline with the same frames; the
+    frames split over its ``data`` axis and the parameters over its
+    ``model`` or ``expert`` axis (:func:`place_on_mesh`,
+    ``parallel/serving.shard_pipeline``), and every rank returns the whole
+    result. W8A8 under a mesh takes static scales. The returned
     pipeline's ``module`` is the module that holds the served state; a lazy
     W8A8 pipeline's ``act_scales`` are the scales it calibrated (after its
     first call).
@@ -320,6 +356,22 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
     if window and window[2] not in ("middle", "last"):
         raise ValueError(f"window order must be 'middle' or 'last', got "
                          f"{window[2]!r}")
+    if mesh is not None and volume:
+        from vsr_tpu_torch.parallel.serving import shard_volume_pipeline
+
+        shard_volume_pipeline()
+    if mesh is not None and mesh.shape.get("seq", 1) > 1:
+        raise ValueError(
+            "the 'seq' mesh axis shards the volumetric pipelines' DEPTH — "
+            "frame/video/window serving has no seq-shardable dim (the "
+            "axis would silently replicate); use data/spatial")
+    if w8a8 is True and mesh is not None:
+        raise ValueError(
+            "w8a8 lazy (first-batch) calibration is not supported under "
+            "--mesh; pass precomputed static scales (--w8a8-scales / a "
+            "{path: scale} dict from calibrate_w8a8)")
+    if mesh is not None:
+        place_on_mesh(net, mesh)
     net_apply = _quantized_apply(net, int8, w8a8, w8a8_kernels,
                                  quantize_deconvs)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -397,6 +449,11 @@ def make_pipeline(net: torch.nn.Module, factor: int, dataset: str, *,
 
     pipeline.module = net_apply if isinstance(net_apply,
                                               torch.nn.Module) else net
+    if mesh is not None:
+        from vsr_tpu_torch.parallel.serving import shard_pipeline
+
+        return shard_pipeline(
+            pipeline, mesh, seq_len=video_t or (window[1] if window else None))
     return pipeline
 
 
@@ -420,10 +477,6 @@ def serving_pipelines(args):
     volume takes: ``(mode, pipeline_for)``, where ``pipeline_for(t,
     n_frames)`` builds the pipeline of a volume of ``t`` time points and
     ``n_frames`` frames (the net is built once, for every pipeline)."""
-    for dest, (flag, why) in _NOT_PORTED.items():
-        if getattr(args, dest, None):
-            raise SystemExit(f"{flag} is not yet ported to vsr_tpu_torch: "
-                             f"{why} (serve it with python -m vsr_tpu.infer)")
     for dest, (flag, why) in _NEVER_PORTED.items():
         if getattr(args, dest, None):
             raise SystemExit(f"{flag} is refused by vsr_tpu_torch: {why}")
@@ -437,6 +490,11 @@ def serving_pipelines(args):
     if args.chunk and args.video:
         raise SystemExit("--chunk applies to frame/window serving; the "
                          "--video path is already sequence-batched")
+    mesh = serving_mesh(args)
+    if mesh is not None and args.net in VOLUME_NETS:
+        from vsr_tpu_torch.parallel.serving import VOLUME_MESH_REFUSAL
+
+        raise SystemExit(VOLUME_MESH_REFUSAL)
     if args.checkpoint and not Path(args.checkpoint).is_file():
         raise SystemExit(f"--checkpoint: no such file: {args.checkpoint}")
     w8a8 = args.w8a8
@@ -455,7 +513,7 @@ def serving_pipelines(args):
     if net_mode != mode:
         raise SystemExit(f"{args.net} is served in {net_mode} mode: pass "
                          f"{_MODE_FLAGS[net_mode]}")
-    device = torch.device(args.device)
+    device = rank_device(args.device)
     net_kwargs = json.loads(args.net_kwargs) if args.net_kwargs else {}
     if args.bf16:
         net_kwargs["dtype"] = torch.bfloat16
@@ -468,6 +526,8 @@ def serving_pipelines(args):
                                 device=device, ema=args.ema)
     except ValueError as err:  # no checkpoint of either kind, or no EMA
         raise SystemExit(f"--checkpoint: {err}") from err
+    if mesh is not None:  # placed before it is quantized
+        place_on_mesh(net, mesh)
     if args.int8 and not w8a8:  # quantized once, for every pipeline
         from vsr_tpu_torch import quantize
 
@@ -483,14 +543,43 @@ def serving_pipelines(args):
             window=((args.windows, t, args.window_order)
                     if mode == "window" else None),
             volume=volume, chunk=args.chunk, int8=args.int8, w8a8=w8a8,
-            w8a8_kernels=w8a8_kernels)
+            w8a8_kernels=w8a8_kernels, mesh=mesh)
 
     return mode, pipeline_for
 
 
+def serving_mesh(args, timeout_s: float | None = None):
+    """``--mesh`` of ``infer`` and ``serve``: the mesh over the world's
+    ranks (joined first through ``torchrun``'s variables, waiting
+    ``timeout_s`` in a collective; without them a world of one), with
+    ``--chunk`` refused beside it; ``None`` without the flag."""
+    if not args.mesh:
+        return None
+    from vsr_tpu_torch.parallel import distributed
+    from vsr_tpu_torch.parallel.mesh import make_mesh
+    from vsr_tpu_torch.parallel.serving import parse_mesh_axes
+
+    if args.chunk:
+        raise SystemExit("--chunk and --mesh are mutually exclusive "
+                         "(the mesh path shards the un-chunked batch)")
+    axes = parse_mesh_axes(args.mesh)
+    distributed.initialize(device=args.device, timeout_s=(
+        timeout_s or distributed.DEFAULT_TIMEOUT_S))
+    try:
+        mesh = make_mesh(axes)
+    except (ValueError, NotImplementedError) as err:
+        raise SystemExit(f"--mesh: {err}") from None
+    logging.info(f"Serving over mesh {dict(mesh.shape)} as rank "
+                 f"{mesh.rank} of {distributed.process_count()}")
+    return mesh
+
+
 def run(args) -> dict:
+    """Serve every volume under ``args.input_dir``. Under ``--mesh`` every
+    rank reads and serves each volume (on its card: ``rank_device``), and
+    rank 0 writes the outputs."""
     mode, pipeline_for = serving_pipelines(args)
-    device = torch.device(args.device)
+    device = rank_device(args.device)
     paths = sorted(Path(args.input_dir).glob("**/*.nii*"))
     if not paths:
         raise SystemExit(f"No NIfTI volumes under {args.input_dir}")
@@ -498,6 +587,7 @@ def run(args) -> dict:
     pipelines: dict = {}
     n_frames = 0
     pipeline_seconds = 0.0
+    writes = is_primary()  # rank 0 of a mesh writes the outputs
     psnr_rows: list[tuple[str, float]] = []
     start = time.perf_counter()
     for path in paths:
@@ -515,8 +605,12 @@ def run(args) -> dict:
         rel = path.relative_to(args.input_dir)
         out_base = Path(args.output_dir) / rel.parent / rel.name.split(".")[0]
         sr_seq = np.moveaxis(sr_np, 0, -1).reshape(h, w, d, t)
-        save_nifti(sr_seq.astype(np.float32), Path(str(out_base) + "_sr.nii.gz"))
-        if args.gif:
+        if writes:
+            save_nifti(sr_seq.astype(np.float32),
+                       Path(str(out_base) + "_sr.nii.gz"))
+            logging.info(f"{path.name}: {d * t} frames -> "
+                         f"{out_base}_sr.nii.gz")
+        if args.gif and writes:
             for di in range(d):  # uint8 by truncation, as vsr_tpu's writer
                 write_gif(Path(str(out_base) + f"_slice{di + 1:0>2d}.gif"),
                           [sr_seq[:, :, di, ti].astype(np.uint8)
@@ -529,7 +623,6 @@ def run(args) -> dict:
             val = float(np.mean(10.0 * np.log10(255.0 ** 2 / (mse + 1e-10))))
             psnr_rows.append((str(rel), val))
             logging.info(f"{path.name}: PSNR {val:.3f} dB")
-        logging.info(f"{path.name}: {d * t} frames -> {out_base}_sr.nii.gz")
 
     elapsed = time.perf_counter() - start
     stats = {"volumes": len(paths), "frames": n_frames,
@@ -540,10 +633,11 @@ def run(args) -> dict:
                         if device.type == "cuda" else device.type)}
     if psnr_rows:
         csv_path = Path(args.output_dir) / "metrics.csv"
-        with open(csv_path, "w", newline="") as f:
-            writer = csv.writer(f)
-            writer.writerow(["volume", "PSNR"])
-            writer.writerows(psnr_rows)
+        if writes:
+            with open(csv_path, "w", newline="") as f:
+                writer = csv.writer(f)
+                writer.writerow(["volume", "PSNR"])
+                writer.writerows(psnr_rows)
         stats["psnr_mean"] = sum(v for _, v in psnr_rows) / len(psnr_rows)
         logging.info(f"Mean PSNR {stats['psnr_mean']:.3f} dB -> {csv_path}")
     logging.info(f"Inference done: {stats}")
@@ -594,7 +688,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         help="comma-separated spatial kernel sizes to "
                              "quantize (e.g. '6' or '3,6'); other convs "
                              "serve full precision")
-    parser.add_argument("--mesh", default="", help="not yet ported")
+    parser.add_argument("--mesh", default="",
+                        help="serve over a mesh of the world's ranks (run "
+                             "under torchrun), e.g. 'data=2', 'model=2' or "
+                             "'data=2,expert=2': frames over 'data', the "
+                             "parameters over 'model' / 'expert'")
     parser.add_argument("--windows", type=int, default=0,
                         help="MISR net (DUF): serve every frame from one "
                              "circular N-frame temporal window")

@@ -144,6 +144,13 @@ class _DRFBase(nn.Module):
                              generator=generator)
         self.to(device=device)
 
+    @property
+    def dispatch_impl(self) -> str:
+        """The embedded ``ExpertChoiceMoE`` blocks' dispatch (their default,
+        ``sparse``), for the ``'expert'`` axis's validation
+        (``parallel/ep.resolve_dispatch_impl``)."""
+        return "sparse"
+
     @staticmethod
     def _refuse_scan_knobs(name: str, **knobs) -> None:
         for knob, value in knobs.items():

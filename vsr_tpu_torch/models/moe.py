@@ -22,8 +22,16 @@ Dispatches (``dispatch_impl``): ``"sparse"`` (one-hot dispatch / combine
 einsums over capacity slots), ``"dense"`` (every expert on every token of
 its group, combined through the gated selection mask) and ``"dense_nhwc"``
 (the same in image layout: a 1x1 conv to every expert's hidden channels and
-a feature-grouped 1x1 conv back, one group an expert). The ``'expert'``
-mesh axis is refused (there is no mesh here).
+a feature-grouped 1x1 conv back, one group an expert).
+
+Under an ``'expert'`` mesh axis (``parallel/ep.py``) each rank holds the
+stacks of ``num_experts / axis`` experts and the layer knows its slice
+(``expert_shard``): the router's affinities are computed in full (the
+router is replicated), the rows of this rank's experts are ranked (K3 on a
+CUDA tensor under ``rank_pallas``), dispatched and run through their FFN,
+and the combined ``(G, gs, d)`` output is all-reduced over the axis. The
+tokens and the affinities enter through ``mesh.copy_to``, so their
+gradients (and the router's) sum every rank's experts.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from vsr_tpu_torch.models.common import Conv, ShuffleConv, resolve_dtype
 from vsr_tpu_torch.models.edsr import _ResBlock, _UpBlock
 from vsr_tpu_torch.ops.rank import pairwise_rank, pairwise_rank_reference
 from vsr_tpu_torch.ops.select import topk_mask
+from vsr_tpu_torch.parallel.mesh import copy_to, reduce_from
 from vsr_tpu_torch.registry import register
 
 _ROUTERS = ("rank", "rank_pallas", "radix", "sort")
@@ -115,6 +124,9 @@ class ExpertChoiceMoE(nn.Module):
         self.router_impl = router_impl
         self.dispatch_impl = dispatch_impl
         self.radix_bits = radix_bits
+        # (first local expert, local experts, group) under an 'expert' mesh
+        # axis (parallel/ep.shard_expert_params), else None.
+        self.expert_shard = None
         self.router = nn.Parameter(torch.empty(d, e))
         self.expert_wi = nn.Parameter(torch.empty(e, d, hid))
         self.expert_bi = nn.Parameter(torch.zeros(e, hid))
@@ -171,6 +183,10 @@ class ExpertChoiceMoE(nn.Module):
         af, gs = self.affinities(x)  # (G, e, gs)
         pad = (-t) % gs
         cap = self.capacity(gs)
+        group = None
+        if self.expert_shard is not None:  # this rank's experts' rows
+            lo, local, group = self.expert_shard
+            af = copy_to(af, group)[:, lo:lo + local]
 
         # Params joined to the ACTIVATION dtype at use (a restored f32 leaf
         # must not promote a bf16 net's expert FFN).
@@ -200,7 +216,8 @@ class ExpertChoiceMoE(nn.Module):
         tokens = x.permute(0, 2, 3, 1).reshape(n, t, d)
         if pad:
             tokens = torch.cat([tokens, tokens.new_zeros(n, pad, d)], dim=1)
-        tokens = tokens.reshape(n * (t + pad) // gs, gs, d)  # (G, gs, d)
+        tokens = copy_to(tokens.reshape(n * (t + pad) // gs, gs, d),
+                         group)  # (G, gs, d)
 
         if self.dispatch_impl == "dense":
             gate_t = torch.where(self.selection(af, cap), af,
@@ -228,6 +245,7 @@ class ExpertChoiceMoE(nn.Module):
                    + bo[None, :, None, :])
             out = out * gate[..., None]  # affinity-weighted
             combined = torch.einsum("getc,gecd->gtd", dispatch, out)
+        combined = reduce_from(combined, group)  # every rank's experts
         combined = combined.reshape(n, t + pad, d)[:, :t]
         return x + combined.reshape(n, h, w, d).permute(0, 3, 1, 2).to(cd)
 
@@ -271,6 +289,7 @@ class MoEEDSRNet(nn.Module):
         self.body_end = Conv(f, f, 3, padding=1, dtype=dt,
                              generator=generator)
         self.up = _UpBlock(f, upscale_factor, dtype=dt, generator=generator)
+        self.dispatch_impl = dispatch_impl
         self.tail = ShuffleConv(f, out_channels, 3,
                                 factor=_UpBlock.split(upscale_factor),
                                 fused=fused_tail, dtype=dt,

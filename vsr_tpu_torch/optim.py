@@ -215,6 +215,10 @@ class GradientChain:
         self.mini_step = 0
         self.acc = self.count = self.ema = None
         self._sharded = any(local(p) is not p for p in self.params)
+        # (group, names) of the parameters split over a 'model' / 'expert'
+        # axis (parallel/placement.py): the clip's norm sums their blocks'
+        # squares over the group.
+        self.split = None
         with torch.no_grad():
             if self.every_k > 1:
                 self.acc = [torch.zeros_like(p) for p in self.params]
@@ -265,9 +269,17 @@ class GradientChain:
                 return
             grads = self.acc
         if self.max_norm:
-            square = torch.stack([local(g).square().sum() for g in grads]).sum()
+            squares = torch.stack([local(g).square().sum() for g in grads])
+            square = squares.sum()
             if self._sharded:
                 dist.all_reduce(square)
+            if self.split is not None:
+                group, names = self.split
+                mask = torch.tensor([n in names for n in self.names],
+                                    device=squares.device)
+                part = squares[mask].sum()
+                dist.all_reduce(part, group=group)
+                square = squares[~mask].sum() + part
             norm = square.sqrt()
             keep = norm < self.max_norm
             for g in map(local, grads):

@@ -62,18 +62,20 @@ from vsr_tpu_torch.utils.checkpoint import flatten_state
 MODES = ("ddp", "zero", "fsdp")
 
 
-def all_reduce_mean(tensors: list[torch.Tensor], world: int) -> None:
-    """Average ``tensors`` over the ranks in place, one collective for each
-    dtype (their flattened concatenation)."""
+def all_reduce_mean(tensors: list[torch.Tensor], world: int,
+                    group=None) -> None:
+    """Average ``tensors`` over the ranks (of ``group``: ``world`` of them)
+    in place, one collective for each dtype (their flattened
+    concatenation)."""
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat)
+    for tensors_of in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in tensors_of])
+        dist.all_reduce(flat, group=group)
         flat.div_(world)
         offset = 0
-        for t in group:
+        for t in tensors_of:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
 

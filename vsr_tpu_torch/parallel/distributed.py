@@ -18,7 +18,7 @@ device_count}`` on the card, the CPU otherwise. The pieces:
   device.
 - :func:`process_shard` / :func:`host_shard_len` and the loader's
   ``host_shard=True``: each rank reads only its block of every global
-  batch. :func:`mesh_process_blocks` is ``(rank, world)`` on ``data``.
+  batch. :func:`mesh_process_blocks` is this rank's block along each axis.
 - :func:`gather_sharded`: the full tensors of a state whose leaves may be
   sharded (FSDP's ``DTensor``); a collective every rank calls.
 
@@ -202,9 +202,9 @@ def host_shard_len(n_items: int, local_batch: int) -> int:
 
 def mesh_process_blocks(mesh) -> dict[str, tuple[int, int]]:
     """Per mesh axis, ``(block_index, block_count)`` of this rank: each rank
-    owns one device, so ``data`` is ``(rank, world)``."""
-    return {name: ((process_index(), process_count()) if name == "data"
-                   else (0, 1)) for name in mesh.axis_names}
+    owns one device, so it is the rank's coordinate and the axis size."""
+    return {name: (mesh.coord(name), mesh.size(name))
+            for name in mesh.axis_names}
 
 
 def _is_dtensor(t: Any) -> bool:

@@ -512,8 +512,9 @@ class DeviceTrainerMixin:
     traces the second epoch's replays, and ``async_ckpt`` snapshots between
     epochs, never inside a capture (a capture waits for the writes in
     flight). ``mesh_axes: {data: n}`` runs the module's ``data`` mesh.
-    Refused by name: ``zero_optim`` and ``fsdp`` (as in the JAX device
-    trainer), the other mesh axes, a multi-process run without
+    Refused by name: ``zero_optim`` and ``fsdp``, the ``model`` and
+    ``expert`` axes (as in the JAX device trainer, in its words), the other
+    mesh axes, a multi-process run without
     ``mesh_axes`` (the JAX device trainer fails there with a
     ``TypeError``), and resuming a host-loop trainer's mid-epoch
     preemption checkpoint."""
@@ -526,10 +527,18 @@ class DeviceTrainerMixin:
                  scan_unroll: int | str = "auto", **kwargs):
         mesh_axes = kwargs.get("mesh_axes") or {}
         trainers.refuse_qat_with_pipe(kwargs.get("qat"), mesh_axes)
-        if "expert" in mesh_axes:
+        bad = [a for a in ("model", "pipe", "seq") if a in mesh_axes]
+        if bad:
             raise NotImplementedError(
-                "device trainers: the 'expert' mesh axis is not yet ported "
-                "to vsr_tpu_torch")
+                f"device trainers support data-parallel meshes only "
+                f"(mesh_axes={{'data': n}}); {bad} axes are host-loop "
+                f"trainer features (patch-sized samples have nothing "
+                "to shard spatially)")
+        if mesh_axes.get("expert", 1) > 1:
+            raise NotImplementedError(
+                "the 'expert' axis is not wired into the device-epoch "
+                "shard_map (its params in_specs are replicated) — use the "
+                "host-loop trainer for expert parallelism")
         # Without a mesh the host-loop trainer refuses both in the JAX
         # trainer's words.
         if kwargs.get("zero_optim") and mesh_axes:

@@ -34,15 +34,19 @@ world's ranks (``parallel/data_parallel.py``: DDP for the gradients, an
 all-reduce mean of the BatchNorm statistics after each step, the epoch's
 logs summed over the ranks); ``zero_optim`` runs ZeRO-1
 (``ZeroRedundancyOptimizer``) and ``fsdp`` FSDP (``fully_shard``), each on a
-``data`` axis of 2 or more. Each rank reads its block of every global batch
-with the loader's ``host_shard``. Rank 0 writes the logs and the
-checkpoints, gathered first (a collective); ``sharded_ckpt`` has every rank
-write only its part (``utils/checkpoint.save_checkpoint_sharded``), and
-``load`` restores either kind at the same world size. A multi-process run
-without ``mesh_axes``, and ``zero_optim`` / ``fsdp`` / ``sharded_ckpt``
-without a mesh, are refused in the JAX trainer's words; the other mesh axes
-(and ``pipe_microbatches``, which needs ``pipe``) are not ported yet and
-raise by name.
+``data`` axis of 2 or more. A ``model`` axis splits every leaf's output
+features (``parallel/tp.py``), an ``expert`` axis the MoE expert stacks
+(``parallel/ep.py``), each beside ``data`` and through
+``parallel/placement.py``'s step. Each rank reads its block of every global
+batch with the loader's ``host_shard`` (the ranks of one ``data`` block the
+same one). Rank 0 writes the logs and the checkpoints, gathered first (a
+collective); ``sharded_ckpt`` has every rank write only its part
+(``utils/checkpoint.save_checkpoint_sharded``), and ``load`` restores either
+kind at the same world size. A multi-process run without ``mesh_axes``,
+``zero_optim`` / ``fsdp`` / ``sharded_ckpt`` without a mesh, and the
+combinations the JAX trainer refuses are refused in its words; the
+``spatial``, ``seq`` and ``pipe`` axes (and ``pipe_microbatches``, which
+needs ``pipe``) are not ported yet and raise by name.
 
 The JAX trainer's optax chain runs as ``optim.GradientChain`` after the
 backward: ``grad_accumulation`` (a running mean of the micro-gradients,
@@ -132,17 +136,26 @@ def refuse_qat_with_pipe(qat, mesh_axes: dict | None) -> None:
 def build_data_parallel(mesh_axes: dict | None, zero_optim: bool = False,
                         fsdp: bool = False, sharded_ckpt: bool = False,
                         pipe_microbatches: int | None = None,
-                        explicit: bool = False):
-    """``(mesh, DataParallel or None)`` of a trainer's mesh knobs, with the
-    JAX trainer's refusals in its words (``vsr_tpu/runner/trainers.py``:
-    ``sharded_ckpt``, a multi-process run, ``zero_optim`` and ``fsdp``
-    without a mesh; ``zero_optim`` / ``fsdp`` on a ``data`` axis below 2;
-    both together). Without a process group a mesh of one device needs no
-    collective: ``DataParallel`` is ``None`` (the JAX single-device mesh
+                        explicit: bool = False, context: str = "trainer"):
+    """``(mesh, DataParallel or Placement or None)`` of a trainer's mesh
+    knobs, with the JAX trainer's refusals in its words
+    (``vsr_tpu/runner/trainers.py``: ``sharded_ckpt``, a multi-process
+    run, ``zero_optim`` and ``fsdp`` without a mesh; ``zero_optim`` /
+    ``fsdp`` on a ``data`` axis below 2, with a ``model`` axis or with an
+    ``expert`` axis; both together; the ``expert`` axis's composition;
+    ``spatial`` x ``model``). A ``model`` or ``expert`` axis takes
+    ``parallel/placement.Placement``, a ``data``-only mesh
+    ``DataParallel``. Without a process group a mesh of one device needs no
+    collective: the second item is ``None`` (the JAX single-device mesh
     gives the plain step's numbers). ``explicit``: the device trainers'
-    all-reduce in place of DDP."""
+    all-reduce in place of DDP. ``context``: the trainer's name, for the
+    expert axis's messages."""
     from vsr_tpu_torch.parallel.data_parallel import DataParallel
-    from vsr_tpu_torch.parallel.mesh import make_mesh
+    from vsr_tpu_torch.parallel.ep import validate_expert_composition
+    from vsr_tpu_torch.parallel.mesh import make_mesh, resolve_axes
+    from vsr_tpu_torch.parallel.placement import (Placement, check_exclusive,
+                                                  uses_placement)
+    from vsr_tpu_torch.parallel.tp import reject_spatial_x_model
 
     if sharded_ckpt and not mesh_axes:
         raise ValueError(
@@ -168,7 +181,28 @@ def build_data_parallel(mesh_axes: dict | None, zero_optim: bool = False,
             "axis (mesh_axes={'data': n, 'pipe': p})")
     if not mesh_axes:
         return None, None
-    mesh = make_mesh(dict(mesh_axes))
+    shape = resolve_axes(dict(mesh_axes), distributed.process_count())
+    if zero_optim and "model" in shape:
+        raise NotImplementedError(
+            "zero_optim is redundant with a 'model' axis — "
+            "tensor parallelism already shards the moments")
+    if fsdp:
+        if zero_optim:
+            raise NotImplementedError(
+                "fsdp subsumes zero_optim — enable only one")
+        if "model" in shape:
+            raise NotImplementedError(
+                "fsdp is redundant with a 'model' axis — tensor "
+                "parallelism already shards params and moments")
+    if shape.get("expert", 1) > 1:
+        validate_expert_composition(shape, context=context)
+        if zero_optim or fsdp:
+            raise NotImplementedError(
+                "zero_optim/fsdp do not compose with an 'expert' "
+                "axis — each is a whole-tree parameter placement "
+                "rule")
+    reject_spatial_x_model(shape)
+    mesh = make_mesh(shape)
     mode = "ddp"
     if zero_optim:
         if mesh.shape.get("data", 1) < 2:
@@ -176,14 +210,14 @@ def build_data_parallel(mesh_axes: dict | None, zero_optim: bool = False,
                 "zero_optim needs a 'data' mesh axis of size >= 2")
         mode = "zero"
     if fsdp:
-        if zero_optim:
-            raise NotImplementedError(
-                "fsdp subsumes zero_optim — enable only one")
         if mesh.shape.get("data", 1) < 2:
             raise ValueError("fsdp needs a 'data' mesh axis of size >= 2")
         mode = "fsdp"
     if not torch.distributed.is_initialized():
         return mesh, None
+    if uses_placement(mesh.shape):
+        check_exclusive(mesh.shape, zero_optim, fsdp)
+        return mesh, Placement(mesh)
     return mesh, DataParallel(mesh, mode, explicit=explicit)
 
 
@@ -300,7 +334,14 @@ class BaseTrainer(TrainStep):
         refuse_qat_with_pipe(qat, mesh_axes)
         self.mesh, self._dp = build_data_parallel(
             mesh_axes, zero_optim, fsdp, sharded_ckpt, pipe_microbatches,
-            explicit=self._explicit_reduce)
+            explicit=self._explicit_reduce, context=type(self).__name__)
+        if self.mesh is not None and (
+                self.mesh.size("data") != distributed.process_count()):
+            # The ranks of one data block read the same samples.
+            for ld in (train_dataloader, valid_dataloader):
+                if ld is not None and getattr(ld, "host_shard", False):
+                    ld._host_shard_override = (self.mesh.size("data"),
+                                               self.mesh.coord("data"))
         self._sharded_ckpt = bool(sharded_ckpt)
         self.profile_dir = profile_dir
         # Non-blocking checkpoint writes: save() snapshots on the device and
@@ -329,6 +370,7 @@ class BaseTrainer(TrainStep):
         self.optimizer = optimizer
         self.chain = GradientChain(optimizer, self.net, grad_accumulation,
                                    grad_clip, ema_decay)
+        self.chain.split = getattr(self._dp, "chain_split", None)
         self.lr_scheduler = lr_scheduler
         if lr_scheduler is not None:
             lr_scheduler.bind(get_learning_rate(optimizer))

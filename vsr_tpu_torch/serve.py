@@ -37,13 +37,21 @@ Serving semantics:
 - Programs are warmed at startup (one call on zeros), so the first request
   does not pay the card's first-call costs.
 
+Mesh-sharded live serving (``--mesh``, run under ``torchrun``): every rank
+builds the live pipelines over the mesh (``infer.make_pipeline(mesh=...)``:
+frames over ``data``, parameters over ``model`` / ``expert``); rank 0 owns
+the HTTP server, the batcher and ``/metrics``, and each live program call
+broadcasts the frames' shape and data to the other ranks, which run the
+same sharded pipeline in a follower loop (:func:`follow`) until rank 0's
+shutdown reaches them. Artifacts and stream sessions stay unsharded on rank
+0, as in the JAX daemon.
+
 Differences from the JAX daemon: ``/debug/profile`` records with
-``torch.profiler``; ``--device`` (default ``cuda``) names the card; the
-mesh-sharded live mode is not ported and is refused by name; ``--preset``
-/ ``--preset-file`` fill the live ``--net``'s knobs from the card's table
-(``presets.py``). The live backend serves ``--int8`` and ``--w8a8-scales`` (with
-``--w8a8-kernels``); a quantized artifact carries its kernels in its
-program.
+``torch.profiler``; ``--device`` (default ``cuda``) names the card;
+``--preset`` / ``--preset-file`` fill the live ``--net``'s knobs from the
+card's table (``presets.py``). The live backend serves ``--int8`` and
+``--w8a8-scales`` (with ``--w8a8-kernels``); a quantized artifact carries
+its kernels in its program.
 
 CLI:
   python -m vsr_tpu_torch.serve --artifact drf_x2.pt2.zip [--artifact ...] \
@@ -68,6 +76,13 @@ import numpy as np
 import torch
 
 from vsr_tpu_torch.export import ExportedServing
+from vsr_tpu_torch.parallel.distributed import rank_device
+
+#: Seconds a follower rank waits in a collective for rank 0's next call: a
+#: daemon may idle for long, so a year.
+DAEMON_TIMEOUT_S = 365 * 24 * 3600.0
+# The follower loop's commands (the first entry of each broadcast header).
+_STOP, _CALL = 0, 1
 
 _LAT_BUCKETS = (0.05, 0.25, 1.0, 5.0, 30.0, float("inf"))
 
@@ -144,7 +159,8 @@ class LivePipeline:
                  frames_shape, factor: int, dataset: str = "acdc",
                  video_t=None, window=None, volume=None, chunk: int = 0,
                  int8: bool = False, w8a8=False, w8a8_kernels=None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None,
+                 index: int = 0):
         from vsr_tpu_torch.infer import build_serving_net, make_pipeline
 
         if w8a8 is True:
@@ -159,7 +175,12 @@ class LivePipeline:
         self._pipe = make_pipeline(net, factor, dataset, video_t=video_t or 0,
                                    window=window, volume=volume, chunk=chunk,
                                    int8=int8, w8a8=w8a8,
-                                   w8a8_kernels=w8a8_kernels)
+                                   w8a8_kernels=w8a8_kernels, mesh=mesh)
+        # Under a mesh of several ranks rank 0 broadcasts each call to the
+        # followers, which find the pipeline by its index.
+        self._leads = mesh is not None and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1
+        self.index = index
         self.meta = {
             "frames_shape": list(frames_shape),
             "factor": factor,
@@ -171,14 +192,47 @@ class LivePipeline:
             "chunk": chunk,
             "int8": int8,
             "w8a8_convs": len(w8a8) if isinstance(w8a8, dict) else 0,
-            "mesh": None,
+            "mesh": dict(mesh.shape) if mesh is not None else None,
             "device": self.device.type,
             "live": True,
         }
 
     def __call__(self, frames):
-        frames = torch.as_tensor(frames, dtype=torch.float32)
-        return self._pipe(frames.to(self.device))
+        frames = torch.as_tensor(frames, dtype=torch.float32).to(self.device)
+        if self._leads:
+            _broadcast_header([_CALL, self.index, *frames.shape], self.device)
+            torch.distributed.broadcast(frames.contiguous(), 0)
+        return self._pipe(frames)
+
+
+def _broadcast_header(values: list[int], device: torch.device) -> list[int]:
+    """Rank 0's five-int header (command, pipeline index, N, H, W) on every
+    rank."""
+    header = torch.tensor(values, dtype=torch.int64, device=device)
+    torch.distributed.broadcast(header, 0)
+    return header.tolist()
+
+
+def follow(live: list, device: torch.device) -> int:
+    """The loop of a rank other than 0 under ``--mesh``: run each live call
+    rank 0 broadcasts, until it broadcasts the stop. Returns the calls
+    run."""
+    calls = 0
+    while True:
+        command, index, *shape = _broadcast_header([0] * 5, device)
+        if command == _STOP:
+            return calls
+        frames = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.distributed.broadcast(frames, 0)
+        live[index]._pipe(frames)
+        calls += 1
+
+
+def stop_followers(device: torch.device) -> None:
+    """Rank 0's shutdown of the follower ranks (a no-op without them)."""
+    dist = torch.distributed
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        _broadcast_header([_STOP, 0, 0, 0, 0], device)
 
 
 class StreamManager:
@@ -920,14 +974,20 @@ def make_server(artifact_paths, host: str = "127.0.0.1", port: int = 0,
     return server
 
 
-def live_from_args(args) -> list:
+def live_from_args(args, mesh=None) -> list:
     """``--net ...`` CLI flags -> a list of :class:`LivePipeline`, one per
-    ``--frames-shape`` geometry (requests route by shape like artifacts)."""
+    ``--frames-shape`` geometry (requests route by shape like artifacts),
+    over ``mesh`` when there is one."""
     if not args.net:
         return []
     if not args.frames_shape:
         raise SystemExit("--net (live serving) needs --frames-shape N,H,W")
-    from vsr_tpu_torch.infer import resolve_volume
+    from vsr_tpu_torch.infer import VOLUME_NETS, resolve_volume
+
+    if mesh is not None and args.net in VOLUME_NETS:
+        from vsr_tpu_torch.parallel.serving import VOLUME_MESH_REFUSAL
+
+        raise SystemExit(VOLUME_MESH_REFUSAL)
 
     net_kwargs = json.loads(args.net_kwargs) if args.net_kwargs else {}
     if args.bf16:
@@ -958,12 +1018,9 @@ def live_from_args(args) -> list:
             factor=args.factor, dataset=args.dataset,
             video_t=args.video_t or None, window=window, volume=volume,
             chunk=args.chunk, int8=args.int8, w8a8=w8a8,
-            w8a8_kernels=w8a8_kernels, device=args.device))
+            w8a8_kernels=w8a8_kernels, device=rank_device(args.device),
+            mesh=mesh, index=len(live)))
     return live
-
-
-# JAX daemon flags this port does not serve: dest -> flag.
-_NOT_PORTED = {"mesh": "--mesh"}
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -1031,7 +1088,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "fill a shared program call before dispatching "
                         "(0 = immediate; queued requests still coalesce "
                         "while the card is busy)")
-    p.add_argument("--mesh", default="", help="not yet ported")
+    p.add_argument("--mesh", default="",
+                   help="live pipelines over a mesh of the world's ranks "
+                        "(run under torchrun), e.g. 'data=2', 'model=2', "
+                        "'expert=2'; rank 0 serves HTTP")
     p.add_argument("--int8", action="store_true",
                    help="live pipelines serve the kernels held in int8")
     p.add_argument("--w8a8-scales", dest="w8a8_scales", default="",
@@ -1056,10 +1116,6 @@ def main(argv: list[str] | None = None) -> None:
     logging.basicConfig(format="%(asctime)s | %(levelname)s | %(message)s",
                         level=logging.INFO, datefmt="%Y-%m-%d %H:%M:%S")
     args = parse_args(argv)
-    for dest, flag in _NOT_PORTED.items():
-        if getattr(args, dest):
-            raise SystemExit(f"{flag} is not yet ported to vsr_tpu_torch "
-                             "(serve it with python -m vsr_tpu.serve)")
     if args.batch_wait_ms < 0:
         raise SystemExit("--batch-wait-ms must be >= 0")
     if args.preset_file and not args.net:
@@ -1071,7 +1127,15 @@ def main(argv: list[str] | None = None) -> None:
         from vsr_tpu_torch.presets import apply_cli_preset
 
         apply_cli_preset(args)
-    live = live_from_args(args)
+    from vsr_tpu_torch.infer import serving_mesh
+
+    mesh = serving_mesh(args, timeout_s=DAEMON_TIMEOUT_S)
+    live = live_from_args(args, mesh)
+    if mesh is not None and mesh.rank != 0:
+        calls = follow(live, rank_device(args.device))
+        logging.info(f"rank {mesh.rank}: rank 0 shut down after {calls} "
+                     "calls")
+        return
     stream_spec = None
     if args.stream_net:
         from vsr_tpu_torch.infer import VOLUME_NETS
@@ -1113,6 +1177,8 @@ def main(argv: list[str] | None = None) -> None:
         server.shutdown()
     finally:
         server.server_close()
+        if mesh is not None:
+            stop_followers(rank_device(args.device))
 
 
 if __name__ == "__main__":
